@@ -1,0 +1,89 @@
+"""Carry state from the JAX reference into the port.
+
+The reference's state crosses as plain numbers and numpy arrays — never as
+reference objects — so a warm ``repro`` serving tier can be dumped
+(``dataclasses.asdict`` of its ``IslaParams``, its store's arrays) and the
+port continues it tick for tick:
+
+>>> import numpy as np
+>>> from repro_torch.convert import params_from, store_from
+>>> p = params_from({"e": 0.5, "beta": 0.9})
+>>> st = store_from({"n_blocks": 2, "n_groups": 1,
+...                  "boundaries": [60.0, 90.0, 110.0, 140.0],
+...                  "sketch0": 100.0, "shift": 0.0,
+...                  "mom_s": np.zeros((2, 4)), "mom_l": np.zeros((2, 4)),
+...                  "totals": np.zeros((2, 3)),
+...                  "n_sampled": np.zeros(2, np.int64)})
+>>> st.n_cells, p.e
+(2, 0.5)
+
+``DeviceMomentStore.from_host(store_from(...), sizes, device=...)`` then
+puts a carried store on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Optional, Sequence
+
+import numpy as np
+
+from .core.moment_store import MomentStore
+from .core.types import Anchor, Boundaries, IslaParams
+
+
+def params_from(fields: Mapping[str, Any]) -> IslaParams:
+    """``IslaParams`` from the reference's field values (any subset; the
+    rest keep their defaults).  Unknown fields raise."""
+    known = {f.name for f in dataclasses.fields(IslaParams)}
+    extra = set(fields) - known
+    if extra:
+        raise ValueError(f"unknown IslaParams fields {sorted(extra)}")
+    return IslaParams(**{k: type(getattr(IslaParams(), k))(v)
+                         for k, v in fields.items()})
+
+
+def boundaries_from(cuts: Sequence[float]) -> Boundaries:
+    """``Boundaries`` from ``(s_lo, s_hi, l_lo, l_hi)``."""
+    s_lo, s_hi, l_lo, l_hi = (float(c) for c in np.asarray(cuts).ravel())
+    return Boundaries(s_lo=s_lo, s_hi=s_hi, l_lo=l_lo, l_hi=l_hi)
+
+
+def anchor_from(boundaries: Sequence[float], sketch0: float, shift: float,
+                sigma: float, support: int = 0, source: str = "global",
+                skew: float = 0.0) -> Anchor:
+    """An ``Anchor`` from its frame: the four cuts, ``sketch0``, ``shift``
+    and ``sigma`` (plus the provenance fields, when known)."""
+    return Anchor(boundaries=boundaries_from(boundaries),
+                  sketch0=float(sketch0), shift=float(shift),
+                  sigma=float(sigma), support=int(support),
+                  source=str(source), skew=float(skew))
+
+
+def store_from(fields: Mapping[str, Any],
+               anchor: Optional[Anchor] = None) -> MomentStore:
+    """A host ``MomentStore`` from the reference store's fields: the
+    geometry (``n_blocks``, ``n_groups``), the frame (``boundaries`` as
+    four cuts, ``sketch0``, ``shift``), the float64 state arrays
+    (``mom_s``, ``mom_l``, ``totals``, int64 ``n_sampled``) and, when
+    present, ``rounds``, ``has_regions`` and ``has_totals``."""
+    n_blocks, n_groups = int(fields["n_blocks"]), int(fields["n_groups"])
+    n_cells = n_blocks * n_groups
+    arrays = {}
+    for name, width in (("mom_s", 4), ("mom_l", 4), ("totals", 3)):
+        a = np.array(fields[name], dtype=np.float64)
+        if a.shape != (n_cells, width):
+            raise ValueError(f"{name} must be ({n_cells}, {width}), got "
+                             f"{a.shape}")
+        arrays[name] = a
+    n_sampled = np.array(fields["n_sampled"], dtype=np.int64)
+    if n_sampled.shape != (n_blocks,):
+        raise ValueError(f"n_sampled must be ({n_blocks},), got "
+                         f"{n_sampled.shape}")
+    return MomentStore(
+        n_blocks=n_blocks, n_groups=n_groups,
+        boundaries=boundaries_from(fields["boundaries"]),
+        sketch0=float(fields["sketch0"]), shift=float(fields["shift"]),
+        n_sampled=n_sampled, rounds=int(fields.get("rounds", 0)),
+        has_regions=bool(fields.get("has_regions", True)),
+        has_totals=bool(fields.get("has_totals", True)), anchor=anchor,
+        **arrays)

@@ -1,0 +1,445 @@
+"""The device half of ISLA in PyTorch: branchless Phase 2, the fused
+serving tick and the device pilot.
+
+This mirrors ``repro.core.distributed``.  Everything is branchless
+(``torch.where`` over the modulation cases) and fp32-safe (values are
+pre-scaled by a per-anchor normalizer; ISLA is exactly scale-equivariant).
+The serving tick's Phase 1 fold runs through the hand-written CUDA kernel
+``kernels.isla_moments.isla_fold`` on the card (its plain PyTorch version
+on the CPU); Phase 2 and the group statistics are plain tensor code.
+
+Where the JAX reference donates the resident state to a jitted launch and
+gets successors back, these functions update the resident tensors IN
+PLACE and return the same objects.
+
+Not in this slice (ROADMAP Queue A): the float64 tagged tick
+(``fused_tick``), the sketch-plane ticks, the pipelined launch pool, the
+mesh launches and the telemetry helpers (``isla_mean`` and friends).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels.isla_moments import isla_fold, pilot_stats
+from .types import IslaParams
+
+F32 = torch.float32
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for the CPU.  A CUDA request without a card raises — the port never
+    drops to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the plain PyTorch versions on the CPU")
+        return dev
+    if dev.type == "cpu":
+        return dev
+    raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=F32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: classification + moments.
+# ---------------------------------------------------------------------------
+
+
+def region_masks(v: torch.Tensor, b: Tuple
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S and L masks per §IV-A1 (bounds as a (s_lo, s_hi, l_lo, l_hi)
+    tuple)."""
+    s_lo, s_hi, l_lo, l_hi = b
+    return (v > s_lo) & (v < s_hi), (v > l_lo) & (v < l_hi)
+
+
+def moments(values: torch.Tensor, bounds: Tuple, valid=None, prior=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked (count, s1, s2, s3) for S and L as two 4-vectors (fp32);
+    ``prior`` is a previous round's ``(mom_s, mom_l)`` added on."""
+    v = values.to(F32).reshape(-1)
+    ms, ml = region_masks(v, bounds)
+    if valid is not None:
+        valid = valid.to(torch.bool).reshape(-1)
+        ms, ml = ms & valid, ml & valid
+
+    def mom(mask):
+        m = mask.to(F32)
+        vm = v * m
+        return torch.stack([m.sum(), vm.sum(), (vm * v).sum(),
+                            (vm * v * v).sum()])
+
+    mom_s, mom_l = mom(ms), mom(ml)
+    if prior is not None:
+        prior_s, prior_l = prior
+        mom_s = mom_s + torch.as_tensor(prior_s, dtype=F32, device=v.device)
+        mom_l = mom_l + torch.as_tensor(prior_l, dtype=F32, device=v.device)
+    return mom_s, mom_l
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 pieces (branchless).
+# ---------------------------------------------------------------------------
+
+
+def choose_q(dev: torch.Tensor, params: IslaParams) -> torch.Tensor:
+    """§IV-A4 q schedule as nested where."""
+    mild = torch.where((dev >= params.mild_lo) & (dev <= params.mild_hi),
+                       _f32(params.q_mild, dev.device),
+                       _f32(params.q_strong, dev.device))
+    qp = torch.where((dev >= 0.97) & (dev <= 1.03),
+                     _f32(1.0, dev.device), mild)
+    return torch.where(dev > 1.0, 1.0 / qp, qp)
+
+
+def theorem3_kc(mom_s: torch.Tensor, mom_l: torch.Tensor, q: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form (k, c) from moment vectors, (4,) or any (..., 4)
+    stack; safe for u=0 / v=0 (the caller masks those out)."""
+    u, sx, sx2, sx3 = (mom_s[..., 0], mom_s[..., 1], mom_s[..., 2],
+                       mom_s[..., 3])
+    v, sy, sy2, sy3 = (mom_l[..., 0], mom_l[..., 1], mom_l[..., 2],
+                       mom_l[..., 3])
+    eps = 1e-30
+    t2 = sx2 + sy2
+    denom_s = (1.0 + v / (q * u.clamp_min(1.0))) * (u * t2 - sx2)
+    term_s = (t2 * sx - sx3) / denom_s.clamp_min(eps)
+    term_l = v * sy3 / ((q * u + v) * sy2).clamp_min(eps)
+    c = (sx + sy) / (u + v).clamp_min(1.0)
+    k = term_s + term_l - c
+    return k, c
+
+
+def n_iterations(d0: torch.Tensor, thr, eta: float) -> torch.Tensor:
+    ad = d0.abs()
+    log_inv_eta = torch.log(_f32(1.0 / eta, d0.device))
+    return torch.ceil(torch.log((ad / thr).clamp_min(1.0)) / log_inv_eta)
+
+
+def _lambda_star(p1: float, p2: float) -> float:
+    from .modulation import lambda_star
+    return lambda_star(p1, p2)
+
+
+def phase2(mom_s: torch.Tensor, mom_l: torch.Tensor, sketch0,
+           params: IslaParams, mode: str = "calibrated",
+           geometry=None, thr=None) -> torch.Tensor:
+    """Branchless Phase 2 over one (4,) moment pair or any (..., 4) stack.
+
+    mode="calibrated" — ISLA-C fixed point; "empirical" — ISLA-E with
+    ``geometry=(kappa, b0)``; "faithful" — the §V-C case table.  Falls
+    back to sketch0 when u or v is below ``min_region_count``, to c when
+    k ~ 0.  ``thr`` optionally overrides ``params.thr`` per cell (cells at
+    different anchor scales), and ``b0`` may be per cell too.
+    """
+    eta, lam = params.eta, params.lam
+    thr = params.thr if thr is None else thr
+    u, v = mom_s[..., 0], mom_l[..., 0]
+    q = choose_q(u / v.clamp_min(1.0), params)
+    k, c = theorem3_kc(mom_s, mom_l, q)
+    d0 = c - sketch0
+    t = n_iterations(d0, thr, eta)
+    total_shrink = (1.0 - eta ** t) * d0.abs()
+
+    if mode == "empirical":
+        kappa, b0 = geometry
+        c_adj = c - b0
+        d0 = c_adj - sketch0
+        t = n_iterations(d0, thr, eta)
+        shrink = (1.0 - eta ** t) * d0.abs()
+        avg = c_adj - torch.sign(d0) * kappa * shrink / (1.0 + kappa)
+        balanced = None
+    elif mode == "calibrated":
+        lam_c = _lambda_star(params.p1, params.p2)
+        s_sk = total_shrink / (1.0 + lam_c)
+        mu_move = -torch.sign(d0) * lam_c * s_sk
+        avg = c + mu_move
+        balanced = None  # calibrated always modulates
+    elif mode == "faithful":
+        one = _f32(1.0, k.device)
+        sgn_k = torch.where(k >= 0, one, -one)
+        case1 = (d0 < 0) & (u < v)
+        case2 = (d0 < 0) & (u >= v)
+        case3 = (d0 >= 0) & (u < v)
+        mu_dom_move = torch.where(case1, total_shrink / (1.0 - lam),
+                                  -total_shrink / (1.0 - lam))
+        gain2 = 1.0 + sgn_k * lam
+        gain3 = 1.0 - sgn_k * lam
+        sk_dom_move = torch.where(case2,
+                                  sgn_k * lam * total_shrink / gain2,
+                                  sgn_k * lam * total_shrink / gain3)
+        mu_move = torch.where(case2 | case3, sk_dom_move, mu_dom_move)
+        avg = c + mu_move
+        dev = u / v.clamp_min(1.0)
+        balanced = (dev > params.balanced_lo) & (dev < params.balanced_hi)
+    else:
+        raise ValueError(f"unknown mode {mode}")
+
+    sk = torch.as_tensor(sketch0, dtype=avg.dtype, device=avg.device)
+    avg = torch.where(k.abs() < 1e-12, c, avg)
+    if balanced is not None:
+        avg = torch.where(balanced, sk, avg)
+    return torch.where((u < params.min_region_count)
+                       | (v < params.min_region_count), sk, avg)
+
+
+# ---------------------------------------------------------------------------
+# The device-resident tick: Phase 1 fold onto resident rows + Phase 2 +
+# group statistics, the resident state updated in place.
+# ---------------------------------------------------------------------------
+
+
+def h2d(x, dtype=None, device="cuda") -> torch.Tensor:
+    """The single sanctioned host->device upload of the serving path.
+    Every array the steady-state tick ships to the device (fresh sample
+    panes and their tags — never moments) goes through here, so tests can
+    count crossings."""
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def group_row_stats(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                    totals: torch.Tensor, partials: torch.Tensor,
+                    n_sampled: torch.Tensor, sizes: torch.Tensor,
+                    n_groups_list, min_region_count: float
+                    ) -> torch.Tensor:
+    """Per-group statistics rows, reduced on the device so the host never
+    reads per-cell moments.  One row per (store, group); columns:
+
+      0 n_g            matching samples
+      1 w_g            estimated matching population (size * cnt / drawn)
+      2 sum p*w        partials weighted by w
+      3 sum ex2*w      per-cell E[x^2] weighted by w
+      4 s1_g           plain sample sum
+      5 s2_g           plain sample square sum
+      6 degraded       #populated cells that hit the empty-region fallback
+      7 sum ex2*size   catalog-weighted E[x^2] numerator (visited cells)
+      8 sum size       catalog-weighted denominator (visited cells)
+
+    Cells are (group, block)-contiguous per stacked store, so every
+    reduction is a reshape-sum over the block axis.
+    """
+    cnt, s1, s2 = totals[:, 0], totals[:, 1], totals[:, 2]
+    per_ex2 = s2 / cnt.clamp_min(1.0)
+    visited = (cnt > 0).to(cnt.dtype)
+    fallback = ((mom_s[:, 0] < min_region_count)
+                | (mom_l[:, 0] < min_region_count)).to(cnt.dtype) * visited
+    n_b = n_sampled.shape[0] // len(n_groups_list)
+    out = []
+    o = 0
+    for k, g in enumerate(n_groups_list):
+        sl = slice(o, o + g * n_b)
+        shape = (g, n_b)
+        drawn = n_sampled[k * n_b:(k + 1) * n_b][None, :]
+        bsize = sizes[k * n_b:(k + 1) * n_b][None, :]
+        cnt_k = cnt[sl].reshape(shape)
+        w = bsize * cnt_k / drawn.clamp_min(1.0)
+        ex2_k = per_ex2[sl].reshape(shape)
+        vis_k = visited[sl].reshape(shape)
+        out.append(torch.stack([
+            cnt_k.sum(1), w.sum(1),
+            (partials[sl].reshape(shape) * w).sum(1), (ex2_k * w).sum(1),
+            s1[sl].reshape(shape).sum(1), s2[sl].reshape(shape).sum(1),
+            fallback[sl].reshape(shape).sum(1),
+            (ex2_k * bsize * vis_k).sum(1), (bsize * vis_k).sum(1),
+        ], dim=1))
+        o += g * n_b
+    return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def _scaled_solve_args(params: IslaParams, geometry, inv_scale):
+    """Per-cell Phase 2 stopping threshold and ISLA-E geometry: ``thr``
+    and the empirical ``b0`` are absolute on the value axis, so cells
+    normalized by their own anchor scale get them divided by it
+    (``inv_scale`` is the per-cell 1/scale vector; None keeps the scalar
+    params)."""
+    if inv_scale is None:
+        return params.thr, geometry
+    thr = params.thr * inv_scale
+    if geometry is not None:
+        geometry = (geometry[0], geometry[1] * inv_scale)
+    return thr, geometry
+
+
+def fold_panes(mom_s: torch.Tensor, mom_l: torch.Tensor,
+               totals: torch.Tensor, values2d: torch.Tensor,
+               pad_valid: torch.Tensor, gid_panes, valid_panes,
+               bounds: torch.Tensor, *, n_groups_list, gid_slots,
+               valid_slots, key_affine=None, bound_slots=None,
+               active_cells=None, fold=isla_fold) -> None:
+    """Phase 1 of the dense tick: one ``fold`` launch per stacked key
+    adds the (n_blocks, quota_max) sample pane into that key's resident
+    rows, in place.
+
+    Key k reads the shared pane through its affine ``key_affine[k] =
+    (ratio, offset)`` (its own anchor frame), classifies against row
+    ``bound_slots[k]`` of ``bounds``, masks with ``pad_valid`` times its
+    predicate pane ``valid_panes[valid_slots[k]]`` (-1: none) and groups by
+    ``gid_panes[gid_slots[k]]`` (ungrouped keys take none).  With
+    ``active_cells`` the panes cover only the active blocks and
+    ``active_cells[0]`` maps each compacted (key, group, block) cell to
+    its resident row; out-of-range pads drop.  ``fold`` is
+    ``kernels.isla_moments.isla_fold`` or its plain version
+    (``kernels.ref.isla_fold_ref``), which take the same arguments.
+    """
+    n_keys = len(n_groups_list)
+    if key_affine is None:
+        key_affine = ((1.0, 0.0),) * n_keys
+    if bound_slots is None:
+        bound_slots = (0,) * n_keys
+    brows = bounds.reshape(-1, 4)
+    n_b = values2d.shape[0]
+    o = 0
+    for i, (gslot, vslot, g) in enumerate(zip(gid_slots, valid_slots,
+                                              n_groups_list)):
+        ratio, off = key_affine[i]
+        fold_kw = dict(
+            pad=pad_valid,
+            valid=None if vslot < 0 else valid_panes[vslot],
+            gid=None if g == 1 else gid_panes[gslot], n_groups=g,
+            affine=(None if ratio == 1.0 and off == 0.0
+                    else (float(ratio), float(off))))
+        b = brows[bound_slots[i]]
+        if active_cells is None:
+            rows = slice(o, o + g * n_b)
+            fold(values2d, b, mom_s[rows], mom_l[rows], totals[rows],
+                 **fold_kw)
+        else:
+            fold(values2d, b, mom_s, mom_l, totals,
+                 cell_idx=active_cells[0][o:o + g * n_b], **fold_kw)
+        o += g * n_b
+
+
+def _dense_core(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                totals: torch.Tensor, n_sampled: torch.Tensor,
+                values2d: torch.Tensor, pad_valid: torch.Tensor,
+                quotas: torch.Tensor, gid_panes, valid_panes,
+                bounds: torch.Tensor, sketch0, sizes: torch.Tensor,
+                inv_scale: Optional[torch.Tensor], *,
+                params: IslaParams, mode: str, geometry,
+                n_groups_list, gid_slots, valid_slots, key_affine,
+                bound_slots, active_cells=None):
+    """The dense tick body: ``fold_panes`` folds the (n_blocks,
+    quota_max) sample pane into every key's resident rows in place (one
+    ``isla_fold`` launch per key), then Phase 2 and the group stat rows
+    run over the full state.
+
+    ``active_cells = (cell_idx, ns_idx)`` is the zone-pruned compacted
+    launch: the panes cover only the active blocks, ``cell_idx`` maps
+    each compacted (key, group, block) cell to its resident row and
+    ``ns_idx`` each compacted (key, block) quota to the draw ledger;
+    out-of-range pads drop.  Pruned cells' rows are never addressed, so a
+    predicate change re-activates them warm.
+    """
+    fold_panes(mom_s, mom_l, totals, values2d, pad_valid, gid_panes,
+               valid_panes, bounds, n_groups_list=n_groups_list,
+               gid_slots=gid_slots, valid_slots=valid_slots,
+               key_affine=key_affine, bound_slots=bound_slots,
+               active_cells=active_cells)
+    n_keys = len(n_groups_list)
+    q_all = quotas.repeat(n_keys)
+    if active_cells is None:
+        n_sampled += q_all
+    else:
+        ns_idx = active_cells[1].to(torch.int64)
+        keep = (ns_idx >= 0) & (ns_idx < n_sampled.shape[0])
+        # Pads add an exact 0 at row 0 (no boolean gather, no host sync).
+        n_sampled.index_add_(0, torch.where(keep, ns_idx, 0),
+                             torch.where(keep, q_all, 0.0))
+    thr, geometry = _scaled_solve_args(params, geometry, inv_scale)
+    partials = phase2(mom_s, mom_l, sketch0, params, mode=mode,
+                      geometry=geometry, thr=thr)
+    rows = group_row_stats(mom_s, mom_l, totals, partials, n_sampled,
+                           sizes, n_groups_list,
+                           float(params.min_region_count))
+    return mom_s, mom_l, totals, n_sampled, partials, rows
+
+
+def fused_tick_dense(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                     totals: torch.Tensor, n_sampled: torch.Tensor,
+                     values2d: torch.Tensor, pad_valid: torch.Tensor,
+                     quotas: torch.Tensor, gid_panes, valid_panes,
+                     bounds: torch.Tensor, sketch0, sizes: torch.Tensor,
+                     inv_scale: Optional[torch.Tensor] = None,
+                     active_cells=None, *, params: IslaParams,
+                     mode: str = "calibrated", geometry=None,
+                     n_groups_list=(1,), gid_slots=(-1,),
+                     valid_slots=(-1,), key_affine=None,
+                     bound_slots=None):
+    """One device-resident continuation round on the dense block-major
+    layout (see ``_dense_core``).  The four state tensors are updated in
+    place (the reference donates them); returns ``(mom_s, mom_l, totals,
+    n_sampled, partials, rows)`` with ``rows`` per ``group_row_stats``."""
+    return _dense_core(mom_s, mom_l, totals, n_sampled, values2d,
+                       pad_valid, quotas, gid_panes, valid_panes, bounds,
+                       sketch0, sizes, inv_scale, params=params, mode=mode,
+                       geometry=geometry, n_groups_list=n_groups_list,
+                       gid_slots=gid_slots, valid_slots=valid_slots,
+                       key_affine=key_affine, bound_slots=bound_slots,
+                       active_cells=active_cells)
+
+
+def fused_tick(*args, **kwargs):
+    """The float64 tagged tick (carry-prepend segmented fold) is not in
+    this slice of the port."""
+    raise NotImplementedError(
+        "the float64 tagged tick (fused_tick / layout='tagged') is not "
+        "ported yet (ROADMAP Queue A item 2: it needs a deterministic, "
+        "FMA-free segmented reduction to stay bit-exact)")
+
+
+def fused_solve(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                totals: torch.Tensor, n_sampled: torch.Tensor,
+                sketch0, sizes: torch.Tensor,
+                inv_scale: Optional[torch.Tensor] = None, *,
+                params: IslaParams, mode: str = "calibrated",
+                geometry=None, n_groups_list=(1,)):
+    """The zero-draw tick: re-solve the resident moments without touching
+    them (a warm repeat whose deficit is <= 0); no upload at all."""
+    thr, geometry = _scaled_solve_args(params, geometry, inv_scale)
+    partials = phase2(mom_s, mom_l, sketch0, params, mode=mode,
+                      geometry=geometry, thr=thr)
+    rows = group_row_stats(mom_s, mom_l, totals, partials, n_sampled,
+                           sizes, n_groups_list,
+                           float(params.min_region_count))
+    return partials, rows
+
+
+# ---------------------------------------------------------------------------
+# The device pilot.
+# ---------------------------------------------------------------------------
+
+
+def pilot_stats_device(values, device="cuda") -> Tuple[float, float, float]:
+    """Pre-estimation statistics on the device: ``(sketch0, sigma, min)``
+    of a host pilot array through the ``pilot_stats`` kernel (its plain
+    version on the CPU) — ``run_pilot``'s ``stats_fn`` for
+    ``route="device"``.
+
+    fp32-safe by pre-scaling with the pilot's max |value| (the three
+    statistics are exactly scale-equivariant).  Two launches keep the
+    reference's two-pass formula: count, sum and min, then the sum of
+    squared deviations from the mean (read on the device).  sigma uses
+    ddof=1 to match the host pilot.
+    """
+    v_host = np.asarray(values, dtype=np.float64).reshape(-1)
+    if v_host.size == 0:
+        raise ValueError("pilot must be non-empty")
+    scale = float(max(np.max(np.abs(v_host)), 1e-12))
+    v = h2d(v_host / scale, F32, resolve_device(device))
+    n = v.shape[0]
+    first = pilot_stats(v)
+    mean = first[1:2] / n
+    second = pilot_stats(v, center=mean)
+    var = second[2] / max(n - 1, 1)
+    sigma = torch.sqrt(var.clamp_min(0.0))
+    mean_h, sigma_h, lo_h = torch.stack([mean[0], sigma, first[3]]).tolist()
+    return mean_h * scale, sigma_h * scale, lo_h * scale

@@ -1,0 +1,1283 @@
+"""Persistent (group, block) moment state — the online mode as a subsystem.
+
+The paper's signature big-data claim (§VII-A) is that a block's entire
+sampling state is its 8 streaming moments, so answers can be refined round
+after round without ever recording sampled rows.  ``MomentStore`` is that
+state lifted onto the relational (group, block) axis:
+
+ * ``mom_s`` / ``mom_l`` — stacked (n_groups * n_blocks, 4) float64 region
+   moment rows on the flattened ``engine.flat_segments`` axis;
+ * ``totals`` — (n_groups * n_blocks, 3) plain (count, s1, s2) rows of ALL
+   matching samples per cell (the extra accumulators VAR / COUNT / group
+   weights compose from);
+ * ``n_sampled`` — (n_blocks,) cumulative per-block draws (including
+   masked-out rows — the denominator of selectivity-scaled cell weights);
+ * ``rounds``, plus the anchor the moments were accumulated under:
+   ``boundaries`` (region cuts are FROZEN for the store's lifetime — merged
+   moments cannot be re-classified), the Phase 2 ``sketch0`` (re-anchorable,
+   see ``reanchor``) and the footnote-1 ``shift``.
+
+``ingest`` merges a fresh tagged pass through the engine's carry-prepend
+bincount continuation, so k short rounds are **bit-identical** per cell to
+one pass over the concatenated stream; ``continue_rounds`` is the
+vectorized §VII-A loop (draw, merge, re-run batched Phase 2), and
+``split_budget`` is the deadline-aware allocator the serving tier uses to
+divide a tick's sample budget across warm stores by marginal-error
+reduction.
+
+The DEVICE-RESIDENT layer keeps that state where the compute is:
+``DeviceMomentStore`` holds the same rows as torch tensors on the device
+between ticks, ``DeviceStack`` concatenates the warm stores of a
+mode-group onto one stacked cell axis, and a continuation round is ONE
+fused tick (``distributed.fused_tick_dense``: the CUDA fold adds the
+fresh samples onto the resident rows in place, then Phase 2 and the
+group rows) — the host touches only scalar answers and O(groups)
+statistics in steady state.  Stores may carry PER-KEY refined anchors
+(``types.Anchor``): the stack keeps one bounds row per distinct anchor,
+an inverse-anchor-scale vector and per-key pane affines, so hetero-anchor
+keys still share the single tick.  ``iter_chunked_draws`` is the SHARED
+chunked draw loop both serving draw paths ride (the RNG-order /
+quota-padding / round-count contract).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import sketch as _sketch
+from .engine import (Sampler, block_quotas, flat_segments,
+                     phase1_sampling_batch, phase2_iteration_batch,
+                     sample_moments_batch)
+from .modulation import ModulationBatchResult
+from .summarize import summarize
+from .types import Anchor, Boundaries, IslaParams
+
+
+@dataclasses.dataclass
+class DrawChunk:
+    """One chunk of the shared chunked block-draw loop (see
+    ``iter_chunked_draws``)."""
+
+    start: int              # first block of the chunk (inclusive)
+    end: int                # one past the last block of the chunk
+    idx: "list[int]"        # blocks actually drawn (quota > 0), block order
+    raws: list              # raw sampler outputs, aligned with ``idx``
+    chunk_quotas: np.ndarray  # (n_blocks,) int64 — this chunk's quota rows
+    first: bool             # True for the first non-empty chunk of the pass
+
+
+def iter_chunked_draws(block_samplers: Sequence[Sampler],
+                       quotas: np.ndarray, rng: np.random.Generator,
+                       chunk_blocks: Optional[int] = None):
+    """THE chunked draw loop: the RNG-order / quota-padding / round-count
+    contract shared by ``multiquery._draw_and_ingest`` (row samplers
+    fanning into several stores) and ``MomentStore.continue_rounds``
+    (scalar samplers into one).  Both paths iterate this generator so they
+    cannot silently diverge:
+
+     * **RNG order** — samplers are invoked strictly in block order, one
+       call per block with that block's full quota; zero-quota blocks are
+       skipped WITHOUT consuming the RNG (deficit top-ups leave satisfied
+       blocks' streams untouched).
+     * **quota padding** — each chunk yields a full-width ``(n_blocks,)``
+       quota row that is zero outside ``[start, end)``, so ingesting a
+       chunk advances every store's cumulative ledger identically to the
+       unchunked pass.
+     * **round count** — exactly one yielded chunk carries ``first=True``
+       (the first chunk that draws anything), so callers count one logical
+       round per pass regardless of chunking; an all-zero pass yields
+       nothing and counts no round.
+    """
+    n_b = len(block_samplers)
+    quotas = np.asarray(quotas, dtype=np.int64).reshape(-1)
+    if quotas.shape != (n_b,):
+        raise ValueError(f"quotas must be ({n_b},), got {quotas.shape}")
+    step = n_b if chunk_blocks is None else int(chunk_blocks)
+    if step < 1:
+        raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
+    first = True
+    for start in range(0, n_b, step):
+        end = min(start + step, n_b)
+        idx = [j for j in range(start, end) if quotas[j] > 0]
+        if not idx:
+            continue
+        raws = [block_samplers[j](int(quotas[j]), rng) for j in idx]
+        chunk_quotas = np.zeros(n_b, dtype=np.int64)
+        chunk_quotas[start:end] = quotas[start:end]
+        yield DrawChunk(start=start, end=end, idx=idx, raws=raws,
+                       chunk_quotas=chunk_quotas, first=first)
+        first = False
+
+
+def block_deficit(n_sampled: np.ndarray, target_quotas: Sequence[int],
+                  n_blocks: int) -> np.ndarray:
+    """Per-block samples still owed against a target quota — THE deficit
+    formula both store flavors plan with (host ``MomentStore`` and the
+    device mirror share it so host- and device-route planning cannot
+    desynchronize)."""
+    target = np.asarray(target_quotas, dtype=np.int64).reshape(-1)
+    if target.shape != (n_blocks,):
+        raise ValueError(f"target quotas must be ({n_blocks},), got "
+                         f"{target.shape}")
+    return np.maximum(target - n_sampled, 0)
+
+
+@dataclasses.dataclass
+class MomentStore:
+    """Everything the online mode persists between rounds — O(cells), not
+    O(samples)."""
+
+    n_blocks: int
+    n_groups: int
+    boundaries: Boundaries
+    sketch0: float            # shifted-scale Phase 2 anchor (re-anchorable)
+    shift: float
+    mom_s: np.ndarray         # (n_groups * n_blocks, 4) S-region moments
+    mom_l: np.ndarray         # (n_groups * n_blocks, 4) L-region moments
+    totals: np.ndarray        # (n_groups * n_blocks, 3) all-sample moments
+    n_sampled: np.ndarray     # (n_blocks,) cumulative draws, int64
+    rounds: int = 0
+    has_regions: bool = True  # False: totals-only store (COUNT-only keys)
+    has_totals: bool = True   # False: regions-only (plain AVG/SUM passes
+                              # — nothing reads weights/ex2/sample_sigma)
+    anchor: Optional[Anchor] = None  # provenance of the frozen frame; its
+                              # fingerprint keys warm-store reuse (a key
+                              # whose anchor changed cannot merge moments)
+    has_sketch: bool = False  # True: an HLL register plane rides every
+                              # ingest (COUNT DISTINCT state)
+    regs: Optional[np.ndarray] = None  # (n_cells, sketch.M) uint8 HLL
+                              # registers; merge = elementwise max, so any
+                              # tick partition folds bit-identically
+
+    @staticmethod
+    def fresh(n_blocks: int, boundaries: Boundaries, sketch0: float,
+              shift: float = 0.0, n_groups: int = 1,
+              has_regions: bool = True,
+              has_totals: bool = True,
+              anchor: Optional[Anchor] = None,
+              has_sketch: bool = False) -> "MomentStore":
+        if n_blocks < 1 or n_groups < 1:
+            raise ValueError(f"need n_blocks, n_groups >= 1; got "
+                             f"({n_blocks}, {n_groups})")
+        if not (has_regions or has_totals):
+            raise ValueError("a store must accumulate regions, totals, or "
+                             "both")
+        n_cells = n_groups * n_blocks
+        return MomentStore(
+            n_blocks=n_blocks, n_groups=n_groups, boundaries=boundaries,
+            sketch0=float(sketch0), shift=float(shift),
+            mom_s=np.zeros((n_cells, 4)), mom_l=np.zeros((n_cells, 4)),
+            totals=np.zeros((n_cells, 3)),
+            n_sampled=np.zeros(n_blocks, dtype=np.int64),
+            has_regions=has_regions, has_totals=has_totals, anchor=anchor,
+            has_sketch=has_sketch,
+            regs=(np.zeros((n_cells, _sketch.M), dtype=np.uint8)
+                  if has_sketch else None))
+
+    @staticmethod
+    def from_anchor(n_blocks: int, anchor: Anchor, n_groups: int = 1,
+                    has_regions: bool = True,
+                    has_totals: bool = True,
+                    has_sketch: bool = False) -> "MomentStore":
+        """``fresh`` with the frame taken wholesale from an ``Anchor`` —
+        the per-key construction path of the incremental executor."""
+        return MomentStore.fresh(
+            n_blocks, anchor.boundaries, anchor.sketch0,
+            shift=anchor.shift, n_groups=n_groups,
+            has_regions=has_regions, has_totals=has_totals, anchor=anchor,
+            has_sketch=has_sketch)
+
+    @property
+    def n_cells(self) -> int:
+        return self.n_groups * self.n_blocks
+
+    @property
+    def total_sampled(self) -> int:
+        return int(self.n_sampled.sum())
+
+    # -- accumulation ------------------------------------------------------
+
+    def ingest(self, values: np.ndarray, block_ids: np.ndarray,
+               quotas: np.ndarray, *,
+               group_ids: Optional[np.ndarray] = None,
+               mask: Optional[np.ndarray] = None,
+               chunk_size: Optional[int] = None,
+               count_round: bool = True,
+               raw_values: Optional[np.ndarray] = None) -> None:
+        """Merge one tagged pass into the store.
+
+        ``values`` are on the SHIFTED scale (the caller applies
+        ``self.shift``); ``quotas`` is the per-block draw count this pass
+        (a (n_blocks,) array — zero for blocks the pass skipped).  The
+        merge routes the store's prior rows through the engine's carry, so
+        the result is bit-identical per cell to a single accumulation over
+        the concatenated stream.
+
+        ``count_round=False`` marks this ingest as a continuation chunk of
+        the current logical round (block-chunked draws), so ``rounds``
+        counts refinement rounds, not chunks.
+
+        ``raw_values`` (sketch stores) are the UN-shifted measure values —
+        the HLL hash-input contract keys registers on raw float64 bits so
+        every route and anchor builds the identical plane.  When omitted,
+        the store reconstructs them as ``values - shift`` (bit-exact only
+        for shift == 0; shifted stores should pass the raw stream).
+        """
+        quotas = np.asarray(quotas, dtype=np.int64).reshape(-1)
+        if quotas.shape != (self.n_blocks,):
+            raise ValueError(f"quotas must be ({self.n_blocks},), got "
+                             f"{quotas.shape}")
+        # Skip the carry only when the store holds nothing at all — NOT
+        # merely when rounds == 0, so a store seeded with prior moments
+        # (e.g. OnlineBlockState.as_store of a run_block result) merges
+        # instead of silently overwriting.  The empty-carry path and a
+        # zero-carry prepend are bit-identical; skipping is just cheaper.
+        first = (self.rounds == 0 and not self.mom_s.any()
+                 and not self.mom_l.any() and not self.totals.any())
+        if self.has_regions:
+            self.mom_s, self.mom_l = phase1_sampling_batch(
+                values, block_ids, self.n_blocks, self.boundaries,
+                group_ids=group_ids, n_groups=self.n_groups, mask=mask,
+                chunk_size=chunk_size,
+                carry=None if first else (self.mom_s, self.mom_l))
+        if self.has_totals:
+            self.totals = sample_moments_batch(
+                values, block_ids, self.n_blocks, group_ids=group_ids,
+                n_groups=self.n_groups, mask=mask,
+                carry=None if first else self.totals)
+        if self.has_sketch:
+            raw = (np.asarray(raw_values, dtype=np.float64).reshape(-1)
+                   if raw_values is not None
+                   else np.asarray(values, dtype=np.float64).reshape(-1)
+                   - self.shift)
+            seg, _ = flat_segments(
+                np.asarray(block_ids).reshape(-1).astype(np.intp),
+                self.n_blocks, group_ids, self.n_groups)
+            if mask is not None:
+                keep = np.asarray(mask, dtype=bool).reshape(-1)
+                raw, seg = raw[keep], seg[keep]
+            j, rho = _sketch.encode(_sketch.hash_values(raw))
+            _sketch.scatter_max(self.regs, seg, j, rho)
+        self.n_sampled = self.n_sampled + quotas
+        if count_round:
+            self.rounds += 1
+
+    # -- sketch plane ------------------------------------------------------
+
+    def group_registers(self) -> np.ndarray:
+        """The per-group folded register rows — max over the block axis
+        (the mergeable-sketch group aggregate)."""
+        if not self.has_sketch:
+            raise ValueError("store was built without a sketch plane "
+                             "(has_sketch=False)")
+        return _sketch.fold_groups(self.regs, self.n_groups)
+
+    def distinct_counts(self) -> np.ndarray:
+        """(n_groups,) HLL COUNT DISTINCT estimates of the matching
+        measure values seen so far."""
+        return _sketch.estimate(self.group_registers())
+
+    # -- solving -----------------------------------------------------------
+
+    def solve(self, params: IslaParams, mode: str = "faithful",
+              geometry=None) -> ModulationBatchResult:
+        """Re-run the batched Phase 2 over the merged moments (host path;
+        the device route feeds ``mom_s``/``mom_l`` to ``distributed.phase2``
+        itself)."""
+        if not self.has_regions:
+            raise ValueError("totals-only store has no region moments to "
+                             "solve (built with has_regions=False)")
+        return phase2_iteration_batch(self.mom_s, self.mom_l, self.sketch0,
+                                      params, mode=mode, geometry=geometry)
+
+    def answer(self, avg: np.ndarray, block_sizes: Sequence[int]) -> float:
+        """Summarize per-block partials to the un-shifted grand answer
+        (n_groups == 1 stores; grouped stores compose via multiquery)."""
+        if self.n_groups != 1:
+            raise ValueError("grand answer is the ungrouped summarization; "
+                             "grouped stores compose per group")
+        return summarize(np.asarray(avg).reshape(-1), list(block_sizes)) \
+            - self.shift
+
+    def reanchor(self, avg: np.ndarray) -> float:
+        """Re-anchor ``sketch0`` from the merged moments: the cell-count-
+        weighted mean of the current partial answers (shifted scale).
+
+        Later rounds then iterate against the refined picture instead of
+        the initial rough sketch — the §VII-A continuation bugfix.  Cells
+        with no samples carry no weight; an all-empty store keeps its
+        anchor.
+        """
+        w = (self.totals[:, 0] if self.has_totals
+             else self.mom_s[:, 0] + self.mom_l[:, 0])
+        populated = w > 0
+        if self.has_regions and np.any(populated):
+            a = np.asarray(avg, dtype=np.float64).reshape(-1)
+            self.sketch0 = float(np.sum(a[populated] * w[populated])
+                                 / np.sum(w[populated]))
+        return self.sketch0
+
+    def continue_rounds(self, block_samplers: Sequence[Sampler],
+                        block_sizes: Sequence[int], rate: float,
+                        params: IslaParams, rng: np.random.Generator,
+                        mode: str = "faithful", geometry=None,
+                        max_samples: Optional[int] = None,
+                        reanchor: bool = False,
+                        chunk_blocks: Optional[int] = None,
+                        chunk_size: Optional[int] = None
+                        ) -> ModulationBatchResult:
+        """One more online round, vectorized: draw a fresh tagged pass at
+        ``rate`` (per block, block order — the engine's RNG stream), merge
+        it into the store, and re-run the batched Phase 2.
+
+        Parameters
+        ----------
+        block_samplers : sequence of callables
+            ``sampler(n, rng) -> (n,) values`` per block, invoked in block
+            order (the engine's RNG-stream contract).
+        block_sizes : sequence of int
+            Catalog block sizes (drive the per-block quotas).
+        rate : float
+            Sampling rate for this round (Eq. 1 scale; per-block quota is
+            ``ceil(rate * block_size)``).
+        params : IslaParams
+            Phase 2 tunables.
+        rng : numpy.random.Generator
+            Host RNG the draw consumes.
+        mode : str, optional
+            Phase 2 solver ("faithful" maps onto its algebraic closed
+            form — the batched path never runs a data-dependent loop).
+        geometry : tuple, optional
+            ``(kappa, b0)`` pilot geometry, required for
+            ``mode="empirical"``.
+        max_samples : int, optional
+            Per-block quota cap (the §VII-F time-constraint extension).
+        reanchor : bool, optional
+            Refresh ``sketch0`` from the merged answer after solving, so
+            the NEXT round iterates against the refined picture instead of
+            the round-0 rough sketch.  The frozen part of the anchor
+            (boundaries, shift) never moves.
+        chunk_blocks : int, optional
+            Draw and fold the round that many blocks at a time — the
+            stream is never materialized whole, bit-identical via the
+            carry contract.
+        chunk_size : int, optional
+            Phase 1 prefix-chunking within an ingest (same bit-identity).
+
+        Returns
+        -------
+        ModulationBatchResult
+            Per-block partial answers over the MERGED moments (shifted
+            scale; ``answer`` composes the un-shifted grand mean).
+        """
+        if len(block_samplers) != self.n_blocks:
+            raise ValueError(f"store holds {self.n_blocks} blocks, got "
+                             f"{len(block_samplers)} samplers")
+        if self.n_groups != 1:
+            raise ValueError("continue_rounds draws ungrouped streams; "
+                             "grouped stores are fed via multiquery")
+        quotas = np.asarray(block_quotas(block_sizes, rate, max_samples),
+                            dtype=np.int64)
+        for chunk in iter_chunked_draws(block_samplers, quotas, rng,
+                                        chunk_blocks):
+            vals = np.concatenate([np.asarray(r, dtype=np.float64)
+                                   for r in chunk.raws]) + self.shift
+            ids = np.repeat(np.asarray(chunk.idx, dtype=np.intp),
+                            quotas[chunk.idx])
+            self.ingest(vals, ids, chunk.chunk_quotas,
+                        chunk_size=chunk_size, count_round=chunk.first)
+        res = self.solve(params, mode=mode, geometry=geometry)
+        if reanchor:
+            self.reanchor(res.avg)
+        return res
+
+    # -- planning helpers --------------------------------------------------
+
+    def deficit(self, target_quotas: Sequence[int]) -> np.ndarray:
+        """Per-block samples still owed against a target quota (what a new
+        query's (e, beta) demands minus what the store already drew)."""
+        return block_deficit(self.n_sampled, target_quotas, self.n_blocks)
+
+    def matched_total(self) -> float:
+        """Total matching samples accumulated (the budget splitter's n)."""
+        return float(self.totals[:, 0].sum())
+
+    def sample_sigma(self) -> float:
+        """ddof-1 sigma of all matching samples seen so far (NaN until two
+        samples exist) — the marginal-error signal ``split_budget`` reads."""
+        n = float(self.totals[:, 0].sum())
+        if n < 2:
+            return float("nan")
+        mean = float(self.totals[:, 1].sum()) / n
+        var = max(float(self.totals[:, 2].sum()) / n - mean * mean, 0.0)
+        return math.sqrt(var * n / (n - 1.0))
+
+
+# ---------------------------------------------------------------------------
+# Device-resident stores: the §VII-A state kept where the compute is.
+# ---------------------------------------------------------------------------
+
+
+def _bucket(m: int, floor: int = 256) -> int:
+    """Round a tick's matched-sample count up to a power-of-two bucket so
+    the fused launch does not retrace on every tick (padded slots land in
+    the drop segment)."""
+    b = floor
+    while b < m:
+        b <<= 1
+    return b
+
+
+def _dense_panes(values: np.ndarray, quotas: np.ndarray):
+    """Pack a block-major tagged stream into (n_blocks, quota_bucket)
+    panes for the dense fused tick: row-major assignment through the
+    ragged-quota mask preserves stream order, the pad mask zeroes the
+    tail."""
+    quotas = np.asarray(quotas, dtype=np.int64)
+    qmax = _bucket(int(quotas.max()), floor=8)
+    vmask = np.arange(qmax)[None, :] < quotas[:, None]
+    v2d = np.zeros((quotas.shape[0], qmax), dtype=np.float64)
+    v2d[vmask] = values
+    pad = np.zeros_like(v2d)
+    pad[vmask] = 1.0
+    return v2d, pad, vmask
+
+
+class DeviceMomentStore:
+    """Device-resident mirror of ``MomentStore``: the stacked (group,
+    block) moment rows, totals and per-block draw ledger live as torch
+    tensors on ``device`` BETWEEN ticks, so a continuation round is one
+    fused tick (``distributed.fused_tick_dense``) that folds the fresh
+    samples into the resident tensors IN PLACE — moments never cross the
+    host boundary in steady state.
+
+    Units: moments are stored on the SHIFTED scale (the host store's
+    contract) additionally divided by ``scale`` — the fp32-safety lever
+    (ISLA is exactly scale-equivariant).  The store runs fp32; the float64
+    bit-exact store (the tagged tick) is not in this slice of the port.
+
+    The per-block cumulative draw ledger is kept twice: an int64 host
+    copy (``n_sampled`` — planning/deficit math stays host-side) and a
+    device copy feeding the cell-weight computation of the tick.
+    """
+
+    def __init__(self, n_blocks: int, n_groups: int, boundaries: Boundaries,
+                 sketch0: float, shift: float, scale: float,
+                 block_sizes: Sequence[int], dtype=torch.float32,
+                 anchor: Optional[Anchor] = None,
+                 has_sketch: bool = False, device="cuda") -> None:
+        from . import distributed as D
+
+        if has_sketch:
+            raise NotImplementedError(
+                "the device sketch plane (COUNT DISTINCT on route='device', "
+                "ROADMAP Queue A item 5) is not ported yet; use "
+                "route='host' for count_distinct")
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                f"a {dtype} device store needs the float64 tagged tick, "
+                "which is not ported yet (ROADMAP Queue A item 2); the "
+                "port's device stores run float32")
+        if len(block_sizes) != n_blocks:
+            raise ValueError(f"need {n_blocks} block sizes, got "
+                             f"{len(block_sizes)}")
+        self.device = D.resolve_device(device)
+        self.n_blocks = int(n_blocks)
+        self.n_groups = int(n_groups)
+        self.boundaries = boundaries
+        self.sketch0 = float(sketch0)
+        self.shift = float(shift)
+        self.scale = float(scale)
+        self.anchor = anchor
+        self.block_sizes = [int(b) for b in block_sizes]
+        self.dtype = dtype
+        self.has_sketch = False
+        n_cells = self.n_groups * self.n_blocks
+        # Resident state: owned directly until a DeviceStack adopts the
+        # store, after which the stacked tensors are authoritative and
+        # these hold None (see the properties below).
+        self._owner = None
+        zeros = functools.partial(torch.zeros, dtype=dtype,
+                                  device=self.device)
+        self._mom_s = zeros((n_cells, 4))
+        self._mom_l = zeros((n_cells, 4))
+        self._totals = zeros((n_cells, 3))
+        self._ns_dev = zeros((self.n_blocks,))
+        self.n_sampled = np.zeros(self.n_blocks, dtype=np.int64)
+        self.rounds = 0
+        # Anchor constants, uploaded once at store creation (cold start —
+        # the steady-state tick never re-ships them).
+        self._bounds = D.h2d(
+            np.asarray(boundaries.as_tuple(), dtype=np.float64)
+            / self.scale, dtype, self.device)
+        self._sizes = D.h2d(np.asarray(self.block_sizes, dtype=np.float64),
+                            dtype, self.device)
+        self._sketch0_dev = D.h2d(self.sketch0 / self.scale, dtype,
+                                  self.device)
+        # Per-tick stats cache (invalidated by any state change; keyed by
+        # the solve configuration so a different mode re-solves).
+        self._partials = None   # (n_cells,) device, scaled shifted units
+        self._rows = None       # (n_groups, 9) float64 numpy
+        self._stats_valid = False
+        self._stats_cfg = None  # (params, mode, geometry) of the cache
+        self._stack = None      # cached single-store DeviceStack
+
+    # -- resident state (stack-aware) --------------------------------------
+
+    def _detach(self) -> None:
+        """Materialize this store's slices out of its owning stack (the
+        whole stack releases — a store cannot leave alone)."""
+        if self._owner is not None:
+            self._owner.release()
+
+    def _state_attr(self, name: str, idx: int):
+        if self._owner is not None:
+            return self._owner.state_slice(self, idx)
+        return getattr(self, name)
+
+    def _set_state(self, name: str, v) -> None:
+        self._detach()
+        setattr(self, name, torch.as_tensor(v, dtype=self.dtype,
+                                            device=self.device))
+        self._stats_valid = False
+
+    @property
+    def mom_s(self):
+        return self._state_attr("_mom_s", 0)
+
+    @mom_s.setter
+    def mom_s(self, v):
+        self._set_state("_mom_s", v)
+
+    @property
+    def mom_l(self):
+        return self._state_attr("_mom_l", 1)
+
+    @mom_l.setter
+    def mom_l(self, v):
+        self._set_state("_mom_l", v)
+
+    @property
+    def totals(self):
+        return self._state_attr("_totals", 2)
+
+    @totals.setter
+    def totals(self, v):
+        self._set_state("_totals", v)
+
+    @property
+    def _n_sampled_dev(self):
+        return self._state_attr("_ns_dev", 3)
+
+    @_n_sampled_dev.setter
+    def _n_sampled_dev(self, v):
+        self._set_state("_ns_dev", v)
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def default_dtype():
+        return torch.float32
+
+    @staticmethod
+    def anchor_scale(boundaries: Boundaries, sketch0: float) -> float:
+        """fp32-safety normalizer frozen with the anchor: the largest
+        magnitude the S/L band can produce (outliers beyond the cuts feed
+        only the plain totals, whose squares stay in fp32 range)."""
+        return max(abs(boundaries.s_lo), abs(boundaries.l_hi),
+                   abs(float(sketch0)), 1e-12)
+
+    @staticmethod
+    def fresh_device(n_blocks: int, boundaries: Boundaries, sketch0: float,
+                     block_sizes: Sequence[int], shift: float = 0.0,
+                     n_groups: int = 1, scale: Optional[float] = None,
+                     dtype=None, anchor: Optional[Anchor] = None,
+                     has_sketch: bool = False,
+                     device="cuda") -> "DeviceMomentStore":
+        if dtype is None:
+            dtype = DeviceMomentStore.default_dtype()
+        if scale is None:
+            scale = DeviceMomentStore.anchor_scale(boundaries, sketch0)
+        return DeviceMomentStore(n_blocks, n_groups, boundaries,
+                                 float(sketch0), float(shift), float(scale),
+                                 block_sizes, dtype, anchor=anchor,
+                                 has_sketch=has_sketch, device=device)
+
+    @staticmethod
+    def from_host(store: MomentStore, block_sizes: Sequence[int],
+                  scale: Optional[float] = None, dtype=None,
+                  device="cuda") -> "DeviceMomentStore":
+        """One-time cold-start upload of a host store's state (warm
+        promotion); after this the device copy is authoritative."""
+        from . import distributed as D
+
+        dst = DeviceMomentStore.fresh_device(
+            store.n_blocks, store.boundaries, store.sketch0, block_sizes,
+            shift=store.shift, n_groups=store.n_groups, scale=scale,
+            dtype=dtype, anchor=store.anchor,
+            has_sketch=store.has_sketch, device=device)
+        p4 = dst.scale ** np.arange(4)
+        dst.mom_s = D.h2d(store.mom_s / p4, dst.dtype, dst.device)
+        dst.mom_l = D.h2d(store.mom_l / p4, dst.dtype, dst.device)
+        dst.totals = D.h2d(store.totals / p4[:3], dst.dtype, dst.device)
+        dst.n_sampled = store.n_sampled.copy()
+        dst._n_sampled_dev = D.h2d(store.n_sampled.astype(np.float64),
+                                   dst.dtype, dst.device)
+        dst.rounds = store.rounds
+        return dst
+
+    def to_host(self) -> MomentStore:
+        """Download into a host float64 ``MomentStore`` (diagnostics and
+        parity tests — never on the serving tick path)."""
+        p4 = self.scale ** np.arange(4)
+
+        def host(t):
+            return t.detach().to("cpu", torch.float64).numpy()
+
+        return MomentStore(
+            n_blocks=self.n_blocks, n_groups=self.n_groups,
+            boundaries=self.boundaries, sketch0=self.sketch0,
+            shift=self.shift, mom_s=host(self.mom_s) * p4,
+            mom_l=host(self.mom_l) * p4, totals=host(self.totals) * p4[:3],
+            n_sampled=self.n_sampled.copy(), rounds=self.rounds,
+            anchor=self.anchor)
+
+    def group_registers(self) -> np.ndarray:
+        raise NotImplementedError(
+            "the device sketch plane is not ported yet (ROADMAP Queue A "
+            "item 5)")
+
+    # -- properties / planning mirror --------------------------------------
+
+    @property
+    def n_cells(self) -> int:
+        return self.n_groups * self.n_blocks
+
+    @property
+    def total_sampled(self) -> int:
+        return int(self.n_sampled.sum())
+
+    def deficit(self, target_quotas: Sequence[int]) -> np.ndarray:
+        return block_deficit(self.n_sampled, target_quotas, self.n_blocks)
+
+    def _grand_totals(self) -> "tuple[float, float, float]":
+        """(n, s1, s2) over all cells, un-scaled — from the cached group
+        rows when valid (zero device traffic), else three reduced scalars
+        off the resident totals."""
+        if self._stats_valid and self._rows is not None:
+            t = self._rows[:, [0, 4, 5]].sum(axis=0)
+        else:
+            t = self.totals.sum(dim=0).to("cpu", torch.float64).numpy()
+        return float(t[0]), float(t[1]) * self.scale, \
+            float(t[2]) * self.scale ** 2
+
+    def matched_total(self) -> float:
+        """Total matching samples accumulated (the budget splitter's n)."""
+        return self._grand_totals()[0]
+
+    def sample_sigma(self) -> float:
+        """ddof-1 sigma of all matching samples — the host ``MomentStore``
+        contract served from device state."""
+        n, s1, s2 = self._grand_totals()
+        if n < 2:
+            return float("nan")
+        mean = s1 / n
+        var = max(s2 / n - mean * mean, 0.0)
+        return math.sqrt(var * n / (n - 1.0))
+
+    # -- ticks -------------------------------------------------------------
+
+    def _own_stack(self) -> "DeviceStack":
+        if (self._owner is not None and not self._owner._released
+                and len(self._owner.stores) == 1):
+            return self._owner
+        if self._stack is None or self._stack._released \
+                or self._stack is not self._owner:
+            self._stack = DeviceStack([self])
+        return self._stack
+
+    def ingest_tick(self, values: np.ndarray, block_ids: np.ndarray,
+                    quotas: np.ndarray, params: IslaParams, *,
+                    mode: str = "calibrated", geometry=None,
+                    group_ids: Optional[np.ndarray] = None,
+                    mask: Optional[np.ndarray] = None,
+                    count_round: bool = True, layout: str = "auto"):
+        """Single-store convenience tick: merge one pass (values on the
+        shifted scale, the ``MomentStore.ingest`` contract) and re-solve —
+        one fused tick.  Returns ``(partials, rows)`` (device partials in
+        scaled shifted units; see ``DeviceStack.tick``).
+
+        The stream must be block-major canonical (the dense layout);
+        ``layout="tagged"`` and non-canonical streams need the tagged
+        tick, which is not in this slice of the port.
+        """
+        values = np.asarray(values, dtype=np.float64).reshape(-1)
+        quotas_arr = np.asarray(quotas, dtype=np.int64).reshape(-1)
+        block_ids = np.asarray(block_ids).reshape(-1)
+        canonical = np.array_equal(
+            block_ids, np.repeat(np.arange(self.n_blocks), quotas_arr))
+        if layout not in ("auto", "dense", "tagged"):
+            raise ValueError(f"unknown layout {layout!r}")
+        if layout == "tagged" or not canonical:
+            raise NotImplementedError(
+                "the tagged tick (non-block-major streams, "
+                "layout='tagged') is not ported yet (ROADMAP Queue A "
+                "item 2)")
+        # The stack's dense pane takes RAW measure values; this API takes
+        # shifted ones (the MomentStore contract), so un-shift first — a
+        # float64 round trip well inside the fp32 tolerance.
+        out = self._own_stack().tick(
+            params, mode=mode, geometry=geometry,
+            values=values - self.shift, quotas=quotas_arr,
+            dense=([group_ids], [mask]), count_round=count_round)
+        return out[0]
+
+    def solve_device(self, params: IslaParams, mode: str = "calibrated",
+                     geometry=None):
+        """Zero-draw re-solve of the resident moments (cached between
+        state changes; at most one tick, zero uploads)."""
+        return self._own_stack().tick(params, mode=mode,
+                                      geometry=geometry)[0]
+
+    def partials_host(self) -> np.ndarray:
+        """Last solved per-cell partial answers, un-scaled back to the
+        shifted float64 axis (these are answers, not moments)."""
+        if not self._stats_valid or self._partials is None:
+            raise ValueError("no solved partials cached; run a tick or "
+                             "solve_device first")
+        return (self._partials.to("cpu", torch.float64).numpy()
+                * self.scale)
+
+
+class DeviceStack:
+    """A stacked multi-store launch set: the warm stores of one mode-group
+    concatenated onto one (total_cells, 4) moments axis so N predicates'
+    continuation rounds are ONE fused tick.
+
+    Member stores must share the block axis, dtype and device, but each
+    store may carry its OWN anchor (boundaries / shift / scale): the tick
+    gets one bounds row per distinct anchor with a static slot per key, a
+    per-cell inverse-scale vector (the Phase 2 stopping threshold rides
+    it) and per-key value affines, so every cell classifies and solves in
+    its own anchor's frame.  A stack whose stores all share one anchor
+    keeps the identity affine.  ``sketch0`` may differ per store
+    (re-anchoring), so Phase 2 takes a per-cell sketch vector.  Stack
+    constants are uploaded once at stack build.
+    """
+
+    def __init__(self, stores: Sequence[DeviceMomentStore]) -> None:
+        from . import distributed as D
+
+        if not stores:
+            raise ValueError("a device stack needs at least one store")
+        first = stores[0]
+        for st in stores:
+            if (st.n_blocks != first.n_blocks or st.dtype != first.dtype
+                    or st.device != first.device):
+                raise ValueError("stacked stores must share the block "
+                                 "axis, dtype and device")
+        self.stores = list(stores)
+        self.n_blocks = first.n_blocks
+        self.dtype = first.dtype
+        self.device = first.device
+        cells = [st.n_cells for st in self.stores]
+        groups = [st.n_groups for st in self.stores]
+        self.offsets = np.concatenate([[0], np.cumsum(cells)])
+        self.row_offsets = np.concatenate([[0], np.cumsum(groups)])
+        self.n_cells = int(self.offsets[-1])
+        self.n_rows = int(self.row_offsets[-1])
+        self.n_groups_list = tuple(groups)
+        self._sizes = (first._sizes if len(self.stores) == 1 else
+                       torch.cat([st._sizes for st in self.stores]))
+        self._uniform = all(
+            st.boundaries == first.boundaries and st.shift == first.shift
+            and st.scale == first.scale for st in self.stores)
+        if self._uniform:
+            self._bound_rows = first._bounds.reshape(1, 4)
+            self._bound_slots = (0,) * len(self.stores)
+        else:
+            # One row per DISTINCT anchor, a static slot per key.
+            seen = {}
+            rows, slots = [], []
+            for st in self.stores:
+                bkey = (st.boundaries, st.scale)
+                if bkey not in seen:
+                    seen[bkey] = len(rows)
+                    rows.append(st._bounds)
+                slots.append(seen[bkey])
+            self._bound_rows = torch.stack(rows)
+            self._bound_slots = tuple(slots)
+        # Per-cell inverse anchor scale: pre-scales the Phase 2 stopping
+        # threshold (and the ISLA-E b0) into each cell's normalized frame.
+        self._inv_scale = D.h2d(np.concatenate(
+            [np.full(st.n_cells, 1.0 / st.scale) for st in self.stores]),
+            self.dtype, self.device)
+        # Dense value affines: the pane holds raw/ref values; key k
+        # recovers its own frame as v * ratio_k + off_k inside the fold.
+        self._ref_scale = max(st.scale for st in self.stores)
+        self._key_affine = tuple(
+            (self._ref_scale / st.scale, st.shift / st.scale)
+            for st in self.stores)
+        self._sk_cells = None  # cached per-cell sketch vector (device)
+        # Zone-map pruning: when a pruned plan zeroes whole blocks'
+        # quotas, the tick folds a COMPACTED active-block pane and maps
+        # its cells onto the resident rows — pruned cells keep their rows
+        # untouched, so a predicate change re-activates them warm.
+        self.block_compaction = True
+        self._active_cache = {}  # active-set bytes -> device index pair
+        # Adopt the stores: the stacked tensors become the authoritative
+        # resident state (built once — ticks update them in place).  A
+        # store reads its slice through ``state_slice``; ``release``
+        # hands the slices back when the stack dissolves.
+        for st in self.stores:
+            st._detach()
+        if len(self.stores) == 1:
+            st = self.stores[0]
+            self._state = (st._mom_s, st._mom_l, st._totals, st._ns_dev)
+        else:
+            self._state = (
+                torch.cat([st._mom_s for st in self.stores]),
+                torch.cat([st._mom_l for st in self.stores]),
+                torch.cat([st._totals for st in self.stores]),
+                torch.cat([st._ns_dev for st in self.stores]))
+        self._released = False
+        for st in self.stores:
+            st._mom_s = st._mom_l = st._totals = st._ns_dev = None
+            st._owner = self
+
+    # -- state plumbing ----------------------------------------------------
+
+    def state_slice(self, store: DeviceMomentStore, idx: int):
+        """One adopted store's view of the stacked state (idx: 0 mom_s,
+        1 mom_l, 2 totals, 3 device draw ledger) — for diagnostics and
+        downloads, never on the tick path."""
+        k = next(i for i, st in enumerate(self.stores) if st is store)
+        if idx < 3:
+            return self._state[idx][int(self.offsets[k]):
+                                    int(self.offsets[k + 1])]
+        b = self.n_blocks
+        return self._state[3][k * b:(k + 1) * b]
+
+    def release(self) -> None:
+        """Dissolve the stack: hand every store a copy of its slices so
+        each owns its state again (e.g. before a store joins a new stack
+        when the warm key set changes)."""
+        if self._released:
+            return
+        mom_s, mom_l, totals, ns = self._state
+        b = self.n_blocks
+        for k, st in enumerate(self.stores):
+            o0, o1 = int(self.offsets[k]), int(self.offsets[k + 1])
+            st._mom_s = mom_s[o0:o1].clone()
+            st._mom_l = mom_l[o0:o1].clone()
+            st._totals = totals[o0:o1].clone()
+            st._ns_dev = ns[k * b:(k + 1) * b].clone()
+            st._owner = None
+        # Drop the stacked tensors: a stale executor cache entry must not
+        # pin a dead copy of every store's moments in device memory.
+        self._state = None
+        self._sk_cells = None
+        self._released = True
+
+    def _install_stats(self, partials, rows, cfg, timings=None):
+        """Hand each store its slice of the tick's stats: one blocking
+        device->host copy of the O(groups) rows; per-cell partials stay
+        on the device as views."""
+        t0 = time.perf_counter()
+        rows_np = rows.to("cpu", torch.float64).numpy()  # d2h: stats
+        if timings is not None:
+            timings["readback"] = (timings.get("readback", 0.0)
+                                   + time.perf_counter() - t0)
+        out = []
+        for k, st in enumerate(self.stores):
+            r0, r1 = int(self.row_offsets[k]), int(self.row_offsets[k + 1])
+            o0, o1 = int(self.offsets[k]), int(self.offsets[k + 1])
+            st._partials = partials[o0:o1]
+            st._rows = rows_np[r0:r1]
+            st._stats_valid = True
+            st._stats_cfg = cfg
+            out.append((st._partials, st._rows))
+        return out
+
+    # fp32 accumulators lose integer exactness at 2^24; warn with margin
+    # so an eternal serving loop cannot silently stop accumulating.
+    _FP32_COUNT_HEADROOM = 1 << 22
+
+    def _check_fp32_headroom(self, quotas: np.ndarray) -> None:
+        if getattr(self, "_sat_warned", False):
+            return
+        # Per-block cells accumulate per-block draws; the group-stat rows
+        # additionally sum matched counts across a whole store, bounded
+        # by its TOTAL draws — both must stay inside fp32's exact-integer
+        # range (2^24, checked with margin).
+        worst_block = max(int(st.n_sampled.max()) for st in self.stores)
+        worst_total = max(int(st.n_sampled.sum()) for st in self.stores)
+        if (worst_block + int(quotas.max()) > self._FP32_COUNT_HEADROOM
+                or worst_total + int(quotas.sum())
+                > 4 * self._FP32_COUNT_HEADROOM):
+            import warnings
+            warnings.warn(
+                "device store draw counts are approaching the float32 "
+                "accumulator limit (2^24); further merges will degrade "
+                "silently — reset_stores() to re-anchor", RuntimeWarning,
+                stacklevel=3)
+            self._sat_warned = True
+
+    def _compact_plan(self, quotas: np.ndarray):
+        """The dense tick's zone-pruned launch plan: ``(compact_quotas,
+        active, (cell_idx, ns_idx))`` when compaction pays, else None.
+
+        ``active`` is the ascending list of blocks with a non-zero quota
+        — ascending block order IS the draw-stream order, so the compact
+        pane fills from the stream unchanged.  The active count is
+        rounded up to a power-of-two bucket (pad slots carry quota 0 and
+        out-of-range targets, so they drop); a bucket reaching the full
+        block axis falls back to the uncompacted tick.  The device index
+        pair is cached per active set, so steady ticks under an unchanged
+        plan upload only the usual sample panes.
+        """
+        if not self.block_compaction:
+            return None
+        active = np.flatnonzero(quotas > 0)
+        a_pad = _bucket(max(int(active.size), 1), floor=8)
+        if a_pad >= self.n_blocks:
+            return None
+        from . import distributed as D
+
+        q_c = np.zeros(a_pad, dtype=np.int64)
+        q_c[:active.size] = quotas[active]
+        ck = active.tobytes()
+        pair = self._active_cache.get(ck)
+        if pair is None:
+            ext = np.full(a_pad, -1, dtype=np.int64)
+            ext[:active.size] = active
+            B = self.n_blocks
+            K = len(self.stores)
+            parts = []
+            for k, st in enumerate(self.stores):
+                idx = (int(self.offsets[k])
+                       + np.arange(st.n_groups)[:, None] * B + ext[None, :])
+                parts.append(np.where(ext[None, :] < 0, self.n_cells,
+                                      idx).reshape(-1))
+            cell_idx = np.concatenate(parts)
+            ns_idx = np.arange(K)[:, None] * B + ext[None, :]
+            ns_idx = np.where(ext[None, :] < 0, K * B, ns_idx).reshape(-1)
+            if len(self._active_cache) >= 32:
+                self._active_cache.clear()
+            pair = (D.h2d(cell_idx.astype(np.int32), torch.int32,
+                          self.device),
+                    D.h2d(ns_idx.astype(np.int32), torch.int32,
+                          self.device))
+            self._active_cache[ck] = pair
+        return q_c, active, pair
+
+    def _sketch0_cells(self):
+        # Broadcast from each store's resident device scalar (cached
+        # across ticks), so warm ticks upload no scalars.
+        if self._sk_cells is None:
+            self._sk_cells = torch.cat([
+                st._sketch0_dev.expand(st.n_cells) for st in self.stores])
+        return self._sk_cells
+
+    # -- the tick ----------------------------------------------------------
+
+    def tick(self, params: IslaParams, mode: str = "calibrated",
+             geometry=None, values: Optional[np.ndarray] = None,
+             seg: Optional[np.ndarray] = None,
+             quotas: Optional[np.ndarray] = None,
+             dense=None, count_round: bool = True, timings=None,
+             defer_stats: bool = False):
+        """One continuation round for every store in the stack.
+
+        ``values`` is the FULL block-major chunk stream of RAW (unshifted)
+        measure values and ``dense=(key_gids, key_valids)`` carries
+        per-store (m,) GROUP BY codes / predicate masks (None where
+        absent).  The stream is packed into one (n_blocks, quota_max)
+        pane, uploaded once, and each key folds it in its own anchor frame
+        through its affine (``distributed.fused_tick_dense``: one
+        ``isla_fold`` launch per key, then Phase 2 and the group rows).
+        ``quotas`` is the pass's per-block draw count.  With no draw the
+        resident moments are re-solved (served from the stats cache when
+        nothing changed — no launch, no transfer).
+
+        Returns ``[(partials, rows), ...]`` per store — device partial
+        answers and the numpy group-stat rows, both in EACH STORE'S scaled
+        shifted units.  ``timings`` (optional dict) accumulates wall
+        seconds under ``"h2d"``/``"launch"``/``"readback"``.
+
+        The tagged payload (``seg=``) and deferred stats
+        (``defer_stats=True``, the pipelined tick) are not in this slice
+        of the port.
+        """
+        from . import distributed as D
+
+        if seg is not None:
+            raise NotImplementedError(
+                "the tagged tick (seg=) is not ported yet (ROADMAP Queue A "
+                "item 2)")
+        if defer_stats:
+            raise NotImplementedError(
+                "deferred stats (the pipelined tick) are not ported yet "
+                "(ROADMAP Queue A item 6)")
+        if geometry is not None:
+            # kappa is dimensionless; b0 lives on the value axis — the
+            # tick rescales it per cell via the inv_scale vector.
+            geometry = (float(geometry[0]), float(geometry[1]))
+        if self._released:
+            raise ValueError("stack was released (a store joined another "
+                             "stack); build a fresh DeviceStack")
+        cfg = (params, mode, geometry)
+        n_draw = 0 if quotas is None else int(np.sum(quotas))
+        mom_s, mom_l, totals, ns = self._state
+        if values is None or n_draw == 0:
+            if all(st._stats_valid and st._stats_cfg == cfg
+                   for st in self.stores):
+                return [(st._partials, st._rows) for st in self.stores]
+            t0 = time.perf_counter()
+            partials, rows = D.fused_solve(
+                mom_s, mom_l, totals, ns, self._sketch0_cells(),
+                self._sizes, self._inv_scale, params=params, mode=mode,
+                geometry=geometry, n_groups_list=self.n_groups_list)
+            if timings is not None:
+                timings["launch"] = (timings.get("launch", 0.0)
+                                     + time.perf_counter() - t0)
+            return self._install_stats(partials, rows, cfg, timings)
+        if dense is None:
+            raise ValueError("a drawing tick needs dense=(key_gids, "
+                             "key_valids)")
+
+        values = np.asarray(values, dtype=np.float64).reshape(-1)
+        quotas = np.asarray(quotas, dtype=np.int64).reshape(-1)
+        if quotas.shape != (self.n_blocks,):
+            raise ValueError(f"quotas must be ({self.n_blocks},), got "
+                             f"{quotas.shape}")
+        self._check_fp32_headroom(quotas)
+        key_gids, key_valids = dense
+        if self._uniform:
+            # One shared anchor: prepare the pane in its frame on the host
+            # (float64) and let the identity affine pass it through.
+            st0 = self.stores[0]
+            pane_vals = (values + st0.shift) / st0.scale
+            key_affine = ((1.0, 0.0),) * len(self.stores)
+        else:
+            pane_vals = values / self._ref_scale
+            key_affine = self._key_affine
+        # Zone-pruned plans zero whole blocks' quotas; the draw stream
+        # already skips those blocks, so the pane compacts to the active
+        # rows and the fold maps them back through the cached index pair.
+        cp = self._compact_plan(quotas)
+        if cp is not None:
+            pane_quotas, _, active_cells = cp
+        else:
+            pane_quotas, active_cells = quotas, None
+        t_h = time.perf_counter()
+        dev = self.device
+        q_dev = D.h2d(pane_quotas.astype(np.float64), self.dtype, dev)
+        v2d, pad, vmask = _dense_panes(pane_vals, pane_quotas)
+        # Dedupe shared panes by host-array identity into slot tuples:
+        # one upload per distinct pane.
+        gid_panes, valid_panes = [], []
+        gid_slots, valid_slots = [], []
+        seen_g, seen_v = {}, {}
+        for gids, valid in zip(key_gids, key_valids):
+            if gids is None:
+                gid_slots.append(-1)
+            elif id(gids) in seen_g:
+                gid_slots.append(seen_g[id(gids)])
+            else:
+                g2d = np.zeros(v2d.shape, dtype=np.int32)
+                g2d[vmask] = np.asarray(gids).reshape(-1)
+                seen_g[id(gids)] = len(gid_panes)
+                gid_slots.append(len(gid_panes))
+                gid_panes.append(D.h2d(g2d, torch.int32, dev))
+            if valid is None:
+                valid_slots.append(-1)
+            elif id(valid) in seen_v:
+                valid_slots.append(seen_v[id(valid)])
+            else:
+                m2d = np.zeros(v2d.shape, dtype=np.float64)
+                m2d[vmask] = np.asarray(valid, dtype=np.float64).reshape(-1)
+                seen_v[id(valid)] = len(valid_panes)
+                valid_slots.append(len(valid_panes))
+                valid_panes.append(D.h2d(m2d, self.dtype, dev))
+        v_dev = D.h2d(v2d, self.dtype, dev)
+        pad_dev = D.h2d(pad, self.dtype, dev)
+        if timings is not None:
+            timings["h2d"] = (timings.get("h2d", 0.0)
+                              + time.perf_counter() - t_h)
+        t_l = time.perf_counter()
+        _, _, _, _, partials, rows = D.fused_tick_dense(
+            mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev,
+            tuple(gid_panes), tuple(valid_panes), self._bound_rows,
+            self._sketch0_cells(), self._sizes, self._inv_scale,
+            active_cells, params=params, mode=mode, geometry=geometry,
+            n_groups_list=self.n_groups_list, gid_slots=tuple(gid_slots),
+            valid_slots=tuple(valid_slots), key_affine=key_affine,
+            bound_slots=self._bound_slots)
+        if timings is not None:
+            timings["launch"] = (timings.get("launch", 0.0)
+                                 + time.perf_counter() - t_l)
+        for st in self.stores:
+            st.n_sampled = st.n_sampled + quotas
+            if count_round:
+                st.rounds += 1
+        return self._install_stats(partials, rows, cfg, timings)
+
+
+def proportional_allocate(amounts: np.ndarray, budget: int) -> np.ndarray:
+    """Scale non-negative integer demands down to a total budget with
+    largest-remainder rounding; never exceeds the budget or any demand."""
+    amounts = np.asarray(amounts, dtype=np.int64)
+    total = int(amounts.sum())
+    if total <= budget:
+        return amounts.copy()
+    if budget <= 0:
+        return np.zeros_like(amounts)
+    exact = amounts * (budget / total)
+    out = np.floor(exact).astype(np.int64)
+    rem = budget - int(out.sum())
+    if rem > 0:
+        frac = exact - out
+        frac[out >= amounts] = -1.0
+        for i in np.argsort(-frac)[:rem]:
+            if out[i] < amounts[i]:
+                out[i] += 1
+    return np.minimum(out, amounts)
+
+
+def split_budget(n_now: Sequence[float], sigmas: Sequence[float],
+                 deficits: Sequence[int], budget: int,
+                 min_per_store: int = 0,
+                 weights: Optional[Sequence[float]] = None) -> np.ndarray:
+    """Split a tick's sample budget across stores by marginal-error
+    reduction (deadline-aware QoS).
+
+    A store holding n matching samples has half-width ~ z * sigma / sqrt(n);
+    the marginal reduction per extra sample is ~ sigma / n^(3/2).  Water-
+    filling equalizes that marginal across stores — allocate x_i so that
+    sigma_i / (n_i + x_i)^(3/2) is level — subject to 0 <= x_i <= deficit_i.
+    Solved by bisection on the level; stores with unknown sigma (no samples
+    yet) are treated as maximally uncertain and filled first.
+
+    Parameters
+    ----------
+    n_now : sequence of float
+        Matching samples each store has already accumulated.
+    sigmas : sequence of float
+        Observed sample sigma per store (NaN = no evidence yet, treated as
+        maximally uncertain).
+    deficits : sequence of int
+        Samples each store still owes against its target quota.
+    budget : int
+        Total new samples this tick may draw.
+    min_per_store : int, optional
+        Per-store budget FLOOR (admission-loop QoS): before the waterfill
+        runs, every store with a positive deficit is guaranteed
+        ``min(deficit_i, min_per_store)`` samples, so a flood of new
+        cold predicates (unknown sigma — filled first by the waterfill)
+        cannot starve a nearly-converged store's small top-up forever.
+        When the budget cannot cover even the floors, the floors
+        themselves are split proportionally.
+    weights : sequence of float, optional
+        Per-store priority weights, > 0 (default: all 1.0).  A store
+        with weight ``w`` waterfills as if its sigma were ``w * sigma``,
+        i.e. its marginal error reduction counts ``w``-fold — so at
+        equal deficit and sigma a higher-priority store receives weakly
+        more samples.  Floors (``min_per_store``) are weight-independent
+        and honored first; cold stores (NaN sigma) stay
+        filled-before-known within their weight class.
+
+    Returns
+    -------
+    numpy.ndarray
+        int64 allocation per store; never exceeds a store's deficit and
+        sums to at most ``budget``.
+
+    Examples
+    --------
+    A converged store's 10-sample top-up survives a cold flood:
+
+    >>> cold = [float("nan")] * 3
+    >>> split_budget([9000, 1, 1, 1], [0.5] + cold,
+    ...              [10, 5000, 5000, 5000], 300).tolist()
+    [0, 100, 100, 100]
+    >>> split_budget([9000, 1, 1, 1], [0.5] + cold,
+    ...              [10, 5000, 5000, 5000], 300,
+    ...              min_per_store=10).tolist()
+    [10, 97, 97, 96]
+    """
+    n_now = np.maximum(np.asarray(n_now, dtype=np.float64).reshape(-1), 1.0)
+    sigmas = np.asarray(sigmas, dtype=np.float64).reshape(-1)
+    deficits = np.maximum(
+        np.asarray(deficits, dtype=np.int64).reshape(-1), 0)
+    if not (n_now.shape == sigmas.shape == deficits.shape):
+        raise ValueError("n_now, sigmas, deficits must align")
+    if weights is None:
+        w = np.ones_like(n_now)
+    else:
+        w = np.asarray(weights, dtype=np.float64).reshape(-1)
+        if w.shape != n_now.shape:
+            raise ValueError("weights must align with n_now")
+        if not np.all(np.isfinite(w)) or np.any(w <= 0):
+            raise ValueError("weights must be finite and > 0")
+    budget = int(budget)
+    total = int(deficits.sum())
+    if budget >= total or total == 0:
+        return deficits.copy()
+    if min_per_store > 0:
+        base = np.minimum(deficits, int(min_per_store))
+        covered = int(base.sum())
+        if covered >= budget:
+            return proportional_allocate(base, budget)
+        rest = split_budget(n_now + base, sigmas, deficits - base,
+                            budget - covered, weights=weights)
+        return base + rest
+    # Unknown sigma (cold store, NaN) -> dominate every known marginal.
+    # A KNOWN zero sigma stays zero: its error cannot shrink, so it is
+    # served last, not first.
+    known = sigmas[np.isfinite(sigmas) & (sigmas > 0)]
+    fill = (float(known.max()) * 1e3) if known.size else 1.0
+    # Priority weight scales the EFFECTIVE sigma: a weight-w store's
+    # marginal w*sigma/n^1.5 levels against everyone else's, so it
+    # drains first at equal observed error.  A known zero sigma stays
+    # zero under any weight.
+    sig = np.where(np.isfinite(sigmas), np.maximum(sigmas, 0.0), fill) * w
+    if not np.any(sig > 0):
+        # No marginal signal at all: plain proportional split.
+        return proportional_allocate(deficits, budget)
+
+    def allocated(level: float) -> np.ndarray:
+        want = np.power(sig / level, 2.0 / 3.0) - n_now
+        return np.clip(want, 0.0, deficits.astype(np.float64))
+
+    # Marginal at zero extra samples bounds the level from above.
+    hi = float(np.max(sig / np.power(n_now, 1.5))) * 2.0
+    lo = hi * 1e-12
+    for _ in range(80):
+        mid = math.sqrt(hi * lo)
+        if allocated(mid).sum() > budget:
+            lo = mid  # level too low -> giving out too much
+        else:
+            hi = mid
+    x = np.floor(allocated(hi)).astype(np.int64)
+    # Hand out the rounding remainder greedily by current marginal gain.
+    rem = budget - int(x.sum())
+    if rem > 0:
+        gain = sig / np.power(n_now + x, 1.5)
+        gain[x >= deficits] = -np.inf
+        for i in np.argsort(-gain)[:rem]:
+            if gain[i] > -np.inf and x[i] < deficits[i]:
+                x[i] += 1
+    # Whatever the waterfill could not place (e.g. the deficit bulk sits
+    # on zero-marginal stores) still belongs to this tick's budget: fill
+    # remaining capacity proportionally instead of dropping it.
+    rem = budget - int(x.sum())
+    if rem > 0:
+        x = x + proportional_allocate(deficits - x, rem)
+    return x

@@ -1,0 +1,438 @@
+"""Wrappers and binding of the hand-written ISLA kernels (Hopper, sm_90a).
+
+Two CUDA kernels live in ``csrc/isla_kernels.cu`` (the note there names
+the TPU kernels they replace, their bound and their design):
+
+* ``isla_fold`` — the Phase 1 fold: per output cell, the S/L region
+  moments and the plain totals of its samples, added in place onto
+  resident fp32 rows (shared or per-row cuts, optional per-key affine,
+  0/1 masks, GROUP BY ids, an index map whose out-of-range entries drop);
+* ``pilot_stats`` — ``(count, sum (x-c), sum (x-c)^2, min x)`` of a flat
+  fp32 run.
+
+The source is compiled with ``nvcc`` at first use into ``_build/`` beside
+this file (a plain C interface loaded with ``ctypes``), so importing this
+module needs neither a compiler nor a card.  A wrapper given CPU tensors
+runs the kernel's plain PyTorch version (``ref.py``); given CUDA tensors
+it launches the kernel, or raises — it never falls back.  Each kernel's
+``launches`` counter (an attribute of its wrapper) counts the wrapper's
+calls that launched the kernel on the card, and nothing else.  An
+``isla_fold`` call is one ``__global__`` launch; a ``pilot_stats`` call
+is two (per-block partials, then the fixed-order combine).
+
+The Pallas-signature wrappers (``isla_moments_batched``, ``isla_moments``,
+``isla_moments_grouped``, ``isla_fused``) keep the reference functions'
+shapes and checks and run on the fold kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from . import ref
+from .ops import on_gpu
+
+LANE = 128          # lane width of the (rows, 128) tile layout
+DEFAULT_TM = 512    # rows per tile of the reference layout
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("isla_kernels.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on PATH, or
+    the toolkit's default location.  Raises when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                       "are compiled at first use and need the CUDA toolkit")
+
+
+def _library_path(source: str) -> Path:
+    text = (CSRC / source).read_bytes()
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{Path(source).stem}-{tag[:16]}.so"
+
+
+def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every source not built yet into its own shared library,
+    one ``nvcc`` per source, all started together.  Returns each source's
+    compiler log (``-Xptxas -v``: registers, shared memory, spills); a
+    failed compile raises with its log."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in sources:
+        out = _library_path(src)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        jobs.append((src, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = {}
+    for src, tmp, out, proc in jobs:
+        log, _ = proc.communicate()
+        logs[src] = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        os.replace(tmp, out)  # atomic: concurrent builds agree
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def library(source: str = SOURCES[0]) -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), argtypes set."""
+    path = _library_path(source)
+    if not path.exists():
+        build([source])
+    lib = ctypes.CDLL(str(path))
+    lib.isla_fold.argtypes = [
+        _P, _I, _LL, _LL, _LL, _LL, _LL, _I, _F, _F, _P, _LL, _P, _P, _P,
+        _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P]
+    lib.isla_fold.restype = _I
+    lib.pilot_stats.argtypes = [_P, _LL, _P, _P, _I, _P, _P]
+    lib.pilot_stats.restype = _I
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _same_device(ref_t: torch.Tensor, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.device != ref_t.device:
+            raise ValueError(f"{name} is on {t.device}, values on "
+                             f"{ref_t.device}")
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: the fold.
+# ---------------------------------------------------------------------------
+
+
+def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
+              out_s: torch.Tensor, out_l: torch.Tensor,
+              out_t: Optional[torch.Tensor] = None, *,
+              pad: Optional[torch.Tensor] = None,
+              valid: Optional[torch.Tensor] = None,
+              gid: Optional[torch.Tensor] = None, n_groups: int = 1,
+              affine: Optional[Tuple[float, float]] = None,
+              cell_idx: Optional[torch.Tensor] = None,
+              chunks: Optional[Tuple[int, int, int]] = None) -> None:
+    """Fold a (R, Q) sample pane into resident moment rows, in place.
+
+    values : (R, Q) fp32 or bf16, unit stride along Q (rows may be a
+        strided view).  Row r's samples are its Q entries, or with
+        ``chunks=(chunk_len, chunk_stride, n_chunks)`` the ``n_chunks``
+        runs of ``chunk_len`` entries starting every ``chunk_stride``.
+    bounds : fp32 (4,) shared cuts ``(s_lo, s_hi, l_lo, l_hi)`` or (R, 4)
+        per-row cuts, in the frame after the affine.
+    out_s, out_l : (N, 4) fp32 rows (unit column stride) receiving the S
+        and L ``(count, s1, s2, s3)`` sums; ``out_t`` (N, 3) the totals
+        ``(count, s1, s2)``, skipped when None.
+    pad, valid : optional (R, Q) fp32 0/1 masks (same layout as values).
+    gid : optional (R, Q) int32 GROUP BY ids in ``[0, n_groups)`` (others
+        match no group).  Cell ``g * R + r`` receives row r's group-g
+        samples.
+    affine : optional ``(ratio, off)``; samples become ``x * ratio + off``
+        in fp32, rounded after the multiply and after the add.
+    cell_idx : optional (n_groups * R,) int32 map from cell to output
+        row; entries outside ``[0, N)`` drop.  Without it N must equal
+        ``n_groups * R`` (pass row-sliced views to fold at an offset).
+    """
+    if values.dim() != 2:
+        raise ValueError(f"values must be (R, Q), got {tuple(values.shape)}")
+    if values.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"values must be fp32 or bf16, got {values.dtype}")
+    n_rows, q = values.shape
+    if q > 1 and values.stride(1) != 1:
+        raise ValueError("values need unit stride along the sample axis")
+    n_groups = int(n_groups)
+    if n_groups < 1:
+        raise ValueError(f"n_groups must be >= 1, got {n_groups}")
+    if gid is None and n_groups != 1:
+        raise ValueError("n_groups > 1 needs a gid pane")
+    if bounds.dtype != torch.float32 or not bounds.is_contiguous():
+        raise ValueError("bounds must be contiguous fp32")
+    if bounds.shape == (4,):
+        b_stride = 0
+    elif bounds.shape == (n_rows, 4):
+        b_stride = 4
+    else:
+        raise ValueError(f"bounds must be (4,) or ({n_rows}, 4), got "
+                         f"{tuple(bounds.shape)}")
+    if chunks is not None:
+        if pad is not None or valid is not None or gid is not None:
+            raise ValueError("chunked reads take no mask or gid panes")
+        chunk_len, chunk_stride, n_chunks = (int(c) for c in chunks)
+        if (n_chunks - 1) * chunk_stride + chunk_len > q:
+            raise ValueError("chunks run past the end of the row")
+    else:
+        chunk_len, chunk_stride, n_chunks = q, q, 1
+    for name, t, dt in (("pad", pad, torch.float32),
+                        ("valid", valid, torch.float32),
+                        ("gid", gid, torch.int32)):
+        if t is None:
+            continue
+        if t.dtype != dt or t.shape != values.shape \
+                or t.stride() != values.stride():
+            raise ValueError(f"{name} must be {dt} laid out like values")
+    n_out = out_s.shape[0]
+    for name, t, w in (("out_s", out_s, 4), ("out_l", out_l, 4),
+                       ("out_t", out_t, 3)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != w \
+                or t.shape[0] != n_out or t.stride(1) != 1:
+            raise ValueError(f"{name} must be ({n_out}, {w}) fp32 with "
+                             f"unit column stride")
+    n_cells = n_groups * n_rows
+    if n_cells >= 2 ** 31:
+        raise ValueError(f"{n_cells} cells exceed one launch's grid")
+    if cell_idx is not None:
+        if cell_idx.dtype != torch.int32 or cell_idx.shape != (n_cells,) \
+                or not cell_idx.is_contiguous():
+            raise ValueError(f"cell_idx must be contiguous ({n_cells},) "
+                             f"int32")
+    elif n_out != n_cells:
+        raise ValueError(f"out rows ({n_out}) must equal n_groups * R "
+                         f"({n_cells}) without a cell_idx map")
+    _same_device(values, bounds=bounds, out_s=out_s, out_l=out_l,
+                 out_t=out_t, pad=pad, valid=valid, gid=gid,
+                 cell_idx=cell_idx)
+    if not on_gpu(values):
+        ref.isla_fold_ref(values, bounds, out_s, out_l, out_t, pad=pad,
+                          valid=valid, gid=gid, n_groups=n_groups,
+                          affine=affine, cell_idx=cell_idx, chunks=chunks)
+        return
+    if n_cells == 0:
+        return
+    ratio, off = (1.0, 0.0) if affine is None else affine
+    with torch.cuda.device(values.device):
+        err = library().isla_fold(
+            _ptr(values), int(values.dtype == torch.bfloat16), n_rows,
+            values.stride(0), n_chunks, chunk_len, chunk_stride,
+            int(affine is not None), float(ratio), float(off),
+            _ptr(bounds), b_stride, _ptr(pad), _ptr(valid), _ptr(gid),
+            n_groups, _ptr(out_s), out_s.stride(0), _ptr(out_l),
+            out_l.stride(0), _ptr(out_t),
+            0 if out_t is None else out_t.stride(0), _ptr(cell_idx), n_out,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "isla_fold")
+    isla_fold.launches += 1
+
+
+isla_fold.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: pilot statistics.
+# ---------------------------------------------------------------------------
+
+_PILOT_THREADS = 256
+_PILOT_MAX_BLOCKS = 1024
+
+
+def pilot_stats(values: torch.Tensor,
+                center: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(count, sum (x-c), sum (x-c)^2, min x)`` fp32 of a flat fp32 run;
+    ``center`` is an optional one-element fp32 tensor on the same device
+    (read on the device — no host sync), 0 when absent.  One call runs
+    two kernels (per-block partials, then their combine) and counts as
+    one in ``pilot_stats.launches``."""
+    if values.dtype != torch.float32 or values.dim() != 1 \
+            or not values.is_contiguous():
+        raise ValueError("pilot_stats takes a contiguous 1-D fp32 run")
+    n = values.shape[0]
+    if n == 0:
+        raise ValueError("pilot_stats needs a non-empty run")
+    if center is not None and (center.dtype != torch.float32
+                               or center.numel() != 1):
+        raise ValueError("center must be a one-element fp32 tensor")
+    _same_device(values, center=center)
+    if not on_gpu(values):
+        return ref.pilot_stats_ref(values, center)
+    n_part = max(1, min(-(-n // _PILOT_THREADS), _PILOT_MAX_BLOCKS))
+    part = torch.empty((n_part, 4), dtype=torch.float32,
+                       device=values.device)
+    out = torch.empty(4, dtype=torch.float32, device=values.device)
+    c = None if center is None else center.contiguous()
+    with torch.cuda.device(values.device):
+        err = library().pilot_stats(
+            _ptr(values), n, _ptr(c), _ptr(part), n_part, _ptr(out),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "pilot_stats")
+    pilot_stats.launches += 1
+    return out
+
+
+pilot_stats.launches = 0
+
+
+def reset_launch_counts() -> None:
+    isla_fold.launches = 0
+    pilot_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The reference's Pallas signatures, on the fold kernel.
+# ---------------------------------------------------------------------------
+
+
+def _tile_chunks(rows: int, tm: int, stride: int) -> Tuple[int, int, int]:
+    if rows % tm != 0:
+        raise ValueError(f"rows {rows} not a multiple of tile rows {tm}")
+    n_tiles = rows // tm
+    n_sel = max(1, n_tiles // stride) if stride > 1 else n_tiles
+    return tm * LANE, stride * tm * LANE, n_sel
+
+
+def _as_bounds(bounds, device) -> torch.Tensor:
+    return torch.as_tensor(bounds, dtype=torch.float32,
+                           device=device).contiguous()
+
+
+def isla_moments_batched(values3d: torch.Tensor, bounds, tm: int = DEFAULT_TM,
+                         stride: int = 1,
+                         prior: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Batched multi-cell ISLA moments (``isla_moments_batched_pallas``).
+
+    values3d: (n, rows, 128), rows % tm == 0; bounds (4,) shared or (n, 4)
+    per cell.  Reads every ``stride``-th (tm, 128) tile of each cell in
+    place (no gather copy).  Returns (n, 2, 4) fp32 moments seeded from
+    ``prior`` ((n, 2, 4); zeros when absent)."""
+    n, rows, lane = values3d.shape
+    if lane != LANE:
+        raise ValueError(f"last dim must be {LANE}, got {lane}")
+    chunks = _tile_chunks(rows, tm, stride)
+    dev = values3d.device
+    b = _as_bounds(bounds, dev)
+    if b.dim() == 2 and b.shape != (n, 4):
+        raise ValueError(f"per-cell bounds must be ({n}, 4), got "
+                         f"{tuple(b.shape)}")
+    if prior is None:
+        out = torch.zeros((n, 2, 4), dtype=torch.float32, device=dev)
+    else:
+        if prior.shape != (n, 2, 4):
+            raise ValueError(f"prior must be ({n}, 2, 4), got "
+                             f"{tuple(prior.shape)}")
+        out = prior.to(device=dev, dtype=torch.float32).clone()
+    if not values3d.is_contiguous():
+        values3d = values3d.contiguous()
+    isla_fold(values3d.reshape(n, rows * LANE), b, out[:, 0, :],
+              out[:, 1, :], chunks=chunks)
+    return out
+
+
+def isla_moments(values2d: torch.Tensor, bounds, tm: int = DEFAULT_TM,
+                 stride: int = 1,
+                 prior: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One cell (``isla_moments_pallas``): (rows, 128) -> (2, 4)."""
+    if values2d.dim() != 2:
+        raise ValueError(f"need (rows, {LANE}), got {tuple(values2d.shape)}")
+    if prior is not None and prior.shape != (2, 4):
+        raise ValueError(f"prior must be (2, 4), got {tuple(prior.shape)}")
+    return isla_moments_batched(
+        values2d[None], bounds, tm=tm, stride=stride,
+        prior=None if prior is None else prior[None])[0]
+
+
+def isla_moments_grouped(values4d: torch.Tensor, bounds,
+                         tm: int = DEFAULT_TM, stride: int = 1,
+                         prior: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(group, block) cells (``isla_moments_grouped_pallas``): a reshape
+    of (G, B) onto the batched cell axis, cell = group * B + block."""
+    if values4d.dim() != 4:
+        raise ValueError(f"need (n_groups, n_blocks, rows, {LANE}), got "
+                         f"shape {tuple(values4d.shape)}")
+    g, nb, rows, lane = values4d.shape
+    b = _as_bounds(bounds, values4d.device)
+    if b.dim() == 3:
+        if b.shape != (g, nb, 4):
+            raise ValueError(f"per-cell bounds must be ({g}, {nb}, 4), got "
+                             f"{tuple(b.shape)}")
+        b = b.reshape(g * nb, 4)
+    if prior is not None:
+        if prior.shape != (g, nb, 2, 4):
+            raise ValueError(f"prior must be ({g}, {nb}, 2, 4), got "
+                             f"{tuple(prior.shape)}")
+        prior = prior.reshape(g * nb, 2, 4)
+    out = isla_moments_batched(values4d.reshape(g * nb, rows, lane), b,
+                               tm=tm, stride=stride, prior=prior)
+    return out.reshape(g, nb, 2, 4)
+
+
+def isla_fused(values3d: torch.Tensor, bounds, prior: torch.Tensor,
+               sketch0, params, mode: str = "calibrated", geometry=None,
+               tm: int = DEFAULT_TM, stride: int = 1,
+               inv_scale: Optional[torch.Tensor] = None,
+               active_cells: Optional[torch.Tensor] = None):
+    """Fold + Phase 2 (``isla_fused_pallas``): the fold adds this round
+    onto ``prior`` IN PLACE (the TPU version consumes the donated prior
+    and returns its successor), then ``distributed.phase2`` solves every
+    cell.  ``active_cells`` ((n_active,) int32 resident cell ids, pads out
+    of range) is the compacted launch: ``values3d`` covers only those
+    cells, their sums land on the mapped rows, pads drop, and pruned rows
+    are never touched.  Returns ``(prior, partials)``."""
+    from ..core.distributed import _scaled_solve_args, phase2
+
+    n_all = prior.shape[0]
+    if prior.shape != (n_all, 2, 4) or prior.dtype != torch.float32:
+        raise ValueError("prior must be (n_cells, 2, 4) fp32")
+    n, rows, lane = values3d.shape
+    if lane != LANE:
+        raise ValueError(f"last dim must be {LANE}, got {lane}")
+    chunks = _tile_chunks(rows, tm, stride)
+    dev = values3d.device
+    b = _as_bounds(bounds, dev)
+    if active_cells is None:
+        if n != n_all:
+            raise ValueError(f"values cover {n} cells, prior {n_all}")
+        idx = None
+    else:
+        idx = active_cells.to(device=dev, dtype=torch.int32).contiguous()
+        if idx.shape != (n,):
+            raise ValueError(f"active_cells must be ({n},), got "
+                             f"{tuple(idx.shape)}")
+        if b.dim() == 2:  # per-cell cuts follow the compacted cells
+            b = b[idx.long().clamp(0, n_all - 1)].contiguous()
+    if not values3d.is_contiguous():
+        values3d = values3d.contiguous()
+    isla_fold(values3d.reshape(n, rows * LANE), b, prior[:, 0, :],
+              prior[:, 1, :], cell_idx=idx, chunks=chunks)
+    if geometry is not None:
+        geometry = (float(geometry[0]), float(geometry[1]))
+    thr, geometry = _scaled_solve_args(params, geometry, inv_scale)
+    partials = phase2(prior[:, 0, :], prior[:, 1, :], sketch0, params,
+                      mode=mode, geometry=geometry, thr=thr)
+    return prior, partials

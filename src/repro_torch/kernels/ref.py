@@ -1,0 +1,102 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Each function computes exactly what its CUDA kernel computes, in ordinary
+tensor ops: the wrappers in ``isla_moments.py`` run these for CPU tensors
+(the tests), and ``chip_smoke.py`` holds each kernel against its plain
+version on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+F32 = torch.float32
+
+
+def chunk_columns(chunks: Tuple[int, int, int],
+                  device=None) -> torch.Tensor:
+    """Column indices a ``(chunk_len, chunk_stride, n_chunks)`` read
+    visits: ``n_chunks`` contiguous runs of ``chunk_len`` elements, the
+    c-th starting at ``c * chunk_stride``."""
+    chunk_len, chunk_stride, n_chunks = chunks
+    starts = torch.arange(n_chunks, device=device) * chunk_stride
+    return (starts[:, None]
+            + torch.arange(chunk_len, device=device)[None, :]).reshape(-1)
+
+
+def fold_delta(values: torch.Tensor, bounds: torch.Tensor, *,
+               pad: Optional[torch.Tensor] = None,
+               valid: Optional[torch.Tensor] = None,
+               gid: Optional[torch.Tensor] = None, n_groups: int = 1,
+               affine: Optional[Tuple[float, float]] = None,
+               chunks: Optional[Tuple[int, int, int]] = None
+               ) -> torch.Tensor:
+    """The fold's per-cell sums, ``(n_groups * R, 11)`` fp32, cell
+    ``group * R + row`` — the weight columns of ``_dense_core`` (S and L
+    count/v/v^2/v^3, then count/v/v^2 of every sample) contracted over the
+    sample axis against the GROUP BY one-hot."""
+    x = values if chunks is None else values[:, chunk_columns(
+        chunks, values.device)]
+    v = x.to(F32)
+    if affine is not None:
+        ratio = torch.tensor(affine[0], dtype=F32, device=v.device)
+        off = torch.tensor(affine[1], dtype=F32, device=v.device)
+        v = v * ratio + off
+    b = bounds.to(F32).reshape(-1, 4)
+    s_lo, s_hi, l_lo, l_hi = (b[:, k:k + 1] for k in range(4))
+    m = torch.ones_like(v)
+    if pad is not None:
+        m = m * pad
+    if valid is not None:
+        m = m * valid
+    ms = ((v > s_lo) & (v < s_hi)).to(F32) * m
+    ml = ((v > l_lo) & (v < l_hi)).to(F32) * m
+    v2 = v * v
+    v3 = v2 * v
+    w = torch.stack([ms, v * ms, v2 * ms, v3 * ms,
+                     ml, v * ml, v2 * ml, v3 * ml,
+                     m, v * m, v2 * m], dim=-1)          # (R, Q, 11)
+    if gid is None:
+        return w.sum(dim=1)
+    oh = (gid.to(torch.int64)[..., None]
+          == torch.arange(n_groups, device=v.device)).to(F32)  # (R, Q, G)
+    blk = torch.einsum("rqk,rqg->grk", w, oh)           # (G, R, 11)
+    return blk.reshape(n_groups * v.shape[0], 11)
+
+
+def isla_fold_ref(values: torch.Tensor, bounds: torch.Tensor,
+                  out_s: torch.Tensor, out_l: torch.Tensor,
+                  out_t: Optional[torch.Tensor] = None, *,
+                  pad: Optional[torch.Tensor] = None,
+                  valid: Optional[torch.Tensor] = None,
+                  gid: Optional[torch.Tensor] = None, n_groups: int = 1,
+                  affine: Optional[Tuple[float, float]] = None,
+                  cell_idx: Optional[torch.Tensor] = None,
+                  chunks: Optional[Tuple[int, int, int]] = None) -> None:
+    """Plain version of the ``isla_fold`` kernel: add the fold's sums in
+    place onto ``out_s`` / ``out_l`` (and ``out_t``), row ``cell`` or row
+    ``cell_idx[cell]`` — out-of-range map entries drop."""
+    delta = fold_delta(values, bounds, pad=pad, valid=valid, gid=gid,
+                       n_groups=n_groups, affine=affine, chunks=chunks)
+    if cell_idx is None:
+        rows = torch.arange(delta.shape[0], device=delta.device)
+    else:
+        rows = cell_idx.to(torch.int64)
+        keep = (rows >= 0) & (rows < out_s.shape[0])
+        rows, delta = rows[keep], delta[keep]
+    out_s[rows] += delta[:, 0:4]
+    out_l[rows] += delta[:, 4:8]
+    if out_t is not None:
+        out_t[rows] += delta[:, 8:11]
+
+
+def pilot_stats_ref(values: torch.Tensor,
+                    center: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the ``pilot_stats`` kernel: ``(count, sum (x-c),
+    sum (x-c)^2, min x)`` fp32 over a flat run, ``c`` 0 when absent."""
+    v = values.to(F32).reshape(-1)
+    d = v if center is None else v - center.to(F32).reshape(())
+    return torch.stack([torch.tensor(float(v.shape[0]), dtype=F32,
+                                     device=v.device),
+                        d.sum(), (d * d).sum(), v.min()])

@@ -7,6 +7,10 @@ def pytest_configure(config):
         "markers",
         "transfer_guard: steady-state device-resident ticks asserted to "
         "perform zero host<->device moment transfers (tier-1)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's CUDA "
+        "kernels); skips where there is no card")
 
 
 @pytest.fixture

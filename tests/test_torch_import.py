@@ -1,0 +1,53 @@
+"""The port stands alone: every ``repro_torch`` module imports with
+``jax`` and ``repro`` blocked, and neither the package nor
+``chip_smoke.py`` names them in an import."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = list(_modules())
+    assert "repro_torch.kernels.isla_moments" in mods
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in [k for k, v in sys.modules.items() "
+            "if v is not None]\n"
+            f"print('ok', {len(mods)})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+IMPORT_RE = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b)",
+                       re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"),
+                                       ROOT / "chip_smoke.py"]))
+def test_no_reference_imports(path):
+    text = (ROOT / path).read_text()
+    assert not IMPORT_RE.search(text), path
