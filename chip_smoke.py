@@ -6,17 +6,22 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 then drives the main path — the ISLA admission loop on ``route="device"``
-over 1000 blocks x 16 groups x 20000 rows — and checks that it ran
-through the kernels (launch counts reset just before, read just after)
-and that its answers agree with the port's float64 ``route="host"`` on
-the same queries and seed.  It keeps a copy of every pane the loop
-folded and replays each fold, kernel against plain PyTorch version, on
+over 1000 blocks x 16 groups x 20000 rows — twice: once with the four
+moment aggregates on the four serving keys (the moment-only tick), once
+with COUNT DISTINCT on the four keys added (the sketch stack's tick).
+For each run it checks that it ran through the kernels (launch counts
+reset just before, read just after) and that its answers agree with the port's float64 ``route="host"`` on
+the same queries and seed (COUNT DISTINCT exactly: the register planes
+are bit-identical).  It keeps a copy of every value pane the loop folded
+and every hash pane it merged into the HLL registers, and replays each
+fold and each register merge, kernel against plain PyTorch version, on
 those very panes and times both; it also holds the fold at the tick's
-shape with synthetic 64- and 4096-sample panes, the Pallas-signature
-wrapper, and the pilot kernel at the loop's pilot size.  Every
-failure exits nonzero.  The last three lines of standard output are the
-card's name and power limit, one JSON object describing every kernel,
-and the result object; details go to ``chiprun_out/chip_smoke.json``.
+shape with synthetic 64- and 4096-sample panes, times every
+Pallas-signature wrapper against its plain version, and the pilot
+kernel at the loop's pilot size.  Every failure exits nonzero.  The
+last three lines of standard output are the card's name and power
+limit, one JSON object describing every kernel, and the result object;
+details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -164,18 +169,21 @@ def check_fold(device, n_blocks: int, quota: int) -> dict:
                 launches_per_tick=len(FOLD_KEYS))
 
 
-class FoldRecorder:
-    """Keeps a copy of every pane set the main path folds, and of the
-    resident rows just before the fold, by wrapping
-    ``distributed.fold_panes`` while it is installed."""
+class Recorder:
+    """Keeps a copy of the arguments of every call the main path makes to
+    ``distributed.<name>`` (``fold_panes``: the value panes and the
+    resident rows just before the fold; ``sketch_panes``: the hash panes
+    and the resident register plane just before the merge), by wrapping
+    it while installed."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.calls = []
 
     def __enter__(self):
         from repro_torch.core import distributed as D
 
-        self._real = real = D.fold_panes
+        self._real = real = getattr(D, self.name)
 
         def clone(x):
             if isinstance(x, (tuple, list)):
@@ -186,13 +194,33 @@ class FoldRecorder:
             self.calls.append(dict(args=clone(args), kw=clone(kw)))
             return real(*args, **kw)
 
-        D.fold_panes = spy
+        setattr(D, self.name, spy)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.core import distributed as D
 
-        D.fold_panes = self._real
+        setattr(D, self.name, self._real)
+        return False
+
+
+class PlainVersions:
+    """While installed, every kernel wrapper takes its plain PyTorch
+    version for card tensors too (``on_gpu`` answers False), so a plain
+    replay or a plain time is the same call on the same card tensors.
+    Calls made under it launch nothing and count nothing."""
+
+    def __enter__(self):
+        from repro_torch.kernels import isla_moments as K
+
+        self._real = K.on_gpu
+        K.on_gpu = lambda t: False
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import isla_moments as K
+
+        K.on_gpu = self._real
         return False
 
 
@@ -202,23 +230,23 @@ def check_main_path_folds(calls) -> "list[dict]":
     the serving tick folded, then both timed, with the call's bound."""
     import torch
     from repro_torch.core import distributed as D
-    from repro_torch.kernels import ref
 
     out = []
     for c in calls:
         state, panes = c["args"][:3], c["args"][3:]
         kw = c["kw"]
 
-        def fold_into(rows, fold=None):
-            extra = {} if fold is None else {"fold": fold}
-            D.fold_panes(*rows, *panes, **kw, **extra)
+        def fold_into(rows):
+            D.fold_panes(*rows, *panes, **kw)
 
-        def run(fold=None):
+        def run():
             rows = [t.clone() for t in state]
-            fold_into(rows, fold)
+            fold_into(rows)
             return torch.cat(rows, dim=1)
 
-        got, again, want = run(), run(), run(ref.isla_fold_ref)
+        got, again = run(), run()
+        with PlainVersions():
+            want = run()
         torch.cuda.synchronize()
         check(torch.equal(got, again),
               "isla_fold is not deterministic on the main path's panes")
@@ -230,8 +258,8 @@ def check_main_path_folds(calls) -> "list[dict]":
                            f"max rel err {rel:.3g} > 1e-5")
         scratch = [t.clone() for t in state]
         ms = time_ms(lambda: fold_into(scratch))
-        plain_ms = time_ms(lambda: fold_into(scratch, ref.isla_fold_ref),
-                           reps=5, warm=1)
+        with PlainVersions():
+            plain_ms = time_ms(lambda: fold_into(scratch), reps=5, warm=1)
         g_list = kw["n_groups_list"]
         n_b = values2d.shape[0]
         active = kw.get("active_cells")
@@ -249,6 +277,186 @@ def check_main_path_folds(calls) -> "list[dict]":
                         bound_ms=max(t_bytes, t_ops),
                         bound_by="bytes" if t_bytes >= t_ops
                         else "operations"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: the HLL register merge on the main path's hash panes.
+# ---------------------------------------------------------------------------
+
+PLAIN_REPS_LANE_CAP = 10_000_000  # wider panes: one plain replay, not five
+SKETCH_OPS_PER_LANE = 30          # mix (3 64-bit muls as 32-bit IMADs,
+                                  # shifts, xors), clz, shared max
+
+
+def sketch_bound_ms(pad_valid, gid_panes, valid_panes, n_keys: int,
+                    changed_regs: int) -> "tuple[float, float]":
+    """Least time for one ``sketch_panes`` call on this run's data: every
+    live lane's 8 bytes of raw bits and its pad, GROUP BY and predicate
+    entries read once, and each register the merge raised read and
+    written once (1 byte each); against ~30 integer operations per live
+    lane and key at the guide's fp32 non-tensor peak (it lists no
+    integer rate).  Returns the milliseconds the bytes take and those the
+    operations take."""
+    n_real = int(pad_valid.count_nonzero())
+    in_bytes = n_real * (8 + 4 + 4 * (len(gid_panes) + len(valid_panes)))
+    reg_bytes = 2 * changed_regs
+    t_bytes = (in_bytes + reg_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = SKETCH_OPS_PER_LANE * n_real * n_keys / FP32_FLOP_PER_S * 1e3
+    return t_bytes, t_ops
+
+
+def check_main_path_sketches(calls) -> "list[dict]":
+    """Replay each register merge of the main path on a copy of its
+    plane: the kernel (twice: identical bits) against its plain version
+    on the very hash panes the serving tick merged — bit for bit — then
+    both timed, with the call's bound."""
+    import torch
+    from repro_torch.core import distributed as D
+
+    out = []
+    for c in calls:
+        regs0, panes = c["args"][0], c["args"][1:]
+        kw = c["kw"]
+
+        def merge(regs):
+            D.sketch_panes(regs, *panes, **kw)
+
+        def run():
+            regs = regs0.clone()
+            merge(regs)
+            return regs
+
+        got, again = run(), run()
+        with PlainVersions():
+            want = run()
+        torch.cuda.synchronize()
+        bits = panes[0]
+        check(torch.equal(got, again),
+              "isla_sketch is not deterministic on the main path's panes")
+        check(torch.equal(got, want),
+              f"isla_sketch disagrees with its plain version on the main "
+              f"path's {tuple(bits.shape)} hash pane")
+        raised = got != regs0
+        touched = int(raised.any(dim=1).sum())
+        changed = int(raised.sum())
+        scratch = regs0.clone()
+        ms = time_ms(lambda: merge(scratch))
+        plain_reps = 1 if bits.numel() > PLAIN_REPS_LANE_CAP else 5
+        with PlainVersions():
+            plain_ms = time_ms(lambda: merge(scratch), reps=plain_reps,
+                               warm=1)
+        g_list = kw["n_groups_list"]
+        t_bytes, t_ops = sketch_bound_ms(*panes[1:4], n_keys=len(g_list),
+                                         changed_regs=changed)
+        out.append(dict(pane=list(bits.shape), keys=len(g_list),
+                        groups=list(g_list),
+                        live_lanes=int(panes[1].count_nonzero()),
+                        touched_cells=touched, changed_registers=changed,
+                        compacted=kw.get("active_cells") is not None,
+                        max_abs_err=max_abs_err(got, want),
+                        tolerance="0 (bit-identical)", ms=ms,
+                        plain_ms=plain_ms, plain_reps=plain_reps,
+                        bytes_ms=t_bytes, ops_ms=t_ops,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The Pallas-signature wrappers, each against its plain version.
+# ---------------------------------------------------------------------------
+
+
+def check_wrappers(device, n_cells: int = 1000, lanes: int = 1024,
+                   n_groups: int = 16) -> "list[dict]":
+    """Every Pallas-signature wrapper at the serving loop's widest pane
+    (``n_cells`` blocks x ``lanes`` samples, as (n_cells, lanes/128, 128)
+    tiles), each held against its plain version on the same card tensors
+    (moments rel 1e-5, registers bit for bit) and both timed, with the
+    byte bound of what the call reads and writes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import IslaParams
+    from repro_torch.kernels import isla_moments as K
+
+    rng = np.random.default_rng(3)
+    rows = lanes // 128
+    shape = (n_cells, rows, 128)
+    raw = np.round(rng.normal(100, 20, shape))
+    bits = raw.view(np.uint64)
+
+    def dev(a, dt=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    x = dev(raw, torch.float32)
+    hi = dev((bits >> np.uint64(32)).astype(np.uint32).view(np.int32))
+    lo = dev((bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+             .view(np.int32))
+    valid = dev((rng.random(shape) < 0.9).astype(np.int32))
+    bounds = dev([60.0, 90.0, 110.0, 140.0], torch.float32)
+    prior = dev(rng.uniform(0, 50, (n_cells, 2, 4)), torch.float32)
+    prior_regs = dev(rng.integers(0, 8, (n_cells, 32, 128)), torch.uint8)
+    grouped = dev(np.round(rng.normal(100, 20, (n_groups,) + shape)),
+                  torch.float32)
+    params = IslaParams(e=0.5)
+    n = x.numel()
+    mom_rw = 2 * 4 * 8  # a (2, 4) fp32 cell row read and written
+    def raised(out):  # registers the merge raised, each read and written
+        return 2 * int((out[1] != prior_regs).sum())
+
+    # name: (values shape, call, bytes it must move given its outputs)
+    cases = {
+        "isla_moments": (
+            (n_cells * rows, 128),
+            lambda: K.isla_moments(x.reshape(-1, 128), bounds, tm=rows),
+            lambda out: 4 * n + mom_rw),
+        "isla_moments_grouped": (
+            tuple(grouped.shape),
+            lambda: K.isla_moments_grouped(grouped, bounds, tm=rows),
+            lambda out: 4 * grouped.numel() + mom_rw * n_groups * n_cells),
+        "isla_fused": (
+            shape,
+            lambda: K.isla_fused(x, bounds, prior.clone(), 100.0, params,
+                                 tm=rows),
+            lambda out: 4 * n + (mom_rw + 4) * n_cells),
+        "isla_fused_sketch": (
+            shape,
+            lambda: K.isla_fused_sketch(x, bounds, prior.clone(),
+                                        prior_regs.clone(), hi, lo, valid,
+                                        100.0, params, tm=rows),
+            lambda out: 16 * n + (mom_rw + 4) * n_cells + raised(out)),
+    }
+    out = []
+    for name, (v_shape, call, need_bytes) in cases.items():
+        got = call()
+        with PlainVersions():
+            want = call()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err, rel = 0.0, 0.0
+        for g, w in zip(got, want):
+            if g.dtype == torch.uint8:
+                check(torch.equal(g, w), f"{name} registers disagree with "
+                                         f"its plain version")
+                continue
+            err = max(err, max_abs_err(g, w))
+            rel = max(rel, float(((g.double() - w.double()).abs()
+                                  / w.double().abs().clamp_min(1.0)).max()))
+        check(rel <= 1e-5, f"{name} disagrees with its plain version: max "
+                           f"rel err {rel:.3g} > 1e-5")
+        ms = time_ms(call)
+        with PlainVersions():
+            plain_ms = time_ms(call, reps=5, warm=1)
+        out.append(dict(name=name, shape=list(v_shape), max_abs_err=err,
+                        max_rel_err=rel,
+                        tolerance="rel 1e-5; registers bit-identical",
+                        ms=ms, plain_ms=plain_ms,
+                        bound_ms=need_bytes(got) / HBM_BYTES_PER_S * 1e3,
+                        bound_by="bytes"))
     return out
 
 
@@ -331,22 +539,39 @@ def check_pilot(device, n: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve_queries(C, e: float):
+# The main path's two runs.  A COUNT DISTINCT ask on a key gives its
+# store a register plane, and one sketch member makes the whole stacked
+# mode-group a sketch stack, so moment-only traffic and traffic with
+# COUNT DISTINCT take two different ticks; each run drives one of them.
+MAIN_RUNS = (("moments", False), ("distinct", True))
+
+
+def serve_queries(C, e: float, distinct: bool):
     """One tick's batch: the four serving keys (plain, WHERE, GROUP BY,
-    WHERE + GROUP BY) under the four moment aggregates."""
+    WHERE + GROUP BY) under the four moment aggregates, and with
+    ``distinct`` COUNT DISTINCT on each of the four keys."""
     flag = C.Predicate(column="flag", eq=1.0)
-    return [C.IslaQuery(e=e, agg="AVG"),
-            C.IslaQuery(e=e, agg="SUM", where=flag),
-            C.IslaQuery(e=e, agg="AVG", group_by="region"),
-            C.IslaQuery(e=e, agg="COUNT", group_by="region", where=flag),
-            C.IslaQuery(e=e, agg="VAR")]
+    qs = [C.IslaQuery(e=e, agg="AVG"),
+          C.IslaQuery(e=e, agg="SUM", where=flag),
+          C.IslaQuery(e=e, agg="AVG", group_by="region"),
+          C.IslaQuery(e=e, agg="COUNT", group_by="region", where=flag),
+          C.IslaQuery(e=e, agg="VAR")]
+    if distinct:
+        qs += [C.IslaQuery(e=e, agg="count_distinct"),
+               C.IslaQuery(e=e, agg="count_distinct", where=flag),
+               C.IslaQuery(e=e, agg="count_distinct", group_by="region"),
+               C.IslaQuery(e=e, agg="count_distinct", group_by="region",
+                           where=flag)]
+    return qs
 
 
 def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
-              rows: int, ticks, seed: int = 0):
+              rows: int, ticks, distinct: bool, seed: int = 0,
+              profile_at: "int | None" = None):
     """Drive the admission loop: one batch of ``serve_queries`` per entry
-    of ``ticks`` (its precision e).  Returns the finished tickets, the
-    executor and per-tick records."""
+    of ``ticks`` (its precision e), tick ``profile_at`` under the torch
+    profiler.  Returns the finished tickets, the executor and per-tick
+    records."""
     import numpy as np
     import repro_torch.core as C
     from repro_torch.kernels import isla_moments as K
@@ -362,10 +587,11 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
                              route=route, incremental=True)
     done, records = [], []
     for k, e in enumerate(ticks):
-        for q in serve_queries(C, e):
+        for q in serve_queries(C, e, distinct):
             loop.submit(q)
         f0, p0 = K.isla_fold.launches, K.pilot_stats.launches
-        prof = profile_tick(device, k == 1)
+        s0 = K.isla_sketch.launches
+        prof = profile_tick(device, k == profile_at)
         t0 = time.perf_counter()
         with prof:
             out = loop.tick()
@@ -380,6 +606,7 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
                              for a in out}.values()),
             fold_launches=K.isla_fold.launches - f0,
             pilot_launches=K.pilot_stats.launches - p0,
+            sketch_launches=K.isla_sketch.launches - s0,
             stages_s=dict(ex.last_stage_times)))
         done.extend(out)
     return done, ex, records
@@ -407,12 +634,13 @@ def device_seconds(prof):
     return sum(spans) * 1e-6 if spans else None
 
 
-def check_answers(dev_done, host_done) -> dict:
+def check_answers(dev_done, host_done, distinct: bool) -> dict:
     """Device route vs the port's float64 host route: finite values,
     identical draw ledgers, values rel 2e-3 and groups rel 5e-3 (the
-    reference's device-versus-host tolerances)."""
+    reference's device-versus-host tolerances); COUNT DISTINCT answers
+    equal (the same registers give the same host estimate)."""
     check(len(dev_done) == len(host_done) > 0, "answer counts differ")
-    worst, worst_g = 0.0, 0.0
+    worst, worst_g, n_distinct = 0.0, 0.0, 0
     for d, h in zip(dev_done, host_done):
         a, b = d.answer, h.answer
         check(math.isfinite(a.value), f"non-finite answer {a.value}")
@@ -420,6 +648,14 @@ def check_answers(dev_done, host_done) -> dict:
               and a.sample_size == b.sample_size,
               f"draw ledgers differ: {a.new_samples}/{a.sample_size} vs "
               f"{b.new_samples}/{b.sample_size}")
+        if a.query.agg == "count_distinct":
+            check(a.value == b.value and a.error_bound == b.error_bound,
+                  f"count_distinct device {a.value} vs host {b.value}")
+            check(b.groups is None or [g.value for g in a.groups]
+                  == [g.value for g in b.groups],
+                  "count_distinct group answers differ")
+            n_distinct += 1
+            continue
         rel = abs(a.value - b.value) / max(abs(b.value), 1e-12)
         worst = max(worst, rel)
         check(rel <= 2e-3, f"{a.query.agg} device {a.value} vs host "
@@ -432,34 +668,54 @@ def check_answers(dev_done, host_done) -> dict:
                     r = abs(gd.value - gh.value) / max(abs(gh.value), 1e-12)
                     worst_g = max(worst_g, r)
                     check(r <= 5e-3, f"group value rel {r:.3g} > 5e-3")
-    return dict(answers=len(dev_done), max_rel_value=worst,
-                max_rel_group=worst_g)
+    check(n_distinct > 0 or not distinct,
+          "no count_distinct answer was served")
+    return dict(answers=len(dev_done), distinct_answers_equal=n_distinct,
+                max_rel_value=worst, max_rel_group=worst_g)
 
 
-def main_path(n_blocks=1000, n_groups=16, rows=20000,
-              ticks=(0.5, 0.25, 0.25)) -> dict:
+def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
+              rows=20000, ticks=(0.5, 0.25, 0.25)) -> dict:
+    """One run of the main path: the launch counts are set to 0 just
+    before the loop and read just after; every kernel of the run's tick
+    must have launched (``isla_sketch`` exactly when COUNT DISTINCT is
+    asked).  Its answers are then held against the float64 host route,
+    and a second, profiled run of the same loop gives the device's busy
+    time."""
     import torch
     from repro_torch.kernels import isla_moments as K
 
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    with FoldRecorder() as folds:
+    with Recorder("fold_panes") as folds, \
+            Recorder("sketch_panes") as sketches:
         dev_done, ex, records = run_serve("cuda", "device", n_blocks,
-                                          n_groups, rows, ticks)
+                                          n_groups, rows, ticks, distinct)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"isla_fold": K.isla_fold.launches,
-                "pilot_stats": K.pilot_stats.launches}
-    check(launches["isla_fold"] > 0, "the main path never launched isla_fold")
-    check(launches["pilot_stats"] > 0,
-          "the main path never launched pilot_stats")
+                "pilot_stats": K.pilot_stats.launches,
+                "isla_sketch": K.isla_sketch.launches}
+    for kernel, n in launches.items():
+        if kernel == "isla_sketch" and not distinct:
+            check(n == 0, f"the {name} run launched isla_sketch: its "
+                          f"moment-only tick took the sketch stack")
+        else:
+            check(n > 0, f"the {name} run never launched {kernel}")
     pilot_n = int(ex._anchor[0].pilot_size)
     del ex  # the host run below rebuilds the same tables
     host_done, _, _ = run_serve("cpu", "host", n_blocks, n_groups, rows,
-                                ticks)
-    agree = check_answers(dev_done, host_done)
-    return dict(launches=launches, wall_s=wall, ticks=records,
-                pilot_size=pilot_n, agreement=agree, fold_calls=folds.calls,
+                                ticks, distinct)
+    agree = check_answers(dev_done, host_done, distinct)
+    # The profiler inflates the host stages of the tick it traces, so the
+    # device's busy time comes from a second, profiled run of the same
+    # loop (same seed, same draws) after the counts were read.
+    _, _, profiled = run_serve("cuda", "device", n_blocks, n_groups, rows,
+                               ticks, distinct, profile_at=1)
+    return dict(name=name, launches=launches, wall_s=wall, ticks=records,
+                profiled_ticks=profiled, pilot_size=pilot_n,
+                agreement=agree, fold_calls=folds.calls,
+                sketch_calls=sketches.calls,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
 
 
@@ -496,19 +752,48 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    path = main_path()
-    print(f"main path: {json.dumps(path['launches'])} launches, "
-          f"{path['agreement']}, {path['wall_s']:.2f} s")
+    runs = [main_path(name, distinct) for name, distinct in MAIN_RUNS]
+    for path in runs:
+        print(f"main path, {path['name']} run: "
+              f"{json.dumps(path['launches'])} launches, "
+              f"{path['agreement']}, {path['wall_s']:.2f} s")
+        for k, (r, q) in enumerate(zip(path["ticks"],
+                                       path["profiled_ticks"])):
+            stages = ", ".join(f"{n} {t:.4f}"
+                               for n, t in r["stages_s"].items())
+            busy = q["device_busy_s"]
+            print(f"  tick {k + 1} (e={r['e']}): {r['new_samples']} new "
+                  f"samples, {r['fold_launches']} fold / "
+                  f"{r['sketch_launches']} sketch launches, stages s: "
+                  f"{stages}"
+                  + ("" if busy is None else
+                     f"; profiled re-run: device busy {busy * 1e3:.3f} ms "
+                     f"of {q['wall_s']:.3f} s wall"))
     dev = torch.device("cuda")
-    served = check_main_path_folds(path.pop("fold_calls"))
+    served = []
+    for path in runs:
+        for f in check_main_path_folds(path.pop("fold_calls")):
+            served.append(dict(f, run=path["name"]))
     check(len(served) > 0, "the main path folded no pane")
     for f in served:
-        print(f"isla_fold on the main path's pane {tuple(f['pane'])} "
+        print(f"isla_fold on the {f['run']} run's pane {tuple(f['pane'])} "
               f"({f['keys']} keys, {f['real_samples']} samples): "
               f"{f['ms']:.4f} ms (plain {f['plain_ms']:.3f} ms, bound "
               f"{f['bound_ms']:.4f} ms by {f['bound_by']}), max abs err "
               f"{f['max_abs_err']:.3g}, max rel err {f['max_rel_err']:.3g} "
               f"(tol rel 1e-5)")
+    merged = []
+    for path in runs:
+        for f in check_main_path_sketches(path.pop("sketch_calls")):
+            merged.append(dict(f, run=path["name"]))
+    check(len(merged) > 0, "the main path merged no hash pane")
+    for f in merged:
+        print(f"isla_sketch on the {f['run']} run's hash pane "
+              f"{tuple(f['pane'])} ({f['keys']} keys, {f['live_lanes']} "
+              f"live lanes, {f['touched_cells']} cells changed): "
+              f"{f['ms']:.4f} ms (plain {f['plain_ms']:.3f} ms over "
+              f"{f['plain_reps']} reps, bound {f['bound_ms']:.4f} ms by "
+              f"{f['bound_by']}), bit-identical to its plain version")
     folds = [check_fold(dev, 1000, q) for q in (64, 4096)]
     for f in folds:
         print(f"isla_fold synthetic quota {f['quota']}: {f['ms']:.4f} ms "
@@ -520,19 +805,31 @@ def main() -> int:
           f"{batched['ms']:.4f} ms (plain {batched['plain_ms']:.3f} ms, "
           f"bound {batched['bound_ms']:.4f} ms), "
           f"max rel err {batched['max_rel_err']:.3g} (tol rel 1e-5)")
-    pilot = check_pilot(dev, path["pilot_size"])
+    wrappers = check_wrappers(dev)
+    for w in wrappers:
+        print(f"wrapper {w['name']} {tuple(w['shape'])}: {w['ms']:.4f} ms "
+              f"(plain {w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} "
+              f"ms by bytes), max rel err {w['max_rel_err']:.3g} "
+              f"({w['tolerance']})")
+    pilot = check_pilot(dev, runs[0]["pilot_size"])
     print(f"pilot_stats n={pilot['n']}: {pilot['ms']:.4f} ms (plain "
           f"{pilot['plain_ms']:.4f} ms, bound {pilot['bound_ms']:.6f} ms), "
           f"max abs err {pilot['max_abs_err']:.3g}")
 
-    # The fold's entry sums the main path's own folds (every drawing
-    # tick's launches, replayed on its panes).
+    # Each kernel's entry sums the main path's own calls (every drawing
+    # tick's launches in both runs, replayed on their panes); its launches
+    # are the two runs' counts added.
+    def launched(kernel):
+        return sum(path["launches"][kernel] for path in runs)
+
     f_bytes = sum(f["bytes_ms"] for f in served)
     f_ops = sum(f["ops_ms"] for f in served)
+    s_bytes = sum(f["bytes_ms"] for f in merged)
+    s_ops = sum(f["ops_ms"] for f in merged)
     kernels = [
         dict(name="isla_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:162",
-             launches=path["launches"]["isla_fold"],
+             launches=launched("isla_fold"),
              max_abs_err=max(f["max_abs_err"] for f in served + folds),
              ms=sum(f["ms"] for f in served),
              plain_ms=sum(f["plain_ms"] for f in served),
@@ -541,16 +838,26 @@ def main() -> int:
              library_ms=None),
         dict(name="pilot_stats", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:463",
-             launches=path["launches"]["pilot_stats"],
+             launches=launched("pilot_stats"),
              max_abs_err=pilot["max_abs_err"], ms=pilot["ms"],
              plain_ms=pilot["plain_ms"], bound_ms=pilot["bound_ms"],
              bound_by=pilot["bound_by"], library_ms=None),
+        dict(name="isla_sketch", route="cuda", source=FOLD_SOURCE,
+             replaces="src/repro/kernels/isla_moments.py:362",
+             launches=launched("isla_sketch"),
+             max_abs_err=max(f["max_abs_err"] for f in merged),
+             ms=sum(f["ms"] for f in merged),
+             plain_ms=sum(f["plain_ms"] for f in merged),
+             bound_ms=max(s_bytes, s_ops),
+             bound_by="bytes" if s_bytes >= s_ops else "operations",
+             library_ms=None),
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, build_logs=logs, main_path=path,
-        main_path_folds=served, fold=folds, batched=batched, pilot=pilot,
+        card=card, build_s=build_s, build_logs=logs, main_path=runs,
+        main_path_folds=served, main_path_sketches=merged, fold=folds,
+        batched=batched, wrappers=wrappers, pilot=pilot,
         kernels=kernels),
         indent=1, default=str))
     print(card)

@@ -28,6 +28,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 
 from .core.moment_store import MomentStore
+from .core.sketch import M
 from .core.types import Anchor, Boundaries, IslaParams
 
 
@@ -65,7 +66,9 @@ def store_from(fields: Mapping[str, Any],
     geometry (``n_blocks``, ``n_groups``), the frame (``boundaries`` as
     four cuts, ``sketch0``, ``shift``), the float64 state arrays
     (``mom_s``, ``mom_l``, ``totals``, int64 ``n_sampled``) and, when
-    present, ``rounds``, ``has_regions`` and ``has_totals``."""
+    present, ``rounds``, ``has_regions``, ``has_totals`` and the COUNT
+    DISTINCT plane (``has_sketch`` with ``regs``, uint8 ``(n_cells,
+    4096)``)."""
     n_blocks, n_groups = int(fields["n_blocks"]), int(fields["n_groups"])
     n_cells = n_blocks * n_groups
     arrays = {}
@@ -79,6 +82,17 @@ def store_from(fields: Mapping[str, Any],
     if n_sampled.shape != (n_blocks,):
         raise ValueError(f"n_sampled must be ({n_blocks},), got "
                          f"{n_sampled.shape}")
+    regs = fields.get("regs")
+    has_sketch = bool(fields.get("has_sketch", regs is not None))
+    if has_sketch:
+        if regs is None:
+            raise ValueError("has_sketch needs the regs plane")
+        regs = np.array(regs)
+        if regs.dtype != np.uint8 or regs.shape != (n_cells, M):
+            raise ValueError(f"regs must be ({n_cells}, {M}) uint8, got "
+                             f"{regs.dtype} {regs.shape}")
+    elif regs is not None:
+        raise ValueError("regs given for a store without a sketch plane")
     return MomentStore(
         n_blocks=n_blocks, n_groups=n_groups,
         boundaries=boundaries_from(fields["boundaries"]),
@@ -86,4 +100,4 @@ def store_from(fields: Mapping[str, Any],
         n_sampled=n_sampled, rounds=int(fields.get("rounds", 0)),
         has_regions=bool(fields.get("has_regions", True)),
         has_totals=bool(fields.get("has_totals", True)), anchor=anchor,
-        **arrays)
+        has_sketch=has_sketch, regs=regs, **arrays)

@@ -6,15 +6,18 @@ This mirrors ``repro.core.distributed``.  Everything is branchless
 pre-scaled by a per-anchor normalizer; ISLA is exactly scale-equivariant).
 The serving tick's Phase 1 fold runs through the hand-written CUDA kernel
 ``kernels.isla_moments.isla_fold`` on the card (its plain PyTorch version
-on the CPU); Phase 2 and the group statistics are plain tensor code.
+on the CPU), and a sketch stack's HLL register merge through
+``kernels.isla_moments.isla_sketch``; Phase 2, the group statistics and
+the group fold of the registers are plain tensor code.
 
 Where the JAX reference donates the resident state to a jitted launch and
 gets successors back, these functions update the resident tensors IN
 PLACE and return the same objects.
 
-Not in this slice (ROADMAP Queue A): the float64 tagged tick
-(``fused_tick``), the sketch-plane ticks, the pipelined launch pool, the
-mesh launches and the telemetry helpers (``isla_mean`` and friends).
+Not ported yet (ROADMAP Queue A): the float64 tagged tick (``fused_tick``
+and its sketch twin ``fused_tick_sketch``), the pipelined launch pool, the
+mesh launches with their sketch variants, and the telemetry helpers
+(``isla_mean`` and friends).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.isla_moments import isla_fold, pilot_stats
+from ..kernels.isla_moments import isla_fold, isla_sketch, pilot_stats
 from .types import IslaParams
 
 F32 = torch.float32
@@ -274,8 +277,8 @@ def fold_panes(mom_s: torch.Tensor, mom_l: torch.Tensor,
                pad_valid: torch.Tensor, gid_panes, valid_panes,
                bounds: torch.Tensor, *, n_groups_list, gid_slots,
                valid_slots, key_affine=None, bound_slots=None,
-               active_cells=None, fold=isla_fold) -> None:
-    """Phase 1 of the dense tick: one ``fold`` launch per stacked key
+               active_cells=None) -> None:
+    """Phase 1 of the dense tick: one ``isla_fold`` launch per stacked key
     adds the (n_blocks, quota_max) sample pane into that key's resident
     rows, in place.
 
@@ -286,9 +289,7 @@ def fold_panes(mom_s: torch.Tensor, mom_l: torch.Tensor,
     ``gid_panes[gid_slots[k]]`` (ungrouped keys take none).  With
     ``active_cells`` the panes cover only the active blocks and
     ``active_cells[0]`` maps each compacted (key, group, block) cell to
-    its resident row; out-of-range pads drop.  ``fold`` is
-    ``kernels.isla_moments.isla_fold`` or its plain version
-    (``kernels.ref.isla_fold_ref``), which take the same arguments.
+    its resident row; out-of-range pads drop.
     """
     n_keys = len(n_groups_list)
     if key_affine is None:
@@ -310,11 +311,11 @@ def fold_panes(mom_s: torch.Tensor, mom_l: torch.Tensor,
         b = brows[bound_slots[i]]
         if active_cells is None:
             rows = slice(o, o + g * n_b)
-            fold(values2d, b, mom_s[rows], mom_l[rows], totals[rows],
-                 **fold_kw)
+            isla_fold(values2d, b, mom_s[rows], mom_l[rows], totals[rows],
+                      **fold_kw)
         else:
-            fold(values2d, b, mom_s, mom_l, totals,
-                 cell_idx=active_cells[0][o:o + g * n_b], **fold_kw)
+            isla_fold(values2d, b, mom_s, mom_l, totals,
+                      cell_idx=active_cells[0][o:o + g * n_b], **fold_kw)
         o += g * n_b
 
 
@@ -387,13 +388,21 @@ def fused_tick_dense(mom_s: torch.Tensor, mom_l: torch.Tensor,
                        active_cells=active_cells)
 
 
+# Where each part still to port stands in ROADMAP.md, by number and name
+# (the messages of the NotImplementedErrors that refuse it).
+TAGGED_TICK_ITEM = ("ROADMAP Queue A item 1, 'The float64 tagged tick': "
+                    "it needs a deterministic, FMA-free segmented "
+                    "reduction to stay bit-exact")
+PIPELINE_ITEM = "ROADMAP Queue A item 3, 'Pipelined tick'"
+MESH_ITEM = "ROADMAP Queue A item 4, 'Mesh route'"
+
+
 def fused_tick(*args, **kwargs):
-    """The float64 tagged tick (carry-prepend segmented fold) is not in
-    this slice of the port."""
+    """The float64 tagged tick (carry-prepend segmented fold) is not
+    ported yet."""
     raise NotImplementedError(
         "the float64 tagged tick (fused_tick / layout='tagged') is not "
-        "ported yet (ROADMAP Queue A item 2: it needs a deterministic, "
-        "FMA-free segmented reduction to stay bit-exact)")
+        f"ported yet ({TAGGED_TICK_ITEM})")
 
 
 def fused_solve(mom_s: torch.Tensor, mom_l: torch.Tensor,
@@ -411,6 +420,120 @@ def fused_solve(mom_s: torch.Tensor, mom_l: torch.Tensor,
                            sizes, n_groups_list,
                            float(params.min_region_count))
     return partials, rows
+
+
+# ---------------------------------------------------------------------------
+# Sketch-plane variants: the dense tick with a (n_cells, 4096) uint8 HLL
+# register plane riding it.
+# ---------------------------------------------------------------------------
+#
+# COUNT DISTINCT state is a per-cell HyperLogLog register row whose merge
+# is an elementwise max — associative, commutative, idempotent — so any
+# partition of a stream into ticks folds to the bit-identical one-pass
+# plane.  The hash pane holds the bits of the RAW float64 measure values
+# (one int64 per lane), block-major like the value pane; the
+# ``isla_sketch`` kernel mixes and encodes them.  Dead lanes carry the
+# neutral rho = 0 and compacted pads drop, so pruned cells' registers are
+# never addressed and re-activate warm, exactly like the moment rows.
+
+
+def sketch_panes(regs: torch.Tensor, bits2d: torch.Tensor,
+                 pad_valid: torch.Tensor, gid_panes, valid_panes, *,
+                 n_groups_list, gid_slots, valid_slots,
+                 active_cells=None) -> None:
+    """The dense register merge (the reference's
+    ``_sketch_dense_scatter``): one ``isla_sketch`` launch per stacked
+    key merges the (n_blocks, quota_max) int64 hash pane (the raw
+    measure bits) into that key's resident register rows, in place,
+    masked and grouped as ``fold_panes`` masks and groups the value pane
+    (same slots, same ``active_cells`` map)."""
+    n_b = bits2d.shape[0]
+    o = 0
+    for gslot, vslot, g in zip(gid_slots, valid_slots, n_groups_list):
+        kw = dict(pad=pad_valid,
+                  valid=None if vslot < 0 else valid_panes[vslot],
+                  gid=None if g == 1 else gid_panes[gslot], n_groups=g)
+        if active_cells is None:
+            isla_sketch(bits2d, regs[o:o + g * n_b], **kw)
+        else:
+            isla_sketch(bits2d, regs,
+                        cell_idx=active_cells[0][o:o + g * n_b], **kw)
+        o += g * n_b
+
+
+def _sketch_fold(regs: torch.Tensor, n_groups_list) -> torch.Tensor:
+    """Fold the (n_cells, 4096) register plane to one (store, group) row
+    each — max over every store's block axis (the register analogue of
+    ``group_row_stats``: the host reads O(groups) rows, never per-cell
+    registers).  Cells are (group, block)-contiguous per stacked store,
+    so the fold is a reshape-max."""
+    n_b = regs.shape[0] // sum(n_groups_list)
+    out = []
+    o = 0
+    for g in n_groups_list:
+        out.append(regs[o:o + g * n_b].reshape(g, n_b, -1).amax(dim=1))
+        o += g * n_b
+    return torch.cat(out) if len(out) > 1 else out[0]
+
+
+def fused_tick_sketch(*args, **kwargs):
+    """The tagged tick with the register plane riding it is not ported
+    yet (it rides the float64 tagged tick)."""
+    raise NotImplementedError(
+        "the tagged sketch tick (fused_tick_sketch) is not ported yet "
+        f"({TAGGED_TICK_ITEM})")
+
+
+def fused_tick_dense_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                            totals: torch.Tensor, n_sampled: torch.Tensor,
+                            regs: torch.Tensor, values2d: torch.Tensor,
+                            pad_valid: torch.Tensor, bits2d: torch.Tensor,
+                            quotas: torch.Tensor, gid_panes, valid_panes,
+                            bounds: torch.Tensor,
+                            sketch0, sizes: torch.Tensor,
+                            inv_scale: Optional[torch.Tensor] = None,
+                            active_cells=None, *, params: IslaParams,
+                            mode: str = "calibrated", geometry=None,
+                            n_groups_list=(1,), gid_slots=(-1,),
+                            valid_slots=(-1,), key_affine=None,
+                            bound_slots=None):
+    """``fused_tick_dense`` with the register plane riding the tick: the
+    five state tensors (``regs`` the (n_cells, 4096) uint8 plane) are
+    updated in place; ``bits2d`` is the (n_blocks, quota_max) int64 pane
+    of the RAW measure bits (the reference ships them as (hi, lo) uint32
+    limb panes).  Returns ``(mom_s, mom_l, totals, n_sampled, regs,
+    partials, rows, group_regs)`` — ``group_regs`` the folded per-group
+    register rows, the only register bytes that are ever read back.  The
+    register merge is an integer max, so the plane stays bit-exact even
+    in fp32 serving."""
+    mom_s, mom_l, totals, n_sampled, partials, rows = _dense_core(
+        mom_s, mom_l, totals, n_sampled, values2d, pad_valid, quotas,
+        gid_panes, valid_panes, bounds, sketch0, sizes, inv_scale,
+        params=params, mode=mode, geometry=geometry,
+        n_groups_list=n_groups_list, gid_slots=gid_slots,
+        valid_slots=valid_slots, key_affine=key_affine,
+        bound_slots=bound_slots, active_cells=active_cells)
+    sketch_panes(regs, bits2d, pad_valid, gid_panes, valid_panes,
+                 n_groups_list=n_groups_list, gid_slots=gid_slots,
+                 valid_slots=valid_slots, active_cells=active_cells)
+    return (mom_s, mom_l, totals, n_sampled, regs, partials, rows,
+            _sketch_fold(regs, n_groups_list))
+
+
+def fused_solve_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                       totals: torch.Tensor, n_sampled: torch.Tensor,
+                       regs: torch.Tensor, sketch0, sizes: torch.Tensor,
+                       inv_scale: Optional[torch.Tensor] = None, *,
+                       params: IslaParams, mode: str = "calibrated",
+                       geometry=None, n_groups_list=(1,)):
+    """``fused_solve`` for sketch stacks: the zero-draw re-solve also
+    re-folds the resident registers, so a warm repeat serves distinct
+    answers from the same O(groups) readback."""
+    partials, rows = fused_solve(
+        mom_s, mom_l, totals, n_sampled, sketch0, sizes, inv_scale,
+        params=params, mode=mode, geometry=geometry,
+        n_groups_list=n_groups_list)
+    return partials, rows, _sketch_fold(regs, n_groups_list)
 
 
 # ---------------------------------------------------------------------------

@@ -31,11 +31,13 @@ between ticks, ``DeviceStack`` concatenates the warm stores of a
 mode-group onto one stacked cell axis, and a continuation round is ONE
 fused tick (``distributed.fused_tick_dense``: the CUDA fold adds the
 fresh samples onto the resident rows in place, then Phase 2 and the
-group rows) — the host touches only scalar answers and O(groups)
-statistics in steady state.  Stores may carry PER-KEY refined anchors
-(``types.Anchor``): the stack keeps one bounds row per distinct anchor,
-an inverse-anchor-scale vector and per-key pane affines, so hetero-anchor
-keys still share the single tick.  ``iter_chunked_draws`` is the SHARED
+group rows; a store with ``has_sketch`` also merges the fresh samples
+into its resident HLL register plane through the CUDA ``isla_sketch``
+kernel) — the host touches only scalar answers, O(groups) statistics and
+folded register rows in steady state.  Stores may carry PER-KEY refined
+anchors (``types.Anchor``): the stack keeps one bounds row per distinct
+anchor, an inverse-anchor-scale vector and per-key pane affines, so
+hetero-anchor keys still share the single tick.  ``iter_chunked_draws`` is the SHARED
 chunked draw loop both serving draw paths ride (the RNG-order /
 quota-padding / round-count contract).
 """
@@ -460,7 +462,12 @@ class DeviceMomentStore:
     Units: moments are stored on the SHIFTED scale (the host store's
     contract) additionally divided by ``scale`` — the fp32-safety lever
     (ISLA is exactly scale-equivariant).  The store runs fp32; the float64
-    bit-exact store (the tagged tick) is not in this slice of the port.
+    bit-exact store (the tagged tick) is not ported yet.
+
+    ``has_sketch=True`` adds the COUNT DISTINCT plane: ``regs``, a resident
+    (n_cells, 4096) uint8 HLL register plane keyed on the RAW measure bits,
+    updated in place by every tick and bit-identical to the host
+    ``MomentStore`` plane of the same samples.
 
     The per-block cumulative draw ledger is kept twice: an int64 host
     copy (``n_sampled`` — planning/deficit math stays host-side) and a
@@ -474,15 +481,10 @@ class DeviceMomentStore:
                  has_sketch: bool = False, device="cuda") -> None:
         from . import distributed as D
 
-        if has_sketch:
-            raise NotImplementedError(
-                "the device sketch plane (COUNT DISTINCT on route='device', "
-                "ROADMAP Queue A item 5) is not ported yet; use "
-                "route='host' for count_distinct")
         if dtype != torch.float32:
             raise NotImplementedError(
                 f"a {dtype} device store needs the float64 tagged tick, "
-                "which is not ported yet (ROADMAP Queue A item 2); the "
+                f"which is not ported yet ({D.TAGGED_TICK_ITEM}); the "
                 "port's device stores run float32")
         if len(block_sizes) != n_blocks:
             raise ValueError(f"need {n_blocks} block sizes, got "
@@ -497,7 +499,7 @@ class DeviceMomentStore:
         self.anchor = anchor
         self.block_sizes = [int(b) for b in block_sizes]
         self.dtype = dtype
-        self.has_sketch = False
+        self.has_sketch = bool(has_sketch)
         n_cells = self.n_groups * self.n_blocks
         # Resident state: owned directly until a DeviceStack adopts the
         # store, after which the stacked tensors are authoritative and
@@ -509,6 +511,10 @@ class DeviceMomentStore:
         self._mom_l = zeros((n_cells, 4))
         self._totals = zeros((n_cells, 3))
         self._ns_dev = zeros((self.n_blocks,))
+        self._regs = (torch.zeros((n_cells, _sketch.M), dtype=torch.uint8,
+                                  device=self.device)
+                      if self.has_sketch else None)
+        self._group_regs = None  # last tick's folded (n_groups, M) rows
         self.n_sampled = np.zeros(self.n_blocks, dtype=np.int64)
         self.rounds = 0
         # Anchor constants, uploaded once at store creation (cold start —
@@ -579,6 +585,24 @@ class DeviceMomentStore:
     def _n_sampled_dev(self, v):
         self._set_state("_ns_dev", v)
 
+    @property
+    def regs(self):
+        """The resident (n_cells, 4096) uint8 register plane (None
+        without a sketch plane)."""
+        if not self.has_sketch:
+            return None
+        return self._state_attr("_regs", 4)
+
+    @regs.setter
+    def regs(self, v):
+        if not self.has_sketch:
+            raise ValueError("store was built without a sketch plane "
+                             "(has_sketch=False)")
+        self._detach()
+        self._regs = torch.as_tensor(v, dtype=torch.uint8,
+                                     device=self.device)
+        self._stats_valid = False
+
     # -- construction ------------------------------------------------------
 
     @staticmethod
@@ -629,6 +653,8 @@ class DeviceMomentStore:
         dst.n_sampled = store.n_sampled.copy()
         dst._n_sampled_dev = D.h2d(store.n_sampled.astype(np.float64),
                                    dst.dtype, dst.device)
+        if store.has_sketch:
+            dst.regs = D.h2d(store.regs, torch.uint8, dst.device)
         dst.rounds = store.rounds
         return dst
 
@@ -646,12 +672,29 @@ class DeviceMomentStore:
             shift=self.shift, mom_s=host(self.mom_s) * p4,
             mom_l=host(self.mom_l) * p4, totals=host(self.totals) * p4[:3],
             n_sampled=self.n_sampled.copy(), rounds=self.rounds,
-            anchor=self.anchor)
+            anchor=self.anchor, has_sketch=self.has_sketch,
+            regs=(self.regs.to("cpu").numpy().copy()
+                  if self.has_sketch else None))
+
+    # -- sketch plane ------------------------------------------------------
 
     def group_registers(self) -> np.ndarray:
-        raise NotImplementedError(
-            "the device sketch plane is not ported yet (ROADMAP Queue A "
-            "item 5)")
+        """(n_groups, M) folded register rows.  Steady state serves the
+        tick's folded rows (read back with the stat rows — no per-cell
+        register bytes cross); the cold/diagnostic path downloads the
+        resident plane and folds on the host."""
+        if not self.has_sketch:
+            raise ValueError("store was built without a sketch plane "
+                             "(has_sketch=False)")
+        if self._stats_valid and self._group_regs is not None:
+            return self._group_regs
+        return _sketch.fold_groups(self.regs.to("cpu").numpy(),
+                                   self.n_groups)
+
+    def distinct_counts(self) -> np.ndarray:
+        """(n_groups,) HLL COUNT DISTINCT estimates (host estimator over
+        the folded rows — identical math on every route)."""
+        return _sketch.estimate(self.group_registers())
 
     # -- properties / planning mirror --------------------------------------
 
@@ -725,10 +768,11 @@ class DeviceMomentStore:
         if layout not in ("auto", "dense", "tagged"):
             raise ValueError(f"unknown layout {layout!r}")
         if layout == "tagged" or not canonical:
+            from . import distributed as D
+
             raise NotImplementedError(
                 "the tagged tick (non-block-major streams, "
-                "layout='tagged') is not ported yet (ROADMAP Queue A "
-                "item 2)")
+                f"layout='tagged') is not ported yet ({D.TAGGED_TICK_ITEM})")
         # The stack's dense pane takes RAW measure values; this API takes
         # shifted ones (the MomentStore contract), so un-shift first — a
         # float64 round trip well inside the fp32 tolerance.
@@ -769,6 +813,12 @@ class DeviceStack:
     keeps the identity affine.  ``sketch0`` may differ per store
     (re-anchoring), so Phase 2 takes a per-cell sketch vector.  Stack
     constants are uploaded once at stack build.
+
+    Any sketch member makes the stack a sketch stack: its tick merges the
+    fresh samples into one stacked register plane (non-sketch members
+    ride with inert all-zero register rows — max against them is a
+    no-op, and they are never read) and reads back the folded
+    (n_rows, 4096) group rows with the stat rows.
     """
 
     def __init__(self, stores: Sequence[DeviceMomentStore]) -> None:
@@ -846,20 +896,35 @@ class DeviceStack:
                 torch.cat([st._mom_l for st in self.stores]),
                 torch.cat([st._totals for st in self.stores]),
                 torch.cat([st._ns_dev for st in self.stores]))
+        self.has_sketch = any(st.has_sketch for st in self.stores)
+        if not self.has_sketch:
+            self._regs_state = None
+        elif len(self.stores) == 1:
+            self._regs_state = self.stores[0]._regs
+        else:
+            self._regs_state = torch.cat([
+                st._regs if st.has_sketch else torch.zeros(
+                    (st.n_cells, _sketch.M), dtype=torch.uint8,
+                    device=self.device)
+                for st in self.stores])
         self._released = False
         for st in self.stores:
             st._mom_s = st._mom_l = st._totals = st._ns_dev = None
+            st._regs = None
             st._owner = self
 
     # -- state plumbing ----------------------------------------------------
 
     def state_slice(self, store: DeviceMomentStore, idx: int):
         """One adopted store's view of the stacked state (idx: 0 mom_s,
-        1 mom_l, 2 totals, 3 device draw ledger) — for diagnostics and
-        downloads, never on the tick path."""
+        1 mom_l, 2 totals, 3 device draw ledger, 4 HLL registers) — for
+        diagnostics and downloads, never on the tick path."""
         k = next(i for i, st in enumerate(self.stores) if st is store)
         if idx < 3:
             return self._state[idx][int(self.offsets[k]):
+                                    int(self.offsets[k + 1])]
+        if idx == 4:
+            return self._regs_state[int(self.offsets[k]):
                                     int(self.offsets[k + 1])]
         b = self.n_blocks
         return self._state[3][k * b:(k + 1) * b]
@@ -878,19 +943,26 @@ class DeviceStack:
             st._mom_l = mom_l[o0:o1].clone()
             st._totals = totals[o0:o1].clone()
             st._ns_dev = ns[k * b:(k + 1) * b].clone()
+            if st.has_sketch:
+                st._regs = self._regs_state[o0:o1].clone()
             st._owner = None
         # Drop the stacked tensors: a stale executor cache entry must not
         # pin a dead copy of every store's moments in device memory.
         self._state = None
+        self._regs_state = None
         self._sk_cells = None
         self._released = True
 
-    def _install_stats(self, partials, rows, cfg, timings=None):
+    def _install_stats(self, partials, rows, cfg, timings=None,
+                       group_regs=None):
         """Hand each store its slice of the tick's stats: one blocking
-        device->host copy of the O(groups) rows; per-cell partials stay
-        on the device as views."""
+        device->host copy of the O(groups) rows (and, on a sketch stack,
+        of the (n_rows, 4096) folded register rows ``group_regs``);
+        per-cell partials stay on the device as views."""
         t0 = time.perf_counter()
         rows_np = rows.to("cpu", torch.float64).numpy()  # d2h: stats
+        regs_np = (None if group_regs is None
+                   else group_regs.to("cpu").numpy())   # d2h: folded regs
         if timings is not None:
             timings["readback"] = (timings.get("readback", 0.0)
                                    + time.perf_counter() - t0)
@@ -900,6 +972,8 @@ class DeviceStack:
             o0, o1 = int(self.offsets[k]), int(self.offsets[k + 1])
             st._partials = partials[o0:o1]
             st._rows = rows_np[r0:r1]
+            if regs_np is not None and st.has_sketch:
+                st._group_regs = regs_np[r0:r1]
             st._stats_valid = True
             st._stats_cfg = cfg
             out.append((st._partials, st._rows))
@@ -1006,25 +1080,30 @@ class DeviceStack:
         resident moments are re-solved (served from the stats cache when
         nothing changed — no launch, no transfer).
 
+        A sketch stack also ships the same stream's RAW float64 bits —
+        never the anchor-scaled pane — as an int64 pane laid out like the
+        value pane and merges them into the resident register plane
+        (``distributed.fused_tick_dense_sketch``: one ``isla_sketch``
+        launch per key); the zero-draw re-solve re-folds the registers.
+
         Returns ``[(partials, rows), ...]`` per store — device partial
         answers and the numpy group-stat rows, both in EACH STORE'S scaled
         shifted units.  ``timings`` (optional dict) accumulates wall
         seconds under ``"h2d"``/``"launch"``/``"readback"``.
 
         The tagged payload (``seg=``) and deferred stats
-        (``defer_stats=True``, the pipelined tick) are not in this slice
-        of the port.
+        (``defer_stats=True``, the pipelined tick) are not ported yet.
         """
         from . import distributed as D
 
         if seg is not None:
             raise NotImplementedError(
-                "the tagged tick (seg=) is not ported yet (ROADMAP Queue A "
-                "item 2)")
+                "the tagged tick (seg=) is not ported yet "
+                f"({D.TAGGED_TICK_ITEM})")
         if defer_stats:
             raise NotImplementedError(
                 "deferred stats (the pipelined tick) are not ported yet "
-                "(ROADMAP Queue A item 6)")
+                f"({D.PIPELINE_ITEM})")
         if geometry is not None:
             # kappa is dimensionless; b0 lives on the value axis — the
             # tick rescales it per cell via the inv_scale vector.
@@ -1040,14 +1119,23 @@ class DeviceStack:
                    for st in self.stores):
                 return [(st._partials, st._rows) for st in self.stores]
             t0 = time.perf_counter()
-            partials, rows = D.fused_solve(
-                mom_s, mom_l, totals, ns, self._sketch0_cells(),
-                self._sizes, self._inv_scale, params=params, mode=mode,
-                geometry=geometry, n_groups_list=self.n_groups_list)
+            group_regs = None
+            if self.has_sketch:
+                partials, rows, group_regs = D.fused_solve_sketch(
+                    mom_s, mom_l, totals, ns, self._regs_state,
+                    self._sketch0_cells(), self._sizes, self._inv_scale,
+                    params=params, mode=mode, geometry=geometry,
+                    n_groups_list=self.n_groups_list)
+            else:
+                partials, rows = D.fused_solve(
+                    mom_s, mom_l, totals, ns, self._sketch0_cells(),
+                    self._sizes, self._inv_scale, params=params, mode=mode,
+                    geometry=geometry, n_groups_list=self.n_groups_list)
             if timings is not None:
                 timings["launch"] = (timings.get("launch", 0.0)
                                      + time.perf_counter() - t0)
-            return self._install_stats(partials, rows, cfg, timings)
+            return self._install_stats(partials, rows, cfg, timings,
+                                       group_regs)
         if dense is None:
             raise ValueError("a drawing tick needs dense=(key_gids, "
                              "key_valids)")
@@ -1108,18 +1196,35 @@ class DeviceStack:
                 valid_panes.append(D.h2d(m2d, self.dtype, dev))
         v_dev = D.h2d(v2d, self.dtype, dev)
         pad_dev = D.h2d(pad, self.dtype, dev)
+        if self.has_sketch:
+            # The hash pane carries the RAW stream's float64 bits (the
+            # value pane is anchor-scaled; registers key on the raw bits).
+            b2d = np.zeros(v2d.shape, dtype=np.int64)
+            b2d[vmask] = _sketch.value_bits(values).view(np.int64)
+            bits_dev = D.h2d(b2d, torch.int64, dev)
         if timings is not None:
             timings["h2d"] = (timings.get("h2d", 0.0)
                               + time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        _, _, _, _, partials, rows = D.fused_tick_dense(
-            mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev,
-            tuple(gid_panes), tuple(valid_panes), self._bound_rows,
-            self._sketch0_cells(), self._sizes, self._inv_scale,
-            active_cells, params=params, mode=mode, geometry=geometry,
-            n_groups_list=self.n_groups_list, gid_slots=tuple(gid_slots),
-            valid_slots=tuple(valid_slots), key_affine=key_affine,
-            bound_slots=self._bound_slots)
+        tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                       n_groups_list=self.n_groups_list,
+                       gid_slots=tuple(gid_slots),
+                       valid_slots=tuple(valid_slots),
+                       key_affine=key_affine, bound_slots=self._bound_slots)
+        group_regs = None
+        if self.has_sketch:
+            out = D.fused_tick_dense_sketch(
+                mom_s, mom_l, totals, ns, self._regs_state, v_dev, pad_dev,
+                bits_dev, q_dev, tuple(gid_panes), tuple(valid_panes),
+                self._bound_rows, self._sketch0_cells(), self._sizes,
+                self._inv_scale, active_cells, **tick_kw)
+            partials, rows, group_regs = out[5:]
+        else:
+            partials, rows = D.fused_tick_dense(
+                mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev,
+                tuple(gid_panes), tuple(valid_panes), self._bound_rows,
+                self._sketch0_cells(), self._sizes, self._inv_scale,
+                active_cells, **tick_kw)[4:]
         if timings is not None:
             timings["launch"] = (timings.get("launch", 0.0)
                                  + time.perf_counter() - t_l)
@@ -1127,7 +1232,7 @@ class DeviceStack:
             st.n_sampled = st.n_sampled + quotas
             if count_round:
                 st.rounds += 1
-        return self._install_stats(partials, rows, cfg, timings)
+        return self._install_stats(partials, rows, cfg, timings, group_regs)
 
 
 def proportional_allocate(amounts: np.ndarray, budget: int) -> np.ndarray:

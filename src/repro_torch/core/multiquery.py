@@ -70,8 +70,9 @@ key (``drifted_keys``) while every other warm store survives.
 This is the PyTorch port of ``repro.core.multiquery``: the planner,
 composer, admission tier, zone pruning and drift guard are the
 reference's host code; ``route="device"`` binds to the torch device
-stores, whose tick runs the hand-written CUDA fold on the card.  The
-mesh route and the pipelined tick are not in this slice of the port.
+stores, whose tick runs the hand-written CUDA fold (and, for COUNT
+DISTINCT keys, the CUDA HLL register merge) on the card.  The mesh route
+and the pipelined tick are not ported yet.
 """
 from __future__ import annotations
 
@@ -91,7 +92,8 @@ from . import sketch as _sketch
 from .engine import (AUTO_SKEW_THRESHOLD, MODES, IslaQuery, block_quotas,
                      phase2_iteration_batch, resolve_mode_and_geometry)
 from .modulation import empirical_geometry
-from .distributed import phase2, pilot_stats_device, resolve_device
+from .distributed import (MESH_ITEM, PIPELINE_ITEM, phase2,
+                          pilot_stats_device, resolve_device)
 from .moment_store import (DeviceMomentStore, DeviceStack, MomentStore,
                            iter_chunked_draws, proportional_allocate,
                            split_budget)
@@ -1135,7 +1137,7 @@ class MultiQueryExecutor:
                              f"{ROUTES}")
         if route == "mesh":
             raise NotImplementedError(
-                "the mesh route is not ported yet (ROADMAP Queue A item 7)")
+                f"the mesh route is not ported yet ({MESH_ITEM})")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; expected one of "
                              f"{MODES}")
@@ -2323,7 +2325,7 @@ class MultiQueryExecutor:
         if pipeline:
             raise NotImplementedError(
                 "the pipelined tick (pipeline=True) is not ported yet "
-                "(ROADMAP Queue A item 6)")
+                f"({PIPELINE_ITEM})")
         self._run_epoch += 1  # store ledgers may move: lookups re-validate
         times = self.last_stage_times = dict.fromkeys(_STAGES, 0.0)
         t_plan = time.perf_counter()

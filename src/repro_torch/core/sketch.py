@@ -4,10 +4,16 @@ The ISLA tick never keeps sampled rows — only mergeable per-cell state —
 and HyperLogLog registers satisfy exactly that contract: the merge of two
 register planes is the elementwise ``max``, which is associative,
 commutative and idempotent, so ANY partition of a stream into ticks folds
-to the bit-identical one-pass plane.  This module is the host twin (the
-device plane's ``uint32``-limb twin is not in this slice of the port):
+to the bit-identical one-pass plane.  This module holds everything the
+host and device routes share:
 
-* the 64-bit hash (splitmix64) over ``numpy.uint64``,
+* the 64-bit hash (splitmix64) in two twin implementations — a host
+  ``numpy.uint64`` version and a torch ``uint32``-limb version (torch has
+  no ``+``, ``>>`` or ``<`` on ``torch.uint64``, and ``int64 >>`` is an
+  arithmetic shift, so the 64-bit mix is spelled out in 32-bit limbs held
+  in int64 tensors) — that agree bit for bit; the ``isla_sketch`` CUDA
+  kernel mixes in native 64-bit integers and is held against the limb
+  twin,
 * the register encoding ``hash -> (bucket j, rank rho)``,
 * the standard HLL estimator with small-range correction, and
 * the group fold (max over a store's block axis).
@@ -91,6 +97,80 @@ def scatter_max(regs: np.ndarray, seg: np.ndarray, j: np.ndarray,
     samples can ride the scatter with a zeroed rank instead of a gather.
     """
     np.maximum.at(regs, (np.asarray(seg, dtype=np.int64), j), rho)
+
+
+# -- torch twin (uint32 limbs in int64 tensors) ----------------------------
+#
+# Every limb is an int64 tensor holding a value in [0, 2^32), masked back
+# into that range after each op, so right shifts are logical and no
+# product exceeds 2^48 (a 32x32 product would overflow int64, which is
+# undefined in C++ even where torch happens to wrap).  Bit-identical to
+# the numpy twin on every input (audited in tests/test_torch_sketch.py).
+
+_M32 = 0xFFFFFFFF
+_M16 = 0xFFFF
+
+
+def bits_limbs(bits):
+    """An int64 tensor of raw 64-bit patterns as ``(hi, lo)`` limb
+    tensors (int64 in [0, 2^32)): the arithmetic ``>>`` of a negative
+    pattern is masked back to the logical one."""
+    return (bits >> 32) & _M32, bits & _M32
+
+
+def _add64(ahi, alo, bhi: int, blo: int):
+    lo = (alo + blo) & _M32
+    carry = (lo < blo).to(lo.dtype)
+    return (ahi + bhi + carry) & _M32, lo
+
+
+def _mulmod32(a, b: int):
+    """``(a * b) mod 2^32`` from the 16-bit halves of ``a``."""
+    return ((a & _M16) * b + ((((a >> 16) * b) & _M16) << 16)) & _M32
+
+
+def _mul64(ahi, alo, bhi: int, blo: int):
+    """``(a * b) mod 2^64`` over limbs: the low 32x32 -> 64 product via
+    16-bit sub-limbs, cross terms folded into the high limb mod 2^32."""
+    a0, a1 = alo & _M16, alo >> 16
+    b0, b1 = blo & _M16, blo >> 16
+    p00 = a0 * b0
+    mid = a0 * b1 + (p00 >> 16)
+    mid2 = a1 * b0 + (mid & _M16)
+    lo = ((p00 & _M16) | (mid2 << 16)) & _M32
+    hi = a1 * b1 + (mid >> 16) + (mid2 >> 16)
+    hi = (hi + _mulmod32(alo, bhi) + _mulmod32(ahi, blo)) & _M32
+    return hi, lo
+
+
+def _xsr64(hi, lo, s: int):
+    """``x >> s`` for 0 < s < 32 over limbs."""
+    return hi >> s, ((lo >> s) | (hi << (32 - s))) & _M32
+
+
+def splitmix64_graph(hi, lo):
+    """The torch splitmix64 twin over ``(hi, lo)`` limb tensors (int64 in
+    [0, 2^32), see ``bits_limbs``)."""
+    hi, lo = _add64(hi, lo, 0x9E3779B9, 0x7F4A7C15)
+    thi, tlo = _xsr64(hi, lo, 30)
+    hi, lo = _mul64(hi ^ thi, lo ^ tlo, 0xBF58476D, 0x1CE4E5B9)
+    thi, tlo = _xsr64(hi, lo, 27)
+    hi, lo = _mul64(hi ^ thi, lo ^ tlo, 0x94D049BB, 0x133111EB)
+    thi, tlo = _xsr64(hi, lo, 31)
+    return hi ^ thi, lo ^ tlo
+
+
+def encode_graph(hi, lo):
+    """Torch ``hash -> (j, rho)`` over limb tensors: ``j`` (int64) the top
+    12 bits, ``rho`` (uint8) the leading-zero count of the low 52 bits
+    plus 1 — read off the exact float64 image of the < 2^52 remainder, as
+    the host ``encode`` does (``frexp(0)`` gives 53)."""
+    import torch
+
+    j = hi >> 20
+    rem = ((hi & 0xFFFFF) << 32) | lo
+    _, exp = torch.frexp(rem.to(torch.float64))
+    return j, (RHO_MAX - exp).to(torch.uint8)
 
 
 # -- estimation ------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Wrappers and binding of the hand-written ISLA kernels (Hopper, sm_90a).
 
-Two CUDA kernels live in ``csrc/isla_kernels.cu`` (the note there names
+Three CUDA kernels live in ``csrc/isla_kernels.cu`` (the note there names
 the TPU kernels they replace, their bound and their design):
 
 * ``isla_fold`` — the Phase 1 fold: per output cell, the S/L region
@@ -8,7 +8,11 @@ the TPU kernels they replace, their bound and their design):
   resident fp32 rows (shared or per-row cuts, optional per-key affine,
   0/1 masks, GROUP BY ids, an index map whose out-of-range entries drop);
 * ``pilot_stats`` — ``(count, sum (x-c), sum (x-c)^2, min x)`` of a flat
-  fp32 run.
+  fp32 run;
+* ``isla_sketch`` — the HLL COUNT DISTINCT register merge: splitmix64 of
+  each live lane's raw float64 bits (one int64 pane), encoded to ``(j, rho)`` and maxed in
+  place into resident uint8 register rows (GROUP BY ids, 0/1 masks, an
+  index map whose out-of-range entries drop).
 
 The source is compiled with ``nvcc`` at first use into ``_build/`` beside
 this file (a plain C interface loaded with ``ctypes``), so importing this
@@ -17,12 +21,15 @@ runs the kernel's plain PyTorch version (``ref.py``); given CUDA tensors
 it launches the kernel, or raises — it never falls back.  Each kernel's
 ``launches`` counter (an attribute of its wrapper) counts the wrapper's
 calls that launched the kernel on the card, and nothing else.  An
-``isla_fold`` call is one ``__global__`` launch; a ``pilot_stats`` call
-is two (per-block partials, then the fixed-order combine).
+``isla_sketch`` call is one ``__global__`` launch; an ``isla_fold`` call
+is one, or two when its cells exceed ``FOLD_SLICE`` samples (per-slice
+partial rows, then their fixed-order combine); a ``pilot_stats`` call is
+two (per-block partials, then the fixed-order combine).
 
 The Pallas-signature wrappers (``isla_moments_batched``, ``isla_moments``,
-``isla_moments_grouped``, ``isla_fused``) keep the reference functions'
-shapes and checks and run on the fold kernel.
+``isla_moments_grouped``, ``isla_fused``; ``isla_sketch_batched``,
+``isla_fused_sketch``) keep the reference functions' shapes and checks
+and run on the fold and sketch kernels.
 """
 from __future__ import annotations
 
@@ -42,6 +49,9 @@ from .ops import on_gpu
 
 LANE = 128          # lane width of the (rows, 128) tile layout
 DEFAULT_TM = 512    # rows per tile of the reference layout
+FOLD_SLICE = 32768  # samples per fold block: longer cells are sliced
+REG_ROWS = 32       # one cell's 4096 HLL registers as a (32, 128) tile
+N_REGS = REG_ROWS * LANE
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -110,10 +120,13 @@ def library(source: str = SOURCES[0]) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.isla_fold.argtypes = [
         _P, _I, _LL, _LL, _LL, _LL, _LL, _I, _F, _F, _P, _LL, _P, _P, _P,
-        _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P]
+        _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _P, _P]
     lib.isla_fold.restype = _I
     lib.pilot_stats.argtypes = [_P, _LL, _P, _P, _I, _P, _P]
     lib.pilot_stats.restype = _I
+    lib.isla_sketch.argtypes = [_P, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P,
+                                _LL, _P]
+    lib.isla_sketch.restype = _I
     return lib
 
 
@@ -124,6 +137,24 @@ def _ptr(t: Optional[torch.Tensor]):
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _check_cells(n_groups: int, n_rows: int, n_out: int,
+                 cell_idx: Optional[torch.Tensor], what: str) -> int:
+    """Validate a launch's cell grid and its optional cell -> row map;
+    returns the cell count ``n_groups * n_rows``."""
+    n_cells = n_groups * n_rows
+    if n_cells >= 2 ** 31:
+        raise ValueError(f"{n_cells} cells exceed one launch's grid")
+    if cell_idx is not None:
+        if cell_idx.dtype != torch.int32 or cell_idx.shape != (n_cells,) \
+                or not cell_idx.is_contiguous():
+            raise ValueError(f"cell_idx must be contiguous ({n_cells},) "
+                             f"int32")
+    elif n_out != n_cells:
+        raise ValueError(f"{what} rows ({n_out}) must equal n_groups * R "
+                         f"({n_cells}) without a cell_idx map")
+    return n_cells
 
 
 def _same_device(ref_t: torch.Tensor, **tensors) -> None:
@@ -214,17 +245,7 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
                 or t.shape[0] != n_out or t.stride(1) != 1:
             raise ValueError(f"{name} must be ({n_out}, {w}) fp32 with "
                              f"unit column stride")
-    n_cells = n_groups * n_rows
-    if n_cells >= 2 ** 31:
-        raise ValueError(f"{n_cells} cells exceed one launch's grid")
-    if cell_idx is not None:
-        if cell_idx.dtype != torch.int32 or cell_idx.shape != (n_cells,) \
-                or not cell_idx.is_contiguous():
-            raise ValueError(f"cell_idx must be contiguous ({n_cells},) "
-                             f"int32")
-    elif n_out != n_cells:
-        raise ValueError(f"out rows ({n_out}) must equal n_groups * R "
-                         f"({n_cells}) without a cell_idx map")
+    n_cells = _check_cells(n_groups, n_rows, n_out, cell_idx, "out")
     _same_device(values, bounds=bounds, out_s=out_s, out_l=out_l,
                  out_t=out_t, pad=pad, valid=valid, gid=gid,
                  cell_idx=cell_idx)
@@ -236,6 +257,15 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
     if n_cells == 0:
         return
     ratio, off = (1.0, 0.0) if affine is None else affine
+    # Cells longer than FOLD_SLICE samples are summed slice by slice (one
+    # block each, 256 fp32 adds per thread at most), then combined in
+    # slice order by a second kernel.
+    n_slices = -(-(n_chunks * chunk_len) // FOLD_SLICE)
+    if n_cells * max(n_slices, 1) >= 2 ** 31:
+        raise ValueError(f"{n_cells} cells of {n_slices} slices exceed one "
+                         f"launch's grid")
+    slices = (torch.empty(n_cells * n_slices * 11, dtype=torch.float32,
+                          device=values.device) if n_slices > 1 else None)
     with torch.cuda.device(values.device):
         err = library().isla_fold(
             _ptr(values), int(values.dtype == torch.bfloat16), n_rows,
@@ -245,6 +275,7 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
             n_groups, _ptr(out_s), out_s.stride(0), _ptr(out_l),
             out_l.stride(0), _ptr(out_t),
             0 if out_t is None else out_t.stride(0), _ptr(cell_idx), n_out,
+            FOLD_SLICE, max(n_slices, 1), _ptr(slices),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "isla_fold")
     isla_fold.launches += 1
@@ -297,9 +328,92 @@ def pilot_stats(values: torch.Tensor,
 pilot_stats.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Kernel C: the HLL register merge.
+# ---------------------------------------------------------------------------
+
+
+def limbs_to_bits(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The int64 bits pane of ``(hi, lo)`` uint32 limb panes (int32 or
+    uint32 tensors of the same shape): the two limbs side by side,
+    reinterpreted (little endian) — no arithmetic, no overflow."""
+    pair = torch.stack([lo.view(torch.int32), hi.view(torch.int32)], dim=-1)
+    return pair.contiguous().view(torch.int64)[..., 0]
+
+
+def isla_sketch(bits: torch.Tensor, regs: torch.Tensor, *,
+                pad: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None,
+                gid: Optional[torch.Tensor] = None, n_groups: int = 1,
+                cell_idx: Optional[torch.Tensor] = None) -> None:
+    """Merge a (R, Q) hash pane into resident HLL register rows, in place.
+
+    bits : (R, Q) int64 — the RAW float64 measure values' bits
+        (``values.view(int64)``), unit stride along Q.
+    regs : (N, 4096) uint8, contiguous; row ``cell`` receives
+        ``max(regs[cell, j], rho)`` for every live lane hashing to bucket
+        ``j`` with rank ``rho``.
+    pad, valid : optional (R, Q) fp32 0/1 masks laid out like ``bits``.
+    gid : optional (R, Q) int32 GROUP BY ids in ``[0, n_groups)`` (others
+        match no group).  Cell ``g * R + r`` receives row r's group-g
+        lanes.
+    cell_idx : optional (n_groups * R,) int32 map from cell to register
+        row; entries outside ``[0, N)`` drop.  Without it N must equal
+        ``n_groups * R`` (pass a row-sliced view to merge at an offset).
+
+    ``isla_sketch.launches`` counts this wrapper's kernel launches on the
+    card (one ``__global__`` launch per call).
+    """
+    if bits.dim() != 2 or bits.dtype != torch.int64:
+        raise ValueError(f"bits must be (R, Q) int64, got {bits.dtype} "
+                         f"{tuple(bits.shape)}")
+    n_rows, q = bits.shape
+    if q > 1 and bits.stride(1) != 1:
+        raise ValueError("hash panes need unit stride along the lane axis")
+    n_groups = int(n_groups)
+    if n_groups < 1:
+        raise ValueError(f"n_groups must be >= 1, got {n_groups}")
+    if gid is None and n_groups != 1:
+        raise ValueError("n_groups > 1 needs a gid pane")
+    for name, t, dt in (("pad", pad, torch.float32),
+                        ("valid", valid, torch.float32),
+                        ("gid", gid, torch.int32)):
+        if t is None:
+            continue
+        if t.dtype != dt or t.shape != bits.shape \
+                or t.stride() != bits.stride():
+            raise ValueError(f"{name} must be {dt} laid out like bits")
+    if regs.dtype != torch.uint8 or regs.dim() != 2 \
+            or regs.shape[1] != N_REGS or not regs.is_contiguous():
+        raise ValueError(f"regs must be contiguous (N, {N_REGS}) uint8")
+    n_out = regs.shape[0]
+    n_cells = _check_cells(n_groups, n_rows, n_out, cell_idx, "register")
+    _same_device(bits, regs=regs, pad=pad, valid=valid, gid=gid,
+                 cell_idx=cell_idx)
+    if not on_gpu(bits):
+        ref.isla_sketch_ref(bits, regs, pad=pad, valid=valid, gid=gid,
+                            n_groups=n_groups, cell_idx=cell_idx)
+        return
+    if n_cells == 0 or q == 0:
+        return
+    if regs.data_ptr() % 4 != 0:
+        raise ValueError("regs must be 4-byte aligned")
+    with torch.cuda.device(bits.device):
+        err = library().isla_sketch(
+            _ptr(bits), n_rows, bits.stride(0), q, _ptr(pad),
+            _ptr(valid), _ptr(gid), n_groups, _ptr(regs), _ptr(cell_idx),
+            n_out, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "isla_sketch")
+    isla_sketch.launches += 1
+
+
+isla_sketch.launches = 0
+
+
 def reset_launch_counts() -> None:
     isla_fold.launches = 0
     pilot_stats.launches = 0
+    isla_sketch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -436,3 +550,60 @@ def isla_fused(values3d: torch.Tensor, bounds, prior: torch.Tensor,
     partials = phase2(prior[:, 0, :], prior[:, 1, :], sketch0, params,
                       mode=mode, geometry=geometry, thr=thr)
     return prior, partials
+
+
+def _sketch_tiles(hash_hi3d: torch.Tensor, hash_lo3d: torch.Tensor,
+                  valid3d: torch.Tensor, tm: int, regs3d: torch.Tensor
+                  ) -> None:
+    """Merge (n, rows, 128) limb panes, one cell each, into (n, 32, 128)
+    uint8 registers in place."""
+    n, rows, lane = hash_hi3d.shape
+    if lane != LANE:
+        raise ValueError(f"last dim must be {LANE}, got {lane}")
+    if rows % tm != 0:
+        raise ValueError(f"rows {rows} not a multiple of tile rows {tm}")
+    if regs3d.shape != (n, REG_ROWS, LANE) or regs3d.dtype != torch.uint8 \
+            or not regs3d.is_contiguous():
+        raise ValueError(f"registers must be contiguous ({n}, {REG_ROWS}, "
+                         f"{LANE}) uint8, got {regs3d.dtype} "
+                         f"{tuple(regs3d.shape)}")
+    flat = (n, rows * LANE)
+    isla_sketch(limbs_to_bits(hash_hi3d, hash_lo3d).reshape(flat),
+                regs3d.reshape(n, N_REGS),
+                pad=(valid3d != 0).to(torch.float32).reshape(flat))
+
+
+def isla_sketch_batched(hash_hi3d: torch.Tensor, hash_lo3d: torch.Tensor,
+                        valid3d: torch.Tensor, tm: int = DEFAULT_TM,
+                        prior: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Tiled HLL register merge (``isla_sketch_pallas``): one cell per
+    (rows, 128) limb pane, rows % tm == 0; ``valid3d`` nonzero on real
+    samples.  Returns (n_cells, 32, 128) uint8 registers seeded from
+    ``prior`` (zeros when absent) — the (n_cells, 4096) plane, reshaped."""
+    shape = (hash_hi3d.shape[0], REG_ROWS, LANE)
+    if prior is None:
+        out = torch.zeros(shape, dtype=torch.uint8, device=hash_hi3d.device)
+    else:
+        out = prior.to(device=hash_hi3d.device).clone()
+    _sketch_tiles(hash_hi3d, hash_lo3d, valid3d, tm, out)
+    return out
+
+
+def isla_fused_sketch(values3d: torch.Tensor, bounds, prior: torch.Tensor,
+                      prior_regs: torch.Tensor, hash_hi3d: torch.Tensor,
+                      hash_lo3d: torch.Tensor, valid3d: torch.Tensor,
+                      sketch0, params, mode: str = "calibrated",
+                      geometry=None, tm: int = DEFAULT_TM, stride: int = 1,
+                      inv_scale: Optional[torch.Tensor] = None):
+    """``isla_fused`` with the register pane riding the tick
+    (``isla_fused_sketch_pallas``): the fold adds this round onto
+    ``prior`` and the sketch kernel merges it into ``prior_regs``
+    ((n_cells, 32, 128) uint8), both IN PLACE, then Phase 2 solves every
+    cell.  The hash panes carry the RAW measure bits, never the pane
+    values.  Returns ``(prior, prior_regs, partials)``."""
+    mom, partials = isla_fused(values3d, bounds, prior, sketch0, params,
+                               mode=mode, geometry=geometry, tm=tm,
+                               stride=stride, inv_scale=inv_scale)
+    _sketch_tiles(hash_hi3d, hash_lo3d, valid3d, tm, prior_regs)
+    return mom, prior_regs, partials

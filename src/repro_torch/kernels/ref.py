@@ -91,6 +91,39 @@ def isla_fold_ref(values: torch.Tensor, bounds: torch.Tensor,
         out_t[rows] += delta[:, 8:11]
 
 
+def isla_sketch_ref(bits: torch.Tensor, regs: torch.Tensor, *,
+                    pad: Optional[torch.Tensor] = None,
+                    valid: Optional[torch.Tensor] = None,
+                    gid: Optional[torch.Tensor] = None, n_groups: int = 1,
+                    cell_idx: Optional[torch.Tensor] = None) -> None:
+    """Plain version of the ``isla_sketch`` kernel: hash every live lane
+    of the (R, Q) int64 bits pane (the torch limb twin of splitmix64),
+    encode ``(j, rho)`` and merge ``regs[cell, j] = max(regs[cell, j],
+    rho)`` in place, ``cell = gid * R + row`` or ``cell_idx[cell]``.  Dead
+    lanes (pad or valid 0, an id outside ``[0, n_groups)``, a map entry
+    outside ``regs``) carry rho = 0 onto cell 0 — the merge's neutral
+    element, so nothing is gathered and nothing syncs."""
+    from ..core.sketch import M, bits_limbs, encode_graph, splitmix64_graph
+
+    j, rho = encode_graph(*splitmix64_graph(*bits_limbs(bits)))
+    n_rows, q = bits.shape
+    ok = torch.ones((n_rows, q), dtype=torch.bool, device=bits.device)
+    if pad is not None:
+        ok &= pad != 0
+    if valid is not None:
+        ok &= valid != 0
+    cell = torch.arange(n_rows, device=bits.device)[:, None].expand(n_rows, q)
+    if gid is not None:
+        ok &= (gid >= 0) & (gid < n_groups)
+        cell = torch.where(ok, gid.to(torch.int64), 0) * n_rows + cell
+    if cell_idx is not None:
+        cell = cell_idx.to(torch.int64)[cell]
+        ok &= (cell >= 0) & (cell < regs.shape[0])
+    flat = (torch.where(ok, cell, 0) * M + j).reshape(-1)
+    regs.view(-1).scatter_reduce_(
+        0, flat, torch.where(ok, rho, 0).reshape(-1), reduce="amax")
+
+
 def pilot_stats_ref(values: torch.Tensor,
                     center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the ``pilot_stats`` kernel: ``(count, sum (x-c),

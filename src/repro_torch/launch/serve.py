@@ -1,10 +1,10 @@
 """ISLA serving entry point, PyTorch port: an admission loop around
 ``MultiQueryExecutor``.
 
-Queries (AVG/SUM/COUNT/VAR with WHERE + GROUP BY) arrive asynchronously,
-are admitted per tick, planned into shared sampling passes per resolved
-Phase 2 mode, and answered with provenance (rate, pass id, resolved mode,
-bound):
+Queries (AVG/SUM/COUNT/VAR/count_distinct with WHERE + GROUP BY) arrive
+asynchronously, are admitted per tick, planned into shared sampling
+passes per resolved Phase 2 mode, and answered with provenance (rate,
+pass id, resolved mode, bound):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --ticks 4
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
@@ -20,8 +20,10 @@ numpy route on the CPU.  With ``--incremental`` the device route runs the
 DEVICE-RESIDENT tick: per-(where, group_by, mode) moments live as torch
 tensors on ``--device`` (``cuda`` by default; ``--device cpu`` runs the
 kernels' plain versions) between ticks, and each tick is one fused tick
-per mode-group — the hand-written CUDA fold onto the resident rows,
-Phase 2 and the group stats — with only scalar answers crossing back:
+per mode-group — the hand-written CUDA fold onto the resident rows (and,
+for COUNT DISTINCT keys, the hand-written CUDA HLL register merge onto
+the resident register plane), Phase 2 and the group stats — with only
+scalar answers and O(groups) rows crossing back:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
       --incremental --drift-check 6.0
@@ -29,7 +31,7 @@ Phase 2 and the group stats — with only scalar answers crossing back:
 The admission pipeline (plan cache, subsumption, same-tick dedupe,
 priority order) is on by default with ``--incremental``;
 ``--no-admission`` restores the plain FIFO loop.  The mesh route, the
-pipelined tick and the LM workload are not in this slice of the port.
+pipelined tick and the LM workload are not ported yet.
 """
 from __future__ import annotations
 
@@ -414,9 +416,8 @@ def _synthetic_grouped_blocks(n_blocks: int, n_groups: int, rows: int,
 def _random_query(rng: np.random.Generator, e: float,
                   n_days: Optional[int] = None,
                   priority: float = 1.0):
-    # The four moment aggregates only: COUNT DISTINCT on the device route
-    # needs the device sketch plane, which this port has not reached.
-    agg = ("AVG", "SUM", "COUNT", "VAR")[int(rng.integers(0, 4))]
+    agg = ("AVG", "SUM", "COUNT", "VAR",
+           "count_distinct")[int(rng.integers(0, 5))]
     where = None
     if rng.random() < 0.5:
         # Half the predicated queries are day-selective: the WHERE the
@@ -531,6 +532,9 @@ def serve_isla(args) -> None:
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", choices=["isla", "lm"], default="isla",
+                    help="isla (default): the approximate-aggregation "
+                         "serving tier; lm is not ported yet")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--blocks", type=int, default=100)
     ap.add_argument("--groups", type=int, default=8)
@@ -586,6 +590,10 @@ def main():
     ap.add_argument("--smoke", action="store_true",
                     help="tiny sizes for CI smoke runs")
     args = ap.parse_args()
+    if args.workload == "lm":
+        raise NotImplementedError(
+            "the LM serving workload is not ported yet (ROADMAP Queue A "
+            "item 7, 'LM stack, last')")
     if args.deadline_samples is not None and not args.incremental:
         ap.error("--deadline-samples budgets the incremental deficit "
                  "ledger; it requires --incremental")

@@ -12,6 +12,7 @@ import torch
 import repro_torch.core as TC
 from repro_torch.kernels import isla_moments as K
 from repro_torch.kernels import ref
+from _torch_sketch_cases import SKETCH_CASES, sketch_case
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +27,10 @@ def cuda():
 
 
 def _fold_case(case, dev, rng):
-    n_b, q, g = 37, 200, 5
+    # "sliced": compacted cells longer than FOLD_SLICE samples, summed
+    # slice by slice and combined by the second kernel.
+    n_b, q, g = (6, 3 * K.FOLD_SLICE + 100, 5) if case == "sliced" else \
+        (37, 200, 5)
     vmask = np.arange(q)[None, :] < rng.integers(1, q, size=n_b)[:, None]
     v = np.where(vmask, rng.normal(1.0, 0.2, (n_b, q)), 0.0)
     t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa
@@ -34,17 +38,17 @@ def _fold_case(case, dev, rng):
     kw = dict(pad=t(vmask))
     bounds = t([0.6, 0.9, 1.1, 1.4])
     n_out = n_b
-    if case in ("grouped", "predicated", "compacted"):
+    if case in ("grouped", "predicated", "compacted", "sliced"):
         kw.update(gid=t(np.where(vmask, rng.integers(0, g, (n_b, q)), 0),
                         torch.int32), n_groups=g)
         n_out = g * n_b
-    if case in ("predicated", "compacted"):
+    if case in ("predicated", "compacted", "sliced"):
         kw["valid"] = t(np.where(vmask, rng.random((n_b, q)) < 0.6, 0.0))
     if case == "affine":
         kw["affine"] = (1.3, -0.07)
         bounds = t(np.asarray([0.6, 0.9, 1.1, 1.4])[None]
                    + rng.uniform(-0.05, 0.05, (n_b, 1)))
-    if case == "compacted":
+    if case in ("compacted", "sliced"):
         idx = rng.permutation(2 * n_out)[:n_out] - n_out // 2
         kw["cell_idx"] = t(idx, torch.int32)
         n_out = 2 * n_out
@@ -53,7 +57,7 @@ def _fold_case(case, dev, rng):
 
 
 @pytest.mark.parametrize("case", ["plain", "grouped", "predicated",
-                                  "affine", "compacted", "bf16"])
+                                  "affine", "compacted", "bf16", "sliced"])
 def test_fold_kernel_matches_plain_version(cuda, case):
     rng = np.random.default_rng(0)
     values, bounds, n_out, kw = _fold_case(case, cuda, rng)
@@ -82,6 +86,30 @@ def test_batched_wrapper_kernel_matches_plain_version(cuda, stride):
     want = K.isla_moments_batched(torch.as_tensor(x), torch.as_tensor(b),
                                   tm=64, stride=stride)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["isla_moments", "ops.isla_moments"])
+def test_million_sample_cell_matches_plain_version(cuda, entry):
+    """One cell of 1,024,000 samples (the one-cell wrapper at the serving
+    loop's widest pane): the kernel's two-level per-thread sums stay
+    within rel 1e-5 of its plain version and of the float64 sums."""
+    from repro_torch.kernels import ops
+
+    x = np.random.default_rng(4).normal(100, 20, (8000, 128))
+    x = x.astype(np.float32)
+    call = K.isla_moments if entry == "isla_moments" else ops.isla_moments
+    got = call(torch.as_tensor(x, device=cuda), (60.0, 90.0, 110.0, 140.0),
+               tm=8).cpu().numpy()
+    want = call(torch.as_tensor(x), (60.0, 90.0, 110.0, 140.0),
+                tm=8).numpy()
+    v = x.astype(np.float64).reshape(-1)
+    exact = []
+    for lo, hi in ((60.0, 90.0), (110.0, 140.0)):
+        m = (v > lo) & (v < hi)
+        exact.append([m.sum(), v[m].sum(), (v[m] ** 2).sum(),
+                      (v[m] ** 3).sum()])
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(exact), rtol=1e-5)
 
 
 @pytest.mark.parametrize("n", [1, 255, 4097, 1 << 20])
@@ -125,3 +153,103 @@ def test_executor_on_cuda_matches_cpu(cuda):
         for c, g in zip(c_run, g_run):
             assert g.value == pytest.approx(c.value, rel=2e-3)
             assert g.new_samples == c.new_samples
+
+
+@pytest.mark.parametrize("case", SKETCH_CASES)
+def test_sketch_kernel_matches_plain_version(cuda, case):
+    """``isla_sketch`` on the card against its plain version on the same
+    card tensors and the host twin: registers bit for bit (tolerance 0),
+    and a repeat launch gives identical bits."""
+    panes, kw, prior, want = sketch_case(case, np.random.default_rng(5),
+                                         cuda)
+    outs = []
+    for launch in (K.isla_sketch, K.isla_sketch, ref.isla_sketch_ref):
+        regs = prior.clone()
+        launch(*panes, regs, **kw)
+        torch.cuda.synchronize()
+        outs.append(regs)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[2])
+    assert np.array_equal(outs[0].cpu().numpy(), want)
+
+
+def test_sketch_counter_counts_launches(cuda):
+    """``isla_sketch.launches`` counts kernel launches on the card and
+    nothing else: not the plain version, not a call on CPU tensors."""
+    panes, kw, prior, _ = sketch_case("grouped", np.random.default_rng(6),
+                                      cuda)
+    K.reset_launch_counts()
+    regs = prior.clone()
+    for _ in range(3):
+        K.isla_sketch(*panes, regs, **kw)
+    ref.isla_sketch_ref(*panes, regs, **kw)
+    cpu = [t.cpu() for t in panes]
+    K.isla_sketch(*cpu, prior.cpu(), **{
+        k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+        for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert K.isla_sketch.launches == 3
+
+
+def test_fused_sketch_wrapper_on_cuda_matches_cpu(cuda):
+    """The Pallas-signature ``isla_fused_sketch`` on the card against the
+    same call on the CPU: registers bit for bit, moments and partials
+    within rel 1e-5."""
+    rng = np.random.default_rng(7)
+    n, rows = 6, 128
+    vals = np.round(rng.normal(100, 20, (n, rows, 128))).astype(np.float32)
+    bits = np.round(rng.normal(0, 50, (n, rows, 128))).view(np.uint64)
+    hi = (bits >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    valid = (rng.random((n, rows, 128)) < 0.9).astype(np.int32)
+    prior = rng.uniform(0, 50, (n, 2, 4)).astype(np.float32)
+    prior_regs = rng.integers(0, 10, (n, 32, 128)).astype(np.uint8)
+    out = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a.copy(), device=dev)  # noqa
+        out[str(dev)] = K.isla_fused_sketch(
+            t(vals), t(np.asarray([60.0, 90.0, 110.0, 140.0], np.float32)),
+            t(prior), t(prior_regs), t(hi), t(lo), t(valid), 100.0,
+            TC.IslaParams(e=0.5), tm=64)
+    c, g = out["cpu"], out[str(cuda)]
+    assert torch.equal(g[1].cpu(), c[1])
+    np.testing.assert_allclose(g[0].cpu().numpy(), c[0].numpy(), rtol=1e-5)
+    np.testing.assert_allclose(g[2].cpu().numpy(), c[2].numpy(), rtol=1e-5)
+
+
+def test_distinct_executor_on_cuda_matches_cpu(cuda):
+    """COUNT DISTINCT on the device route, on the card against the CPU:
+    identical distinct answers and draw ledgers, launched through
+    ``isla_sketch``."""
+    rng = np.random.default_rng(8)
+    tables = []
+    for _ in range(6):
+        g = rng.integers(0, 3, size=2000)
+        tables.append({"value": 90.0 + 0.05 * (rng.integers(0, 600, 2000)
+                                               % (200 * (g + 1))),
+                       "region": g.astype(np.float64),
+                       "flag": rng.integers(0, 2, 2000).astype(np.float64)})
+    flag = TC.Predicate(column="flag", eq=1.0)
+    qs = [TC.IslaQuery(e=0.5, agg="count_distinct"),
+          TC.IslaQuery(e=0.5, agg="count_distinct", where=flag),
+          TC.IslaQuery(e=0.5, agg="count_distinct", group_by="region"),
+          TC.IslaQuery(e=0.5, agg="count_distinct", group_by="region",
+                       where=flag)]
+    answers = {}
+    for dev in ("cpu", "cuda"):
+        ex = TC.MultiQueryExecutor([TC.table_sampler(t) for t in tables],
+                                   [10 ** 6] * 6, params=TC.IslaParams(e=0.5),
+                                   group_domains={"region": 3}, device=dev)
+        K.reset_launch_counts()
+        answers[dev] = [ex.run(qs, np.random.default_rng(5 + k),
+                               incremental=True, route="device")
+                        for k in range(2)]
+        if dev == "cuda":
+            assert K.isla_sketch.launches == K.isla_fold.launches > 0
+    for c_run, g_run in zip(answers["cpu"], answers["cuda"]):
+        for c, g in zip(c_run, g_run):
+            assert (g.value, g.new_samples, g.sample_size) == (
+                c.value, c.new_samples, c.sample_size)
+            if c.groups is not None:
+                assert [x.value for x in g.groups] == [x.value
+                                                       for x in c.groups]

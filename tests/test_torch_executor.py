@@ -282,9 +282,9 @@ def test_unported_routes_raise():
                route="device", pipeline=True)
     with pytest.raises(NotImplementedError, match="mesh"):
         ex.run(_queries(TC), np.random.default_rng(0), route="mesh")
-    with pytest.raises(NotImplementedError, match="sketch"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         ex.run([TC.IslaQuery(e=1.0, agg="count_distinct")],
-               np.random.default_rng(0), incremental=True, route="device")
+               np.random.default_rng(0), incremental=True, route="mesh")
 
 
 def test_entry_points_default_to_the_device_route(monkeypatch, capsys):

@@ -72,6 +72,20 @@ def test_one_cell_matches_pallas(dtype, stride, rng):
                                rtol=5e-3 if dtype == "bfloat16" else 1e-5)
 
 
+@pytest.mark.parametrize("entry", ["isla_moments", "ops.isla_moments"])
+def test_million_sample_cell_matches_pallas(entry, rng):
+    """Row 2 at about a million samples in one cell (8192 x 128), where
+    a single fp32 chain per thread drifts: within rel 1e-5 of the
+    reference kernel, through the wrapper and the public ``ops`` call."""
+    x = rng.normal(100, 20, size=(8192, 128)).astype(np.float32)
+    want = isla_moments_pallas(jnp.asarray(x),
+                               jnp.asarray(BOUNDS, jnp.float32), tm=512,
+                               interpret=True)
+    call = K.isla_moments if entry == "isla_moments" else tops.isla_moments
+    got = call(_t(x), BOUNDS, tm=512)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5)
+
+
 def test_grouped_matches_pallas(rng):
     """Row 3: (G, B) cells as a reshape of the batched axis, with a
     ragged prior (one all-zero cold cell)."""

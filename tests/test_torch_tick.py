@@ -232,11 +232,10 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="float64"):
         TDev.fresh_device(2, b, MU, [10, 10], dtype=torch.float64,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="sketch"):
-        TDev.fresh_device(2, b, MU, [10, 10], has_sketch=True,
-                          device="cpu")
     with pytest.raises(NotImplementedError, match="tagged"):
         TD.fused_tick()
+    with pytest.raises(NotImplementedError, match="tagged sketch"):
+        TD.fused_tick_sketch()
     dev = TDev.fresh_device(2, b, MU, [10, 10], device="cpu")
     with pytest.raises(NotImplementedError, match="tagged"):
         dev.ingest_tick(np.ones(4), np.array([1, 0, 1, 0]),
