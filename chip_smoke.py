@@ -18,10 +18,25 @@ fold and each register merge, kernel against plain PyTorch version, on
 those very panes and times both; it also holds the fold at the tick's
 shape with synthetic 64- and 4096-sample panes, times every
 Pallas-signature wrapper against its plain version, and the pilot
-kernel at the loop's pilot size.  Every failure exits nonzero.  The
-last three lines of standard output are the card's name and power
-limit, one JSON object describing every kernel, and the result object;
-details go to ``chiprun_out/chip_smoke.json``.
+kernel at the loop's pilot size.
+
+Then it drives the LM serving path: olmo-1b at full width and depth
+(16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
+generator, six seeded prompts of 384-2048 tokens through a
+``BatchScheduler`` of four slots, 16 new tokens each.  It checks that
+every prefill ran its attention through the hand-written
+``flash_attention`` kernel (one launch per layer per prefill; counts
+reset just before, read just after), keeps the q, k, v of every one of
+those calls and replays the kernel against its plain version on them,
+timing the kernel, the plain version and PyTorch's
+``scaled_dot_product_attention`` (the library yardstick; the port never
+calls it).  It also holds the kernel on GQA, fp32 and every head_dim it
+takes, and a reduced olmo-1b on the card against the CPU.
+
+Every failure exits nonzero.  The last three lines of standard output
+are the card's name and power limit, one JSON object describing every
+kernel, and the result object; details go to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -211,16 +226,18 @@ class PlainVersions:
     Calls made under it launch nothing and count nothing."""
 
     def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels import isla_moments as K
 
+        self._mods = (K, FA)
         self._real = K.on_gpu
-        K.on_gpu = lambda t: False
+        for m in self._mods:
+            m.on_gpu = lambda t: False
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.kernels import isla_moments as K
-
-        K.on_gpu = self._real
+        for m in self._mods:
+            m.on_gpu = self._real
         return False
 
 
@@ -634,6 +651,29 @@ def device_seconds(prof):
     return sum(spans) * 1e-6 if spans else None
 
 
+def device_kernel_seconds(prof) -> dict:
+    """Seconds of device time by kernel name in a profiled window (empty
+    when not profiled or when the trace holds no device event)."""
+    out = {}
+    if not hasattr(prof, "events"):
+        return out
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            us = e.time_range.elapsed_us()
+            out[e.name] = out.get(e.name, 0.0) + us * 1e-6
+    return out
+
+
+def host_op_seconds(prof, top: int = 12) -> dict:
+    """The ``top`` operators by host (self CPU) seconds in a profiled
+    window, with their call counts."""
+    if not hasattr(prof, "key_averages"):
+        return {}
+    rows = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)
+    return {r.key: [r.self_cpu_time_total * 1e-6, r.count]
+            for r in rows[:top]}
+
+
 def check_answers(dev_done, host_done, distinct: bool) -> dict:
     """Device route vs the port's float64 host route: finite values,
     identical draw ledgers, values rel 2e-3 and groups rel 5e-3 (the
@@ -720,6 +760,319 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
 
 
 # ---------------------------------------------------------------------------
+# The LM serving path: olmo-1b at full width, every prefill's attention
+# through the hand-written flash kernel.
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "olmo-1b"
+LM_REQUESTS = 6
+LM_SLOTS = 4
+LM_MAX_NEW = 16
+LM_PROMPT_LENS = (384, 2048)   # seeded prompt lengths, both ends included
+LM_MAX_SEQ = 2048 + LM_MAX_NEW + 16
+# Profiled ticks of the LM re-run: two decode ticks of the four first
+# requests, and the tick that admits (prefills) the last two.
+LM_PROFILE_TICKS = (2, 3, 16)
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 dense tensor cores
+# bf16 output: one to two bf16 ulps on O(1) values; fp32: the reference
+# sweep's tolerance (tests/test_kernels_flash.py).
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+class FlashCalls:
+    """Keeps the arguments of every call the LM path makes to
+    ``flash_attention`` (the (B*H, S, hd) q, k, v views of one layer's
+    prefill), by wrapping the name ``models.attention`` calls while
+    installed, and times every ``serve_prefill`` (synchronised host
+    clock)."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as A
+        from repro_torch.models import model as M
+
+        self.calls, self.prefill_s, self.logits = [], [], []
+        self._flash, self._prefill = A.flash_attention, M.serve_prefill
+        flash, prefill = self._flash, self._prefill
+
+        def spy_flash(q, k, v, *, groups=1):
+            self.calls.append((q, k, v, groups))
+            return flash(q, k, v, groups=groups)
+
+        def spy_prefill(*args, **kw):
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(*args, **kw)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t0)
+            self.logits.append(logits)
+            return logits, cache
+
+        A.flash_attention, M.serve_prefill = spy_flash, spy_prefill
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        from repro_torch.models import model as M
+
+        A.flash_attention, M.serve_prefill = self._flash, self._prefill
+        return False
+
+
+def flash_bound_ms(bh: int, bkv: int, s: int, hd: int, dtype
+                   ) -> "tuple[float, float]":
+    """Least time for one causal flash call: q, k, v read once and the
+    output written once, against the 4 * hd flops of each (query, key <=
+    query) pair of this call — S(S+1)/2 pairs a head — at the peak for the
+    inputs' type (bf16 tensor cores; fp32 outside them).  The softmax's
+    exponentials are not counted.  Returns (bytes ms, operations ms)."""
+    import torch
+
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (2 * bh + 2 * bkv) * s * hd * size / HBM_BYTES_PER_S * 1e3
+    flops = 4.0 * bh * hd * s * (s + 1) / 2
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return t_bytes, flops / peak * 1e3
+
+
+def check_flash(q, k, v, groups: int, reps: int = 10) -> dict:
+    """The kernel (twice: identical bits) against its plain version on the
+    same card tensors, then the kernel, the plain version and PyTorch's
+    ``scaled_dot_product_attention`` (the library yardstick, used nowhere
+    in the port) timed on them, with the call's bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    bh, s, hd = q.shape
+    dt = str(q.dtype).replace("torch.", "")
+    got = FA.flash_attention(q, k, v, groups=groups)
+    again = FA.flash_attention(q, k, v, groups=groups)
+    with PlainVersions():
+        want = FA.flash_attention(q, k, v, groups=groups)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "flash_attention is not deterministic")
+    err = max_abs_err(got, want)
+    check(err <= FLASH_TOL[dt], f"flash_attention disagrees with its plain "
+                                f"version at {tuple(q.shape)} {dt}, groups "
+                                f"{groups}: max abs err {err:.3g} > "
+                                f"{FLASH_TOL[dt]}")
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, groups=groups),
+                 reps=reps, warm=2)
+    with PlainVersions():
+        plain_ms = time_ms(lambda: FA.flash_attention(q, k, v, groups=groups),
+                           reps=3, warm=1)
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    gqa = {"enable_gqa": True} if groups > 1 else {}
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, **gqa), reps=reps, warm=2)
+    t_bytes, t_ops = flash_bound_ms(bh, k.shape[0], s, hd, q.dtype)
+    return dict(shape=[bh, s, hd], kv_heads=k.shape[0], groups=groups,
+                dtype=dt, max_abs_err=err, tolerance=FLASH_TOL[dt], ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bytes_ms=t_bytes,
+                ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_flash_synthetic(device) -> "list[dict]":
+    """The kernel off the olmo-1b path: GQA (4 q heads per KV head), fp32
+    inputs, and each head_dim it takes, at a ragged prefill length."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    cases = [("gqa", 32, 4, 1000, 128, torch.bfloat16),
+             ("fp32", 16, 1, 777, 128, torch.float32),
+             ("hd32", 16, 1, 1000, 32, torch.bfloat16),
+             ("hd64", 16, 1, 1000, 64, torch.bfloat16),
+             ("hd128", 16, 1, 1000, 128, torch.bfloat16)]
+    out = []
+    for name, bh, groups, s, hd, dtype in cases:
+        def t(heads, scale):
+            return torch.as_tensor(rng.normal(size=(heads, s, hd)) * scale,
+                                   dtype=dtype, device=device)
+        q, k, v = t(bh, 0.3), t(bh // groups, 0.3), t(bh // groups, 1.0)
+        out.append(dict(check_flash(q, k, v, groups), name=name))
+    return out
+
+
+def check_lm_small(device) -> dict:
+    """The slice on a small input against the same weights on the CPU
+    (the kernels' plain versions): reduced olmo-1b with fp32 params, one
+    prefill of 100 tokens (logits rel/abs 1e-4) and 4 decode steps
+    (1e-3: an entry of the bf16 cache may round one ulp apart between the
+    card's and the CPU's fp32 projections)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+
+    cfg = get_config(LM_ARCH, reduced=True).replace(param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k_: to(v_, dev) for k_, v_ in tree.items()}
+        if isinstance(tree, list):
+            return [to(v_, dev) for v_ in tree]
+        return tree.to(dev)
+
+    toks = np.random.default_rng(12).integers(0, cfg.vocab, (1, 104))
+    logits = {}
+    for dev in ("cpu", device):
+        p = to(params, dev)
+        cache = TM.init_cache(cfg, 1, 104, device=dev)
+        t = torch.as_tensor(toks, device=dev)
+        out = [TM.serve_prefill(cfg, p, {"tokens": t[:, :100]}, cache)[0]]
+        for i in range(100, 104):
+            pos = torch.full((1,), i, device=dev)
+            out.append(TM.serve_decode(cfg, p, t[:, i:i + 1], pos,
+                                       cache)[0])
+        logits[str(dev)] = [o.float().cpu() for o in out]
+    errs = []
+    for k_, (c, g) in enumerate(zip(logits["cpu"], logits[str(device)])):
+        tol = 1e-4 if k_ == 0 else 1e-3
+        check(bool(torch.isfinite(g).all()), "non-finite small-model logits")
+        bad = (g - c).abs() > tol + tol * c.abs()
+        check(not bool(bad.any()), f"the small model's step {k_} logits on "
+                                   f"the card disagree with the CPU's")
+        errs.append(float((g - c).abs().max()))
+    return dict(arch=f"{LM_ARCH} (reduced, fp32 params)", prefill_tokens=100,
+                decode_steps=4, max_abs_err=errs,
+                tolerance="1e-4 prefill, 1e-3 decode (rel + abs)")
+
+
+def lm_path(seed: int = 0) -> dict:
+    """The LM main path: olmo-1b at full width and depth in bf16 from a
+    seeded generator on the card, ``LM_REQUESTS`` seeded prompts through a
+    ``BatchScheduler`` of ``LM_SLOTS`` slots until drained.  The launch
+    counts are set to 0 just before the scheduler runs and read just
+    after: ``flash_attention`` must have launched once per layer of every
+    prefill, and no ISLA kernel.  Every call's q, k, v are kept for the
+    replays."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.models import model as TM
+    from repro_torch.serve import BatchScheduler, Request
+
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed + 1)
+    lo, hi = LM_PROMPT_LENS
+    lens = [int(n) for n in rng.integers(lo, hi + 1, LM_REQUESTS)]
+    check(any(n % 64 for n in lens), "no prompt length off the 64-row tile")
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in lens]
+
+    def scheduler():
+        sched = BatchScheduler(cfg, params, batch_slots=LM_SLOTS,
+                               max_seq=LM_MAX_SEQ, eos_id=-1)
+        for rid, prompt in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=prompt,
+                                 max_new=LM_MAX_NEW))
+        return sched
+
+    sched = scheduler()
+    K.reset_launch_counts()
+    with FlashCalls() as spy:
+        t0 = time.perf_counter()
+        done = sched.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(flash_attention=FA.flash_attention.launches,
+                    isla_fold=K.isla_fold.launches,
+                    pilot_stats=K.pilot_stats.launches,
+                    isla_sketch=K.isla_sketch.launches)
+    admitted = len(spy.prefill_s)
+    check(admitted == LM_REQUESTS and len(done) == LM_REQUESTS,
+          f"{len(done)} of {LM_REQUESTS} requests served")
+    check(launches["flash_attention"] == admitted * cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times, "
+          f"not once per layer of {admitted} prefills "
+          f"({admitted * cfg.n_layers})")
+    check(launches["isla_fold"] + launches["pilot_stats"]
+          + launches["isla_sketch"] == 0, "the LM path ran an ISLA kernel")
+    for r in done:
+        check(len(r.generated) == LM_MAX_NEW + 1 and all(
+            0 <= t < cfg.padded_vocab for t in r.generated),
+              f"request {r.rid} generated {r.generated}")
+    for lg in spy.logits:
+        check(tuple(lg.shape) == (1, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(lg).all()),
+              "prefill logits are not finite (1, 1, V)")
+    prefill_s = sum(spy.prefill_s)
+    decode_s = wall - prefill_s
+    new_tokens = sum(len(r.generated) for r in done)
+    decoded = new_tokens - admitted  # one token of each comes from prefill
+    # Where the time goes, after the counts were read: a re-run of the same
+    # traffic tick by tick (host clock, synchronised: the ticks that admit
+    # carry their prefills), then a second one with LM_PROFILE_TICKS under
+    # the profiler (device time by kernel and host time by operator; the
+    # profiler inflates the host side, so those ticks' wall times come from
+    # the first re-run).
+    tick_s, _ = drive(scheduler())
+    _, profiled = drive(scheduler(), LM_PROFILE_TICKS)
+    return dict(arch=LM_ARCH, n_params=n_params, init_s=init_s,
+                prompt_lens=lens, slots=LM_SLOTS, max_new=LM_MAX_NEW,
+                max_seq=LM_MAX_SEQ, launches=launches, wall_s=wall,
+                prefill_s=prefill_s, prefill_each_s=spy.prefill_s,
+                decode_s=decode_s, new_tokens=new_tokens,
+                tokens_per_s=new_tokens / wall,
+                prefill_tokens_per_s=sum(lens) / prefill_s,
+                decode_tokens_per_s=decoded / decode_s,
+                finish_order=[r.rid for r in done], rerun_tick_s=tick_s,
+                profiled_ticks=[dict(p, wall_s=tick_s[p["tick"]])
+                                for p in profiled],
+                calls=spy.calls)
+
+
+def drive(sched, profile_ticks=()):
+    """Run a scheduler to the end one tick at a time, synchronised; the
+    ticks in ``profile_ticks`` (0-based) under the profiler.  Returns the
+    ticks' wall seconds and, for each profiled tick, its device seconds by
+    kernel and its top host operators."""
+    import torch
+
+    walls, profiled = [], []
+    while sched.queue or any(x is not None for x in sched.slots):
+        k = len(walls)
+        with profile_tick("cuda", k in profile_ticks) as prof:
+            t0 = time.perf_counter()
+            active = sched.tick()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if k in profile_ticks:
+            kernels_s = device_kernel_seconds(prof)
+            profiled.append(dict(
+                tick=k, active=active,
+                device_s=sum(kernels_s.values()),
+                kernels_s=dict(sorted(kernels_s.items(),
+                                      key=lambda kv: -kv[1])[:8]),
+                host_ops_s=host_op_seconds(prof, top=8)))
+    return walls, profiled
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -744,7 +1097,8 @@ def main() -> int:
     print(f"card: {card}")
     t0 = time.perf_counter()
     logs = K.build()
-    K.library()
+    for src in K.SOURCES:
+        K.library(src)
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f} s ({len(logs)} source(s) compiled)")
     for src, log in logs.items():
@@ -752,7 +1106,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
+    phase_s = {"build": build_s}
+    stamp = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - stamp[0]
+        stamp[0] = now
+
     runs = [main_path(name, distinct) for name, distinct in MAIN_RUNS]
+    lap("isla main path runs")
     for path in runs:
         print(f"main path, {path['name']} run: "
               f"{json.dumps(path['launches'])} launches, "
@@ -794,6 +1157,7 @@ def main() -> int:
               f"{f['ms']:.4f} ms (plain {f['plain_ms']:.3f} ms over "
               f"{f['plain_reps']} reps, bound {f['bound_ms']:.4f} ms by "
               f"{f['bound_by']}), bit-identical to its plain version")
+    lap("isla main path replays")
     folds = [check_fold(dev, 1000, q) for q in (64, 4096)]
     for f in folds:
         print(f"isla_fold synthetic quota {f['quota']}: {f['ms']:.4f} ms "
@@ -816,9 +1180,63 @@ def main() -> int:
           f"{pilot['plain_ms']:.4f} ms, bound {pilot['bound_ms']:.6f} ms), "
           f"max abs err {pilot['max_abs_err']:.3g}")
 
+    lap("isla synthetic checks")
+    lm = lm_path()
+    lap("lm path runs")
+    print(f"LM path, {lm['arch']} at full width and depth "
+          f"({lm['n_params'] / 1e9:.3f} B params, bf16, init "
+          f"{lm['init_s']:.2f} s): {LM_REQUESTS} requests, prompt lengths "
+          f"{lm['prompt_lens']}, {LM_SLOTS} slots, max_new {LM_MAX_NEW}: "
+          f"{json.dumps(lm['launches'])} launches")
+    print(f"  prefill {lm['prefill_s']:.3f} s "
+          f"({lm['prefill_tokens_per_s']:.0f} prompt tok/s), decode "
+          f"{lm['decode_s']:.3f} s ({lm['decode_tokens_per_s']:.1f} tok/s), "
+          f"{lm['new_tokens']} new tokens in {lm['wall_s']:.3f} s = "
+          f"{lm['tokens_per_s']:.1f} tok/s")
+    ticks = lm["rerun_tick_s"]
+    print(f"  re-run tick by tick: {len(ticks)} ticks, first "
+          f"{ticks[0]:.3f} s, median {sorted(ticks)[len(ticks) // 2]:.4f} "
+          f"s, sum {sum(ticks):.3f} s")
+    for p in lm["profiled_ticks"]:
+        top = list(p["kernels_s"].items())[:3]
+        print(f"  tick {p['tick']} ({p['active']} slots): device busy "
+              f"{p['device_s'] * 1e3:.2f} ms of {p['wall_s'] * 1e3:.2f} ms "
+              f"wall (profiled re-run); top kernels "
+              + ", ".join(f"{n[:48]} {t * 1e3:.2f} ms" for n, t in top))
+    calls = lm.pop("calls")
+    flash = [check_flash(q, k, v, g) for q, k, v, g in calls]
+    del calls
+    n_layers = len(flash) // len(lm["prompt_lens"])
+    for i, s_len in enumerate(lm["prompt_lens"]):
+        layer = flash[i * n_layers:(i + 1) * n_layers]
+        print(f"flash_attention on prefill {i} (S={s_len}, "
+              f"{tuple(layer[0]['shape'])}, {n_layers} layers): "
+              f"{sum(f['ms'] for f in layer):.3f} ms (plain "
+              f"{sum(f['plain_ms'] for f in layer):.3f} ms, SDPA "
+              f"{sum(f['library_ms'] for f in layer):.3f} ms, bound "
+              f"{sum(f['bound_ms'] for f in layer):.4f} ms by "
+              f"{layer[0]['bound_by']}), max abs err "
+              f"{max(f['max_abs_err'] for f in layer):.3g} (tol "
+              f"{FLASH_TOL['bfloat16']})")
+    lap("lm path replays")
+    synth = check_flash_synthetic(dev)
+    for f in synth:
+        print(f"flash_attention synthetic {f['name']} {tuple(f['shape'])} "
+              f"groups {f['groups']} {f['dtype']}: {f['ms']:.4f} ms (plain "
+              f"{f['plain_ms']:.3f} ms, SDPA {f['library_ms']:.4f} ms, bound "
+              f"{f['bound_ms']:.4f} ms by {f['bound_by']}), max abs err "
+              f"{f['max_abs_err']:.3g} (tol {f['tolerance']})")
+    small = check_lm_small(dev)
+    print(f"LM small-input check, {small['arch']}: card vs CPU logits max "
+          f"abs err {max(small['max_abs_err']):.3g} ({small['tolerance']})")
+    lap("lm synthetic checks")
+    print("phase seconds: " + ", ".join(f"{n} {t:.1f}"
+                                         for n, t in phase_s.items()))
+
     # Each kernel's entry sums the main path's own calls (every drawing
-    # tick's launches in both runs, replayed on their panes); its launches
-    # are the two runs' counts added.
+    # tick's launches in both ISLA runs, replayed on their panes; every
+    # prefill layer's attention in the LM run, replayed on its q, k, v);
+    # its launches are the runs' counts added.
     def launched(kernel):
         return sum(path["launches"][kernel] for path in runs)
 
@@ -826,6 +1244,8 @@ def main() -> int:
     f_ops = sum(f["ops_ms"] for f in served)
     s_bytes = sum(f["bytes_ms"] for f in merged)
     s_ops = sum(f["ops_ms"] for f in merged)
+    a_bytes = sum(f["bytes_ms"] for f in flash)
+    a_ops = sum(f["ops_ms"] for f in flash)
     kernels = [
         dict(name="isla_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:162",
@@ -851,13 +1271,24 @@ def main() -> int:
              bound_ms=max(s_bytes, s_ops),
              bound_by="bytes" if s_bytes >= s_ops else "operations",
              library_ms=None),
+        dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
+             replaces="src/repro/kernels/flash_attention.py:65",
+             launches=lm["launches"]["flash_attention"],
+             max_abs_err=max(f["max_abs_err"] for f in flash + synth),
+             ms=sum(f["ms"] for f in flash),
+             plain_ms=sum(f["plain_ms"] for f in flash),
+             bound_ms=max(a_bytes, a_ops),
+             bound_by="bytes" if a_bytes >= a_ops else "operations",
+             library_ms=sum(f["library_ms"] for f in flash)),
     ]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_logs=logs, main_path=runs,
         main_path_folds=served, main_path_sketches=merged, fold=folds,
-        batched=batched, wrappers=wrappers, pilot=pilot,
+        batched=batched, wrappers=wrappers, pilot=pilot, lm_path=lm,
+        phase_s=phase_s,
+        lm_flash=flash, flash_synthetic=synth, lm_small=small,
         kernels=kernels),
         indent=1, default=str))
     print(card)

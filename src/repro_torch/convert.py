@@ -18,7 +18,8 @@ port continues it tick for tick:
 (2, 0.5)
 
 ``DeviceMomentStore.from_host(store_from(...), sizes, device=...)`` then
-puts a carried store on the device.
+puts a carried store on the device.  ``params_from`` also carries an LM's
+param pytree into the port's ``models``.
 """
 from __future__ import annotations
 
@@ -26,21 +27,49 @@ import dataclasses
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .core.moment_store import MomentStore
 from .core.sketch import M
 from .core.types import Anchor, Boundaries, IslaParams
 
 
-def params_from(fields: Mapping[str, Any]) -> IslaParams:
-    """``IslaParams`` from the reference's field values (any subset; the
-    rest keep their defaults).  Unknown fields raise."""
+def params_from(fields: Mapping[str, Any], device="cpu"):
+    """The port's parameters from the reference's, as numbers and arrays.
+
+    * An LM param pytree (a mapping with ``"blocks"``, the reference's
+      ``models.model.init_params`` layout with every leaf a numpy array —
+      ``jax.tree_util.tree_map(np.asarray, params)``) becomes the same
+      pytree of tensors on ``device``, dtype kept (bfloat16 arrays cross
+      bit for bit): the port's ``models`` take that layout as it is, the
+      ``blocks`` leaves stacked over groups.
+    * Otherwise ``fields`` are ``IslaParams`` field values (any subset; the
+      rest keep their defaults).  Unknown fields raise.
+    """
+    if "blocks" in fields:
+        return _tensors(fields, torch.device(device))
     known = {f.name for f in dataclasses.fields(IslaParams)}
     extra = set(fields) - known
     if extra:
         raise ValueError(f"unknown IslaParams fields {sorted(extra)}")
     return IslaParams(**{k: type(getattr(IslaParams(), k))(v)
                          for k, v in fields.items()})
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: cross the bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tensors(tree, device: torch.device):
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device) for v in tree]
+    return _tensor(tree, device)
 
 
 def boundaries_from(cuts: Sequence[float]) -> Boundaries:

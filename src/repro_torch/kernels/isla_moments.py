@@ -14,11 +14,14 @@ the TPU kernels they replace, their bound and their design):
   place into resident uint8 register rows (GROUP BY ids, 0/1 masks, an
   index map whose out-of-range entries drop).
 
-The source is compiled with ``nvcc`` at first use into ``_build/`` beside
-this file (a plain C interface loaded with ``ctypes``), so importing this
-module needs neither a compiler nor a card.  A wrapper given CPU tensors
-runs the kernel's plain PyTorch version (``ref.py``); given CUDA tensors
-it launches the kernel, or raises — it never falls back.  Each kernel's
+This module also builds and loads every CUDA source of the port
+(``SOURCES``: ``isla_kernels.cu`` and ``flash_attention.cu``, whose
+wrapper is ``flash_attention.py``).  Each is compiled with ``nvcc`` at
+first use into ``_build/`` beside this file (a plain C interface loaded
+with ``ctypes``), so importing this module needs neither a compiler nor a
+card.  A wrapper given CPU tensors runs the kernel's plain PyTorch
+version (``ref.py``); given CUDA tensors it launches the kernel, or
+raises — it never falls back.  Each kernel's
 ``launches`` counter (an attribute of its wrapper) counts the wrapper's
 calls that launched the kernel on the card, and nothing else.  An
 ``isla_sketch`` call is one ``__global__`` launch; an ``isla_fold`` call
@@ -55,7 +58,7 @@ N_REGS = REG_ROWS * LANE
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("isla_kernels.cu",)
+SOURCES = ("isla_kernels.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,22 +114,35 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
+# Each source's C entry points and their argument types (a pointer or the
+# stream as c_void_p, never as a 32-bit int); every one returns the CUDA
+# error of its launches as an int.
+SIGNATURES = {
+    "isla_kernels.cu": {
+        "isla_fold": [_P, _I, _LL, _LL, _LL, _LL, _LL, _I, _F, _F, _P, _LL,
+                      _P, _P, _P, _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL,
+                      _LL, _I, _P, _P],
+        "pilot_stats": [_P, _LL, _P, _P, _I, _P, _P],
+        "isla_sketch": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P, _LL, _P],
+    },
+    "flash_attention.cu": {
+        "flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
 def library(source: str = SOURCES[0]) -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed), argtypes set."""
+    """The loaded kernel library of ``source`` (built first if needed),
+    argtypes set."""
     path = _library_path(source)
     if not path.exists():
         build([source])
     lib = ctypes.CDLL(str(path))
-    lib.isla_fold.argtypes = [
-        _P, _I, _LL, _LL, _LL, _LL, _LL, _I, _F, _F, _P, _LL, _P, _P, _P,
-        _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _P, _P]
-    lib.isla_fold.restype = _I
-    lib.pilot_stats.argtypes = [_P, _LL, _P, _P, _I, _P, _P]
-    lib.pilot_stats.restype = _I
-    lib.isla_sketch.argtypes = [_P, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P,
-                                _LL, _P]
-    lib.isla_sketch.restype = _I
+    for name, argtypes in SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     return lib
 
 
@@ -411,9 +427,14 @@ isla_sketch.launches = 0
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0 (the ISLA kernels' and
+    ``flash_attention``'s)."""
+    from .flash_attention import flash_attention
+
     isla_fold.launches = 0
     pilot_stats.launches = 0
     isla_sketch.launches = 0
+    flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes exactly what its CUDA kernel computes, in ordinary
-tensor ops: the wrappers in ``isla_moments.py`` run these for CPU tensors
-(the tests), and ``chip_smoke.py`` holds each kernel against its plain
-version on the card.
+tensor ops: the wrappers in ``isla_moments.py`` and ``flash_attention.py``
+run these for CPU tensors (the tests), and ``chip_smoke.py`` holds each
+kernel against its plain version on the card.
 """
 from __future__ import annotations
 
@@ -133,3 +133,24 @@ def pilot_stats_ref(values: torch.Tensor,
     return torch.stack([torch.tensor(float(v.shape[0]), dtype=F32,
                                      device=v.device),
                         d.sum(), (d * d).sum(), v.min()])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        groups: int = 1) -> torch.Tensor:
+    """Plain version of the ``flash_attention`` kernel (the reference's
+    ``ref.flash_attention_ref``): causal attention of q (BH, S, hd) over
+    k, v (BH / groups, S, hd), each KV head serving ``groups`` consecutive
+    q heads; fp32 scores of ``q * hd**-0.5``, masked to -1e30 above the
+    diagonal, fp32 softmax and P.V, the output cast to ``q.dtype``."""
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=0)
+        v = v.repeat_interleave(groups, dim=0)
+    qf = q.to(F32)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqh,bkh->bqk", qf * scale, k.to(F32))
+    n = q.shape[1]
+    mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask[None], s, torch.full((), -1e30, dtype=F32,
+                                              device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkh->bqh", p, v.to(F32)).to(q.dtype)

@@ -30,8 +30,17 @@ scalar answers and O(groups) rows crossing back:
 
 The admission pipeline (plan cache, subsumption, same-tick dedupe,
 priority order) is on by default with ``--incremental``;
-``--no-admission`` restores the plain FIFO loop.  The mesh route, the
-pipelined tick and the LM workload are not ported yet.
+``--no-admission`` restores the plain FIFO loop.  The mesh route and the
+pipelined tick are not ported yet.
+
+``--workload lm`` serves an LM through the slot scheduler (``serve/``):
+``--arch`` (olmo-1b by default) with random params from ``--seed``,
+``--requests`` prompts of 4-11 seeded tokens, ``--max-new`` tokens each,
+over ``--slots`` slots of ``--max-seq`` cache rows; every prefill runs the
+hand-written flash-attention kernel on ``--device`` (cuda by default):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
+      --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -530,12 +539,55 @@ def serve_isla(args) -> None:
           f"{n_blocks} blocks x {n_groups} groups{warm}")
 
 
+# ---------------------------------------------------------------------------
+# LM serving workload (the slot scheduler demo).
+# ---------------------------------------------------------------------------
+
+
+def serve_lm(args) -> None:
+    import torch
+
+    from ..configs import get_config
+    from ..core.distributed import resolve_device
+    from ..models import model as model_lib
+    from ..serve import BatchScheduler, Request
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model_lib.init_params(cfg, gen)
+    sched = BatchScheduler(cfg, params, batch_slots=args.slots,
+                           max_seq=args.max_seq, eos_id=-1)
+    rng = np.random.default_rng(args.seed + 1)
+    for rid in range(args.requests):
+        plen = int(rng.integers(4, 12))
+        prompt = [int(t) for t in rng.integers(0, cfg.vocab, plen)]
+        sched.submit(Request(rid=rid, prompt=prompt, max_new=args.max_new))
+    t0 = time.perf_counter()
+    done = sched.run_until_drained()
+    dt = time.perf_counter() - t0
+    total_new = sum(len(r.generated) for r in done)
+    print(f"served {len(done)} requests, {total_new} tokens "
+          f"in {dt:.2f}s ({total_new / dt:.1f} tok/s) on {device}")
+    for r in done:
+        print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.generated}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", choices=["isla", "lm"], default="isla",
                     help="isla (default): the approximate-aggregation "
-                         "serving tier; lm is not ported yet")
+                         "serving tier; lm: the LM slot scheduler")
     ap.add_argument("--seed", type=int, default=0)
+    # lm workload
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="lm: the arch's smoke-test scale")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--max-new", type=int, default=12)
+    # isla workload
     ap.add_argument("--blocks", type=int, default=100)
     ap.add_argument("--groups", type=int, default=8)
     ap.add_argument("--ticks", type=int, default=4)
@@ -547,8 +599,8 @@ def main():
                          "--device; host: float64 numpy on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="where the device route keeps its stores and "
-                         "runs its tick: cuda (default; fails without a "
-                         "card) or cpu")
+                         "runs its tick, and where the lm workload runs: "
+                         "cuda (default; fails without a card) or cpu")
     ap.add_argument("--incremental", action="store_true",
                     help="persistent moment stores: warm-serve repeat "
                          "predicates, top up only sample deficits")
@@ -591,9 +643,8 @@ def main():
                     help="tiny sizes for CI smoke runs")
     args = ap.parse_args()
     if args.workload == "lm":
-        raise NotImplementedError(
-            "the LM serving workload is not ported yet (ROADMAP Queue A "
-            "item 7, 'LM stack, last')")
+        serve_lm(args)
+        return
     if args.deadline_samples is not None and not args.incremental:
         ap.error("--deadline-samples budgets the incremental deficit "
                  "ledger; it requires --incremental")

@@ -1,0 +1,141 @@
+"""Shared model layers: norms, RoPE, MLPs, embedding, LM head.
+
+Functional style, as in ``repro.models.layers``: params are plain dicts of
+tensors; every layer is ``fn(cfg, params, x, ...) -> y``.  Compute in the
+param dtype, norm/activation math in fp32.  Init draws from an explicit
+``torch.Generator`` on the generator's device, at the reference's scales
+(the numbers differ from ``jax.random``'s; parity goes through
+``convert.params_from``).  ``chunked_ce_loss`` belongs to the training
+path (ROADMAP Queue A item 11).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+
+Params = Dict[str, torch.Tensor]
+F32 = torch.float32
+
+
+def pdtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def normal(gen: torch.Generator, shape, scale: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """fp32 standard normal draws times ``scale``, cast to ``dtype`` (the
+    reference's ``(jax.random.normal(k, shape) * scale).astype(dt)``)."""
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=F32)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    if cfg.norm == "ln_nonparam":
+        return {}
+    return {"scale": torch.ones((cfg.d_model,), dtype=pdtype(cfg),
+                                device=gen.device)}
+
+
+def apply_norm(cfg: ArchConfig, params: Params, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(F32)
+    if cfg.norm == "ln_nonparam":
+        # olmo: LayerNorm without learnable scale/bias; population variance
+        # (jnp.var), hence correction=0.
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps)
+    scale = params["scale"].to(F32)
+    if cfg.norm == "rmsnorm_1p":      # gemma convention: (1 + scale)
+        scale = 1.0 + scale
+    return (y * scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=F32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotate-half
+    RoPE: the first and second halves of head_dim are the pairs."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)            # (hd/2,)
+    angles = positions[..., :, None].to(F32) * freqs         # (...,S,hd/2)
+    angles = angles[..., None, :]                            # (...,S,1,hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (swiglu / gelu)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = pdtype(cfg)
+    if cfg.mlp == "swiglu":
+        return {"w_gate": normal(gen, (d, f), d ** -0.5, dt),
+                "w_up": normal(gen, (d, f), d ** -0.5, dt),
+                "w_down": normal(gen, (f, d), f ** -0.5, dt)}
+    return {"w_in": normal(gen, (d, f), d ** -0.5, dt),
+            "w_out": normal(gen, (f, d), f ** -0.5, dt)}
+
+
+def apply_mlp(cfg: ArchConfig, params: Params,
+              x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp == "swiglu":
+        g = x @ params["w_gate"]
+        u = x @ params["w_up"]
+        return (F.silu(g.to(F32)).to(x.dtype) * u) @ params["w_down"]
+    h = x @ params["w_in"]
+    # jax.nn.gelu defaults to the tanh approximation.
+    h = F.gelu(h.to(F32), approximate="tanh").to(x.dtype)
+    return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+
+def init_embed(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    dt = pdtype(cfg)
+    shape = (cfg.padded_vocab, cfg.d_model)
+    out = {"embedding": normal(gen, shape, 0.02, dt)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = normal(gen, shape, 0.02, dt)
+    return out
+
+
+def embed_tokens(cfg: ArchConfig, params: Params,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens]
+
+
+def lm_logits(cfg: ArchConfig, params: Params,
+              x: torch.Tensor) -> torch.Tensor:
+    head = params.get("lm_head", params["embedding"])
+    return x @ head.T

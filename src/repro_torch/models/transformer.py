@@ -1,0 +1,171 @@
+"""Block assembly and layer stacks (the serving half of
+``repro.models.transformer``).
+
+A config's layer pattern is described by a *period*: the smallest repeating
+block structure.  Dense archs have period 1 (attention + MLP); jamba has
+period 8 (7 mamba + 1 attention, MoE on odd positions).  As in the
+reference, layers are stored stacked over ``n_groups = n_layers / period``:
+``params["blocks"]`` is a list over period positions whose leaves are
+(G, ...) tensors, and the forward passes loop over groups (the
+reference's ``lax.scan``) and over the period inside.
+
+Cache layout (serving): every attention period position owns
+``{"k", "v": (G, B, S_max, KV, hd)}``; prefill and decode write it in
+place.
+
+This slice serves ``mixer == "attn"`` positions with ``channel`` in
+``{"mlp", "none"}``.  A Mamba2 mixer or an MoE channel raises
+``NotImplementedError`` naming its ROADMAP item; ``grad_boundary``,
+``forward_train`` and the sharding ``constraint`` belong to the training
+path (ROADMAP Queue A item 11).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import attention as attn
+from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+
+Params = Dict[str, Any]
+
+MOE_ITEM = "ROADMAP Queue A item 8, 'MoE channel'"
+MAMBA_ITEM = "ROADMAP Queue A item 9, 'Mamba2 mixer'"
+
+
+def period_of(cfg: ArchConfig) -> int:
+    p = 1
+    if cfg.mamba is not None and cfg.n_heads > 0:
+        p = cfg.attn_every
+    if cfg.moe is not None:
+        p = max(p, cfg.moe.moe_every)
+        assert p % cfg.moe.moe_every == 0
+    assert cfg.n_layers % p == 0, \
+        f"{cfg.name}: n_layers {cfg.n_layers} % period {p} != 0"
+    return p
+
+
+def n_groups_of(cfg: ArchConfig) -> int:
+    return cfg.n_layers // period_of(cfg)
+
+
+def position_kind(cfg: ArchConfig, pos: int) -> Tuple[str, str]:
+    """(mixer, channel) for period position ``pos``:
+    mixer in {attn, mamba}; channel in {mlp, moe, none}."""
+    mixer = "attn" if cfg.block_is_attention(pos) else "mamba"
+    if cfg.moe is not None and cfg.block_is_moe(pos):
+        channel = "moe"
+    elif cfg.d_ff > 0:
+        channel = "mlp"
+    else:
+        channel = "none"
+    return mixer, channel
+
+
+def served_kind(cfg: ArchConfig, pos: int) -> Tuple[str, str]:
+    """``position_kind``, raising for what this port cannot serve yet."""
+    mixer, channel = position_kind(cfg, pos)
+    if mixer == "mamba":
+        raise NotImplementedError(
+            f"{cfg.name}: the Mamba2 mixer is not ported yet ({MAMBA_ITEM})")
+    if channel == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE channel is not ported yet ({MOE_ITEM})")
+    return mixer, channel
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_block_position(cfg: ArchConfig, pos: int,
+                        gen: torch.Generator) -> Params:
+    _, channel = served_kind(cfg, pos)
+    p: Params = {"ln1": init_norm(cfg, gen),
+                 "attn": attn.init_attention(cfg, gen)}
+    if channel != "none":
+        p["ln2"] = init_norm(cfg, gen)
+        p["mlp"] = init_mlp(cfg, gen)
+    return p
+
+
+def _stack(trees: List[Params]) -> Params:
+    """Leaves of same-structured dicts stacked on a new leading axis."""
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def group_params(blocks: Params, g: int) -> Params:
+    """Group ``g``'s slice of a period position's stacked leaves (views)."""
+    return {k: (group_params(v, g) if isinstance(v, dict) else v[g])
+            for k, v in blocks.items()}
+
+
+def init_stack(cfg: ArchConfig, gen: torch.Generator) -> List[Params]:
+    """params["blocks"]: list over period positions, leaves stacked over
+    groups."""
+    groups = n_groups_of(cfg)
+    return [_stack([init_block_position(cfg, pos, gen)
+                    for _ in range(groups)])
+            for pos in range(period_of(cfg))]
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill / decode)
+# ---------------------------------------------------------------------------
+
+
+def _apply_channel(cfg: ArchConfig, pos: int, bp: Params,
+                   x: torch.Tensor) -> torch.Tensor:
+    _, channel = served_kind(cfg, pos)
+    if channel == "none":
+        return x
+    h = apply_norm(cfg, bp.get("ln2", {}), x)
+    return x + apply_mlp(cfg, bp["mlp"], h)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """One cache entry per period position, leaves stacked over groups."""
+    groups = n_groups_of(cfg)
+    cache: List[Dict[str, torch.Tensor]] = []
+    for pos in range(period_of(cfg)):
+        served_kind(cfg, pos)
+        shape = (groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        cache.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return cache
+
+
+def _forward(cfg: ArchConfig, params: Params, x: torch.Tensor, cache,
+             mix) -> Tuple[torch.Tensor, list]:
+    """The stack: for every group, every period position's attention
+    ``mix(bp, h, cache_k, cache_v)`` (writing its cache rows in place),
+    then its channel."""
+    for g in range(n_groups_of(cfg)):
+        for pos in range(period_of(cfg)):
+            bp = group_params(params["blocks"][pos], g)
+            h = apply_norm(cfg, bp.get("ln1", {}), x)
+            y, _, _ = mix(bp["attn"], h, cache[pos]["k"][g],
+                          cache[pos]["v"][g])
+            x = _apply_channel(cfg, pos, bp, x + y)
+    return x, cache
+
+
+def forward_prefill(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                    positions: torch.Tensor, cache):
+    """Prefill: causal forward that fills the cache's first S rows."""
+    return _forward(cfg, params, x, cache, lambda p, h, ck, cv:
+                    attn.attention_prefill(cfg, p, h, positions, ck, cv))
+
+
+def forward_decode(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                   pos: torch.Tensor, cache):
+    """Single-token decode: x (B, 1, d); pos (B,) current positions."""
+    return _forward(cfg, params, x, cache, lambda p, h, ck, cv:
+                    attn.attention_decode(cfg, p, h, pos, ck, cv))

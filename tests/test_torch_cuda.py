@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import repro_torch.core as TC
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import isla_moments as K
 from repro_torch.kernels import ref
 from _torch_sketch_cases import SKETCH_CASES, sketch_case
@@ -253,3 +254,91 @@ def test_distinct_executor_on_cuda_matches_cpu(cuda):
             if c.groups is not None:
                 assert [x.value for x in g.groups] == [x.value
                                                        for x in c.groups]
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the LM prefill's kernel, and the slice on the card.
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+@pytest.mark.parametrize("s", [200, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, dtype, hd, s, groups):
+    """The kernel against its plain version on the same card tensors: fp32
+    at the reference sweep's 1e-4, bf16 output at 2e-2 (one to two bf16
+    ulps on O(1) values); S = 200 is ragged, 256 a multiple of the tile;
+    a repeat launch gives identical bits."""
+    rng = np.random.default_rng(hd + s + groups)
+    bh = 6
+
+    def t(shape, scale):
+        return torch.as_tensor(rng.normal(size=shape) * scale,
+                               dtype=dtype, device=cuda)
+
+    q = t((bh, s, hd), 0.3)
+    k = t((bh // groups, s, hd), 0.3)
+    v = t((bh // groups, s, hd), 1.0)
+    got = FA.flash_attention(q, k, v, groups=groups)
+    again = FA.flash_attention(q, k, v, groups=groups)
+    want = ref.flash_attention_ref(q, k, v, groups=groups)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, s, hd)
+    assert torch.equal(got, again)
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= FLASH_TOL[dtype], err
+
+
+def test_flash_counter_counts_launches(cuda):
+    """``flash_attention.launches`` counts kernel launches on the card and
+    nothing else: not the plain version, not a call on CPU tensors."""
+    q = torch.randn(4, 100, 64, device=cuda)
+    K.reset_launch_counts()
+    for _ in range(3):
+        FA.flash_attention(q, q, q)
+    ref.flash_attention_ref(q, q, q)
+    FA.flash_attention(q.cpu(), q.cpu(), q.cpu())
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == 3
+
+
+def test_lm_scheduler_on_cuda_launches_flash_and_matches_cpu(cuda):
+    """Reduced olmo-1b (fp32 params, bf16 cache) through the slot
+    scheduler on the card: one flash launch per admitted prefill per
+    layer, and the same generated tokens as the same weights on the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.serve import BatchScheduler, Request
+
+    cfg = get_config("olmo-1b", reduced=True).replace(param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(9)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab, n)]
+               for n in (5, 70, 9, 130, 64)]
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    finished = {}
+    for dev in ("cpu", "cuda"):
+        sched = BatchScheduler(cfg, to(params, dev), batch_slots=2,
+                               max_seq=160, eos_id=-1)
+        for rid, pr in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=pr, max_new=6))
+        K.reset_launch_counts()
+        sched.run_until_drained()
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert FA.flash_attention.launches == len(prompts) * cfg.n_layers
+        else:
+            assert FA.flash_attention.launches == 0
+        finished[dev] = [(r.rid, r.generated) for r in sched.finished]
+    assert finished["cuda"] == finished["cpu"]

@@ -563,10 +563,12 @@ def test_convert_carries_the_register_plane(rng):
 
 def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
     """The tagged sketch tick, the mesh route (its sketch families with
-    it), the pipelined tick and the LM serving workload still raise, each
-    naming its ROADMAP Queue A item by number and name, and ROADMAP.md
-    lists that item."""
-    monkeypatch.setattr(sys, "argv", ["serve", "--workload", "lm"])
+    it), the pipelined tick and LM serving of an MoE config still raise,
+    each naming its ROADMAP Queue A item by number and name, and
+    ROADMAP.md lists that item."""
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--workload", "lm", "--arch", "arctic-480b", "--reduced",
+        "--device", "cpu"])
     roadmap = (ROOT / "ROADMAP.md").read_text()
     ex = TC.MultiQueryExecutor(
         [TC.table_sampler(t) for t in _distinct_tables(n_blocks=2)],
@@ -578,7 +580,7 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
              (4, "Mesh route")),
             (lambda: ex.run(q, np.random.default_rng(0), incremental=True,
                             pipeline=True), (3, "Pipelined tick")),
-            (TS.main, (7, "LM stack, last"))):
+            (TS.main, (8, "MoE channel"))):
         with pytest.raises(NotImplementedError) as err:
             call()
         assert f"Queue A item {item[0]}, '{item[1]}'" in str(err.value)
