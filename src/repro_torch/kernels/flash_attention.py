@@ -19,15 +19,15 @@ from .isla_moments import _raise_on, _same_device, library
 from .ops import on_gpu
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (32, 64, 128)
-HEAD_DIM_ITEM = "ROADMAP Queue B item 4, 'flash_attention at head_dim 256'"
+HEAD_DIMS = (32, 64, 128, 256)  # every head_dim of the repo's configs
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     groups: int = 1) -> torch.Tensor:
     """Causal attention of every (batch * head) slice, fp32 online softmax.
 
-    q : (BH, S, hd) fp32 or bf16, contiguous; ``hd`` in ``HEAD_DIMS``.
+    q : (BH, S, hd) fp32 or bf16, contiguous; on the card ``hd`` is one
+        of ``HEAD_DIMS`` (the plain version on the CPU takes any).
     k, v : (BH / groups, S, hd), contiguous, of q's type; q head ``bh``
         attends over KV head ``bh // groups`` (GQA with ``groups`` q heads
         per KV head; for q laid out as B x H heads this is
@@ -42,10 +42,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     groups = int(groups)
     if groups < 1 or bh % groups != 0:
         raise ValueError(f"groups ({groups}) must divide BH ({bh})")
-    if hd not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention takes head_dim in {HEAD_DIMS}, got {hd} "
-            f"({HEAD_DIM_ITEM})")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be fp32 or bf16, got {q.dtype}")
     kv_shape = (bh // groups, s, hd)
@@ -59,8 +55,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _same_device(q, k=k, v=v)
     if not on_gpu(q):
         return ref.flash_attention_ref(q, k, v, groups=groups)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
     if s >= 2 ** 31:
         raise ValueError(f"sequence length {s} exceeds the kernel's int")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"copies 16-byte chunks)")
     out = torch.empty_like(q)
     if bh == 0 or s == 0:
         return out

@@ -6,8 +6,10 @@ asynchronously, are admitted per tick, planned into shared sampling
 passes per resolved Phase 2 mode, and answered with provenance (rate,
 pass id, resolved mode, bound):
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --ticks 4
-  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload isla \
+      --ticks 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload isla \
+      --smoke --device cpu
 
 With ``--incremental`` the loop keeps persistent per-(where, group_by,
 mode) moment stores across ticks: repeat predicates are served from warm
@@ -25,15 +27,16 @@ for COUNT DISTINCT keys, the hand-written CUDA HLL register merge onto
 the resident register plane), Phase 2 and the group stats — with only
 scalar answers and O(groups) rows crossing back:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
-      --incremental --drift-check 6.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload isla \
+      --smoke --incremental --drift-check 6.0
 
 The admission pipeline (plan cache, subsumption, same-tick dedupe,
 priority order) is on by default with ``--incremental``;
 ``--no-admission`` restores the plain FIFO loop.  The mesh route and the
 pipelined tick are not ported yet.
 
-``--workload lm`` serves an LM through the slot scheduler (``serve/``):
+``--workload lm``, the default as in the reference, serves an LM through
+the slot scheduler (``serve/``):
 ``--arch`` (olmo-1b by default) with random params from ``--seed``,
 ``--requests`` prompts of 4-11 seeded tokens, ``--max-new`` tokens each,
 over ``--slots`` slots of ``--max-seq`` cache rows; every prefill runs the
@@ -575,9 +578,10 @@ def serve_lm(args) -> None:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workload", choices=["isla", "lm"], default="isla",
-                    help="isla (default): the approximate-aggregation "
-                         "serving tier; lm: the LM slot scheduler")
+    ap.add_argument("--workload", choices=["isla", "lm"], default="lm",
+                    help="lm (default, as in the reference): the LM slot "
+                         "scheduler; isla: the approximate-aggregation "
+                         "serving tier")
     ap.add_argument("--seed", type=int, default=0)
     # lm workload
     ap.add_argument("--arch", default="olmo-1b")

@@ -18,7 +18,10 @@ import torch
 from ..configs.base import ArchConfig
 from ..models import model
 
-FRONTEND_ITEM = "ROADMAP Queue A item 10, 'Frontends'"
+# The reference's scheduler cannot serve a frontend config either (its
+# admit prefills without prefix embeddings); serve one through
+# ``model.serve_prefill`` / ``serve_decode``.
+FRONTEND_ITEM = "ROADMAP Queue C, 'The frontend raise'"
 
 
 def serve_prefill_step(cfg: ArchConfig, params, batch, cache):
@@ -63,8 +66,10 @@ class BatchScheduler:
                  max_seq: int, eos_id: int = 1):
         if cfg.frontend is not None:
             raise NotImplementedError(
-                f"{cfg.name}: serving a {cfg.frontend} frontend's prefix "
-                f"embeddings is not ported yet ({FRONTEND_ITEM})")
+                f"{cfg.name}: the slot scheduler does not serve a "
+                f"{cfg.frontend} frontend's prefix embeddings; call "
+                f"models.model.serve_prefill with 'prefix_embeds' "
+                f"({FRONTEND_ITEM})")
         self.cfg = cfg
         self.params = params
         self.device = params["embedding"].device

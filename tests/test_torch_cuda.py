@@ -263,17 +263,27 @@ def test_distinct_executor_on_cuda_matches_cpu(cuda):
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
-@pytest.mark.parametrize("groups", [1, 3])
+def _to(tree, dev):
+    """A params tree (dicts and lists of tensors) moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("groups", [1, 3, 8])
 @pytest.mark.parametrize("s", [200, 256])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(cuda, dtype, hd, s, groups):
     """The kernel against its plain version on the same card tensors: fp32
     at the reference sweep's 1e-4, bf16 output at 2e-2 (one to two bf16
     ulps on O(1) values); S = 200 is ragged, 256 a multiple of the tile;
-    a repeat launch gives identical bits."""
+    groups 8 is paligemma's MQA layout at hd 256; a repeat launch gives
+    identical bits."""
     rng = np.random.default_rng(hd + s + groups)
-    bh = 6
+    bh = 24
 
     def t(shape, scale):
         return torch.as_tensor(rng.normal(size=shape) * scale,
@@ -290,6 +300,16 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, hd, s, groups):
     assert torch.equal(got, again)
     err = float((got.double() - want.double()).abs().max())
     assert err <= FLASH_TOL[dtype], err
+
+
+def test_flash_kernel_refuses_unsupported_head_dim(cuda):
+    """A CUDA tensor of a head_dim the kernel has no instantiation for
+    raises; it never falls back to the plain version."""
+    q = torch.zeros(2, 64, 48, dtype=torch.bfloat16, device=cuda)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q, q, q)
+    assert FA.flash_attention.launches == 0
 
 
 def test_flash_counter_counts_launches(cuda):
@@ -320,16 +340,9 @@ def test_lm_scheduler_on_cuda_launches_flash_and_matches_cpu(cuda):
     prompts = [[int(x) for x in rng.integers(0, cfg.vocab, n)]
                for n in (5, 70, 9, 130, 64)]
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
     finished = {}
     for dev in ("cpu", "cuda"):
-        sched = BatchScheduler(cfg, to(params, dev), batch_slots=2,
+        sched = BatchScheduler(cfg, _to(params, dev), batch_slots=2,
                                max_seq=160, eos_id=-1)
         for rid, pr in enumerate(prompts):
             sched.submit(Request(rid=rid, prompt=pr, max_new=6))
@@ -342,3 +355,48 @@ def test_lm_scheduler_on_cuda_launches_flash_and_matches_cpu(cuda):
             assert FA.flash_attention.launches == 0
         finished[dev] = [(r.rid, r.generated) for r in sched.finished]
     assert finished["cuda"] == finished["cpu"]
+
+
+@pytest.mark.parametrize("head_dim", [None, 256])
+def test_paligemma_prefix_prefill_on_cuda_matches_cpu(cuda, head_dim):
+    """Reduced paligemma-3b (MQA, rmsnorm_1p, tanh-GELU, tied embeddings;
+    fp32 params, bf16 cache), once at its reduced head_dim 32 and once at
+    paligemma's 256: a prefill of 16 prefix embeddings and 40 tokens
+    through ``serve_prefill`` and 4 ``serve_decode`` steps on the card
+    against the same weights on the CPU (prefill logits 1e-4; decode
+    1e-3, as an entry of the bf16 cache may round one ulp apart), with one
+    flash launch per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.frontends import synth_frontend_embeds
+
+    cfg = get_config("paligemma-3b", reduced=True).replace(
+        param_dtype="float32")
+    if head_dim is not None:
+        cfg = cfg.replace(head_dim=head_dim)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    prefix = synth_frontend_embeds(cfg, 2, torch.Generator().manual_seed(1))
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 44))
+    S = cfg.frontend_len + 40
+
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        t = torch.as_tensor(toks, device=dev)
+        cache = TM.init_cache(cfg, 2, S + 4, device=dev)
+        K.reset_launch_counts()
+        out = [TM.serve_prefill(cfg, p, {"tokens": t[:, :40],
+                                         "prefix_embeds": prefix.to(dev)},
+                                cache)[0]]
+        torch.cuda.synchronize()
+        assert FA.flash_attention.launches == (
+            cfg.n_layers if dev == "cuda" else 0)
+        for i in range(4):
+            pos = torch.full((2,), S + i, device=dev)
+            out.append(TM.serve_decode(cfg, p, t[:, 40 + i:41 + i], pos,
+                                       cache)[0])
+        logits[dev] = [o.float().cpu() for o in out]
+    for step, (c, g) in enumerate(zip(logits["cpu"], logits["cuda"])):
+        tol = 1e-4 if step == 0 else 1e-3
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, c, rtol=tol, atol=tol)

@@ -305,9 +305,10 @@ def test_entry_points_default_to_the_device_route(monkeypatch, capsys):
     loop.submit(_queries(TC)[0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loop.tick()
-    for argv, ok in ((["serve", "--smoke", "--incremental"], False),
-                     (["serve", "--smoke", "--incremental", "--route",
-                       "host"], True)):
+    for argv, ok in ((["serve", "--workload", "isla", "--smoke",
+                       "--incremental"], False),
+                     (["serve", "--workload", "isla", "--smoke",
+                       "--incremental", "--route", "host"], True)):
         monkeypatch.setattr(sys, "argv", argv)
         if ok:
             TS.main()
@@ -320,8 +321,8 @@ def test_entry_points_default_to_the_device_route(monkeypatch, capsys):
 def test_serve_cli_smoke(capsys):
     """The port's serve entry point end to end on the CPU."""
     argv = sys.argv
-    sys.argv = ["serve", "--smoke", "--device", "cpu", "--incremental",
-                "--route", "device", "--drift-check", "6.0"]
+    sys.argv = ["serve", "--workload", "isla", "--smoke", "--device", "cpu",
+                "--incremental", "--route", "device", "--drift-check", "6.0"]
     try:
         TS.main()
     finally:

@@ -38,7 +38,8 @@ def _f32(x):
 
 # The two smallest shapes of the reference sweep: (BH, S, hd, bq, bk).
 @pytest.mark.parametrize("shape", [(3, 512, 32, 128, 256),
-                                   (4, 1024, 64, 256, 256)])
+                                   (4, 1024, 64, 256, 256),
+                                   (2, 512, 256, 256, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_matches_pallas_kernel(shape, dtype):
     bh, s, hd, bq, bk = shape
@@ -75,13 +76,29 @@ def test_flash_gqa_matches_expanded_oracle():
         assert bh // G == (bh // H) * KV + (bh % H) // G
 
 
+def test_flash_mqa_hd256_matches_expanded_oracle():
+    """paligemma's layout: one batch of 8 q heads of 256 over a single KV
+    head (G = 8, MQA), at a ragged S, bf16 and fp32."""
+    q, k, v = _qkv(np.random.default_rng(5), 8, 120, 256, kv_heads=1)
+    for dtype in ("float32", "bfloat16"):
+        got = FA.flash_attention(*_port((q, k, v), dtype), groups=8)
+        want = flash_attention_ref(*_jax((q, np.repeat(k, 8, axis=0),
+                                          np.repeat(v, 8, axis=0)), dtype))
+        assert got.shape == (8, 120, 256)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype])
+
+
 def test_flash_wrapper_checks_and_dispatch():
     q, k, v = _port(_qkv(np.random.default_rng(3), 2, 64, 32), "float32")
     meta = [t.to("meta") for t in (q, k, v)]
     with pytest.raises(ValueError, match="no kernel for tensors on meta"):
         FA.flash_attention(*meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B item 4"):
-        FA.flash_attention(*(torch.zeros(1, 8, 256) for _ in range(3)))
+    # The head_dim check is the kernel's: on the CPU the plain version
+    # takes hd 256 (and any other), as the reference does.
+    q256, k256, v256 = _qkv(np.random.default_rng(6), 1, 8, 256)
+    got = FA.flash_attention(*_port((q256, k256, v256), "float32"))
+    want = flash_attention_ref(*_jax((q256, k256, v256), "float32"))
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL["float32"])
     with pytest.raises(ValueError, match="must be contiguous"):
         FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v)

@@ -27,6 +27,7 @@ def test_every_module_imports_without_jax_or_repro():
     for m in ("repro_torch.kernels.isla_moments",
               "repro_torch.kernels.flash_attention", "repro_torch.configs",
               "repro_torch.models.attention", "repro_torch.models.model",
+              "repro_torch.models.frontends",
               "repro_torch.serve.engine", "repro_torch.launch.serve"):
         assert m in mods, m
     code = ("import sys\n"

@@ -15,12 +15,14 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_config
+from repro.models import frontends as RF
 from repro.models import model as RM
 from repro.serve import BatchScheduler as RefScheduler
 from repro.serve import Request as RefRequest
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.models import frontends as TF
 from repro_torch.models import model as TM
 from repro_torch.serve import BatchScheduler, Request
 
@@ -44,23 +46,30 @@ def _f32(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def _pair(arch, dtype, seed=0):
-    """(reference cfg, params), (port cfg, params): the same weights."""
-    cr = ref_config(arch, reduced=True).replace(param_dtype=dtype)
-    ct = get_config(arch, reduced=True).replace(param_dtype=dtype)
+def _pair(arch, dtype, seed=0, **changes):
+    """(reference cfg, params), (port cfg, params): the same weights; the
+    reduced configs with ``param_dtype`` and ``changes`` replaced."""
+    cr = ref_config(arch, reduced=True).replace(param_dtype=dtype, **changes)
+    ct = get_config(arch, reduced=True).replace(param_dtype=dtype, **changes)
     pr = RM.init_params(cr, jax.random.key(seed))
     pt = convert.params_from(jax.tree_util.tree_map(np.asarray, pr),
                              device="cpu")
     return (cr, pr), (ct, pt)
 
 
-def _check_cache(cache_r, cache_t, dtype, what):
+def _check_cache(cache_r, cache_t, dtype, what,
+                 cache_dtype=torch.bfloat16):
+    """An fp32 cache holds the fp32 projections: held as the logits."""
     for cr, ct in zip(cache_r, cache_t):
         for name in ("k", "v"):
-            assert ct[name].dtype == torch.bfloat16
+            assert ct[name].dtype == cache_dtype
             got, want = _f32(ct[name]), _f32(cr[name])
             msg = f"{what}: cache {name}"
-            if dtype == "float32":
+            if cache_dtype == torch.float32:
+                np.testing.assert_allclose(got, want, rtol=LOGIT_TOL[dtype],
+                                           atol=LOGIT_TOL[dtype],
+                                           err_msg=msg)
+            elif dtype == "float32":
                 np.testing.assert_allclose(got, want, rtol=2 ** -7,
                                            atol=1e-5, err_msg=msg)
             else:
@@ -144,6 +153,94 @@ def test_prefix_embeds_prefill_matches_reference():
         TM.init_cache(ct, B, S, device="cpu"))
     np.testing.assert_allclose(_f32(lt), _f32(lr), rtol=1e-4, atol=1e-4)
     _check_cache(cache_r, cache_t, "float32", "prefill")
+
+
+@pytest.mark.parametrize("head_dim", [None, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paligemma_prefix_prefill_and_decode_match_reference(dtype,
+                                                            head_dim):
+    """paligemma-3b's backbone as the reference serves a frontend config
+    (``serve_prefill`` with ``prefix_embeds``, then ``serve_decode``):
+    MQA (1 KV head), rmsnorm_1p, tanh-GELU, tied embeddings.  A prefix of
+    16 patch embeddings and 12 tokens for 2 prompts, then 4 decode steps;
+    once at the reduced head_dim 32 and once at paligemma's 256, so hd 256
+    runs through the whole model.
+
+    The cache is kept in the param dtype.  A bf16 cache from fp32 params
+    rounds an entry one ulp apart now and then (``_check_cache``), and one
+    such k entry moves this model's logits by up to ~5e-4, past the fp32
+    1e-4; from the same cache the two decodes agree to ~1e-6.  For the
+    same reason in bf16 (where prefill's P.V differs by design) each
+    decode step starts from the reference's cache, carried bit for bit."""
+    changes = {} if head_dim is None else {"head_dim": head_dim}
+    (cr, pr), (ct, pt) = _pair("paligemma-3b", dtype, **changes)
+    assert ct.n_kv_heads == 1 and ct.head_dim == (head_dim or 32)
+    rng = np.random.default_rng(4)
+    B, S_tok, steps = 2, 12, 4
+    F = cr.frontend_len
+    toks = rng.integers(0, cr.vocab, (B, S_tok + steps))
+    prefix = (rng.normal(size=(B, F, cr.d_model)) * 0.02).astype(np.float32)
+    S = F + S_tok + steps
+    tol = LOGIT_TOL[dtype]
+    cache_dt = getattr(torch, dtype)
+    lr, cache_r = RM.serve_prefill(
+        cr, pr, {"tokens": jnp.asarray(toks[:, :S_tok], jnp.int32),
+                 "prefix_embeds": jnp.asarray(prefix)},
+        RM.init_cache(cr, B, S, dtype=jnp.dtype(dtype)))
+    lt, cache_t = TM.serve_prefill(
+        ct, pt, {"tokens": torch.as_tensor(toks[:, :S_tok]),
+                 "prefix_embeds": torch.as_tensor(prefix)},
+        TM.init_cache(ct, B, S, dtype=cache_dt, device="cpu"))
+    assert lt.shape == (B, 1, ct.padded_vocab)
+    np.testing.assert_allclose(_f32(lt), _f32(lr), rtol=tol, atol=tol)
+    _check_cache(cache_r, cache_t, dtype, "prefill", cache_dt)
+    for i in range(steps):
+        pos = np.full((B,), F + S_tok + i)
+        tok = toks[:, S_tok + i:S_tok + i + 1]
+        if dtype == "bfloat16":
+            cache_t = [{n: torch.as_tensor(_f32(c[n])).to(cache_dt)
+                        for n in ("k", "v")} for c in cache_r]
+        lr, cache_r = RM.serve_decode(cr, pr, jnp.asarray(tok, jnp.int32),
+                                      jnp.asarray(pos, jnp.int32), cache_r)
+        lt, cache_t = TM.serve_decode(ct, pt, torch.as_tensor(tok),
+                                      torch.as_tensor(pos), cache_t)
+        np.testing.assert_allclose(_f32(lt), _f32(lr), rtol=tol, atol=tol,
+                                   err_msg=f"decode step {i}")
+        _check_cache(cache_r, cache_t, dtype, f"decode step {i}", cache_dt)
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium",
+                                  "olmo-1b"])
+def test_frontend_embed_shape_matches_reference(arch, reduced):
+    for batch in (1, 3):
+        assert TF.frontend_embed_shape(get_config(arch, reduced=reduced),
+                                       batch) == RF.frontend_embed_shape(
+            ref_config(arch, reduced=reduced), batch)
+
+
+def test_synth_frontend_embeds_shape_dtype_and_scale():
+    """paligemma-3b's 256 patch rows at d_model 2048 in the param dtype,
+    N(0, 1) x 0.02 like the reference's stand-in (whose draws are
+    jax.random's, so only shape, dtype and spread are compared), the same
+    bits from the same seed."""
+    cfg = get_config("paligemma-3b")
+    x = TF.synth_frontend_embeds(cfg, 2, torch.Generator().manual_seed(0))
+    want = RF.synth_frontend_embeds(ref_config("paligemma-3b"), 2,
+                                    jax.random.key(0))
+    assert tuple(x.shape) == want.shape == (2, 256, 2048)
+    assert x.dtype == getattr(torch, cfg.param_dtype) == torch.bfloat16
+    assert str(want.dtype) == cfg.param_dtype
+    xf = x.float()
+    assert abs(float(xf.std()) / 0.02 - 1.0) < 0.01
+    assert abs(float(xf.mean())) < 1e-4
+    assert abs(float(np.asarray(want, np.float32).std()) / 0.02 - 1.0) < 0.01
+    again = TF.synth_frontend_embeds(cfg, 2, torch.Generator().manual_seed(0))
+    other = TF.synth_frontend_embeds(cfg, 2, torch.Generator().manual_seed(1))
+    assert torch.equal(x, again) and not torch.equal(x, other)
+    with pytest.raises(ValueError, match="no frontend"):
+        TF.synth_frontend_embeds(get_config("olmo-1b", reduced=True), 1,
+                                 torch.Generator())
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +337,7 @@ def test_frontend_scheduler_names_its_roadmap_item(arch):
     cfg = get_config(arch, reduced=True)
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 10, 'Frontends'"):
+                       match="ROADMAP Queue C, 'The frontend raise'"):
         BatchScheduler(cfg, params, batch_slots=1, max_seq=32)
 
 
@@ -282,3 +379,15 @@ def test_serve_cli_lm_runs_on_the_cpu():
     assert out.returncode == 0, out.stderr
     assert "served 6 requests, 78 tokens" in out.stdout
     assert out.stdout.count("req ") == 6
+
+
+def test_serve_cli_defaults_to_the_lm_workload():
+    """With no ``--workload`` the port's CLI serves the LM, as the
+    reference's does."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", "cpu"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "served 6 requests, 78 tokens" in out.stdout
