@@ -75,21 +75,58 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+SLEEP_CYCLES_PER_S = 2.0e9    # above the H100's SM clock: sleeps err long
+
+
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean milliseconds per call over ``reps`` warmed calls, CUDA events."""
+    """Mean milliseconds per call over ``reps`` warmed calls, CUDA events.
+    The card spins (``torch.cuda._sleep``) while the host enqueues the
+    timed calls, so a call that takes the card less time than the host
+    takes to issue it is timed by the card's work, not the host's."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 0.5)
+                          * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, names, reps: int = 20, warm: int = 3, setup=None):
+    """Mean device milliseconds a call of ``fn`` spends in the kernels
+    whose names contain one of ``names``: the profiler's device events
+    over ``reps`` calls, each after ``setup()`` when given (untimed unless
+    it runs such a kernel).  None when the trace holds no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        if setup is not None:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if str(e.device_type).endswith("CUDA")
+          and any(n in e.name for n in names)]
+    return sum(us) / reps * 1e-3 if us else None
 
 
 def max_abs_err(a, b) -> float:
@@ -142,6 +179,19 @@ def fold_tick(fold, case, state) -> None:
         o += g * n_b
 
 
+def fold_stack_tick(case, state) -> None:
+    """The same tick's fold through ``fold_panes``: one launch folds all
+    four keys onto their rows of ``state``."""
+    from repro_torch.core import distributed as D
+
+    D.fold_panes(state[:, 0:4], state[:, 4:8], state[:, 8:11],
+                 case["values"], case["pad"], (case["gid"],),
+                 (case["valid"],), case["bounds"],
+                 n_groups_list=tuple(g for g, _ in FOLD_KEYS),
+                 gid_slots=tuple(0 if g > 1 else -1 for g, _ in FOLD_KEYS),
+                 valid_slots=tuple(0 if w else -1 for _, w in FOLD_KEYS))
+
+
 def panes_bound_ms(values2d, pad_valid, gid_panes, valid_panes, bounds,
                    n_cells: int, n_keys: int, cell_idx=None
                    ) -> "tuple[float, float]":
@@ -168,21 +218,26 @@ def check_fold(device, n_blocks: int, quota: int) -> dict:
     from repro_torch.kernels import ref
 
     case = fold_case(device, n_blocks, quota)
-    got = case["prior"].clone()
-    again = case["prior"].clone()
     want = case["prior"].clone()
-    fold_tick(K.isla_fold, case, got)
-    fold_tick(K.isla_fold, case, again)
     fold_tick(ref.isla_fold_ref, case, want)
-    torch.cuda.synchronize()
-    check(torch.equal(got, again), "isla_fold is not deterministic")
-    err = max_abs_err(got, want)
-    rel = float(((got.double() - want.double()).abs()
-                 / want.double().abs().clamp_min(1.0)).max())
+    err, rel = 0.0, 0.0
+    # The tick's fold through the stacked entry (one launch) and through
+    # the one-key entry (a launch per key), each twice.
+    for tick in (fold_stack_tick, lambda c, st: fold_tick(K.isla_fold, c,
+                                                          st)):
+        got, again = case["prior"].clone(), case["prior"].clone()
+        tick(case, got)
+        tick(case, again)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), "isla_fold is not deterministic")
+        err = max(err, max_abs_err(got, want))
+        rel = max(rel, float(((got.double() - want.double()).abs()
+                              / want.double().abs().clamp_min(1.0)).max()))
     check(rel <= 1e-5, f"isla_fold disagrees with its plain version at "
                        f"quota {quota}: max rel err {rel:.3g} > 1e-5")
     scratch = case["prior"].clone()
-    ms = time_ms(lambda: fold_tick(K.isla_fold, case, scratch))
+    ms = time_ms(lambda: fold_stack_tick(case, scratch))
+    per_key_ms = time_ms(lambda: fold_tick(K.isla_fold, case, scratch))
     plain_ms = time_ms(lambda: fold_tick(ref.isla_fold_ref, case, scratch),
                        reps=5, warm=1)
     t_bytes, t_ops = panes_bound_ms(
@@ -193,19 +248,21 @@ def check_fold(device, n_blocks: int, quota: int) -> dict:
     return dict(quota=quota, n_blocks=n_blocks, cells=case["n_cells"],
                 samples=case["values"].numel(), max_abs_err=err,
                 max_rel_err=rel, tolerance="rel 1e-5", ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                launches_per_tick=len(FOLD_KEYS))
+                per_key_ms=per_key_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, launches_per_tick=1)
 
 
 class Recorder:
-    """Keeps a copy of the arguments of every call the main path makes to
-    ``distributed.<name>`` (``fold_panes``: the value panes and the
-    resident rows just before the fold; ``sketch_panes``: the hash panes
-    and the resident register plane just before the merge), by wrapping
-    it while installed."""
+    """Counts the calls the main path makes to ``distributed.<name>`` and,
+    with ``keep``, keeps a copy of the arguments of every one
+    (``fold_panes``: the value panes and the resident rows just before the
+    fold; ``sketch_panes``: the hash panes and the resident register plane
+    just before the merge), by wrapping it while installed."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, keep: bool = True):
         self.name = name
+        self.keep = keep
+        self.count = 0
         self.calls = []
 
     def __enter__(self):
@@ -219,7 +276,9 @@ class Recorder:
             return x.clone() if hasattr(x, "clone") else x
 
         def spy(*args, **kw):
-            self.calls.append(dict(args=clone(args), kw=clone(kw)))
+            self.count += 1
+            if self.keep:
+                self.calls.append(dict(args=clone(args), kw=clone(kw)))
             return real(*args, **kw)
 
         setattr(D, self.name, spy)
@@ -260,6 +319,7 @@ def check_main_path_folds(calls) -> "list[dict]":
     the serving tick folded, then both timed, with the call's bound."""
     import torch
     from repro_torch.core import distributed as D
+    from repro_torch.kernels import isla_moments as K
 
     out = []
     for c in calls:
@@ -287,12 +347,15 @@ def check_main_path_folds(calls) -> "list[dict]":
                            f"the main path's {tuple(values2d.shape)} pane: "
                            f"max rel err {rel:.3g} > 1e-5")
         scratch = [t.clone() for t in state]
-        ms = time_ms(lambda: fold_into(scratch))
+        event_ms = time_ms(lambda: fold_into(scratch))
+        dev_ms = kernel_ms(lambda: fold_into(scratch), ("isla_fold",))
         with PlainVersions():
             plain_ms = time_ms(lambda: fold_into(scratch), reps=5, warm=1)
         g_list = kw["n_groups_list"]
         n_b = values2d.shape[0]
         active = kw.get("active_cells")
+        _, _, stage = K.fold_stage(values2d.shape[1], D.stack_keys(
+            n_b, g_list, kw["gid_slots"], kw["valid_slots"]))
         t_bytes, t_ops = panes_bound_ms(
             *panes, n_cells=sum(g * n_b for g in g_list),
             n_keys=len(g_list),
@@ -301,9 +364,12 @@ def check_main_path_folds(calls) -> "list[dict]":
                         groups=list(g_list),
                         real_samples=int(panes[1].count_nonzero()),
                         compacted=active is not None,
+                        dynamic_smem_bytes=stage,
                         max_abs_err=max_abs_err(got, want), max_rel_err=rel,
-                        tolerance="rel 1e-5", ms=ms, plain_ms=plain_ms,
-                        bytes_ms=t_bytes, ops_ms=t_ops,
+                        tolerance="rel 1e-5",
+                        ms=event_ms if dev_ms is None else dev_ms,
+                        kernel_ms=dev_ms, event_ms=event_ms,
+                        plain_ms=plain_ms, bytes_ms=t_bytes, ops_ms=t_ops,
                         bound_ms=max(t_bytes, t_ops),
                         bound_by="bytes" if t_bytes >= t_ops
                         else "operations"))
@@ -371,7 +437,12 @@ def check_main_path_sketches(calls) -> "list[dict]":
         touched = int(raised.any(dim=1).sum())
         changed = int(raised.sum())
         scratch = regs0.clone()
-        ms = time_ms(lambda: merge(scratch))
+        # Each timed merge starts from the plane the tick found (a repeat
+        # on the merged plane would time the skip path alone); the events
+        # time repeats on the merged plane.
+        dev_ms = kernel_ms(lambda: merge(scratch), ("isla_sketch",),
+                           setup=lambda: scratch.copy_(regs0))
+        event_ms = time_ms(lambda: merge(scratch))
         plain_reps = 1 if bits.numel() > PLAIN_REPS_LANE_CAP else 5
         with PlainVersions():
             plain_ms = time_ms(lambda: merge(scratch), reps=plain_reps,
@@ -385,7 +456,9 @@ def check_main_path_sketches(calls) -> "list[dict]":
                         touched_cells=touched, changed_registers=changed,
                         compacted=kw.get("active_cells") is not None,
                         max_abs_err=max_abs_err(got, want),
-                        tolerance="0 (bit-identical)", ms=ms,
+                        tolerance="0 (bit-identical)",
+                        ms=event_ms if dev_ms is None else dev_ms,
+                        kernel_ms=dev_ms, repeat_event_ms=event_ms,
                         plain_ms=plain_ms, plain_reps=plain_reps,
                         bytes_ms=t_bytes, ops_ms=t_ops,
                         bound_ms=max(t_bytes, t_ops),
@@ -616,29 +689,35 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
     loop = IslaAdmissionLoop(ex, np.random.default_rng(seed + 1),
                              route=route, incremental=True)
     done, records = [], []
-    for k, e in enumerate(ticks):
-        for q in serve_queries(C, e, distinct):
-            loop.submit(q)
-        f0, p0 = K.isla_fold.launches, K.pilot_stats.launches
-        s0 = K.isla_sketch.launches
-        prof = profile_tick(device, k == profile_at)
-        t0 = time.perf_counter()
-        with prof:
-            out = loop.tick()
-            if device == "cuda":
-                import torch
-                torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        records.append(dict(
-            e=e, wall_s=wall, answered=len(out),
-            device_busy_s=device_seconds(prof),
-            new_samples=sum({a.answer.pass_id: a.answer.new_samples
-                             for a in out}.values()),
-            fold_launches=K.isla_fold.launches - f0,
-            pilot_launches=K.pilot_stats.launches - p0,
-            sketch_launches=K.isla_sketch.launches - s0,
-            stages_s=dict(ex.last_stage_times)))
-        done.extend(out)
+    with Recorder("fold_panes", keep=False) as folds, \
+            Recorder("sketch_panes", keep=False) as merges:
+        for k, e in enumerate(ticks):
+            for q in serve_queries(C, e, distinct):
+                loop.submit(q)
+            f0, p0 = K.isla_fold.launches, K.pilot_stats.launches
+            s0 = K.isla_sketch.launches
+            fc0, sc0 = folds.count, merges.count
+            prof = profile_tick(device, k == profile_at)
+            t0 = time.perf_counter()
+            with prof:
+                out = loop.tick()
+                if device == "cuda":
+                    import torch
+                    torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            records.append(dict(
+                e=e, wall_s=wall, answered=len(out),
+                device_busy_s=device_seconds(prof),
+                kernel_events=device_kernel_counts(prof),
+                new_samples=sum({a.answer.pass_id: a.answer.new_samples
+                                 for a in out}.values()),
+                fold_calls=folds.count - fc0,
+                sketch_calls=merges.count - sc0,
+                fold_launches=K.isla_fold.launches - f0,
+                pilot_launches=K.pilot_stats.launches - p0,
+                sketch_launches=K.isla_sketch.launches - s0,
+                stages_s=dict(ex.last_stage_times)))
+            done.extend(out)
     return done, ex, records
 
 
@@ -675,6 +754,24 @@ def device_kernel_seconds(prof) -> dict:
             us = e.time_range.elapsed_us()
             out[e.name] = out.get(e.name, 0.0) + us * 1e-6
     return out
+
+
+ISLA_KERNELS = ("isla_fold_kernel", "isla_fold_combine_kernel",
+                "isla_sketch_kernel", "pilot_partials_kernel",
+                "pilot_final_kernel")
+
+
+def device_kernel_counts(prof) -> "dict | None":
+    """How many times each ISLA ``__global__`` kernel ran on the card in a
+    profiled window (by the device events' names), None when not profiled
+    or when the trace holds no device event."""
+    if not hasattr(prof, "events"):
+        return None
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    if not names:
+        return None
+    return {k: sum(1 for n in names if k in n) for k in ISLA_KERNELS}
 
 
 def host_op_seconds(prof, top: int = 12) -> dict:
@@ -755,6 +852,15 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
                           f"moment-only tick took the sketch stack")
         else:
             check(n > 0, f"the {name} run never launched {kernel}")
+    # One launch folds (merges) every key of a tick: each fold_panes
+    # (sketch_panes) call of every tick launches its kernel exactly once.
+    for k, r in enumerate(records):
+        check(r["fold_launches"] == r["fold_calls"]
+              and r["sketch_launches"] == r["sketch_calls"],
+              f"the {name} run's tick {k + 1} made {r['fold_calls']} "
+              f"fold_panes and {r['sketch_calls']} sketch_panes calls but "
+              f"{r['fold_launches']} isla_fold and {r['sketch_launches']} "
+              f"isla_sketch launches")
     pilot_n = int(ex._anchor[0].pilot_size)
     del ex  # the host run below rebuilds the same tables
     host_done, _, _ = run_serve("cpu", "host", n_blocks, n_groups, rows,
@@ -765,6 +871,17 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
     # loop (same seed, same draws) after the counts were read.
     _, _, profiled = run_serve("cuda", "device", n_blocks, n_groups, rows,
                                ticks, distinct, profile_at=1)
+    # The profiler's own count of the traced tick's ISLA kernels: one fold
+    # kernel per fold_panes call (its combine only when a row is sliced,
+    # which the loop's panes never are) and one merge per sketch_panes.
+    ev, r = profiled[1]["kernel_events"], profiled[1]
+    if ev is not None:
+        check(ev["isla_fold_kernel"] == r["fold_calls"]
+              and ev["isla_fold_combine_kernel"] == 0
+              and ev["isla_sketch_kernel"] == r["sketch_calls"],
+              f"the {name} run's profiled tick ran {ev} for "
+              f"{r['fold_calls']} fold_panes and {r['sketch_calls']} "
+              f"sketch_panes calls")
     return dict(name=name, launches=launches, wall_s=wall, ticks=records,
                 profiled_ticks=profiled, pilot_size=pilot_n,
                 agreement=agree, fold_calls=folds.calls,
@@ -1195,8 +1312,8 @@ def vlm_path(seed: int = 0) -> dict:
 
 
 def ptxas_figures(log: str) -> dict:
-    """Each function's registers and spill bytes from a ``-Xptxas -v``
-    log."""
+    """Each function's registers, spill bytes and static shared memory
+    from a ``-Xptxas -v`` log."""
     figs, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1211,7 +1328,22 @@ def ptxas_figures(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             figs[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            figs[cur]["smem_bytes"] = int(m.group(1)) if m else 0
     return figs
+
+
+def isla_ptxas(log: str) -> dict:
+    """The ISLA kernels' ``-Xptxas -v`` figures by readable name
+    (``isla_fold_kernel<float>``, ``isla_sketch_kernel``, ...)."""
+    out = {}
+    for fn, fig in ptxas_figures(log).items():
+        for k in ISLA_KERNELS:
+            if k in fn:
+                t = ("<bf16>" if "bfloat16" in fn else
+                     "<float>" if k == "isla_fold_kernel" else "")
+                out[k + t] = fig
+    return out
 
 
 FLASH_FN = re.compile(r"(flash_fwd_[a-z0-9]+)ILi(\d+)E")
@@ -1326,6 +1458,18 @@ def main() -> int:
     else:
         print("flash_attention.cu was built before this run: its ptxas "
               "figures are not checked")
+    islaptx = {}
+    if K.SOURCES[0] in logs:
+        islaptx = isla_ptxas(logs[K.SOURCES[0]])
+        check(len(islaptx) == 6, f"isla_kernels.cu: a kernel is missing "
+                                 f"from the ptxas log: {islaptx}")
+        print("isla_kernels.cu -Xptxas -v: " + "; ".join(
+            f"{n} {f['registers']} regs, {f['smem_bytes']} B static smem, "
+            f"{f.get('spill_bytes', 0)} B spilled"
+            for n, f in sorted(islaptx.items())))
+    else:
+        print("isla_kernels.cu was built before this run: its ptxas "
+              "figures are not printed")
     sass = flash_sass()
     check(len(sass) == 8 and all(
         c["HMMA"] + c["HGMMA"] > 0
@@ -1355,12 +1499,16 @@ def main() -> int:
                                for n, t in r["stages_s"].items())
             busy = q["device_busy_s"]
             print(f"  tick {k + 1} (e={r['e']}): {r['new_samples']} new "
-                  f"samples, {r['fold_launches']} fold / "
+                  f"samples, {r['fold_calls']} fold_panes / "
+                  f"{r['sketch_calls']} sketch_panes calls, "
+                  f"{r['fold_launches']} fold / "
                   f"{r['sketch_launches']} sketch launches, stages s: "
                   f"{stages}"
                   + ("" if busy is None else
                      f"; profiled re-run: device busy {busy * 1e3:.3f} ms "
-                     f"of {q['wall_s']:.3f} s wall"))
+                     f"of {q['wall_s']:.3f} s wall")
+                  + ("" if q["kernel_events"] is None else
+                     f", ISLA kernels {json.dumps(q['kernel_events'])}"))
     dev = torch.device("cuda")
     served = []
     for path in runs:
@@ -1370,10 +1518,12 @@ def main() -> int:
     for f in served:
         print(f"isla_fold on the {f['run']} run's pane {tuple(f['pane'])} "
               f"({f['keys']} keys, {f['real_samples']} samples): "
-              f"{f['ms']:.4f} ms (plain {f['plain_ms']:.3f} ms, bound "
+              f"{f['ms']:.4f} ms on the card (CUDA events "
+              f"{f['event_ms']:.4f} ms; plain {f['plain_ms']:.3f} ms, bound "
               f"{f['bound_ms']:.4f} ms by {f['bound_by']}), max abs err "
               f"{f['max_abs_err']:.3g}, max rel err {f['max_rel_err']:.3g} "
-              f"(tol rel 1e-5)")
+              f"(tol rel 1e-5), one launch, "
+              f"{f['dynamic_smem_bytes']} B of staged row a block")
     merged = []
     for path in runs:
         for f in check_main_path_sketches(path.pop("sketch_calls")):
@@ -1383,16 +1533,20 @@ def main() -> int:
         print(f"isla_sketch on the {f['run']} run's hash pane "
               f"{tuple(f['pane'])} ({f['keys']} keys, {f['live_lanes']} "
               f"live lanes, {f['touched_cells']} cells changed): "
-              f"{f['ms']:.4f} ms (plain {f['plain_ms']:.3f} ms over "
+              f"{f['ms']:.4f} ms on the card from the tick's plane (a "
+              f"repeat on the merged plane {f['repeat_event_ms']:.4f} ms "
+              f"by CUDA events; plain {f['plain_ms']:.3f} ms over "
               f"{f['plain_reps']} reps, bound {f['bound_ms']:.4f} ms by "
               f"{f['bound_by']}), bit-identical to its plain version")
     lap("isla main path replays")
     folds = [check_fold(dev, 1000, q) for q in (64, 4096)]
     for f in folds:
         print(f"isla_fold synthetic quota {f['quota']}: {f['ms']:.4f} ms "
-              f"(plain {f['plain_ms']:.3f} ms, bound {f['bound_ms']:.4f} "
-              f"ms by {f['bound_by']}), max abs err {f['max_abs_err']:.3g}"
-              f", max rel err {f['max_rel_err']:.3g} (tol rel 1e-5)")
+              f"in one launch ({f['per_key_ms']:.4f} ms as a launch per "
+              f"key; plain {f['plain_ms']:.3f} ms, bound "
+              f"{f['bound_ms']:.4f} ms by {f['bound_by']}), max abs err "
+              f"{f['max_abs_err']:.3g}, max rel err {f['max_rel_err']:.3g} "
+              f"(tol rel 1e-5)")
     batched = check_batched(dev)
     print(f"isla_moments_batched stride {batched['stride']} per-cell cuts: "
           f"{batched['ms']:.4f} ms (plain {batched['plain_ms']:.3f} ms, "
@@ -1551,6 +1705,7 @@ def main() -> int:
         phase_s=phase_s,
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
         vlm_path=vlm, vlm_flash=vflash, flash_ptxas=ptxas, flash_sass=sass,
+        isla_ptxas=islaptx,
         kernels=kernels),
         indent=1, default=str))
     print(card)

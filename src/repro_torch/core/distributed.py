@@ -5,9 +5,10 @@ This mirrors ``repro.core.distributed``.  Everything is branchless
 (``torch.where`` over the modulation cases) and fp32-safe (values are
 pre-scaled by a per-anchor normalizer; ISLA is exactly scale-equivariant).
 The serving tick's Phase 1 fold runs through the hand-written CUDA kernel
-``kernels.isla_moments.isla_fold`` on the card (its plain PyTorch version
-on the CPU), and a sketch stack's HLL register merge through
-``kernels.isla_moments.isla_sketch``; Phase 2, the group statistics and
+``isla_fold`` on the card (its plain PyTorch version on the CPU), one
+launch for every key of the stack (``kernels.isla_moments.isla_fold_stack``),
+and a sketch stack's HLL register merge through ``isla_sketch``, also one
+launch a tick (``isla_sketch_stack``); Phase 2, the group statistics and
 the group fold of the registers are plain tensor code.
 
 Where the JAX reference donates the resident state to a jitted launch and
@@ -26,7 +27,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.isla_moments import isla_fold, isla_sketch, pilot_stats
+from ..kernels.isla_moments import (MAX_KEYS, StackKey, isla_fold_stack,
+                                     isla_sketch_stack, pilot_stats)
 from .types import IslaParams
 
 F32 = torch.float32
@@ -272,15 +274,41 @@ def _scaled_solve_args(params: IslaParams, geometry, inv_scale):
     return thr, geometry
 
 
+def stack_keys(n_b: int, n_groups_list, gid_slots, valid_slots,
+               key_affine=None, bound_slots=None):
+    """The dense tick's stacked keys, ``StackKey`` entries of the fold and
+    register merge launches: key k's cells follow the keys before it
+    (row ``offset = sum of n_groups * n_b`` before it, or that entry of the
+    compacted map), it groups by its gid slot (ungrouped keys take none),
+    masks with its predicate slot, reads the pane through ``key_affine[k]``
+    (identity: none) and classifies against row ``bound_slots[k]``."""
+    n_keys = len(n_groups_list)
+    if key_affine is None:
+        key_affine = ((1.0, 0.0),) * n_keys
+    if bound_slots is None:
+        bound_slots = (0,) * n_keys
+    keys, o = [], 0
+    for g, gslot, vslot, (ratio, off), brow in zip(
+            n_groups_list, gid_slots, valid_slots, key_affine, bound_slots):
+        keys.append(StackKey(
+            n_groups=g, gid_slot=-1 if g == 1 else gslot, valid_slot=vslot,
+            offset=o, affine=(None if ratio == 1.0 and off == 0.0
+                              else (float(ratio), float(off))),
+            bound_row=brow))
+        o += g * n_b
+    return keys
+
+
 def fold_panes(mom_s: torch.Tensor, mom_l: torch.Tensor,
                totals: torch.Tensor, values2d: torch.Tensor,
                pad_valid: torch.Tensor, gid_panes, valid_panes,
                bounds: torch.Tensor, *, n_groups_list, gid_slots,
                valid_slots, key_affine=None, bound_slots=None,
                active_cells=None) -> None:
-    """Phase 1 of the dense tick: one ``isla_fold`` launch per stacked key
-    adds the (n_blocks, quota_max) sample pane into that key's resident
-    rows, in place.
+    """Phase 1 of the dense tick: one ``isla_fold_stack`` launch adds the
+    (n_blocks, quota_max) sample pane into every stacked key's resident
+    rows, in place, reading each sample once for all keys (a stack of more
+    than ``MAX_KEYS`` keys takes a launch per ``MAX_KEYS``).
 
     Key k reads the shared pane through its affine ``key_affine[k] =
     (ratio, offset)`` (its own anchor frame), classifies against row
@@ -291,32 +319,14 @@ def fold_panes(mom_s: torch.Tensor, mom_l: torch.Tensor,
     ``active_cells[0]`` maps each compacted (key, group, block) cell to
     its resident row; out-of-range pads drop.
     """
-    n_keys = len(n_groups_list)
-    if key_affine is None:
-        key_affine = ((1.0, 0.0),) * n_keys
-    if bound_slots is None:
-        bound_slots = (0,) * n_keys
-    brows = bounds.reshape(-1, 4)
-    n_b = values2d.shape[0]
-    o = 0
-    for i, (gslot, vslot, g) in enumerate(zip(gid_slots, valid_slots,
-                                              n_groups_list)):
-        ratio, off = key_affine[i]
-        fold_kw = dict(
-            pad=pad_valid,
-            valid=None if vslot < 0 else valid_panes[vslot],
-            gid=None if g == 1 else gid_panes[gslot], n_groups=g,
-            affine=(None if ratio == 1.0 and off == 0.0
-                    else (float(ratio), float(off))))
-        b = brows[bound_slots[i]]
-        if active_cells is None:
-            rows = slice(o, o + g * n_b)
-            isla_fold(values2d, b, mom_s[rows], mom_l[rows], totals[rows],
-                      **fold_kw)
-        else:
-            isla_fold(values2d, b, mom_s, mom_l, totals,
-                      cell_idx=active_cells[0][o:o + g * n_b], **fold_kw)
-        o += g * n_b
+    keys = stack_keys(values2d.shape[0], n_groups_list, gid_slots,
+                      valid_slots, key_affine, bound_slots)
+    for i in range(0, len(keys), MAX_KEYS):
+        isla_fold_stack(values2d, bounds.reshape(-1, 4), mom_s, mom_l,
+                        totals, keys=keys[i:i + MAX_KEYS], pad=pad_valid,
+                        gid_panes=gid_panes, valid_panes=valid_panes,
+                        cell_idx=None if active_cells is None
+                        else active_cells[0])
 
 
 def _dense_core(mom_s: torch.Tensor, mom_l: torch.Tensor,
@@ -330,7 +340,7 @@ def _dense_core(mom_s: torch.Tensor, mom_l: torch.Tensor,
                 bound_slots, active_cells=None):
     """The dense tick body: ``fold_panes`` folds the (n_blocks,
     quota_max) sample pane into every key's resident rows in place (one
-    ``isla_fold`` launch per key), then Phase 2 and the group stat rows
+    ``isla_fold`` launch for the stack), then Phase 2 and the group stat rows
     run over the full state.
 
     ``active_cells = (cell_idx, ns_idx)`` is the zone-pruned compacted
@@ -442,23 +452,20 @@ def sketch_panes(regs: torch.Tensor, bits2d: torch.Tensor,
                  n_groups_list, gid_slots, valid_slots,
                  active_cells=None) -> None:
     """The dense register merge (the reference's
-    ``_sketch_dense_scatter``): one ``isla_sketch`` launch per stacked
-    key merges the (n_blocks, quota_max) int64 hash pane (the raw
-    measure bits) into that key's resident register rows, in place,
-    masked and grouped as ``fold_panes`` masks and groups the value pane
-    (same slots, same ``active_cells`` map)."""
-    n_b = bits2d.shape[0]
-    o = 0
-    for gslot, vslot, g in zip(gid_slots, valid_slots, n_groups_list):
-        kw = dict(pad=pad_valid,
-                  valid=None if vslot < 0 else valid_panes[vslot],
-                  gid=None if g == 1 else gid_panes[gslot], n_groups=g)
-        if active_cells is None:
-            isla_sketch(bits2d, regs[o:o + g * n_b], **kw)
-        else:
-            isla_sketch(bits2d, regs,
-                        cell_idx=active_cells[0][o:o + g * n_b], **kw)
-        o += g * n_b
+    ``_sketch_dense_scatter``): one ``isla_sketch_stack`` launch merges
+    the (n_blocks, quota_max) int64 hash pane (the raw measure bits) into
+    every stacked key's resident register rows, in place, hashing each
+    live lane once (a launch per ``MAX_KEYS`` keys), masked and grouped
+    as ``fold_panes`` masks and groups the value pane (same slots, same
+    ``active_cells`` map)."""
+    keys = stack_keys(bits2d.shape[0], n_groups_list, gid_slots,
+                      valid_slots)
+    for i in range(0, len(keys), MAX_KEYS):
+        isla_sketch_stack(bits2d, regs, keys=keys[i:i + MAX_KEYS],
+                          pad=pad_valid, gid_panes=gid_panes,
+                          valid_panes=valid_panes,
+                          cell_idx=None if active_cells is None
+                          else active_cells[0])
 
 
 def _sketch_fold(regs: torch.Tensor, n_groups_list) -> torch.Tensor:

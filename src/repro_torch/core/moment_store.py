@@ -1075,7 +1075,8 @@ class DeviceStack:
         absent).  The stream is packed into one (n_blocks, quota_max)
         pane, uploaded once, and each key folds it in its own anchor frame
         through its affine (``distributed.fused_tick_dense``: one
-        ``isla_fold`` launch per key, then Phase 2 and the group rows).
+        ``isla_fold`` launch for every key, then Phase 2 and the group
+        rows).
         ``quotas`` is the pass's per-block draw count.  With no draw the
         resident moments are re-solved (served from the stats cache when
         nothing changed — no launch, no transfer).
@@ -1084,7 +1085,7 @@ class DeviceStack:
         never the anchor-scaled pane — as an int64 pane laid out like the
         value pane and merges them into the resident register plane
         (``distributed.fused_tick_dense_sketch``: one ``isla_sketch``
-        launch per key); the zero-draw re-solve re-folds the registers.
+        launch for every key); the zero-draw re-solve re-folds the registers.
 
         Returns ``[(partials, rows), ...]`` per store — device partial
         answers and the numpy group-stat rows, both in EACH STORE'S scaled

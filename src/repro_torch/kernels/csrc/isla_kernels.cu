@@ -5,34 +5,60 @@
 //   (bodies _moments_batched_kernel / _moments_cellbounds_kernel, and through
 //   it isla_moments_pallas, isla_moments_grouped_pallas, isla_fused_pallas)
 //   and the one-hot dot_general fold of src/repro/core/distributed.py
-//   _dense_core.  For each output cell it sums 11 columns over the cell's
-//   samples v (after an optional per-key affine v = x * ratio + off):
+//   _dense_core.  For every stacked key k and every output cell (k, g, r)
+//   it sums 11 columns over row r's samples v that key k admits (after the
+//   key's optional affine v = x * ratio + off):
 //     S = (s_lo, s_hi):  count, sum v, sum v^2, sum v^3
 //     L = (l_lo, l_hi):  count, sum v, sum v^2, sum v^3
 //     all samples:       count, sum v, sum v^2
 //   and ADDS the sums in place onto resident fp32 rows (the TPU version
 //   seeds its accumulator from a donated prior; here the prior IS the
-//   output buffer).  The output rows are either the cells themselves or
-//   are looked up through an index map whose out-of-range entries drop.
+//   output buffer).  Key k admits a sample when the pad pane and its own
+//   predicate pane are nonzero there and, for a GROUP BY key, its id pane
+//   holds g; ids outside [0, n_groups) match no group.  Cell (k, g, r)
+//   lands on output row out_off_k + g * R + r, or is looked up there in an
+//   index map whose out-of-range entries drop (the compacted launch).
 //
-//   Bound on the H100: bytes.  Each sample is read once (4 B value, plus
-//   4 B of each mask / GROUP BY pane present) and does ~20 flops, so the
-//   least time is the pane bytes over 3.35 TB/s.  Design: one block per
-//   (row, group) output cell, 128 threads striding over the row, a
-//   warp-shuffle plus shared-memory tree.  Every cell (or slice of a
-//   cell, below) is owned by one block, so the reduction order is fixed
-//   (no float atomics) and two runs give identical bits.  The G blocks
-//   of a row each re-read the row (G-fold read amplification; the grid
-//   runs a row's G blocks side by side so the re-reads hit L2): the
-//   simple design this port starts from, not the bound.
+//   Bound on the H100: bytes.  Each sample is read once for all keys (4 B
+//   value plus 4 B of each mask and GROUP BY pane) and does ~17 fp32
+//   operations a key, so the least time is the pane bytes over 3.35 TB/s.
+//   At the serving loop's panes that is a few microseconds, so what the
+//   design fights is latency, not bandwidth.  Design: ONE launch folds
+//   every key of the call (the keys travel as a small table in the
+//   kernel's parameters).  One 128-thread block per (row, slice), eight to
+//   an SM (<= 64 registers), so a 1000-row pane runs in one wave:
+//   - it stages the row in shared memory once, with 16-byte loads where
+//     the panes are aligned: the values as fp32, one mask word a sample
+//     (bit 0 the pad, bit 1 + s predicate pane s) and each GROUP BY pane's
+//     ids;
+//   - it buckets each GROUP BY pane's live samples by group (a stable
+//     counting sort, bucket_slot), so a group's samples are read without
+//     scanning the others' -- G scans of the ids cost more than the sort
+//     (a pane of more than kSortGroups groups is scanned, 32 lanes a
+//     group);
+//   - its four warps take the row's tasks in turn, with no barrier
+//     between keys: a task sums four groups of a GROUP BY key (8 lanes a
+//     group, walking its bucket) or an ungrouped key's cell (32 lanes over
+//     the staged quads; split over the four warps when the row has fewer
+//     than four tasks).  Samples add branch-free (a key that does not
+//     admit one adds +0), so the lanes of a warp never diverge;
+//   - a fixed shuffle tree adds each group's lanes into its partial-row
+//     slot in shared memory, and after a barrier the block adds each
+//     cell's slots in slot order onto the cell's row, all cells in one
+//     round trip.
+//   Every sum has one fixed order, so there are no float atomics and two
+//   runs give identical bits.  A slice longer than one staged tile (40 KB
+//   of shared memory) stages tile by tile, and the slots add the tiles in
+//   order; a row with more than kRowSlots slots takes them in batches,
+//   re-staging a long slice per batch.
 //
-//   A cell of more than `slice_len` samples (32768 from the wrapper) is
-//   cut into slices, one block each, which write their partial rows to
-//   scratch; a second kernel adds each cell's slices in slice order onto
-//   its row.  One block over a million samples would chain ~8000 fp32
-//   adds per thread, enough to drift 1e-5 from a pairwise sum, and run on
-//   one SM; slices keep the chains at 256 adds, as the TPU grid sums tile
-//   by tile.  The order is still fixed: two runs give identical bits.
+//   A row of more than `slice_len` samples (32768 from the wrapper) is cut
+//   into slices, one block each, which write their partial rows (G per
+//   key) to scratch; a second kernel adds each cell's slices in slice
+//   order onto its row.  One block over a million samples would chain
+//   ~8000 fp32 adds per thread, enough to drift 1e-5 from a pairwise sum,
+//   and run on one SM; slices keep the chains at 256 adds, as the TPU grid
+//   sums tile by tile.  The order is still fixed: identical bits.
 //
 //   The affine and the squares use __fmul_rn / __fadd_rn so nvcc cannot
 //   contract them into an FMA: the plain PyTorch version rounds twice, and
@@ -52,41 +78,123 @@
 //   _sketch_kernel, and through it isla_fused_sketch_pallas) and the
 //   register scatter of src/repro/core/distributed.py _sketch_dense_scatter.
 //   Each lane of a block-major (R, Q) int64 pane carries the raw float64
-//   bits of a measure value.  A live lane (pad and valid
-//   nonzero, GROUP BY id g) is hashed with splitmix64 in native 64-bit
-//   integers; its bucket is j = h >> 52 and its rank rho = clz of the low
-//   52 bits + 1 (53 when they are all zero), and the lane does
-//   regs[cell, j] = max(regs[cell, j], rho) IN PLACE on the resident uint8
-//   plane (n_out, 4096), cell = g * R + r, or cell_idx[cell] with
-//   out-of-range entries dropped (the compacted launch: pruned cells are
-//   never addressed).  Dead lanes are skipped before their id is read as
-//   anything but a comparison, so a pad's garbage id addresses nothing.
+//   bits of a measure value.  A live lane (pad nonzero) is hashed ONCE
+//   with splitmix64 in native 64-bit integers; its bucket is j = h >> 52
+//   and its rank rho = clz of the low 52 bits + 1 (53 when they are all
+//   zero).  Then, for every stacked key whose predicate and GROUP BY id g
+//   admit the lane, regs[cell, j] = max(regs[cell, j], rho) IN PLACE on
+//   the resident uint8 plane (n_out, 4096), cell = out_off_k + g * R + r,
+//   or cell_idx[cell] with out-of-range entries dropped (the compacted
+//   launch: pruned cells are never addressed).  Dead lanes skip before
+//   their id is read, so a pad's garbage id addresses nothing.
 //
 //   Bound on the H100: bytes.  Each live lane reads 8 B of bits plus 4 B
-//   of each mask / GROUP BY pane present and does ~15 integer ops; the
-//   registers of the touched cells are read and written once.  Design:
-//   CUDA has no 8-bit atomicMax, so each (row, group) cell gets one block
-//   that owns its 4096 registers, widened to uint32 in shared memory
-//   (16 KB), where lanes merge with shared atomicMax.  The block then
-//   packs four ranks per word and merges with __vmaxu4 into the resident
-//   plane, reading and writing only the words it touched; no other block
-//   addresses that cell, so there are no global atomics.  Max is
-//   order-free: every run gives identical bits.  As in isla_fold, the G
-//   blocks of a row each re-read the row (L2 serves the re-reads), and
-//   each live lane is hashed once, by its own group's block.
+//   of each mask and GROUP BY pane, and each register raised is read and
+//   written once.  Design: ONE launch merges every key of the call; one
+//   256-thread block per (row, 256-lane tile), a lane a thread.  CUDA has
+//   no 8-bit atomicMax, so a lane reads the aligned 32-bit word holding
+//   its register and skips when that byte already holds >= rho (common on
+//   a warm plane); otherwise it runs an atomicCAS loop on __vmaxu4 of the
+//   word.  Max is commutative and idempotent, so the plane is the same
+//   bits whatever order the lanes arrive in.  No cell is zeroed or
+//   scanned: only the words the lanes address are touched.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
+constexpr int kMaxKeys = 16;   // keys a launch folds; the wrapper raises above
 constexpr int kFoldThreads = 128;
-constexpr int kFoldBlocksPerSM = 12;
+constexpr int kFoldWarps = kFoldThreads / 32;
+constexpr int kFoldBlocksPerSM = 8;  // <= 64 registers: 1000 rows, one wave
+constexpr int kSortGroups = 256;  // a GROUP BY pane is bucketed up to this
+constexpr int kBucketLanes = 8;   // lanes a bucketed group's task gives it
+constexpr int kRowSlots = 128;    // partial rows a fold block holds at once
+static_assert(kFoldWarps == 4 && kBucketLanes == 8,
+              "a key's split_shift and group_shift are log2 of these");
 constexpr int kCols = 11;
 constexpr int kPilotThreads = 256;
 constexpr int kSketchThreads = 256;
 constexpr int kRegs = 4096;  // HLL registers per cell (2^12)
 constexpr unsigned long long kRemMask = (1ull << 52) - 1ull;
+
+// One stacked key of a fold launch, with its share of a row's work: its
+// cells are cut into warp tasks of 32 / lanes groups (lanes a group), and
+// an ungrouped key's one cell into `splits` tasks over the samples.  Each
+// (group, split) sums into its own partial-row slot.
+struct FoldKey {
+  int n_groups;
+  int gid_slot;         // staged GROUP BY pane, -1: ungrouped
+  unsigned need;        // mask bits a sample must carry: pad | predicate
+  int affine;
+  float ratio, off;
+  int bound_row;        // row of the cuts table, -1: per-row cuts (row r)
+  int bucketed;         // groups walk their bucket, not the whole tile
+  int lanes;            // lanes a group gets in a task (power of two)
+  int splits;           // tasks that share a cell's samples (1 or 4)
+  int split_shift;      // log2 splits
+  int group_shift;      // log2 (32 / lanes): groups a task
+  int task_base;        // the key's first task among a row's
+  int slot_base;        // the key's first partial-row slot (a multiple of 4)
+  long long out_off;    // output row of cell (g, r) = out_off + g * R + r
+                        // (or its index into cell_idx)
+  long long cell_base;  // the key's first cell in the slice scratch
+};
+
+// Everything a fold launch reads, passed by value (__grid_constant__): the
+// key table rides in the kernel's parameters, so a launch uploads nothing.
+struct FoldArgs {
+  const void* x;
+  long long n_rows, row_stride, n_chunks, chunk_len, chunk_stride;
+  const float* bounds;
+  const float* pad;
+  const float* valid[kMaxKeys];
+  const int* gid[kMaxKeys];
+  float* s_out;
+  float* l_out;
+  float* t_out;
+  long long s_stride, l_stride, t_stride;
+  const int* cell_idx;
+  long long n_out_rows;
+  long long slice_len;
+  float* slices;
+  int n_slices, n_valid, n_gid, tile, vec, n_keys;
+  int n_tasks, n_slots;       // a row's warp tasks and partial-row slots
+  int sort_groups;            // the most groups a bucketed pane has
+  int slot_groups[kMaxKeys];  // groups a staged id pane is bucketed by,
+                              // 0: its keys scan the tile
+  FoldKey keys[kMaxKeys];
+};
+
+// A fold block's dynamic shared memory for `tile` samples: values, mask
+// words, each id pane's ids, then for the bucketed panes each pane's
+// bucket starts and order (sample indices, group by group) and per-warp
+// counters and peer masks to build them; the wrapper's fold_stage
+// computes the same size.
+struct FoldSmem {
+  float* val;
+  unsigned* mask;
+  int* gid;
+  int* start;
+  int* cnt;
+  unsigned* peers;
+  unsigned short* order;
+};
+
+__device__ __forceinline__ FoldSmem fold_smem(unsigned char* base,
+                                              const FoldArgs& a) {
+  FoldSmem m;
+  m.val = reinterpret_cast<float*>(base);
+  m.mask = reinterpret_cast<unsigned*>(m.val + a.tile);
+  m.gid = reinterpret_cast<int*>(m.mask + a.tile);
+  m.start = m.gid + a.n_gid * a.tile;
+  m.cnt = m.start + a.n_gid * (a.sort_groups + 1);
+  m.peers = reinterpret_cast<unsigned*>(m.cnt + kFoldWarps * a.sort_groups);
+  m.order =
+      reinterpret_cast<unsigned short*>(m.peers + kFoldWarps * a.sort_groups);
+  return m;
+}
 
 __device__ __forceinline__ float load_value(const float* p, long long i) {
   return p[i];
@@ -97,156 +205,430 @@ __device__ __forceinline__ float load_value(const __nv_bfloat16* p,
   return __bfloat162float(p[i]);
 }
 
+__device__ __forceinline__ float4 load_value4(const float* p, long long i) {
+  return *reinterpret_cast<const float4*>(p + i);
+}
+
+__device__ __forceinline__ float4 load_value4(const __nv_bfloat16* p,
+                                              long long i) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p + i);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ unsigned nz(float v) { return v != 0.0f; }
+
 // Adds one cell's 11 sums onto its resident rows.
-__device__ __forceinline__ void add_cell_row(
-    const float* tot, long long dest, float* s_out, long long s_stride,
-    float* l_out, long long l_stride, float* t_out, long long t_stride) {
-  float* so = s_out + dest * s_stride;
-  float* lo = l_out + dest * l_stride;
+__device__ __forceinline__ void add_cell_row(const float* tot,
+                                             long long dest,
+                                             const FoldArgs& a) {
+  float* so = a.s_out + dest * a.s_stride;
+  float* lo = a.l_out + dest * a.l_stride;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     so[k] += tot[k];
     lo[k] += tot[4 + k];
   }
-  if (t_out != nullptr) {
-    float* to = t_out + dest * t_stride;
+  if (a.t_out != nullptr) {
+    float* to = a.t_out + dest * a.t_stride;
 #pragma unroll
     for (int k = 0; k < 3; ++k) to[k] += tot[8 + k];
   }
 }
 
-// At most 40 registers a thread, so 12 blocks fit on an SM: the fold is
-// latency-bound, and uncapped nvcc gives it 42 (10 blocks an SM), which
-// made a 1000 x 4096 pane's four-key fold 16% slower on the H100.
+// Stages samples [base, base + len) of row r in shared memory: fp32
+// values, one mask word a sample, each GROUP BY pane's ids.  Entries past
+// len up to the next multiple of 4 get mask 0, so they match no key.
 template <typename T>
-__global__ void __launch_bounds__(kFoldThreads, kFoldBlocksPerSM)
-isla_fold_kernel(
-    const T* __restrict__ x, long long n_rows, long long row_stride,
-    long long n_chunks, long long chunk_len, long long chunk_stride,
-    int affine, float ratio, float off,
-    const float* __restrict__ bounds, long long bounds_row_stride,
-    const float* __restrict__ pad, const float* __restrict__ valid,
-    const int* __restrict__ gid,
-    float* __restrict__ s_out, long long s_stride,
-    float* __restrict__ l_out, long long l_stride,
-    float* __restrict__ t_out, long long t_stride,
-    const int* __restrict__ cell_idx, long long n_out_rows, int n_groups,
-    long long slice_len, int n_slices, float* __restrict__ slices) {
-  // Linear grid, slices fastest, then groups: the G blocks of a row run
-  // side by side, so their re-reads of the row come from L2.
-  // 32-bit index math: the wrapper keeps the grid below 2^31 blocks.
-  const unsigned ns = static_cast<unsigned>(n_slices);
-  const unsigned ng = static_cast<unsigned>(n_groups);
-  const unsigned cell_block = blockIdx.x / ns;
-  const int sl = static_cast<int>(blockIdx.x % ns);
-  const long long r = cell_block / ng;
-  const int g = static_cast<int>(cell_block % ng);
-  const long long cell = static_cast<long long>(g) * n_rows + r;
-  long long dest = cell;
-  if (cell_idx != nullptr) {
-    dest = cell_idx[cell];
-    if (dest < 0 || dest >= n_out_rows) return;  // dropped: whole block
-  }
-  const float* b = bounds + r * bounds_row_stride;
-  const float s_lo = b[0], s_hi = b[1], l_lo = b[2], l_hi = b[3];
-
-  float acc[kCols];
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) acc[k] = 0.0f;
-
-  const long long n = n_chunks * chunk_len;
-  const long long i0 = sl * slice_len;
-  const long long i1 = min(n, i0 + slice_len);
-  const long long base = r * row_stride;
-  for (long long i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
-    long long e = i;
-    if (n_chunks > 1) {
-      const long long ch = i / chunk_len;
-      e = ch * chunk_stride + (i - ch * chunk_len);
+__device__ __forceinline__ void stage_tile(const FoldArgs& a, long long r,
+                                           long long base, int len,
+                                           const FoldSmem& m) {
+  const T* x = static_cast<const T*>(a.x);
+  const long long row = r * a.row_stride;
+  const int nq = (len + 3) >> 2;
+  for (int qd = threadIdx.x; qd < nq; qd += kFoldThreads) {
+    const int i = 4 * qd;
+    const long long s = base + i;
+    if (a.vec && i + 4 <= len) {
+      // Chunks are multiples of 4 samples here: a quad never straddles.
+      const long long e =
+          row + (a.n_chunks > 1
+                     ? (s / a.chunk_len) * a.chunk_stride + s % a.chunk_len
+                     : s);
+      *reinterpret_cast<float4*>(m.val + i) = load_value4(x, e);
+      uint4 w = make_uint4(1u, 1u, 1u, 1u);
+      if (a.pad != nullptr) {
+        const float4 p = *reinterpret_cast<const float4*>(a.pad + e);
+        w = make_uint4(nz(p.x), nz(p.y), nz(p.z), nz(p.w));
+      }
+      for (int v = 0; v < a.n_valid; ++v) {
+        const float4 p = *reinterpret_cast<const float4*>(a.valid[v] + e);
+        const int sh = v + 1;
+        w.x |= nz(p.x) << sh;
+        w.y |= nz(p.y) << sh;
+        w.z |= nz(p.z) << sh;
+        w.w |= nz(p.w) << sh;
+      }
+      *reinterpret_cast<uint4*>(m.mask + i) = w;
+      for (int gs = 0; gs < a.n_gid; ++gs)
+        *reinterpret_cast<int4*>(m.gid + gs * a.tile + i) =
+            *reinterpret_cast<const int4*>(a.gid[gs] + e);
+      continue;
     }
-    const long long at = base + e;
-    if (pad != nullptr && pad[at] == 0.0f) continue;
-    if (valid != nullptr && valid[at] == 0.0f) continue;
-    if (gid != nullptr && gid[at] != g) continue;
-    float v = load_value(x, at);
-    if (affine) v = __fadd_rn(__fmul_rn(v, ratio), off);
-    const float v2 = __fmul_rn(v, v);
-    const float v3 = __fmul_rn(v2, v);
-    if (v > s_lo && v < s_hi) {
-      acc[0] += 1.0f;
-      acc[1] += v;
-      acc[2] += v2;
-      acc[3] += v3;
+    for (int b = 0; b < 4; ++b) {
+      const int ii = i + b;
+      if (ii >= len) {
+        m.val[ii] = 0.0f;
+        m.mask[ii] = 0u;
+        for (int gs = 0; gs < a.n_gid; ++gs) m.gid[gs * a.tile + ii] = -1;
+        continue;
+      }
+      const long long si = base + ii;
+      const long long e =
+          row + (a.n_chunks > 1
+                     ? (si / a.chunk_len) * a.chunk_stride +
+                           si % a.chunk_len
+                     : si);
+      m.val[ii] = load_value(x, e);
+      unsigned w = a.pad != nullptr ? nz(a.pad[e]) : 1u;
+      for (int v = 0; v < a.n_valid; ++v) w |= nz(a.valid[v][e]) << (v + 1);
+      m.mask[ii] = w;
+      for (int gs = 0; gs < a.n_gid; ++gs)
+        m.gid[gs * a.tile + ii] = a.gid[gs][e];
     }
-    if (v > l_lo && v < l_hi) {
-      acc[4] += 1.0f;
-      acc[5] += v;
-      acc[6] += v2;
-      acc[7] += v3;
-    }
-    acc[8] += 1.0f;
-    acc[9] += v;
-    acc[10] += v2;
   }
-
-  // Warp shuffle, then the warps' rows in warp order: a fixed tree.
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc[k] += __shfl_down_sync(0xffffffffu, acc[k], o);
-  }
-  __shared__ float warp_rows[kFoldThreads / 32][kCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) warp_rows[warp][k] = acc[k];
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  float tot[kCols];
-#pragma unroll
-  for (int k = 0; k < kCols; ++k) {
-    float s = warp_rows[0][k];
-    for (int w = 1; w < kFoldThreads / 32; ++w) s += warp_rows[w][k];
-    tot[k] = s;
-  }
-  if (n_slices > 1) {  // a slice's partial row, combined by the next kernel
-    float* p = slices + (cell * n_slices + sl) * kCols;
-#pragma unroll
-    for (int k = 0; k < kCols; ++k) p[k] = tot[k];
-    return;
-  }
-  add_cell_row(tot, dest, s_out, s_stride, l_out, l_stride, t_out,
-               t_stride);
 }
 
-// One thread per cell: its slices' partial rows added in slice order.
-__global__ void __launch_bounds__(kFoldThreads) isla_fold_combine_kernel(
-    const float* __restrict__ slices, int n_slices, long long n_cells,
-    const int* __restrict__ cell_idx, long long n_out_rows,
-    float* __restrict__ s_out, long long s_stride,
-    float* __restrict__ l_out, long long l_stride,
-    float* __restrict__ t_out, long long t_stride) {
-  const long long cell =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (cell >= n_cells) return;
-  long long dest = cell;
-  if (cell_idx != nullptr) {
-    dest = cell_idx[cell];
-    if (dest < 0 || dest >= n_out_rows) return;
+// Buckets the staged live samples of id pane s by group, stably: each warp
+// takes a contiguous run of the tile, 32 samples at a time; the lanes
+// holding one id find each other through a shared-memory peer mask
+// (atomicOr of their lane bits), and a sample's rank is the count of its
+// peers on lower lanes.  Per-warp counts, their prefix over (group, warp),
+// then a second pass writes each sample's index at its place:
+// start[g] .. start[g + 1] holds group g's samples in sample order.  Ids
+// outside [0, G) and dead samples are left out.
+__device__ __forceinline__ void bucket_slot(const FoldArgs& a,
+                                            const FoldSmem& m, int s,
+                                            int len) {
+  const int G = a.slot_groups[s], gmax = a.sort_groups;
+  const int* ids = m.gid + s * a.tile;
+  int* start = m.start + s * (gmax + 1);
+  unsigned short* order = m.order + s * a.tile;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  int* cnt = m.cnt + w * gmax;
+  unsigned* pm = m.peers + w * gmax;
+  const unsigned lt = (1u << lane) - 1u;
+  for (int g = lane; g < G; g += 32) {
+    cnt[g] = 0;
+    pm[g] = 0u;
   }
-  const float* p = slices + cell * n_slices * kCols;
+  __syncwarp();
+  const int run = ((len + kFoldThreads - 1) / kFoldThreads) * 32;
+  const int lo = w * run, hi = min(len, lo + run);
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int i = c0 + lane;
+    const int id = i < hi ? ids[i] : -1;
+    const bool ok = i < hi && id >= 0 && id < G && (m.mask[i] & 1u);
+    if (ok) atomicOr(&pm[id], 1u << lane);
+    __syncwarp();
+    const unsigned peers = ok ? pm[id] : 0u;
+    __syncwarp();
+    if (ok && (peers & lt) == 0u) {
+      cnt[id] += __popc(peers);
+      pm[id] = 0u;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  if (w == 0) {
+    int carry = 0;
+    for (int g0 = 0; g0 < G; g0 += 32) {
+      const int g = g0 + lane;
+      int tot = 0;
+      if (g < G)
+        for (int ww = 0; ww < kFoldWarps; ++ww) tot += m.cnt[ww * gmax + g];
+      int incl = tot;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (g < G) {
+        int at = carry + incl - tot;
+        start[g] = at;
+        for (int ww = 0; ww < kFoldWarps; ++ww) {
+          const int n = m.cnt[ww * gmax + g];
+          m.cnt[ww * gmax + g] = at;
+          at += n;
+        }
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) start[G] = carry;
+  }
+  __syncthreads();
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int i = c0 + lane;
+    const int id = i < hi ? ids[i] : -1;
+    const bool ok = i < hi && id >= 0 && id < G && (m.mask[i] & 1u);
+    if (ok) atomicOr(&pm[id], 1u << lane);
+    __syncwarp();
+    unsigned peers = 0u;
+    if (ok) {
+      peers = pm[id];
+      order[cnt[id] + __popc(peers & lt)] = static_cast<unsigned short>(i);
+    }
+    __syncwarp();
+    if (ok && (peers & lt) == 0u) {
+      cnt[id] += __popc(peers);
+      pm[id] = 0u;
+    }
+    __syncwarp();
+  }
+}
+
+// Stages a tile, then buckets each id pane that is bucketed.  Ends with
+// the block synchronised.
+template <typename T>
+__device__ __forceinline__ void prepare_tile(const FoldArgs& a, long long r,
+                                             long long base, int len,
+                                             const FoldSmem& m) {
+  stage_tile<T>(a, r, base, len, m);
+  __syncthreads();
+  bool bucketed = false;
+  for (int s = 0; s < a.n_gid; ++s) {
+    if (a.slot_groups[s] > 0) {
+      bucket_slot(a, m, s, len);
+      bucketed = true;
+    }
+  }
+  if (bucketed) __syncthreads();
+}
+
+// Adds a sample onto a cell's 11 running sums when `ok` (the key admits
+// it), else adds +0, which leaves every sum's bits as they are (a sum that
+// starts at +0 never becomes -0).  No branch: the lanes of a warp stay
+// together whatever their samples.
+__device__ __forceinline__ void accumulate(const FoldKey& key, float v,
+                                           bool ok, const float* b,
+                                           float* acc) {
+  if (key.affine) v = __fadd_rn(__fmul_rn(v, key.ratio), key.off);
+  const float v2 = __fmul_rn(v, v);
+  const float v3 = __fmul_rn(v2, v);
+  const bool in_s = ok && v > b[0] && v < b[1];
+  const bool in_l = ok && v > b[2] && v < b[3];
+  acc[0] += in_s ? 1.0f : 0.0f;
+  acc[1] += in_s ? v : 0.0f;
+  acc[2] += in_s ? v2 : 0.0f;
+  acc[3] += in_s ? v3 : 0.0f;
+  acc[4] += in_l ? 1.0f : 0.0f;
+  acc[5] += in_l ? v : 0.0f;
+  acc[6] += in_l ? v2 : 0.0f;
+  acc[7] += in_l ? v3 : 0.0f;
+  acc[8] += ok ? 1.0f : 0.0f;
+  acc[9] += ok ? v : 0.0f;
+  acc[10] += ok ? v2 : 0.0f;
+}
+
+// Adds the staged samples of group g that the key admits, quads j, j + p,
+// ... in order, onto acc (an ungrouped key, or ids not bucketed).
+__device__ __forceinline__ void scan_tile(const FoldKey& key, int g, int j,
+                                          int p, int len, const FoldSmem& m,
+                                          const int* gids, const float* b,
+                                          float* acc) {
+  const unsigned need = key.need;
+  const int nq = (len + 3) >> 2;
+  for (int qd = j; qd < nq; qd += p) {
+    bool ok[4] = {true, true, true, true};
+    if (gids != nullptr) {
+      const int4 id = *reinterpret_cast<const int4*>(gids + 4 * qd);
+      ok[0] = id.x == g;
+      ok[1] = id.y == g;
+      ok[2] = id.z == g;
+      ok[3] = id.w == g;
+      if (!(ok[0] || ok[1] || ok[2] || ok[3])) continue;
+    }
+    const uint4 w = *reinterpret_cast<const uint4*>(m.mask + 4 * qd);
+    const float4 x = *reinterpret_cast<const float4*>(m.val + 4 * qd);
+    accumulate(key, x.x, ok[0] && (w.x & need) == need, b, acc);
+    accumulate(key, x.y, ok[1] && (w.y & need) == need, b, acc);
+    accumulate(key, x.z, ok[2] && (w.z & need) == need, b, acc);
+    accumulate(key, x.w, ok[3] && (w.w & need) == need, b, acc);
+  }
+}
+
+// Adds group g's bucketed samples that the key admits, entries j, j + p,
+// ... of its bucket (sample order), onto acc.
+__device__ __forceinline__ void walk_bucket(const FoldArgs& a,
+                                            const FoldKey& key, int g, int j,
+                                            int p, const FoldSmem& m,
+                                            const float* b, float* acc) {
+  const int* start = m.start + key.gid_slot * (a.sort_groups + 1);
+  const unsigned short* order = m.order + key.gid_slot * a.tile;
+  const unsigned need = key.need;
+  for (int e = start[g] + j; e < start[g + 1]; e += p) {
+    const int i = order[e];
+    accumulate(key, m.val[i], (m.mask[i] & need) == need, b, acc);
+  }
+}
+
+// Writes cell (key, g) of row r: adds its sums onto its resident row (a
+// dropped map entry writes nothing), or stores them as the slice's partial
+// row when the row is sliced.
+__device__ __forceinline__ void emit_cell(const FoldArgs& a,
+                                          const FoldKey& key, int g,
+                                          long long r, int sl,
+                                          const float* tot) {
+  const long long cell = static_cast<long long>(g) * a.n_rows + r;
+  if (a.n_slices > 1) {  // a slice's partial row, combined next
+    float* dst =
+        a.slices + ((key.cell_base + cell) * a.n_slices + sl) * kCols;
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) dst[q] = tot[q];
+    return;
+  }
+  long long dest = key.out_off + cell;
+  if (a.cell_idx != nullptr) {
+    dest = a.cell_idx[dest];
+    if (dest < 0 || dest >= a.n_out_rows) return;  // dropped
+  }
+  add_cell_row(tot, dest, a);
+}
+
+// Grid (n_rows, n_slices): block (r, sl) folds slice sl of row r for every
+// key of the table.  Its warps take the row's tasks in turn, each task
+// summing a few groups' samples (or a quarter of an ungrouped cell's) with
+// a fixed shuffle tree into partial-row slots in shared memory; then the
+// block adds each cell's slots, in slot order, onto the cell's row.  Slots
+// beyond kRowSlots are taken in batches.
+template <typename T>
+__global__ void __launch_bounds__(kFoldThreads, kFoldBlocksPerSM)
+isla_fold_kernel(const __grid_constant__ FoldArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const FoldSmem m = fold_smem(smem, a);
+  __shared__ float cuts_of[kMaxKeys][4];
+  __shared__ float part[kRowSlots][kCols];
+  // The key table, read at every task: a copy in shared memory.
+  __shared__ FoldKey keys[kMaxKeys];
+
+  const long long r = blockIdx.x;
+  const int sl = blockIdx.y;
+  const long long n = a.n_chunks * a.chunk_len;
+  const long long i0 = sl * a.slice_len;
+  const int span = static_cast<int>(min(n, i0 + a.slice_len) - i0);
+  const int n_tiles = (span + a.tile - 1) / a.tile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid < 4 * a.n_keys) {
+    const FoldKey& key = a.keys[tid >> 2];
+    cuts_of[tid >> 2][tid & 3] =
+        a.bounds[4 * (key.bound_row >= 0 ? key.bound_row : r) + (tid & 3)];
+  }
+  static_assert(sizeof(FoldKey) % 4 == 0, "FoldKey copies word by word");
+  for (int q = tid; q < a.n_keys * static_cast<int>(sizeof(FoldKey)) / 4;
+       q += kFoldThreads)
+    reinterpret_cast<int*>(keys)[q] = reinterpret_cast<const int*>(a.keys)[q];
+  if (n_tiles == 1) prepare_tile<T>(a, r, i0, span, m);
+  for (int b0 = 0; b0 < a.n_slots; b0 += kRowSlots) {
+    for (int q = tid; q < kRowSlots * kCols; q += kFoldThreads)
+      part[q / kCols][q % kCols] = 0.0f;
+    __syncthreads();
+    for (int t = 0; t < n_tiles; ++t) {
+      const int len = min(a.tile, span - t * a.tile);
+      if (n_tiles > 1) {
+        if (t > 0) __syncthreads();
+        prepare_tile<T>(a, r, i0 + static_cast<long long>(t) * a.tile, len,
+                        m);
+      }
+      int k = 0;  // a warp's tasks ascend, so their keys do too
+      for (int task = warp; task < a.n_tasks; task += kFoldWarps) {
+        while (k + 1 < a.n_keys && task >= keys[k + 1].task_base) ++k;
+        const FoldKey& key = keys[k];
+        const int u = task - key.task_base;
+        const int split = u & (key.splits - 1);
+        const int p = key.lanes;
+        const int g0 = (u >> key.split_shift) << key.group_shift;
+        const int slot0 = key.slot_base + g0 * key.splits + split;
+        if (slot0 < b0 || slot0 >= b0 + kRowSlots) continue;  // warp-uniform
+        const int g = g0 + lane / p;
+        const int j = lane & (p - 1);
+        float acc[kCols];
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) acc[q] = 0.0f;
+        if (g < key.n_groups) {
+          if (key.bucketed)
+            walk_bucket(a, key, g, j, p, m, cuts_of[k], acc);
+          else
+            scan_tile(key, g, split * p + j, p * key.splits, len, m,
+                      key.gid_slot >= 0 ? m.gid + key.gid_slot * a.tile
+                                        : nullptr,
+                      cuts_of[k], acc);
+        }
+        // The group's p partial sums: a fixed shuffle tree (p is
+        // warp-uniform), then the group's slot adds them (tile order).
+        for (int o = p >> 1; o > 0; o >>= 1) {
+#pragma unroll
+          for (int q = 0; q < kCols; ++q)
+            acc[q] += __shfl_down_sync(0xffffffffu, acc[q], o, p);
+        }
+        if (j == 0 && g < key.n_groups) {
+          float* dst = part[key.slot_base + g * key.splits + split - b0];
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) dst[q] += acc[q];
+        }
+      }
+    }
+    __syncthreads();
+    // Each cell's slots added in slot order, the cells written out together.
+    const int b1 = min(a.n_slots, b0 + kRowSlots);
+    for (int s = b0 + tid; s < b1; s += kFoldThreads) {
+      int k = 0;
+      while (k + 1 < a.n_keys && s >= keys[k + 1].slot_base) ++k;
+      const FoldKey& key = keys[k];
+      const int rel = s - key.slot_base;
+      if ((rel & (key.splits - 1)) != 0 ||
+          (rel >> key.split_shift) >= key.n_groups)
+        continue;  // a later split of a cell, or an alignment gap
+      float tot[kCols];
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) tot[q] = part[s - b0][q];
+      for (int x = 1; x < key.splits; ++x) {
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) tot[q] += part[s - b0 + x][q];
+      }
+      emit_cell(a, key, rel >> key.split_shift, r, sl, tot);
+    }
+    __syncthreads();  // the slots are reused by the next batch
+  }
+}
+
+// One thread per cell of every key: its slices' partial rows added in
+// slice order onto its row.
+__global__ void __launch_bounds__(kFoldThreads)
+isla_fold_combine_kernel(const __grid_constant__ FoldArgs a,
+                         long long n_cells) {
+  const long long f =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (f >= n_cells) return;
+  int k = 0;
+  while (k + 1 < a.n_keys && f >= a.keys[k + 1].cell_base) ++k;
+  const long long c = a.keys[k].out_off + (f - a.keys[k].cell_base);
+  long long dest = c;
+  if (a.cell_idx != nullptr) {
+    dest = a.cell_idx[c];
+    if (dest < 0 || dest >= a.n_out_rows) return;
+  }
+  const float* p = a.slices + f * a.n_slices * kCols;
   float tot[kCols];
 #pragma unroll
-  for (int k = 0; k < kCols; ++k) tot[k] = p[k];
-  for (int sl = 1; sl < n_slices; ++sl) {
+  for (int q = 0; q < kCols; ++q) tot[q] = p[q];
+  for (int sl = 1; sl < a.n_slices; ++sl) {
 #pragma unroll
-    for (int k = 0; k < kCols; ++k) tot[k] += p[sl * kCols + k];
+    for (int q = 0; q < kCols; ++q) tot[q] += p[sl * kCols + q];
   }
-  add_cell_row(tot, dest, s_out, s_stride, l_out, l_stride, t_out,
-               t_stride);
+  add_cell_row(tot, dest, a);
 }
 
 __device__ __forceinline__ void block_reduce4(float& a, float& b, float& c,
@@ -329,48 +711,97 @@ __device__ __forceinline__ unsigned long long splitmix64(
   return z ^ (z >> 31);
 }
 
-__global__ void __launch_bounds__(kSketchThreads) isla_sketch_kernel(
-    const unsigned long long* __restrict__ bits, long long n_rows,
-    long long row_stride, long long q,
-    const float* __restrict__ pad, const float* __restrict__ valid,
-    const int* __restrict__ gid, int n_groups,
-    unsigned char* __restrict__ regs, const int* __restrict__ cell_idx,
-    long long n_out) {
-  // Linear grid, groups fastest (as isla_fold): a row's G blocks run side
-  // by side, so their re-reads of the row come from L2.
-  const long long r = blockIdx.x / n_groups;
-  const int g = static_cast<int>(blockIdx.x % n_groups);
-  const long long cell = static_cast<long long>(g) * n_rows + r;
-  long long dest = cell;
-  if (cell_idx != nullptr) {
-    dest = cell_idx[cell];
-    if (dest < 0 || dest >= n_out) return;  // dropped: whole block
-  }
-  __shared__ __align__(16) unsigned rank[kRegs];
-  for (int k = threadIdx.x; k < kRegs; k += blockDim.x) rank[k] = 0u;
-  __syncthreads();
+// One stacked key of a register merge.
+struct SketchKey {
+  int n_groups;
+  int gid_slot;      // GROUP BY pane, -1: ungrouped
+  unsigned need;     // predicate bits a lane must carry (bit 0: live)
+  int pad_;
+  long long out_off;  // register row of cell (g, r) = out_off + g * R + r
+                      // (or its index into cell_idx)
+};
 
-  const long long base = r * row_stride;
-  for (long long i = threadIdx.x; i < q; i += blockDim.x) {
-    const long long at = base + i;
-    if (pad != nullptr && pad[at] == 0.0f) continue;
-    if (valid != nullptr && valid[at] == 0.0f) continue;
-    if (gid != nullptr && gid[at] != g) continue;
-    const unsigned long long h = splitmix64(bits[at]);
-    const unsigned rho = static_cast<unsigned>(
-        __clzll(static_cast<long long>(h & kRemMask)) - 11);
-    atomicMax(&rank[h >> 52], rho);
-  }
-  __syncthreads();
+struct SketchArgs {
+  const unsigned long long* bits;
+  long long n_rows, row_stride, q;
+  const float* pad;
+  const float* valid[kMaxKeys];
+  const int* gid[kMaxKeys];
+  unsigned char* regs;
+  const int* cell_idx;
+  long long n_out;
+  int n_valid, n_keys;
+  SketchKey keys[kMaxKeys];
+};
 
-  // Four ranks (each <= 53) per word, byte k = register 4w + k (little
-  // endian, the uint8 plane's layout); untouched words stay untouched.
-  const uint4* ranks4 = reinterpret_cast<const uint4*>(rank);
-  unsigned* out = reinterpret_cast<unsigned*>(regs + dest * kRegs);
-  for (int w = threadIdx.x; w < kRegs / 4; w += blockDim.x) {
-    const uint4 v = ranks4[w];
-    const unsigned packed = v.x | (v.y << 8) | (v.z << 16) | (v.w << 24);
-    if (packed != 0u) out[w] = __vmaxu4(out[w], packed);
+// Raises byte `shift / 8` of the plane word at `word`, whose value was read
+// as `old`, to at least rho: nothing when it is there already (common on a
+// warm plane), else a compare-and-swap loop on the word's bytewise max.
+__device__ __forceinline__ void raise_rank(unsigned* word, unsigned old,
+                                           unsigned shift, unsigned rho) {
+  if (((old >> shift) & 0xffu) >= rho) return;
+  const unsigned val = rho << shift;
+  while (true) {
+    const unsigned next = __vmaxu4(old, val);
+    if (next == old) return;
+    const unsigned seen = atomicCAS(word, old, next);
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+// Grid (n_rows, lane tiles): thread i of block (r, y) merges lane 256 y + i
+// of row r for every key of the table.  Its reads are issued together so
+// a lane waits on few round trips: the lane's pane entries, then its keys'
+// GROUP BY ids (and map entries), then, four keys at a time, the plane
+// words holding its registers, then the compare-and-swaps those need.
+__global__ void __launch_bounds__(kSketchThreads)
+isla_sketch_kernel(const __grid_constant__ SketchArgs a) {
+  const long long r = blockIdx.x;
+  const long long i =
+      static_cast<long long>(blockIdx.y) * kSketchThreads + threadIdx.x;
+  if (i >= a.q) return;
+  const long long at = r * a.row_stride + i;
+  const unsigned long long raw = __ldg(a.bits + at);
+  const bool pad_ok = a.pad == nullptr || __ldg(a.pad + at) != 0.0f;
+  unsigned live = 1u;
+  for (int v = 0; v < a.n_valid; ++v)
+    live |= static_cast<unsigned>(__ldg(a.valid[v] + at) != 0.0f) << (v + 1);
+  if (!pad_ok) return;  // dead: its id addresses nothing
+  const unsigned long long h = splitmix64(raw);
+  const unsigned j = static_cast<unsigned>(h >> 52);
+  const unsigned rho = static_cast<unsigned>(
+      __clzll(static_cast<long long>(h & kRemMask)) - 11);
+  const unsigned shift = (j & 3u) * 8u;
+  for (int k0 = 0; k0 < a.n_keys; k0 += 4) {
+    unsigned* word[4];
+    unsigned old[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      word[kk] = nullptr;
+      const int k = k0 + kk;
+      if (k >= a.n_keys) continue;
+      const SketchKey& key = a.keys[k];
+      if ((live & key.need) != key.need) continue;
+      long long g = 0;
+      if (key.gid_slot >= 0) {
+        g = __ldg(a.gid[key.gid_slot] + at);
+        if (g < 0 || g >= key.n_groups) continue;  // matches no group
+      }
+      long long dest = key.out_off + g * a.n_rows + r;
+      if (a.cell_idx != nullptr) {
+        dest = __ldg(a.cell_idx + dest);
+        if (dest < 0 || dest >= a.n_out) continue;  // dropped
+      }
+      word[kk] = reinterpret_cast<unsigned*>(a.regs + dest * kRegs +
+                                             (j & ~3u));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (word[kk] != nullptr) old[kk] = __ldcg(word[kk]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (word[kk] != nullptr) raise_rank(word[kk], old[kk], shift, rho);
   }
 }
 
@@ -378,45 +809,120 @@ __global__ void __launch_bounds__(kSketchThreads) isla_sketch_kernel(
 
 extern "C" {
 
-// slices: (n_rows * n_groups * n_slices, 11) fp32 scratch when n_slices
-// > 1 (a second kernel then combines them), else unused.  Returns
-// cudaGetLastError() after the launches (0 = launched).
+// One fold launch over n_keys stacked keys.  Host arrays describe the
+// keys: kint (n_keys, 5) = (n_groups, gid_slot, valid_slot, affine,
+// bound_row), kflt (n_keys, 2) = (ratio, off), koff (n_keys,) = out_off;
+// valid / gid (n_valid / n_gid device pointers) are the panes the slots
+// name, and slot_groups (n_gid,) the groups each id pane is bucketed by
+// (0: scanned; at most kSortGroups).  slices: (cells of all keys *
+// n_slices, 11) fp32 scratch when n_slices > 1 (a second kernel then
+// combines them), else unused.  tile: samples a block stages at once (a
+// multiple of 32; the wrapper's fold_stage keeps FoldSmem under budget);
+// vec: every pane 16-byte aligned (bf16 values 8), row_stride, chunk_len
+// and chunk_stride multiples of 4.
+// Returns cudaGetLastError() after the launches (0 = launched).
 int isla_fold(const void* x, int x_bf16, long long n_rows,
               long long row_stride, long long n_chunks, long long chunk_len,
-              long long chunk_stride, int affine, float ratio, float off,
-              const float* bounds, long long bounds_row_stride,
-              const float* pad, const float* valid, const int* gid,
-              int n_groups, float* s_out, long long s_stride, float* l_out,
+              long long chunk_stride, const float* bounds, const float* pad,
+              const void* const* valid, int n_valid, const void* const* gid,
+              int n_gid, float* s_out, long long s_stride, float* l_out,
               long long l_stride, float* t_out, long long t_stride,
-              const int* cell_idx, long long n_out_rows, long long slice_len,
-              int n_slices, float* slices, void* stream) {
-  if (n_rows <= 0 || n_groups <= 0) return 0;
-  const long long n_cells = n_rows * n_groups;
-  const unsigned grid = static_cast<unsigned>(n_cells * n_slices);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    isla_fold_kernel<__nv_bfloat16><<<grid, kFoldThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), n_rows, row_stride, n_chunks,
-        chunk_len, chunk_stride, affine, ratio, off, bounds,
-        bounds_row_stride, pad, valid, gid, s_out, s_stride, l_out,
-        l_stride, t_out, t_stride, cell_idx, n_out_rows, n_groups,
-        slice_len, n_slices, slices);
-  } else {
-    isla_fold_kernel<float><<<grid, kFoldThreads, 0, st>>>(
-        static_cast<const float*>(x), n_rows, row_stride, n_chunks,
-        chunk_len, chunk_stride, affine, ratio, off, bounds,
-        bounds_row_stride, pad, valid, gid, s_out, s_stride, l_out,
-        l_stride, t_out, t_stride, cell_idx, n_out_rows, n_groups,
-        slice_len, n_slices, slices);
+              const int* cell_idx, long long n_out_rows, int n_keys,
+              const int* kint, const float* kflt, const long long* koff,
+              const int* slot_groups, long long slice_len, int n_slices,
+              float* slices, int tile, int vec, void* stream) {
+  if (n_rows <= 0 || n_keys <= 0) return 0;
+  if (n_keys > kMaxKeys || n_valid > kMaxKeys || n_gid > kMaxKeys)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs a = {};
+  a.x = x;
+  a.n_rows = n_rows;
+  a.row_stride = row_stride;
+  a.n_chunks = n_chunks;
+  a.chunk_len = chunk_len;
+  a.chunk_stride = chunk_stride;
+  a.bounds = bounds;
+  a.pad = pad;
+  for (int v = 0; v < n_valid; ++v)
+    a.valid[v] = static_cast<const float*>(valid[v]);
+  for (int gs = 0; gs < n_gid; ++gs)
+    a.gid[gs] = static_cast<const int*>(gid[gs]);
+  a.s_out = s_out;
+  a.l_out = l_out;
+  a.t_out = t_out;
+  a.s_stride = s_stride;
+  a.l_stride = l_stride;
+  a.t_stride = t_stride;
+  a.cell_idx = cell_idx;
+  a.n_out_rows = n_out_rows;
+  a.slice_len = slice_len;
+  a.slices = slices;
+  a.n_slices = n_slices;
+  a.n_valid = n_valid;
+  a.n_gid = n_gid;
+  a.tile = tile;
+  a.vec = vec;
+  a.n_keys = n_keys;
+  for (int gs = 0; gs < n_gid; ++gs) {
+    a.slot_groups[gs] = slot_groups[gs];
+    if (slot_groups[gs] > kSortGroups)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (slot_groups[gs] > a.sort_groups) a.sort_groups = slot_groups[gs];
   }
+  // An ungrouped key's cell is shared by every warp only when the row has
+  // fewer tasks than warps otherwise: a split costs a shuffle tree more.
+  int lone_tasks = 0;
+  for (int k = 0; k < n_keys; ++k) {
+    const int G = kint[5 * k], gs = kint[5 * k + 1];
+    lone_tasks += G > 1 && gs >= 0 && slot_groups[gs] > 0
+                      ? (G + 32 / kBucketLanes - 1) / (32 / kBucketLanes)
+                      : G;
+  }
+  const bool split = lone_tasks < kFoldWarps;
+  long long cells = 0;
+  for (int k = 0; k < n_keys; ++k) {
+    FoldKey& key = a.keys[k];
+    key.n_groups = kint[5 * k];
+    key.gid_slot = kint[5 * k + 1];
+    key.need = kint[5 * k + 2] >= 0 ? 1u | (2u << kint[5 * k + 2]) : 1u;
+    key.affine = kint[5 * k + 3];
+    key.bound_row = kint[5 * k + 4];
+    key.ratio = kflt[2 * k];
+    key.off = kflt[2 * k + 1];
+    key.out_off = koff[k];
+    key.cell_base = cells;
+    cells += static_cast<long long>(key.n_groups) * n_rows;
+    // A GROUP BY key's groups take kBucketLanes lanes each from their
+    // bucket (32 lanes each when its ids are scanned); an ungrouped key's
+    // one cell is shared by every warp of the block.
+    key.bucketed = key.n_groups > 1 && key.gid_slot >= 0 &&
+                   a.slot_groups[key.gid_slot] > 0;
+    key.lanes = key.bucketed ? kBucketLanes : 32;
+    key.group_shift = key.bucketed ? 2 : 0;  // 32 / kBucketLanes groups
+    key.splits = split && key.n_groups == 1 ? kFoldWarps : 1;
+    key.split_shift = key.splits == kFoldWarps ? 2 : 0;  // log2 splits
+    key.task_base = a.n_tasks;
+    key.slot_base = a.n_slots;
+    const int per_task = 32 / key.lanes;
+    a.n_tasks += key.splits * ((key.n_groups + per_task - 1) / per_task);
+    a.n_slots += (key.n_groups * key.splits + 3) / 4 * 4;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_rows),
+                  static_cast<unsigned>(n_slices));
+  const size_t smem = static_cast<size_t>(tile) * (8 + 6 * n_gid) +
+                      4 * static_cast<size_t>(n_gid) * (a.sort_groups + 1) +
+                      8 * kFoldWarps * static_cast<size_t>(a.sort_groups);
+  if (x_bf16)
+    isla_fold_kernel<__nv_bfloat16><<<grid, kFoldThreads, smem, st>>>(a);
+  else
+    isla_fold_kernel<float><<<grid, kFoldThreads, smem, st>>>(a);
   if (n_slices > 1) {
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     const unsigned cgrid =
-        static_cast<unsigned>((n_cells + kFoldThreads - 1) / kFoldThreads);
-    isla_fold_combine_kernel<<<cgrid, kFoldThreads, 0, st>>>(
-        slices, n_slices, n_cells, cell_idx, n_out_rows, s_out, s_stride,
-        l_out, l_stride, t_out, t_stride);
+        static_cast<unsigned>((cells + kFoldThreads - 1) / kFoldThreads);
+    isla_fold_combine_kernel<<<cgrid, kFoldThreads, 0, st>>>(a, cells);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -433,19 +939,46 @@ int pilot_stats(const float* x, long long n, const float* center,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One register merge over n_keys stacked keys.  kint (n_keys, 3) =
+// (n_groups, gid_slot, valid_slot), koff (n_keys,) = out_off (host
+// arrays); valid / gid: the panes the slots name (device pointers).
 // regs: (n_out, 4096) uint8, 4-byte aligned.  Returns cudaGetLastError().
 int isla_sketch(const unsigned long long* bits, long long n_rows,
                 long long row_stride, long long q, const float* pad,
-                const float* valid, const int* gid, int n_groups,
-                unsigned char* regs, const int* cell_idx, long long n_out,
-                void* stream) {
-  if (n_rows > 0 && n_groups > 0 && q > 0) {
-    const unsigned grid = static_cast<unsigned>(n_rows * n_groups);
-    isla_sketch_kernel<<<grid, kSketchThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        bits, n_rows, row_stride, q, pad, valid, gid, n_groups, regs,
-        cell_idx, n_out);
+                const void* const* valid, int n_valid,
+                const void* const* gid, int n_gid, unsigned char* regs,
+                const int* cell_idx, long long n_out, int n_keys,
+                const int* kint, const long long* koff, void* stream) {
+  if (n_rows <= 0 || q <= 0 || n_keys <= 0) return 0;
+  if (n_keys > kMaxKeys || n_valid > kMaxKeys || n_gid > kMaxKeys)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SketchArgs a = {};
+  a.bits = bits;
+  a.n_rows = n_rows;
+  a.row_stride = row_stride;
+  a.q = q;
+  a.pad = pad;
+  for (int v = 0; v < n_valid; ++v)
+    a.valid[v] = static_cast<const float*>(valid[v]);
+  for (int gs = 0; gs < n_gid; ++gs)
+    a.gid[gs] = static_cast<const int*>(gid[gs]);
+  a.regs = regs;
+  a.cell_idx = cell_idx;
+  a.n_out = n_out;
+  a.n_valid = n_valid;
+  a.n_keys = n_keys;
+  for (int k = 0; k < n_keys; ++k) {
+    SketchKey& key = a.keys[k];
+    key.n_groups = kint[3 * k];
+    key.gid_slot = kint[3 * k + 1];
+    key.need = kint[3 * k + 2] >= 0 ? 1u | (2u << kint[3 * k + 2]) : 1u;
+    key.out_off = koff[k];
   }
+  const dim3 grid(static_cast<unsigned>(n_rows),
+                  static_cast<unsigned>((q + kSketchThreads - 1) /
+                                        kSketchThreads));
+  isla_sketch_kernel<<<grid, kSketchThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,12 +7,20 @@ the TPU kernels they replace, their bound and their design):
   moments and the plain totals of its samples, added in place onto
   resident fp32 rows (shared or per-row cuts, optional per-key affine,
   0/1 masks, GROUP BY ids, an index map whose out-of-range entries drop);
+  one launch folds every key of a stack (``isla_fold_stack``), reading
+  each sample once for all of them;
 * ``pilot_stats`` — ``(count, sum (x-c), sum (x-c)^2, min x)`` of a flat
   fp32 run;
 * ``isla_sketch`` — the HLL COUNT DISTINCT register merge: splitmix64 of
-  each live lane's raw float64 bits (one int64 pane), encoded to ``(j, rho)`` and maxed in
-  place into resident uint8 register rows (GROUP BY ids, 0/1 masks, an
-  index map whose out-of-range entries drop).
+  each live lane's raw float64 bits (one int64 pane), encoded to
+  ``(j, rho)`` and maxed in place into resident uint8 register rows
+  (GROUP BY ids, 0/1 masks, an index map whose out-of-range entries
+  drop); one launch merges every key of a stack (``isla_sketch_stack``),
+  hashing each lane once.
+
+A stack's keys are ``StackKey`` entries, at most ``MAX_KEYS`` a launch:
+they travel as a small table in the kernel's parameters.  ``isla_fold``
+and ``isla_sketch`` are the one-key case of the same kernels.
 
 This module also builds and loads every CUDA source of the port
 (``SOURCES``: ``isla_kernels.cu`` and ``flash_attention.cu``, whose
@@ -22,12 +30,13 @@ with ``ctypes``), so importing this module needs neither a compiler nor a
 card.  A wrapper given CPU tensors runs the kernel's plain PyTorch
 version (``ref.py``); given CUDA tensors it launches the kernel, or
 raises — it never falls back.  Each kernel's
-``launches`` counter (an attribute of its wrapper) counts the wrapper's
-calls that launched the kernel on the card, and nothing else.  An
-``isla_sketch`` call is one ``__global__`` launch; an ``isla_fold`` call
-is one, or two when its cells exceed ``FOLD_SLICE`` samples (per-slice
-partial rows, then their fixed-order combine); a ``pilot_stats`` call is
-two (per-block partials, then the fixed-order combine).
+``launches`` counter (an attribute of its one-key wrapper) counts the
+calls of either entry that launched the kernel on the card, one a call,
+and nothing else.  An ``isla_sketch`` call is one ``__global__`` launch;
+an ``isla_fold`` call is one, or two when its rows exceed ``FOLD_SLICE``
+samples (per-slice partial rows, then their fixed-order combine); a
+``pilot_stats`` call is two (per-block partials, then the fixed-order
+combine).
 
 The Pallas-signature wrappers (``isla_moments_batched``, ``isla_moments``,
 ``isla_moments_grouped``, ``isla_fused``; ``isla_sketch_batched``,
@@ -43,7 +52,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,7 +61,10 @@ from .ops import on_gpu
 
 LANE = 128          # lane width of the (rows, 128) tile layout
 DEFAULT_TM = 512    # rows per tile of the reference layout
-FOLD_SLICE = 32768  # samples per fold block: longer cells are sliced
+FOLD_SLICE = 32768  # samples per fold block: longer rows are sliced
+MAX_KEYS = 16       # stacked keys one fold or merge launch takes
+STAGE_BYTES = 40 * 1024  # shared memory a fold block stages its row in
+                         # (under the 48 KB a block gets without opting in)
 REG_ROWS = 32       # one cell's 4096 HLL registers as a (32, 128) tile
 N_REGS = REG_ROWS * LANE
 
@@ -119,11 +131,12 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
 # error of its launches as an int.
 SIGNATURES = {
     "isla_kernels.cu": {
-        "isla_fold": [_P, _I, _LL, _LL, _LL, _LL, _LL, _I, _F, _F, _P, _LL,
-                      _P, _P, _P, _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL,
-                      _LL, _I, _P, _P],
+        "isla_fold": [_P, _I, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P,
+                      _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _I, _P, _P,
+                      _P, _P, _LL, _I, _P, _I, _I, _P],
         "pilot_stats": [_P, _LL, _P, _P, _I, _P, _P],
-        "isla_sketch": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _P, _P, _LL, _P],
+        "isla_sketch": [_P, _LL, _LL, _LL, _P, _P, _I, _P, _I, _P, _P, _LL,
+                        _I, _P, _P, _P],
     },
     "flash_attention.cu": {
         "flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
@@ -181,8 +194,109 @@ def _same_device(ref_t: torch.Tensor, **tensors) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Stacked keys.
+# ---------------------------------------------------------------------------
+
+
+class StackKey(NamedTuple):
+    """One key of a stacked fold or register merge.
+
+    Cell ``(g, r)`` of the key (group g of pane row r) lands on output row
+    ``offset + g * R + r``, or on ``cell_idx[offset + g * R + r]`` when the
+    launch has a map.  ``gid_slot`` and ``valid_slot`` name the key's
+    GROUP BY and predicate panes (-1: none).  The fold also reads
+    ``affine`` (``(ratio, off)`` or None) and ``bound_row``, the key's row
+    of the cuts table (-1: per-row cuts, the table being (R, 4)); the
+    register merge ignores both.
+    """
+    n_groups: int = 1
+    gid_slot: int = -1
+    valid_slot: int = -1
+    offset: int = 0
+    affine: Optional[Tuple[float, float]] = None
+    bound_row: int = 0
+
+
+def check_keys(keys: Sequence[StackKey], *, n_rows: int, n_gid: int,
+               n_valid: int, n_targets: int, target: str,
+               n_bound_rows: Optional[int] = None) -> Tuple[StackKey, ...]:
+    """Validate a stack's key table: 1 to ``MAX_KEYS`` keys, every slot
+    naming a pane (a GROUP BY key needs one), every bound row inside the
+    cuts table (-1 only for an (R, 4) table), and every key's cells
+    ``[offset, offset + n_groups * R)`` inside the ``n_targets`` output
+    rows (or map entries).  Returns the keys with ``n_groups`` as ints."""
+    keys = tuple(StackKey(*k) for k in keys)
+    if not 1 <= len(keys) <= MAX_KEYS:
+        raise ValueError(f"a stacked launch takes 1 to {MAX_KEYS} keys, "
+                         f"got {len(keys)}")
+    out = []
+    for i, k in enumerate(keys):
+        g = int(k.n_groups)
+        if g < 1:
+            raise ValueError(f"key {i}: n_groups must be >= 1, got {g}")
+        if not -1 <= k.gid_slot < n_gid:
+            raise ValueError(f"key {i}: gid slot {k.gid_slot} names none "
+                             f"of the {n_gid} gid panes")
+        if g > 1 and k.gid_slot < 0:
+            raise ValueError(f"key {i}: n_groups > 1 needs a gid pane")
+        if not -1 <= k.valid_slot < n_valid:
+            raise ValueError(f"key {i}: valid slot {k.valid_slot} names "
+                             f"none of the {n_valid} predicate panes")
+        if n_bound_rows is not None and not (
+                0 <= k.bound_row < n_bound_rows
+                or (k.bound_row == -1 and n_bound_rows == n_rows)):
+            raise ValueError(f"key {i}: bound row {k.bound_row} is not a "
+                             f"row of the ({n_bound_rows}, 4) cuts table")
+        if k.offset < 0 or k.offset + g * n_rows > n_targets:
+            raise ValueError(f"key {i}: cells [{k.offset}, "
+                             f"{k.offset + g * n_rows}) run past the "
+                             f"{n_targets} {target}")
+        out.append(k._replace(n_groups=g))
+    if sum(k.n_groups for k in out) * n_rows >= 2 ** 31:
+        raise ValueError("the stack's cells exceed one launch's grid")
+    return tuple(out)
+
+
+def _check_panes(lead: torch.Tensor, what: str, pad, gid_panes,
+                 valid_panes) -> None:
+    for name, t, dt in ([("pad", pad, torch.float32)]
+                        + [("gid", t, torch.int32) for t in gid_panes]
+                        + [("valid", t, torch.float32) for t in valid_panes]):
+        if t is None:
+            continue
+        if t.dtype != dt or t.shape != lead.shape \
+                or t.stride() != lead.stride():
+            raise ValueError(f"{name} must be {dt} laid out like {what}")
+
+
+def _pane_slots(keys: Sequence[StackKey], panes, field: str):
+    """The panes the keys use, in slot order, and each key's slot among
+    them (-1: none): a launch stages only what its keys read."""
+    used = sorted({getattr(k, field) for k in keys} - {-1})
+    where = {s: i for i, s in enumerate(used)}
+    return ([panes[s] for s in used],
+            [where.get(getattr(k, field), -1) for k in keys])
+
+
+def _ptr_array(tensors):
+    return (ctypes.c_void_p * max(1, len(tensors)))(
+        *[t.data_ptr() for t in tensors])
+
+
+# ---------------------------------------------------------------------------
 # Kernel A: the fold.
 # ---------------------------------------------------------------------------
+
+
+def _check_values(values: torch.Tensor) -> Tuple[int, int]:
+    if values.dim() != 2:
+        raise ValueError(f"values must be (R, Q), got {tuple(values.shape)}")
+    if values.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"values must be fp32 or bf16, got {values.dtype}")
+    n_rows, q = values.shape
+    if q > 1 and values.stride(1) != 1:
+        raise ValueError("values need unit stride along the sample axis")
+    return n_rows, q
 
 
 def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
@@ -194,7 +308,8 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
               affine: Optional[Tuple[float, float]] = None,
               cell_idx: Optional[torch.Tensor] = None,
               chunks: Optional[Tuple[int, int, int]] = None) -> None:
-    """Fold a (R, Q) sample pane into resident moment rows, in place.
+    """Fold a (R, Q) sample pane into resident moment rows, in place: the
+    one-key case of ``isla_fold_stack``.
 
     values : (R, Q) fp32 or bf16, unit stride along Q (rows may be a
         strided view).  Row r's samples are its Q entries, or with
@@ -215,13 +330,7 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
         row; entries outside ``[0, N)`` drop.  Without it N must equal
         ``n_groups * R`` (pass row-sliced views to fold at an offset).
     """
-    if values.dim() != 2:
-        raise ValueError(f"values must be (R, Q), got {tuple(values.shape)}")
-    if values.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"values must be fp32 or bf16, got {values.dtype}")
-    n_rows, q = values.shape
-    if q > 1 and values.stride(1) != 1:
-        raise ValueError("values need unit stride along the sample axis")
+    n_rows, _ = _check_values(values)
     n_groups = int(n_groups)
     if n_groups < 1:
         raise ValueError(f"n_groups must be >= 1, got {n_groups}")
@@ -230,28 +339,87 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
     if bounds.dtype != torch.float32 or not bounds.is_contiguous():
         raise ValueError("bounds must be contiguous fp32")
     if bounds.shape == (4,):
-        b_stride = 0
+        table, row = bounds.reshape(1, 4), 0
     elif bounds.shape == (n_rows, 4):
-        b_stride = 4
+        table, row = bounds, -1
     else:
         raise ValueError(f"bounds must be (4,) or ({n_rows}, 4), got "
                          f"{tuple(bounds.shape)}")
+    _check_cells(n_groups, n_rows, out_s.shape[0], cell_idx, "out")
+    key = StackKey(n_groups, -1 if gid is None else 0,
+                   -1 if valid is None else 0, 0, affine, row)
+    isla_fold_stack(values, table, out_s, out_l, out_t, keys=(key,),
+                    pad=pad, gid_panes=() if gid is None else (gid,),
+                    valid_panes=() if valid is None else (valid,),
+                    cell_idx=cell_idx, chunks=chunks)
+
+
+SORT_GROUPS = 256  # a GROUP BY pane of at most this many groups is bucketed
+FOLD_WARPS = 4     # warps of a fold block
+
+
+def fold_stage(n: int, keys: Sequence[StackKey]) -> Tuple[list, int, int]:
+    """How a fold launch stages rows of ``n`` samples for ``keys``:
+    ``(slot_groups, tile, smem_bytes)``.
+
+    ``slot_groups`` lists, for each GROUP BY pane the keys read (in slot
+    order), the groups the kernel buckets its ids by: the most its grouped
+    keys have, or 0 (its keys scan the staged ids) when none is grouped or
+    one has more than ``SORT_GROUPS``.  ``tile`` is the samples a block
+    stages at once: a slice (at most ``FOLD_SLICE``) rounded up to 32,
+    capped so the block's dynamic shared memory, ``smem_bytes``, fits
+    ``STAGE_BYTES``: a value and a mask word a sample, each pane's ids
+    (4 B) and bucket order (2 B) a sample, each pane's bucket starts, and a
+    counter and a peer mask a group for each warp."""
+    used = sorted({k.gid_slot for k in keys} - {-1})
+    groups = [0] * len(used)
+    for k in keys:
+        if k.n_groups > 1 and k.gid_slot >= 0:
+            i = used.index(k.gid_slot)
+            groups[i] = max(groups[i], k.n_groups)
+    groups = [g if g <= SORT_GROUPS else 0 for g in groups]
+    n_gid, top = len(used), max(groups, default=0)
+    fixed = 4 * n_gid * (top + 1) + 8 * FOLD_WARPS * top
+    per_sample = 8 + 6 * n_gid
+    tile = min(-(-min(n, FOLD_SLICE) // 32) * 32,
+               (STAGE_BYTES - fixed) // per_sample // 32 * 32)
+    return groups, tile, tile * per_sample + fixed
+
+
+def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
+                    out_s: torch.Tensor, out_l: torch.Tensor,
+                    out_t: Optional[torch.Tensor] = None, *,
+                    keys: Sequence[StackKey],
+                    pad: Optional[torch.Tensor] = None,
+                    gid_panes: Sequence[torch.Tensor] = (),
+                    valid_panes: Sequence[torch.Tensor] = (),
+                    cell_idx: Optional[torch.Tensor] = None,
+                    chunks: Optional[Tuple[int, int, int]] = None) -> None:
+    """Fold a (R, Q) sample pane into the resident rows of every stacked
+    key, in place, in one launch that reads each sample once for all keys.
+
+    Key k (a ``StackKey``) reads the pane through its ``affine``,
+    classifies against row ``bound_row`` of ``bounds`` ((n_b, 4) fp32; -1:
+    per-row cuts, ``bounds`` being (R, 4)), keeps the samples where
+    ``pad`` and its predicate pane ``valid_panes[valid_slot]`` are nonzero
+    and groups them by ``gid_panes[gid_slot]``; cell ``(g, r)`` adds onto
+    output row ``offset + g * R + r``, or onto ``cell_idx[offset + g * R +
+    r]`` (out-of-range entries drop).  ``values``, the panes, ``out_*``
+    and ``chunks`` are as in ``isla_fold``.  At most ``MAX_KEYS`` keys.
+    """
+    n_rows, q = _check_values(values)
+    if bounds.dtype != torch.float32 or bounds.dim() != 2 \
+            or bounds.shape[1] != 4 or not bounds.is_contiguous():
+        raise ValueError("bounds must be a contiguous (n, 4) fp32 table")
     if chunks is not None:
-        if pad is not None or valid is not None or gid is not None:
+        if pad is not None or gid_panes or valid_panes:
             raise ValueError("chunked reads take no mask or gid panes")
         chunk_len, chunk_stride, n_chunks = (int(c) for c in chunks)
         if (n_chunks - 1) * chunk_stride + chunk_len > q:
             raise ValueError("chunks run past the end of the row")
     else:
         chunk_len, chunk_stride, n_chunks = q, q, 1
-    for name, t, dt in (("pad", pad, torch.float32),
-                        ("valid", valid, torch.float32),
-                        ("gid", gid, torch.int32)):
-        if t is None:
-            continue
-        if t.dtype != dt or t.shape != values.shape \
-                or t.stride() != values.stride():
-            raise ValueError(f"{name} must be {dt} laid out like values")
+    _check_panes(values, "values", pad, gid_panes, valid_panes)
     n_out = out_s.shape[0]
     for name, t, w in (("out_s", out_s, 4), ("out_l", out_l, 4),
                        ("out_t", out_t, 3)):
@@ -261,37 +429,70 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
                 or t.shape[0] != n_out or t.stride(1) != 1:
             raise ValueError(f"{name} must be ({n_out}, {w}) fp32 with "
                              f"unit column stride")
-    n_cells = _check_cells(n_groups, n_rows, n_out, cell_idx, "out")
+    if cell_idx is not None and (cell_idx.dtype != torch.int32
+                                 or cell_idx.dim() != 1
+                                 or not cell_idx.is_contiguous()):
+        raise ValueError("cell_idx must be a contiguous 1-D int32 map")
+    keys = check_keys(keys, n_rows=n_rows, n_gid=len(gid_panes),
+                      n_valid=len(valid_panes),
+                      n_targets=n_out if cell_idx is None
+                      else cell_idx.shape[0],
+                      target="out rows" if cell_idx is None
+                      else "cell_idx entries",
+                      n_bound_rows=bounds.shape[0])
     _same_device(values, bounds=bounds, out_s=out_s, out_l=out_l,
-                 out_t=out_t, pad=pad, valid=valid, gid=gid,
-                 cell_idx=cell_idx)
+                 out_t=out_t, pad=pad, cell_idx=cell_idx,
+                 **{f"gid_panes[{i}]": t for i, t in enumerate(gid_panes)},
+                 **{f"valid_panes[{i}]": t
+                    for i, t in enumerate(valid_panes)})
     if not on_gpu(values):
-        ref.isla_fold_ref(values, bounds, out_s, out_l, out_t, pad=pad,
-                          valid=valid, gid=gid, n_groups=n_groups,
-                          affine=affine, cell_idx=cell_idx, chunks=chunks)
+        ref.isla_fold_stack_ref(values, bounds, out_s, out_l, out_t,
+                                keys=keys, pad=pad, gid_panes=gid_panes,
+                                valid_panes=valid_panes, cell_idx=cell_idx,
+                                chunks=chunks)
         return
-    if n_cells == 0:
+    n = n_chunks * chunk_len
+    if n_rows == 0 or n == 0:
         return
-    ratio, off = (1.0, 0.0) if affine is None else affine
-    # Cells longer than FOLD_SLICE samples are summed slice by slice (one
-    # block each, 256 fp32 adds per thread at most), then combined in
-    # slice order by a second kernel.
-    n_slices = -(-(n_chunks * chunk_len) // FOLD_SLICE)
-    if n_cells * max(n_slices, 1) >= 2 ** 31:
-        raise ValueError(f"{n_cells} cells of {n_slices} slices exceed one "
-                         f"launch's grid")
+    gids, g_slot = _pane_slots(keys, gid_panes, "gid_slot")
+    valids, v_slot = _pane_slots(keys, valid_panes, "valid_slot")
+    # Rows longer than FOLD_SLICE samples are summed slice by slice (one
+    # block each), then combined in slice order by a second kernel.  A
+    # block stages its slice in tiles of at most STAGE_BYTES.
+    n_slices = -(-n // FOLD_SLICE)
+    if n_slices >= 2 ** 16:
+        raise ValueError(f"{n} samples a row exceed one launch's grid")
+    slot_groups, tile, _ = fold_stage(n, keys)
+    vec = ((n_rows == 1 or values.stride(0) % 4 == 0)
+           and (n_chunks == 1 or (chunk_len % 4 == 0
+                                  and chunk_stride % 4 == 0))
+           and values.data_ptr() % (4 * values.element_size()) == 0
+           and all(t.data_ptr() % 16 == 0
+                   for t in [*gids, *valids] + ([pad] if pad is not None
+                                                 else [])))
+    n_cells = sum(k.n_groups for k in keys) * n_rows
     slices = (torch.empty(n_cells * n_slices * 11, dtype=torch.float32,
                           device=values.device) if n_slices > 1 else None)
+    nk = len(keys)
+    kint = (ctypes.c_int * (5 * nk))(*[
+        v for k, gs, vs in zip(keys, g_slot, v_slot)
+        for v in (k.n_groups, gs, vs, int(k.affine is not None),
+                  k.bound_row)])
+    kflt = (ctypes.c_float * (2 * nk))(*[
+        float(v) for k in keys
+        for v in ((1.0, 0.0) if k.affine is None else k.affine)])
+    koff = (ctypes.c_longlong * nk)(*[k.offset for k in keys])
     with torch.cuda.device(values.device):
         err = library().isla_fold(
             _ptr(values), int(values.dtype == torch.bfloat16), n_rows,
             values.stride(0), n_chunks, chunk_len, chunk_stride,
-            int(affine is not None), float(ratio), float(off),
-            _ptr(bounds), b_stride, _ptr(pad), _ptr(valid), _ptr(gid),
-            n_groups, _ptr(out_s), out_s.stride(0), _ptr(out_l),
-            out_l.stride(0), _ptr(out_t),
+            _ptr(bounds), _ptr(pad), _ptr_array(valids), len(valids),
+            _ptr_array(gids), len(gids), _ptr(out_s), out_s.stride(0),
+            _ptr(out_l), out_l.stride(0), _ptr(out_t),
             0 if out_t is None else out_t.stride(0), _ptr(cell_idx), n_out,
-            FOLD_SLICE, max(n_slices, 1), _ptr(slices),
+            nk, kint, kflt, koff,
+            (ctypes.c_int * max(1, len(slot_groups)))(*slot_groups),
+            FOLD_SLICE, n_slices, _ptr(slices), tile, int(vec),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "isla_fold")
     isla_fold.launches += 1
@@ -362,7 +563,8 @@ def isla_sketch(bits: torch.Tensor, regs: torch.Tensor, *,
                 valid: Optional[torch.Tensor] = None,
                 gid: Optional[torch.Tensor] = None, n_groups: int = 1,
                 cell_idx: Optional[torch.Tensor] = None) -> None:
-    """Merge a (R, Q) hash pane into resident HLL register rows, in place.
+    """Merge a (R, Q) hash pane into resident HLL register rows, in place:
+    the one-key case of ``isla_sketch_stack``.
 
     bits : (R, Q) int64 — the RAW float64 measure values' bits
         (``values.view(int64)``), unit stride along Q.
@@ -377,48 +579,102 @@ def isla_sketch(bits: torch.Tensor, regs: torch.Tensor, *,
         row; entries outside ``[0, N)`` drop.  Without it N must equal
         ``n_groups * R`` (pass a row-sliced view to merge at an offset).
 
-    ``isla_sketch.launches`` counts this wrapper's kernel launches on the
-    card (one ``__global__`` launch per call).
+    ``isla_sketch.launches`` counts the kernel's launches on the card
+    (one ``__global__`` launch per call of either entry).
     """
-    if bits.dim() != 2 or bits.dtype != torch.int64:
-        raise ValueError(f"bits must be (R, Q) int64, got {bits.dtype} "
-                         f"{tuple(bits.shape)}")
-    n_rows, q = bits.shape
-    if q > 1 and bits.stride(1) != 1:
-        raise ValueError("hash panes need unit stride along the lane axis")
+    n_rows = _check_bits(bits)
     n_groups = int(n_groups)
     if n_groups < 1:
         raise ValueError(f"n_groups must be >= 1, got {n_groups}")
     if gid is None and n_groups != 1:
         raise ValueError("n_groups > 1 needs a gid pane")
-    for name, t, dt in (("pad", pad, torch.float32),
-                        ("valid", valid, torch.float32),
-                        ("gid", gid, torch.int32)):
-        if t is None:
-            continue
-        if t.dtype != dt or t.shape != bits.shape \
-                or t.stride() != bits.stride():
-            raise ValueError(f"{name} must be {dt} laid out like bits")
+    _check_panes(bits, "bits", pad, () if gid is None else (gid,),
+                 () if valid is None else (valid,))
+    _check_regs(regs)
+    _check_cells(n_groups, n_rows, regs.shape[0], cell_idx, "register")
+    key = StackKey(n_groups, -1 if gid is None else 0,
+                   -1 if valid is None else 0)
+    isla_sketch_stack(bits, regs, keys=(key,), pad=pad,
+                      gid_panes=() if gid is None else (gid,),
+                      valid_panes=() if valid is None else (valid,),
+                      cell_idx=cell_idx)
+
+
+def _check_bits(bits: torch.Tensor) -> int:
+    if bits.dim() != 2 or bits.dtype != torch.int64:
+        raise ValueError(f"bits must be (R, Q) int64, got {bits.dtype} "
+                         f"{tuple(bits.shape)}")
+    if bits.shape[1] > 1 and bits.stride(1) != 1:
+        raise ValueError("hash panes need unit stride along the lane axis")
+    return bits.shape[0]
+
+
+def _check_regs(regs: torch.Tensor) -> None:
     if regs.dtype != torch.uint8 or regs.dim() != 2 \
             or regs.shape[1] != N_REGS or not regs.is_contiguous():
         raise ValueError(f"regs must be contiguous (N, {N_REGS}) uint8")
+
+
+def isla_sketch_stack(bits: torch.Tensor, regs: torch.Tensor, *,
+                      keys: Sequence[StackKey],
+                      pad: Optional[torch.Tensor] = None,
+                      gid_panes: Sequence[torch.Tensor] = (),
+                      valid_panes: Sequence[torch.Tensor] = (),
+                      cell_idx: Optional[torch.Tensor] = None) -> None:
+    """Merge a (R, Q) hash pane into the resident register rows of every
+    stacked key, in place, in one launch that hashes each live lane once.
+
+    Key k (a ``StackKey``; ``affine`` and ``bound_row`` are not read)
+    keeps the lanes where ``pad`` and its predicate pane
+    ``valid_panes[valid_slot]`` are nonzero, groups them by
+    ``gid_panes[gid_slot]`` and merges cell ``(g, r)`` into register row
+    ``offset + g * R + r``, or ``cell_idx[offset + g * R + r]``
+    (out-of-range entries drop).  ``bits``, the panes and ``regs`` are as
+    in ``isla_sketch``.  At most ``MAX_KEYS`` keys.
+    """
+    n_rows = _check_bits(bits)
+    q = bits.shape[1]
+    _check_panes(bits, "bits", pad, gid_panes, valid_panes)
+    _check_regs(regs)
     n_out = regs.shape[0]
-    n_cells = _check_cells(n_groups, n_rows, n_out, cell_idx, "register")
-    _same_device(bits, regs=regs, pad=pad, valid=valid, gid=gid,
-                 cell_idx=cell_idx)
+    if cell_idx is not None and (cell_idx.dtype != torch.int32
+                                 or cell_idx.dim() != 1
+                                 or not cell_idx.is_contiguous()):
+        raise ValueError("cell_idx must be a contiguous 1-D int32 map")
+    keys = check_keys(keys, n_rows=n_rows, n_gid=len(gid_panes),
+                      n_valid=len(valid_panes),
+                      n_targets=n_out if cell_idx is None
+                      else cell_idx.shape[0],
+                      target="register rows" if cell_idx is None
+                      else "cell_idx entries")
+    _same_device(bits, regs=regs, pad=pad, cell_idx=cell_idx,
+                 **{f"gid_panes[{i}]": t for i, t in enumerate(gid_panes)},
+                 **{f"valid_panes[{i}]": t
+                    for i, t in enumerate(valid_panes)})
     if not on_gpu(bits):
-        ref.isla_sketch_ref(bits, regs, pad=pad, valid=valid, gid=gid,
-                            n_groups=n_groups, cell_idx=cell_idx)
+        ref.isla_sketch_stack_ref(bits, regs, keys=keys, pad=pad,
+                                  gid_panes=gid_panes,
+                                  valid_panes=valid_panes, cell_idx=cell_idx)
         return
-    if n_cells == 0 or q == 0:
+    if n_rows == 0 or q == 0:
         return
+    if q >= 256 * 2 ** 16:
+        raise ValueError(f"{q} lanes a row exceed one launch's grid")
     if regs.data_ptr() % 4 != 0:
         raise ValueError("regs must be 4-byte aligned")
+    gids, g_slot = _pane_slots(keys, gid_panes, "gid_slot")
+    valids, v_slot = _pane_slots(keys, valid_panes, "valid_slot")
+    nk = len(keys)
+    kint = (ctypes.c_int * (3 * nk))(*[
+        v for k, gs, vs in zip(keys, g_slot, v_slot)
+        for v in (k.n_groups, gs, vs)])
+    koff = (ctypes.c_longlong * nk)(*[k.offset for k in keys])
     with torch.cuda.device(bits.device):
         err = library().isla_sketch(
             _ptr(bits), n_rows, bits.stride(0), q, _ptr(pad),
-            _ptr(valid), _ptr(gid), n_groups, _ptr(regs), _ptr(cell_idx),
-            n_out, torch.cuda.current_stream().cuda_stream)
+            _ptr_array(valids), len(valids), _ptr_array(gids), len(gids),
+            _ptr(regs), _ptr(cell_idx), n_out, nk, kint, koff,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "isla_sketch")
     isla_sketch.launches += 1
 

@@ -91,6 +91,40 @@ def isla_fold_ref(values: torch.Tensor, bounds: torch.Tensor,
         out_t[rows] += delta[:, 8:11]
 
 
+def _key_panes(key, pad, gid_panes, valid_panes) -> dict:
+    return dict(pad=pad,
+                valid=None if key.valid_slot < 0
+                else valid_panes[key.valid_slot],
+                gid=None if key.gid_slot < 0 else gid_panes[key.gid_slot],
+                n_groups=key.n_groups)
+
+
+def isla_fold_stack_ref(values: torch.Tensor, bounds: torch.Tensor,
+                        out_s: torch.Tensor, out_l: torch.Tensor,
+                        out_t: Optional[torch.Tensor] = None, *, keys,
+                        pad: Optional[torch.Tensor] = None, gid_panes=(),
+                        valid_panes=(),
+                        cell_idx: Optional[torch.Tensor] = None,
+                        chunks: Optional[Tuple[int, int, int]] = None
+                        ) -> None:
+    """Plain version of the stacked ``isla_fold`` launch: ``isla_fold_ref``
+    key by key, each key on its own rows (``offset + g * R + r``, or
+    those entries of ``cell_idx``), cuts row ``bound_row`` of ``bounds``
+    (-1: per-row cuts) and its own affine and panes."""
+    n_rows = values.shape[0]
+    for k in keys:
+        rows = slice(k.offset, k.offset + k.n_groups * n_rows)
+        kw = dict(_key_panes(k, pad, gid_panes, valid_panes),
+                  affine=k.affine, chunks=chunks)
+        b = bounds if k.bound_row < 0 else bounds[k.bound_row]
+        if cell_idx is None:
+            isla_fold_ref(values, b, out_s[rows], out_l[rows],
+                          None if out_t is None else out_t[rows], **kw)
+        else:
+            isla_fold_ref(values, b, out_s, out_l, out_t,
+                          cell_idx=cell_idx[rows], **kw)
+
+
 def isla_sketch_ref(bits: torch.Tensor, regs: torch.Tensor, *,
                     pad: Optional[torch.Tensor] = None,
                     valid: Optional[torch.Tensor] = None,
@@ -122,6 +156,24 @@ def isla_sketch_ref(bits: torch.Tensor, regs: torch.Tensor, *,
     flat = (torch.where(ok, cell, 0) * M + j).reshape(-1)
     regs.view(-1).scatter_reduce_(
         0, flat, torch.where(ok, rho, 0).reshape(-1), reduce="amax")
+
+
+def isla_sketch_stack_ref(bits: torch.Tensor, regs: torch.Tensor, *, keys,
+                          pad: Optional[torch.Tensor] = None, gid_panes=(),
+                          valid_panes=(),
+                          cell_idx: Optional[torch.Tensor] = None) -> None:
+    """Plain version of the stacked ``isla_sketch`` launch:
+    ``isla_sketch_ref`` key by key, each key on its own register rows
+    (``offset + g * R + r``, or those entries of ``cell_idx``) with its
+    own panes."""
+    n_rows = bits.shape[0]
+    for k in keys:
+        rows = slice(k.offset, k.offset + k.n_groups * n_rows)
+        kw = _key_panes(k, pad, gid_panes, valid_panes)
+        if cell_idx is None:
+            isla_sketch_ref(bits, regs[rows], **kw)
+        else:
+            isla_sketch_ref(bits, regs, cell_idx=cell_idx[rows], **kw)
 
 
 def pilot_stats_ref(values: torch.Tensor,

@@ -257,6 +257,106 @@ def test_distinct_executor_on_cuda_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The stacked fold and merge: every key of a dense tick in one launch.
+# ---------------------------------------------------------------------------
+
+STACK_CASES = {
+    "loop": dict(stack="loop", n_b=1000, q=1024),
+    "loop_compacted": dict(stack="loop", n_b=1000, q=1024, compacted=True),
+    "loop_bf16": dict(stack="loop", n_b=1000, q=1024, bf16=True),
+    "groups_1_1_3_3": dict(n_b=37, q=300),
+    "sliced": dict(n_b=4, q=2 * K.FOLD_SLICE + 100),
+    # 520 cells a row: the fold takes its partial rows in batches, and the
+    # 300-group pane is scanned, not bucketed; "wide_long" stages its rows
+    # in two tiles per batch.
+    "wide": dict(stack="wide", n_b=20, q=300),
+    "wide_long": dict(stack="wide", n_b=4, q=2000),
+}
+
+
+def _rel_err(got, want) -> float:
+    return float(((got.double() - want.double()).abs()
+                  / want.double().abs().clamp_min(1.0)).max())
+
+
+@pytest.mark.parametrize("case", list(STACK_CASES))
+def test_fold_stack_kernel_matches_plain_version(cuda, case):
+    """``fold_panes`` on the card (one ``isla_fold`` launch for every key)
+    gives identical bits twice and comes within rel 1e-5 of the stacked
+    plain version, run on the CPU on the same inputs: on the card the
+    plain version contracts a 65,636-sample row's GROUP BY one-hot through
+    cuBLAS, which lands 1.2e-4 from the CPU's sum, where the kernel lands
+    8e-7 from it."""
+    from _torch_stack_cases import fold_stacked, stack_case
+
+    c = stack_case(np.random.default_rng(9), cuda, **STACK_CASES[case])
+    outs = [c["prior"].clone() for _ in range(2)]
+    fold_stacked(outs[0], c["panes"], c["kw"])
+    fold_stacked(outs[1], c["panes"], c["kw"])
+    host = stack_case(np.random.default_rng(9), "cpu", **STACK_CASES[case])
+    want = host["prior"].clone()
+    fold_stacked(want, host["panes"], host["kw"])
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])  # fixed order: identical bits
+    assert _rel_err(outs[0].cpu(), want) <= 1e-5
+    assert not torch.equal(outs[0], c["prior"])
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "compacted"])
+def test_sketch_stack_kernel_matches_plain_version(cuda, case):
+    """``sketch_panes`` on the card (one ``isla_sketch`` launch for every
+    key) against the stacked plain version on the same card tensors, bit
+    for bit: on a cold plane, on a warm one (most lanes take the skip
+    path) and compacted; merging the same pane again changes nothing."""
+    from _torch_stack_cases import sketch_stacked, stack_case
+
+    c = stack_case(np.random.default_rng(10), cuda, stack="loop", n_b=1000,
+                   q=1024, compacted=case == "compacted")
+    regs0 = (torch.zeros_like(c["regs0"]) if case == "cold"
+             else c["regs0"])
+    _, pad, gids, valids, _ = c["panes"]
+    kw = c["kw"]
+    got, again, want = regs0.clone(), regs0.clone(), regs0.clone()
+    sketch_stacked(got, c["bits"], c["panes"], kw)
+    sketch_stacked(again, c["bits"], c["panes"], kw)
+    ref.isla_sketch_stack_ref(
+        c["bits"], want, keys=TC.distributed.stack_keys(
+            c["bits"].shape[0], kw["n_groups_list"], kw["gid_slots"],
+            kw["valid_slots"]),
+        pad=pad, gid_panes=gids, valid_panes=valids,
+        cell_idx=None if kw["active_cells"] is None
+        else kw["active_cells"][0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert not torch.equal(got, regs0)
+    sketch_stacked(again, c["bits"], c["panes"], kw)  # every lane skips
+    torch.cuda.synchronize()
+    assert torch.equal(again, want)
+
+
+@pytest.mark.parametrize("n_keys", [4, K.MAX_KEYS + 4])
+def test_panes_launch_each_kernel_once_per_call(cuda, n_keys):
+    """A ``fold_panes`` / ``sketch_panes`` call of up to ``MAX_KEYS`` keys
+    launches ``isla_fold`` / ``isla_sketch`` exactly once (a longer stack
+    once per ``MAX_KEYS``)."""
+    from _torch_stack_cases import fold_stacked, sketch_stacked, stack_case
+
+    c = stack_case(np.random.default_rng(11), cuda, stack="loop", n_b=50,
+                   q=256)
+    kw = {f: (v * 6)[:n_keys] if isinstance(v, tuple) else v
+          for f, v in c["kw"].items()}
+    n_cells = sum(kw["n_groups_list"]) * c["n_b"]
+    state = torch.zeros((n_cells, 11), dtype=torch.float32, device=cuda)
+    regs = torch.zeros((n_cells, K.N_REGS), dtype=torch.uint8, device=cuda)
+    K.reset_launch_counts()
+    fold_stacked(state, c["panes"], kw)
+    sketch_stacked(regs, c["bits"], c["panes"], kw)
+    torch.cuda.synchronize()
+    per = -(-n_keys // K.MAX_KEYS)
+    assert (K.isla_fold.launches, K.isla_sketch.launches) == (per, per)
+
+
+# ---------------------------------------------------------------------------
 # flash_attention: the LM prefill's kernel, and the slice on the card.
 # ---------------------------------------------------------------------------
 

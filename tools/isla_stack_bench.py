@@ -1,0 +1,169 @@
+#!/usr/bin/env python
+"""Time the dense serving tick's fold and register merge on the card: one
+``distributed.fold_panes`` and one ``distributed.sketch_panes`` call each,
+at the serving loop's panes.
+
+    python3 tools/isla_stack_bench.py [--src PATH] [--label NAME]
+
+``--src`` is the ``src`` directory of the port to time (default: this
+checkout's), so two trees of the port can be timed on one card in one
+run, in turns.  Only the two calls' signatures, which every tree of the
+port shares, are used.
+
+The panes are made from a numpy seed as the loop makes them (see
+``chip_smoke.py``): 1000 blocks, quota 512 at the cold tick's fill (62%
+of the lanes real) and 1024 at the top-up's (93%), the loop's four keys
+(plain, WHERE, GROUP BY 16 groups, both), a 34,000-row resident state
+and a 34,000 x 4096 uint8 register plane.  For each call it prints one
+JSON line: the card and its power limit, the tree's label, the pane, the
+launches a call made, and the milliseconds a call takes
+
+* ``kernel_ms``: the fold's (merge's) own kernels on the card, from the
+  profiler's device events over 20 calls; each merge starts from the
+  plane before the tick (``cold``: zeros) or after a first merge of the
+  same pane (``warm``: every lane finds its register raised already);
+* ``event_ms``: CUDA events around 20 calls, the card held busy while
+  the host enqueues them, so launch gaps count and host time does not.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+KEYS = ((1, -1, -1), (1, -1, 0), (16, 0, -1), (16, 0, 0))  # G, gid, valid
+PANES = ((512, 0.62), (1024, 0.93))  # quota, share of real lanes
+N_BLOCKS = 1000
+REPS = 20
+
+
+def event_ms(fn, reps=REPS, warm=3):
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 0.5) * 2.0e9))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, name, setup=None, reps=REPS, warm=3):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        if setup is not None:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if str(e.device_type).endswith("CUDA") and name in e.name]
+    return sum(us) / reps * 1e-3 if us else None
+
+
+def panes(quota, fill, seed=0):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    shape = (N_BLOCKS, quota)
+    q = np.clip(np.round(rng.normal(fill, 0.05, N_BLOCKS) * quota), 1,
+                quota).astype(np.int64)
+    live = np.arange(quota)[None, :] < q[:, None]
+    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a), dtype=dt, device=dev)
+    raw = np.where(live, np.round(rng.normal(100.0, 20.0, shape)), 0.0)
+    return dict(
+        values=t(raw / 100.0), pad=t(live),
+        gid=t(np.where(live, rng.integers(0, 16, shape), 0), torch.int32),
+        valid=t(np.where(live, rng.random(shape) < 0.5, 0.0)),
+        bounds=t([[0.5, 0.875, 1.125, 1.5]]),
+        bits=t(raw.view(np.int64), torch.int64),
+        n_real=int(live.sum()))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("isla_stack_bench: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import isla_moments as K
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    K.build()
+    kw = dict(n_groups_list=tuple(k[0] for k in KEYS),
+              gid_slots=tuple(k[1] for k in KEYS),
+              valid_slots=tuple(k[2] for k in KEYS))
+    n_cells = sum(k[0] for k in KEYS) * N_BLOCKS
+    state = torch.zeros((n_cells, 11), dtype=torch.float32, device="cuda")
+    regs0 = torch.zeros((n_cells, 4096), dtype=torch.uint8, device="cuda")
+    regs = regs0.clone()
+    for quota, fill in PANES:
+        p = panes(quota, fill)
+
+        def fold():
+            D.fold_panes(state[:, 0:4], state[:, 4:8], state[:, 8:11],
+                         p["values"], p["pad"], (p["gid"],), (p["valid"],),
+                         p["bounds"], **kw)
+
+        def merge():
+            D.sketch_panes(regs, p["bits"], p["pad"], (p["gid"],),
+                           (p["valid"],), **kw)
+
+        K.reset_launch_counts()
+        fold()
+        merge()
+        torch.cuda.synchronize()
+        launches = (K.isla_fold.launches, K.isla_sketch.launches)
+        row = dict(card=card, tree=args.label, pane=[N_BLOCKS, quota],
+                   real_lanes=p["n_real"], keys=[k[0] for k in KEYS],
+                   launches_per_call=dict(isla_fold=launches[0],
+                                          isla_sketch=launches[1]),
+                   fold_kernel_ms=kernel_ms(fold, "isla_fold"),
+                   fold_event_ms=event_ms(fold))
+        regs.zero_()
+        merge()
+        warm = regs.clone()
+        row.update(
+            sketch_cold_kernel_ms=kernel_ms(
+                merge, "isla_sketch", setup=lambda: regs.copy_(regs0)),
+            sketch_warm_kernel_ms=kernel_ms(
+                merge, "isla_sketch", setup=lambda: regs.copy_(warm)),
+            sketch_warm_event_ms=event_ms(merge))
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
