@@ -16,9 +16,14 @@ are bit-identical).  It keeps a copy of every value pane the loop folded
 and every hash pane it merged into the HLL registers, and replays each
 fold and each register merge, kernel against plain PyTorch version, on
 those very panes and times both; it also holds the fold at the tick's
-shape with synthetic 64- and 4096-sample panes, times every
-Pallas-signature wrapper against its plain version, and the pilot
-kernel at the loop's pilot size.
+shape with synthetic 64- and 4096-sample panes, and times every
+Pallas-signature wrapper against its plain version.  Each run's cold plan
+must make exactly one pilot kernel launch.  The pilot kernel is held
+against its plain version and timed at the loop's pilot size and at
+10^5, 10^6 and 10^7 samples (beside the card's smallest launch at the
+loop's size), with the device pilot's host time and its stages; one
+device-route plan at a precision tight enough for a pilot of at least
+100,000 samples reports its pilot's size and seconds.
 
 Then it drives the LM serving path: olmo-1b at full width and depth
 (16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
@@ -104,11 +109,11 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, names, reps: int = 20, warm: int = 3, setup=None):
-    """Mean device milliseconds a call of ``fn`` spends in the kernels
-    whose names contain one of ``names``: the profiler's device events
-    over ``reps`` calls, each after ``setup()`` when given (untimed unless
-    it runs such a kernel).  None when the trace holds no device event."""
+def kernel_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
+    """The profiler's device events of the kernels whose names contain one
+    of ``names`` over ``reps`` calls of ``fn``, each after ``setup()`` when
+    given (untimed unless it runs such a kernel): ``(mean device ms a call
+    or None when the trace holds no such event, events a call)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,7 +131,13 @@ def kernel_ms(fn, names, reps: int = 20, warm: int = 3, setup=None):
     us = [e.time_range.elapsed_us() for e in prof.events()
           if str(e.device_type).endswith("CUDA")
           and any(n in e.name for n in names)]
-    return sum(us) / reps * 1e-3 if us else None
+    return (sum(us) / reps * 1e-3 if us else None), len(us) / reps
+
+
+def kernel_ms(fn, names, reps: int = 20, warm: int = 3, setup=None):
+    """Mean device milliseconds a call of ``fn`` spends in the kernels
+    whose names contain one of ``names`` (``kernel_events``)."""
+    return kernel_events(fn, names, reps, warm, setup)[0]
 
 
 def max_abs_err(a, b) -> float:
@@ -608,33 +619,130 @@ def check_batched(device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_pilot(device, n: int) -> dict:
+PILOT_SIZES = (100_000, 1_000_000, 10_000_000)  # beside the loop's pilot
+PILOT_KERNEL = "pilot_moments_kernel"
+L2_FLUSH_BYTES = 64 << 20  # read between calls: more than the 50 MB L2
+
+
+def pilot_host_ms(v_host, reps: int) -> dict:
+    """Host milliseconds (median of ``reps``) of ``pilot_stats_device`` as
+    a whole, and of its stages run one by one with a sync after each:
+    scale (``prescale_pilot``), upload, launch (the kernel finished) and
+    readback."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import isla_moments as K
+
+    def median_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[len(ts) // 2]
+
+    dev = torch.device("cuda")
+    box = {}
+
+    def scale():
+        box["v32"], _ = D.prescale_pilot(v_host)
+
+    def upload():
+        box["v"] = D.h2d(box["v32"], torch.float32, dev)
+
+    def launch():
+        box["m"] = K.pilot_moments(box["v"])
+
+    out = dict(whole=median_ms(
+        lambda: D.pilot_stats_device(v_host, device="cuda")))
+    for name, fn in (("scale", scale), ("upload", upload),
+                     ("launch", launch),
+                     ("readback", lambda: box["m"].tolist())):
+        out[name] = median_ms(fn)
+    return out
+
+
+def check_pilot(device, loop_n: int) -> "list[dict]":
+    """The pilot kernel at the loop's pilot size and at 10^5, 10^6 and 10^7
+    samples: ``pilot_moments`` against its float64 plain version (count
+    and min exact, mean, M2 and sigma within rel 1e-5; a second run
+    bit-identical), ``pilot_stats`` with and without a centre against the
+    form derived from the plain moments (``ref.stats_from_moments``); its
+    device time from the profiler (as after the upload, and after a read
+    of 64 MB has flushed L2) beside the byte bound and the launches a
+    call; the plain version's and ``torch.std_mean`` +
+    ``torch.min``'s time (no one call computes the function); and the
+    device pilot's host time with its stages.  At the loop's size it also
+    times the card's smallest launch (a one-element ``fill_``) the same
+    way."""
     import numpy as np
     import torch
     from repro_torch.kernels import isla_moments as K
     from repro_torch.kernels import ref
 
-    v = torch.as_tensor(np.random.default_rng(2).normal(0.8, 0.1, n),
-                        dtype=torch.float32, device=device)
-    center = (v.sum() / n).reshape(1)
-    err = 0.0
-    for c in (None, center):
-        got = K.pilot_stats(v, center=c)
-        want = ref.pilot_stats_ref(v, c)
-        rel = ((got.double() - want.double()).abs()
-               / want.double().abs().clamp_min(1.0))
-        check(float(rel.max()) <= 1e-5 or float(
-            (got.double() - want.double()).abs().max()) <= 1e-3,
-              f"pilot_stats disagrees with its plain version: {got} vs "
-              f"{want}")
-        err = max(err, max_abs_err(got, want))
-    ms = time_ms(lambda: K.pilot_stats(v))
-    plain_ms = time_ms(lambda: ref.pilot_stats_ref(v))
-    bound = 4 * n / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * n / FP32_FLOP_PER_S * 1e3
-    return dict(n=n, max_abs_err=err, tolerance="rel 1e-5 or abs 1e-3",
-                ms=ms, plain_ms=plain_ms, bound_ms=max(bound, t_ops),
-                bound_by="bytes" if bound >= t_ops else "operations")
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    tiny = torch.zeros(1, device=device)
+    rows = []
+    for n in (loop_n,) + PILOT_SIZES:
+        v_host = np.random.default_rng(2).normal(0.8, 0.1, n)
+        v = torch.as_tensor(v_host, dtype=torch.float32, device=device)
+        got, again = K.pilot_moments(v), K.pilot_moments(v)
+        want = ref.pilot_moments_ref(v)
+        check(torch.equal(got, again),
+              f"pilot_moments n={n}: two runs differ: {got} vs {again}")
+        g, w = got.tolist(), want.tolist()
+        rel = [abs(g[i] - w[i]) / max(abs(w[i]), 1e-300) for i in (1, 2, 4)]
+        check(g[0] == w[0] == n and g[3] == w[3] and max(rel) <= 1e-5,
+              f"pilot_moments n={n} disagrees with its plain version: "
+              f"{g} vs {w} (rel {rel})")
+        err = max(abs(a - b) for a, b in zip(g, w))
+        # pilot_stats (the same launch): its (count, sum (x-c), sum
+        # (x-c)^2, min) against the form derived from the plain moments,
+        # sum (x-c) = n (mean - c) to 4 n ulps of c absolute (c is the
+        # run's fp32 mean there, so the sum is ~0 and rests on the fp32
+        # mean's last bits).
+        center = (v.sum() / n).reshape(1)
+        for c in (None, center):
+            st = K.pilot_stats(v, center=c).double()
+            ws = ref.stats_from_moments(want, c).double()
+            floor = 0.0 if c is None else 4 * n * float(
+                np.spacing(np.float32(c.item())))
+            bad = (st - ws).abs() > 1e-5 * ws.abs() + torch.tensor(
+                [0.0, floor, 0.0, 0.0], dtype=torch.float64, device=device)
+            check(not bool(bad.any()) and float(st[0]) == n
+                  and float(st[3]) == float(ws[3]),
+                  f"pilot_stats n={n} disagrees with its plain version: "
+                  f"{st} vs {ws}")
+            err = max(err, max_abs_err(st, ws))
+        hot_ms, per_call = kernel_events(lambda: K.pilot_moments(v),
+                                         (PILOT_KERNEL,))
+        cold_ms, _ = kernel_events(lambda: K.pilot_moments(v),
+                                   (PILOT_KERNEL,),
+                                   setup=lambda: flush.max())
+        check(per_call == 1.0, f"pilot_moments n={n}: {per_call} kernel "
+                               f"launches a call, not 1")
+        bound = 4 * n / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * n / FP32_FLOP_PER_S * 1e3
+        row = dict(n=n, max_abs_err=err, max_rel_err=max(rel),
+                   tolerance=("rel 1e-5; count and min exact; pilot_stats' "
+                              "sum (x-c) also 4 n ulps of c"), ms=hot_ms,
+                   cold_ms=cold_ms, launches_per_call=per_call,
+                   event_ms=time_ms(lambda: K.pilot_moments(v)),
+                   plain_ms=time_ms(lambda: ref.pilot_moments_ref(v)),
+                   std_mean_min_ms=time_ms(
+                       lambda: (torch.std_mean(v), torch.min(v))),
+                   bound_ms=max(bound, t_ops),
+                   bound_by="bytes" if bound >= t_ops else "operations",
+                   host_ms=pilot_host_ms(v_host, 5 if n >= 10 ** 7 else 20))
+        if n == loop_n:
+            row["smallest_launch_ms"] = kernel_ms(lambda: tiny.fill_(1.0),
+                                                  ("",))
+        rows.append(row)
+    del flush
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -757,8 +865,7 @@ def device_kernel_seconds(prof) -> dict:
 
 
 ISLA_KERNELS = ("isla_fold_kernel", "isla_fold_combine_kernel",
-                "isla_sketch_kernel", "pilot_partials_kernel",
-                "pilot_final_kernel")
+                "isla_sketch_kernel", "pilot_moments_kernel")
 
 
 def device_kernel_counts(prof) -> "dict | None":
@@ -861,6 +968,12 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
               f"fold_panes and {r['sketch_calls']} sketch_panes calls but "
               f"{r['fold_launches']} isla_fold and {r['sketch_launches']} "
               f"isla_sketch launches")
+    # One cold plan a run (the anchor stays frozen), one device pilot,
+    # one pilot kernel launch.
+    check(launches["pilot_stats"] == 1 and records[0]["pilot_launches"] == 1,
+          f"the {name} run's cold plan made {records[0]['pilot_launches']} "
+          f"pilot_stats launches ({launches['pilot_stats']} in the run), "
+          f"not 1")
     pilot_n = int(ex._anchor[0].pilot_size)
     del ex  # the host run below rebuilds the same tables
     host_done, _, _ = run_serve("cpu", "host", n_blocks, n_groups, rows,
@@ -887,6 +1000,57 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
                 agreement=agree, fold_calls=folds.calls,
                 sketch_calls=sketches.calls,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
+
+
+TIGHT_E = 0.04  # ~166 pilot samples a block, ~166,000 in all
+
+
+def tight_plan(n_blocks=1000, n_groups=16, rows=20000, seed=0) -> dict:
+    """One device-route ``plan`` (no tick) on the loop's tables at a
+    precision e tight enough that the pilot draws at least 100,000
+    samples: its pilot size, the device pilot's seconds (host clock around
+    ``pilot_stats_device``) and its launches, counted from 0."""
+    import numpy as np
+    import repro_torch.core as C
+    import repro_torch.core.multiquery as MQ
+    import torch
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.launch.serve import _synthetic_grouped_blocks
+
+    samplers = _synthetic_grouped_blocks(n_blocks, n_groups, rows, seed)
+    ex = C.MultiQueryExecutor(samplers, [10 ** 7] * n_blocks,
+                              params=C.IslaParams(e=TIGHT_E),
+                              group_domains={"region": n_groups},
+                              device="cuda")
+    real, spent = MQ.pilot_stats_device, []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    MQ.pilot_stats_device = timed
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        plan = ex.plan(serve_queries(C, TIGHT_E, False),
+                       np.random.default_rng(seed + 1), route="device")
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+    finally:
+        MQ.pilot_stats_device = real
+    n = int(plan.pilot.pilot_size)
+    check(n >= 100_000 and len(spent) == 1 and K.pilot_stats.launches == 1,
+          f"the tight plan drew a pilot of {n} samples with "
+          f"{len(spent)} device pilots and {K.pilot_stats.launches} "
+          f"pilot_stats launches")
+    check(math.isfinite(plan.pilot.sketch0) and plan.pilot.sigma > 0,
+          f"the tight plan's pilot has sketch0 {plan.pilot.sketch0} and "
+          f"sigma {plan.pilot.sigma}")
+    return dict(e=TIGHT_E, pilot_size=n, pilot_s=spent[0], plan_s=plan_s,
+                pilot_launches=K.pilot_stats.launches,
+                sketch0=plan.pilot.sketch0, sigma=plan.pilot.sigma)
 
 
 # ---------------------------------------------------------------------------
@@ -1341,7 +1505,9 @@ def isla_ptxas(log: str) -> dict:
         for k in ISLA_KERNELS:
             if k in fn:
                 t = ("<bf16>" if "bfloat16" in fn else
-                     "<float>" if k == "isla_fold_kernel" else "")
+                     "<float>" if k == "isla_fold_kernel" else
+                     "<one_warp>" if "ILb1E" in fn else
+                     "<grid>" if "ILb0E" in fn else "")
                 out[k + t] = fig
     return out
 
@@ -1558,10 +1724,32 @@ def main() -> int:
               f"(plain {w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} "
               f"ms by bytes), max rel err {w['max_rel_err']:.3g} "
               f"({w['tolerance']})")
-    pilot = check_pilot(dev, runs[0]["pilot_size"])
-    print(f"pilot_stats n={pilot['n']}: {pilot['ms']:.4f} ms (plain "
-          f"{pilot['plain_ms']:.4f} ms, bound {pilot['bound_ms']:.6f} ms), "
-          f"max abs err {pilot['max_abs_err']:.3g}")
+    pilots = check_pilot(dev, runs[0]["pilot_size"])
+    pilot = pilots[0]  # the loop's own pilot size
+    for r in pilots:
+        h = r["host_ms"]
+        print(f"pilot_stats n={r['n']}: {r['ms']:.4f} ms on the card as "
+              f"after the upload, {r['cold_ms']:.4f} ms with L2 flushed "
+              f"by a 64 MB read "
+              f"(profiler; CUDA events {r['event_ms']:.4f} ms), "
+              f"{r['launches_per_call']:g} launch a call, bound "
+              f"{r['bound_ms']:.6f} ms by {r['bound_by']}"
+              + (f", the card's smallest launch (one-element fill_) "
+                 f"{r['smallest_launch_ms']:.4f} ms"
+                 if "smallest_launch_ms" in r else "")
+              + f"; plain {r['plain_ms']:.4f} ms, torch.std_mean + "
+              f"torch.min {r['std_mean_min_ms']:.4f} ms; max rel err "
+              f"{r['max_rel_err']:.3g} ({r['tolerance']}), two runs "
+              f"identical")
+        print(f"  pilot_stats_device n={r['n']}: {h['whole']:.4f} ms of "
+              f"host time (stages one by one: scale {h['scale']:.4f}, "
+              f"upload {h['upload']:.4f}, launch {h['launch']:.4f}, "
+              f"readback {h['readback']:.4f} ms)")
+    tight = tight_plan()
+    print(f"tight device-route plan (e={tight['e']}): pilot of "
+          f"{tight['pilot_size']} samples in {tight['pilot_s']:.4f} s, "
+          f"plan {tight['plan_s']:.4f} s, {tight['pilot_launches']} "
+          f"pilot_stats launch")
 
     lap("isla synthetic checks")
     lm = lm_path()
@@ -1701,7 +1889,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_logs=logs, main_path=runs,
         main_path_folds=served, main_path_sketches=merged, fold=folds,
-        batched=batched, wrappers=wrappers, pilot=pilot, lm_path=lm,
+        batched=batched, wrappers=wrappers, pilot=pilots, tight_plan=tight,
+        lm_path=lm,
         phase_s=phase_s,
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
         vlm_path=vlm, vlm_flash=vflash, flash_ptxas=ptxas, flash_sass=sass,

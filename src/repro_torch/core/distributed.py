@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..kernels.isla_moments import (MAX_KEYS, StackKey, isla_fold_stack,
-                                     isla_sketch_stack, pilot_stats)
+                                     isla_sketch_stack, pilot_moments)
 from .types import IslaParams
 
 F32 = torch.float32
@@ -548,28 +548,34 @@ def fused_solve_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def prescale_pilot(values) -> Tuple[np.ndarray, float]:
+    """A host pilot array pre-scaled for fp32: ``(values / scale`` as
+    fp32, ``scale)``, ``scale = max(max |value|, 1e-12)``, the division
+    taken in float64 and rounded once (the reference's ``v / scale`` cast,
+    bit for bit) with no float64 temporary.  An empty pilot raises."""
+    v = np.asarray(values, dtype=np.float64).reshape(-1)
+    if v.size == 0:
+        raise ValueError("pilot must be non-empty")
+    scale = float(max(v.max(), -v.min(), 1e-12))
+    out = np.empty(v.shape, np.float32)
+    np.divide(v, scale, out=out, casting="same_kind")
+    return out, scale
+
+
 def pilot_stats_device(values, device="cuda") -> Tuple[float, float, float]:
     """Pre-estimation statistics on the device: ``(sketch0, sigma, min)``
-    of a host pilot array through the ``pilot_stats`` kernel (its plain
-    version on the CPU) — ``run_pilot``'s ``stats_fn`` for
+    of a host pilot array through the pilot kernel (``pilot_moments``;
+    its plain version on the CPU) — ``run_pilot``'s ``stats_fn`` for
     ``route="device"``.
 
-    fp32-safe by pre-scaling with the pilot's max |value| (the three
-    statistics are exactly scale-equivariant).  Two launches keep the
-    reference's two-pass formula: count, sum and min, then the sum of
-    squared deviations from the mean (read on the device).  sigma uses
-    ddof=1 to match the host pilot.
+    fp32-safe by pre-scaling with the pilot's max |value| in float64 on
+    the host (``prescale_pilot``; the three statistics are exactly
+    scale-equivariant).  One upload of the pre-scaled fp32 pilot, one
+    launch that reads each sample once and finishes (mean, sigma, min) on
+    the device, one readback; the host multiplies by the scale.  sigma
+    uses ddof=1 to match the host pilot.
     """
-    v_host = np.asarray(values, dtype=np.float64).reshape(-1)
-    if v_host.size == 0:
-        raise ValueError("pilot must be non-empty")
-    scale = float(max(np.max(np.abs(v_host)), 1e-12))
-    v = h2d(v_host / scale, F32, resolve_device(device))
-    n = v.shape[0]
-    first = pilot_stats(v)
-    mean = first[1:2] / n
-    second = pilot_stats(v, center=mean)
-    var = second[2] / max(n - 1, 1)
-    sigma = torch.sqrt(var.clamp_min(0.0))
-    mean_h, sigma_h, lo_h = torch.stack([mean[0], sigma, first[3]]).tolist()
-    return mean_h * scale, sigma_h * scale, lo_h * scale
+    dev = resolve_device(device)
+    v32, scale = prescale_pilot(values)
+    _, mean, _, lo, sigma = pilot_moments(h2d(v32, F32, dev)).tolist()
+    return mean * scale, sigma * scale, lo * scale

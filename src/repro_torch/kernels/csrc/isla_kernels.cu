@@ -64,14 +64,44 @@
 //   contract them into an FMA: the plain PyTorch version rounds twice, and
 //   a sample on a cut must land in the same region in both.
 //
-// pilot_stats — the pre-estimation pass.
+// pilot_stats — the pre-estimation pass (pilot_moments_kernel).
 //   Replaces src/repro/kernels/isla_moments.py::pilot_stats_pallas
-//   (_pilot_kernel): count, sum (x - c), sum (x - c)^2 and min x over a
-//   flat fp32 run, c an optional device scalar (0 when absent).  The tail is
-//   masked by the loop bound (no pad-with-first-element trick).  Bound on
-//   the H100: bytes, 4 B per sample over 3.35 TB/s.  Design: a grid-stride
-//   pass writes one partial row per block, then one block folds the rows in
-//   block order (fixed order, no atomics).
+//   (_pilot_kernel), which sums (count, sum x, sum x^2, min x) tile by
+//   tile, and the two-pass mean / centred sum of squares of
+//   src/repro/core/distributed.py::pilot_stats_device.  ONE launch reads
+//   each fp32 sample once and yields count, mean, M2 = sum (x - mean)^2
+//   and min; from them it writes the TPU kernel's form about an optional
+//   device centre c (count, n (mean - c), M2 + n (mean - c)^2, min) and
+//   the device pilot's (count, mean, M2, min, sigma with ddof = 1) in
+//   float64, so the host reads back one small array.
+//
+//   Bound on the H100: bytes, 4 B a sample over 3.35 TB/s (12 us at 10^7
+//   samples); a pilot of a thousand samples is a launch and one memory
+//   round trip whatever the design, so below a few million samples what
+//   the design fights is the latency of its reductions.  Design:
+//   - an aligned run of up to 1024 samples is one warp (the kernel's
+//     one-warp instantiation: no barrier, no grid merge); up to 4096, one
+//     block of as few warps as hold it; a longer run takes up to 4 blocks
+//     an SM, 16-byte loads issued kPilotUnroll at a time;
+//   - while a warp's share fits in one sweep (runs of up to ~2.16M samples
+//     on 132 SMs) it stays in registers, and the warp takes its exact
+//     (count, mean, M2, min) in two passes over them: shuffle sum trees
+//     of plain adds, about its first sample so a constant run has M2 = 0;
+//   - past that each thread keeps a running (count, mean, M2, min): a
+//     16-byte load merges in as a four-sample chunk, the run's last n % 4
+//     samples by Welford's update;
+//   - states merge by Chan's pairwise formula (one correctly rounded
+//     reciprocal a merge) in fixed trees over lane, warp and block index,
+//     so two runs on one card give identical bits and no float atomic is
+//     used; counts are 32-bit integers;
+//   - with more than one block, each writes its state to a workspace and
+//     draws a ticket, and the last block loads every state at once and
+//     merges them.  The ticket counter wraps back to 0 by itself, and each
+//     stream has its own workspace (the wrapper's), so two pilots on two
+//     streams never share one;
+//   - the finishing thread writes both forms; the centring is taken in
+//     float64.  The plain version is float64 throughout, so there is no
+//     fp32 rounding sequence to reproduce and contraction is left on.
 //
 // isla_sketch — the HLL COUNT DISTINCT register merge of the dense tick.
 //   Replaces src/repro/kernels/isla_moments.py::isla_sketch_pallas (body
@@ -115,6 +145,14 @@ static_assert(kFoldWarps == 4 && kBucketLanes == 8,
               "a key's split_shift and group_shift are log2 of these");
 constexpr int kCols = 11;
 constexpr int kPilotThreads = 256;
+constexpr int kPilotWarps = kPilotThreads / 32;
+constexpr int kPilotBlocksPerSM = 4;  // the wrapper's grid cap: 4 an SM
+constexpr int kPilotMaxBlocks = 1024;  // a grid's states the last block loads
+constexpr int kPilotUnroll = 4;       // 16-byte loads a thread issues at once
+constexpr int kPilotWarpUnroll = 8;   // the same for the one-warp kernel
+constexpr long long kPilotWarpSamples = 4LL * kPilotWarpUnroll * 32;
+constexpr long long kPilotBlockSamples = 4LL * kPilotUnroll * kPilotThreads;
+constexpr long long kPilotTicketBytes = 16;  // then the block states
 constexpr int kSketchThreads = 256;
 constexpr int kRegs = 4096;  // HLL registers per cell (2^12)
 constexpr unsigned long long kRemMask = (1ull << 52) - 1ull;
@@ -631,76 +669,249 @@ isla_fold_combine_kernel(const __grid_constant__ FoldArgs a,
   add_cell_row(tot, dest, a);
 }
 
-__device__ __forceinline__ void block_reduce4(float& a, float& b, float& c,
-                                              float& m) {
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, o);
-    b += __shfl_down_sync(0xffffffffu, b, o);
-    c += __shfl_down_sync(0xffffffffu, c, o);
-    m = fminf(m, __shfl_down_sync(0xffffffffu, m, o));
+// A run's (count, mean, M2 = sum (x - mean)^2, min): a thread's, a block's
+// and the grid's state, 16 bytes (one load).  Counts are 32-bit integers
+// (the wrapper takes runs of fewer than 2^31 samples).  The empty state
+// (0, 0, 0, +inf) merges exactly: merge(empty, b) == b.
+struct alignas(16) PilotMoments {
+  unsigned n;
+  float mean, m2, mn;
+};
+static_assert(sizeof(PilotMoments) == 16, "a state is one 16-byte load");
+
+__device__ __forceinline__ PilotMoments pilot_empty() {
+  return PilotMoments{0u, 0.0f, 0.0f, __int_as_float(0x7f800000)};
+}
+
+// Chan, Golub and LeVeque's pairwise merge.  The weights take one
+// correctly rounded reciprocal; an empty side returns the other exactly.
+__device__ __forceinline__ PilotMoments pilot_merge(const PilotMoments& a,
+                                                    const PilotMoments& b) {
+  const float fa = static_cast<float>(a.n), fb = static_cast<float>(b.n);
+  const float rn = __frcp_rn(static_cast<float>(a.n + b.n));
+  const float d = b.mean - a.mean;
+  PilotMoments r;
+  r.n = a.n + b.n;
+  r.mean = a.mean + d * (fb * rn);
+  r.m2 = (a.m2 + b.m2) + d * d * (fa * fb * rn);
+  r.mn = fminf(a.mn, b.mn);
+  if (a.n == 0u) {
+    r.mean = b.mean;
+    r.m2 = b.m2;
   }
-  __shared__ float rows[kPilotThreads / 32][4];
+  if (b.n == 0u) {
+    r.mean = a.mean;
+    r.m2 = a.m2;
+  }
+  return r;
+}
+
+// Four samples of one 16-byte load, merged as one chunk.
+__device__ __forceinline__ void pilot_add4(PilotMoments& s, float4 v) {
+  PilotMoments c;
+  c.n = 4u;
+  c.mean = ((v.x + v.y) + (v.z + v.w)) * 0.25f;
+  const float dx = v.x - c.mean, dy = v.y - c.mean;
+  const float dz = v.z - c.mean, dw = v.w - c.mean;
+  c.m2 = (dx * dx + dy * dy) + (dz * dz + dw * dw);
+  c.mn = fminf(fminf(v.x, v.y), fminf(v.z, v.w));
+  s = pilot_merge(s, c);
+}
+
+// Welford's update with one sample (the run's last n % 4, or an
+// unaligned run).
+__device__ __forceinline__ void pilot_add1(PilotMoments& s, float x) {
+  s.n += 1u;
+  const float d = x - s.mean;
+  s.mean += d / static_cast<float>(s.n);
+  s.m2 += d * (x - s.mean);
+  s.mn = fminf(s.mn, x);
+}
+
+// A fixed shuffle tree of `width` lanes; lane 0 ends with their merge.
+__device__ __forceinline__ PilotMoments pilot_warp_merge(PilotMoments s,
+                                                         int width) {
+  for (int o = width / 2; o > 0; o >>= 1) {
+    PilotMoments b;
+    b.n = __shfl_down_sync(0xffffffffu, s.n, o);
+    b.mean = __shfl_down_sync(0xffffffffu, s.mean, o);
+    b.m2 = __shfl_down_sync(0xffffffffu, s.m2, o);
+    b.mn = __shfl_down_sync(0xffffffffu, s.mn, o);
+    s = pilot_merge(s, b);
+  }
+  return s;
+}
+
+// The block's state in thread 0 from each warp's in its lane 0: warp 0's
+// tree over the warps in warp order.  Every thread must call it.
+__device__ __forceinline__ PilotMoments pilot_merge_warps(PilotMoments s) {
+  __shared__ PilotMoments warps[kPilotWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    rows[warp][0] = a;
-    rows[warp][1] = b;
-    rows[warp][2] = c;
-    rows[warp][3] = m;
-  }
+  if (lane == 0) warps[warp] = s;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < static_cast<int>(blockDim.x) / 32; ++w) {
-      a += rows[w][0];
-      b += rows[w][1];
-      c += rows[w][2];
-      m = fminf(m, rows[w][3]);
+  if (warp == 0) {
+    s = lane < static_cast<int>(blockDim.x >> 5) ? warps[lane]
+                                                 : pilot_empty();
+    s = pilot_warp_merge(s, kPilotWarps);
+  }
+  return s;
+}
+
+// A warp whose share of the run fits in one sweep (each lane's at most
+// kPilotUnroll 16-byte loads, and one of the run's last n % 4 samples)
+// keeps it in registers and takes its exact state in two passes over
+// them, each a shuffle tree with no barrier: the count, the mean of
+// x - k (k the warp's first sample, so a constant run has M2 exactly 0)
+// and the min; then the squared deviations.  Lane 0 returns the state.
+template <int kUnroll>
+__device__ __forceinline__ PilotMoments pilot_warp_two_pass(
+    const float* __restrict__ x, long long n, long long n4, long long first,
+    long long stride) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const long long at = 4 * (first - (threadIdx.x & 31));
+  const float k = __ldg(x + (at < n ? at : n - 1));
+  float4 v[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    v[u] = first + u * stride < n4 ? __ldg(x4 + first + u * stride)
+                                   : make_float4(k, k, k, k);
+  const bool tail = 4 * n4 + first < n;
+  const float t = tail ? __ldg(x + 4 * n4 + first) : k;
+  unsigned cnt = tail ? 1u : 0u;
+  float sum = t - k, mn = t;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {  // absent loads hold k: add 0
+    cnt += first + u * stride < n4 ? 4u : 0u;
+    sum += ((v[u].x - k) + (v[u].y - k)) + ((v[u].z - k) + (v[u].w - k));
+    mn = fminf(mn, fminf(fminf(v[u].x, v[u].y), fminf(v[u].z, v[u].w)));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+    sum += __shfl_down_sync(0xffffffffu, sum, o);
+    mn = fminf(mn, __shfl_down_sync(0xffffffffu, mn, o));
+  }
+  cnt = __shfl_sync(0xffffffffu, cnt, 0);  // lane 0's, the same bits
+  sum = __shfl_sync(0xffffffffu, sum, 0);  // in every lane
+  const float shift = cnt > 0u ? sum / static_cast<float>(cnt) : 0.0f;
+  const float dt = tail ? (t - k) - shift : 0.0f;
+  float sq = dt * dt;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    if (first + u * stride < n4) {
+      const float a = (v[u].x - k) - shift, b = (v[u].y - k) - shift;
+      const float c = (v[u].z - k) - shift, d = (v[u].w - k) - shift;
+      sq += (a * a + b * b) + (c * c + d * d);
     }
   }
+  for (int o = 16; o > 0; o >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, o);
+  return PilotMoments{cnt, k + shift, sq, mn};
 }
 
-__global__ void __launch_bounds__(kPilotThreads) pilot_partials_kernel(
-    const float* __restrict__ x, long long n,
-    const float* __restrict__ center, float* __restrict__ part) {
-  const float c = center != nullptr ? *center : 0.0f;
-  float cnt = 0.0f, s = 0.0f, ss = 0.0f, mn = __int_as_float(0x7f800000);
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += step) {
-    const float v = x[i];
-    const float d = __fsub_rn(v, c);
-    cnt += 1.0f;
-    s += d;
-    ss = __fadd_rn(ss, __fmul_rn(d, d));
-    mn = fminf(mn, v);
+// Writes the finished state: the TPU kernel's form about the centre c
+// (taken in float64) and the device pilot's, sigma with ddof = 1.
+__device__ __forceinline__ void pilot_finish(const PilotMoments& s,
+                                             const float* center,
+                                             float* stats, double* moments) {
+  if (stats != nullptr) {
+    const double cnt = static_cast<double>(s.n);
+    const double dm = static_cast<double>(s.mean) -
+                      (center != nullptr ? static_cast<double>(*center) : 0.0);
+    stats[0] = static_cast<float>(cnt);
+    stats[1] = static_cast<float>(cnt * dm);
+    stats[2] = static_cast<float>(static_cast<double>(s.m2) + cnt * dm * dm);
+    stats[3] = s.mn;
   }
-  block_reduce4(cnt, s, ss, mn);
-  if (threadIdx.x == 0) {
-    float* p = part + 4 * static_cast<long long>(blockIdx.x);
-    p[0] = cnt;
-    p[1] = s;
-    p[2] = ss;
-    p[3] = mn;
+  if (moments != nullptr) {
+    moments[0] = static_cast<double>(s.n);
+    moments[1] = s.mean;
+    moments[2] = s.m2;
+    moments[3] = s.mn;
+    moments[4] = sqrtf(fmaxf(s.m2, 0.0f) /
+                       fmaxf(static_cast<float>(s.n) - 1.0f, 1.0f));
   }
 }
 
-__global__ void __launch_bounds__(kPilotThreads) pilot_final_kernel(
-    const float* __restrict__ part, int n_part, float* __restrict__ out) {
-  float cnt = 0.0f, s = 0.0f, ss = 0.0f, mn = __int_as_float(0x7f800000);
-  for (int i = threadIdx.x; i < n_part; i += blockDim.x) {
-    cnt += part[4 * i];
-    s += part[4 * i + 1];
-    ss += part[4 * i + 2];
-    mn = fminf(mn, part[4 * i + 3]);
+// kOneWarp: an aligned run of up to kPilotWarpSamples samples, one warp
+// that takes its state in two passes over registers, with no barrier and
+// no grid merge.
+//
+// Otherwise: grid ceil(n / kPilotBlockSamples) blocks of kPilotThreads,
+// at most the wrapper's max_blocks (4 an SM); a one-block run gets as few
+// warps as hold it in one sweep.  While a warp's share fits in one sweep
+// (every warp of the grid, or none: runs of up to ~2.16M samples on 132
+// SMs) it takes its state in two passes over registers; otherwise each
+// thread walks the run in 16-byte loads, kPilotUnroll issued together a
+// grid stride apart, keeping a running state, and the warp merges its
+// lanes.  Then the block merges its warps.  With more than one block,
+// each writes its state to part[block] and takes a ticket; the block that
+// draws the last one (atomicInc wraps the counter back to 0 for the next
+// launch on this workspace) loads the grid's states at once, merges them
+// in a fixed tree over the block index and finishes.
+template <bool kOneWarp>
+__global__ void __launch_bounds__(kOneWarp ? 32 : kPilotThreads,
+                                  kOneWarp ? 1 : kPilotBlocksPerSM)
+pilot_moments_kernel(const float* __restrict__ x, long long n, int vec,
+                     const float* __restrict__ center,
+                     unsigned* __restrict__ ticket,
+                     PilotMoments* __restrict__ part,
+                     float* __restrict__ stats,
+                     double* __restrict__ moments) {
+  if constexpr (kOneWarp) {
+    const PilotMoments s = pilot_warp_two_pass<kPilotWarpUnroll>(
+        x, n, n >> 2, threadIdx.x, 32);
+    if (threadIdx.x == 0) pilot_finish(s, center, stats, moments);
+    return;
   }
-  block_reduce4(cnt, s, ss, mn);
-  if (threadIdx.x == 0) {
-    out[0] = cnt;
-    out[1] = s;
-    out[2] = ss;
-    out[3] = mn;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long n4 = vec ? n >> 2 : 0;
+  PilotMoments s = pilot_empty();
+  if (vec && n4 <= kPilotUnroll * stride) {
+    s = pilot_warp_two_pass<kPilotUnroll>(x, n, n4, first, stride);
+  } else {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    long long i = first;
+    for (; i + (kPilotUnroll - 1) * stride < n4; i += kPilotUnroll * stride) {
+      float4 v[kPilotUnroll];
+#pragma unroll
+      for (int u = 0; u < kPilotUnroll; ++u) v[u] = __ldg(x4 + i + u * stride);
+#pragma unroll
+      for (int u = 0; u < kPilotUnroll; ++u) pilot_add4(s, v[u]);
+    }
+    for (; i < n4; i += stride) pilot_add4(s, __ldg(x4 + i));
+    for (long long j = 4 * n4 + first; j < n; j += stride)
+      pilot_add1(s, __ldg(x + j));
+    s = pilot_warp_merge(s, 32);
   }
+  if (blockDim.x > 32) s = pilot_merge_warps(s);
+  if (gridDim.x > 1) {  // a grid of more than one block has kPilotThreads
+    __shared__ bool last;
+    if (threadIdx.x == 0) {
+      part[blockIdx.x] = s;
+      __threadfence();  // the state is visible before the ticket is
+      last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    float4 p[kPilotMaxBlocks / kPilotThreads];  // all loads issued at once,
+#pragma unroll                                 // from L2 (other SMs wrote)
+    for (int k = 0; k < kPilotMaxBlocks / kPilotThreads; ++k) {
+      const int b = threadIdx.x + k * kPilotThreads;
+      p[k] = b < static_cast<int>(gridDim.x)
+                 ? __ldcg(reinterpret_cast<const float4*>(part + b))
+                 : make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7f800000));
+    }
+    s = pilot_empty();
+#pragma unroll
+    for (int k = 0; k < kPilotMaxBlocks / kPilotThreads; ++k)
+      s = pilot_merge(s, PilotMoments{__float_as_uint(p[k].x), p[k].y,
+                                      p[k].z, p[k].w});
+    s = pilot_merge_warps(pilot_warp_merge(s, 32));
+  }
+  if (threadIdx.x == 0) pilot_finish(s, center, stats, moments);
 }
 
 __device__ __forceinline__ unsigned long long splitmix64(
@@ -927,16 +1138,51 @@ int isla_fold(const void* x, int x_bf16, long long n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// part: (n_part, 4) scratch; out: (4,).  Returns cudaGetLastError().
-int pilot_stats(const float* x, long long n, const float* center,
-                float* part, int n_part, float* out, void* stream) {
+// One pass over the fp32 run x (n > 0 samples; vec: x 16-byte aligned).
+// ws: the caller's workspace for this stream, zeroed once: a ticket
+// counter, then max_blocks block states (pilot_workspace_bytes); two
+// launches in flight at once need two workspaces.  Writes
+// stats (4,) fp32 = (count, sum (x - c), sum (x - c)^2, min), c = *center
+// or 0, and moments (5,) fp64 = (count, mean, M2, min, sigma with ddof =
+// 1); either may be null.  Launches on `device` (made current for the
+// launch) and `stream`.  Returns cudaGetLastError() after the launch.
+int pilot_moments(const float* x, long long n, int vec, const float* center,
+                  void* ws, int max_blocks, float* stats, double* moments,
+                  int device, void* stream) {
+  if (n <= 0 || n >= (1LL << 31) || max_blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int cur = device;
+  cudaGetDevice(&cur);
+  if (cur != device) cudaSetDevice(device);
+  char* base = static_cast<char*>(ws);
+  unsigned* ticket = reinterpret_cast<unsigned*>(base);
+  PilotMoments* part =
+      reinterpret_cast<PilotMoments*>(base + kPilotTicketBytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  pilot_partials_kernel<<<n_part, kPilotThreads, 0, st>>>(x, n, center,
-                                                           part);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  pilot_final_kernel<<<1, kPilotThreads, 0, st>>>(part, n_part, out);
-  return static_cast<int>(cudaGetLastError());
+  if (vec && n <= kPilotWarpSamples) {
+    pilot_moments_kernel<true><<<1, 32, 0, st>>>(x, n, vec, center, ticket,
+                                                 part, stats, moments);
+  } else {
+    long long blocks = (n + kPilotBlockSamples - 1) / kPilotBlockSamples;
+    if (blocks > max_blocks) blocks = max_blocks;
+    if (blocks > kPilotMaxBlocks) blocks = kPilotMaxBlocks;
+    // One block: as few warps as hold the run in one sweep.
+    const long long per_warp = 4LL * kPilotUnroll * 32;
+    const long long threads =
+        blocks > 1 ? kPilotThreads : 32 * ((n + per_warp - 1) / per_warp);
+    pilot_moments_kernel<false><<<static_cast<unsigned>(blocks),
+                                  static_cast<unsigned>(threads), 0, st>>>(
+        x, n, vec, center, ticket, part, stats, moments);
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (cur != device) cudaSetDevice(cur);
+  return err;
+}
+
+// Bytes of a pilot workspace for grids of up to max_blocks blocks.
+int pilot_workspace_bytes(int max_blocks) {
+  return static_cast<int>(kPilotTicketBytes +
+                          sizeof(PilotMoments) * max_blocks);
 }
 
 // One register merge over n_keys stacked keys.  kint (n_keys, 3) =

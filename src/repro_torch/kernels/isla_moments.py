@@ -9,8 +9,10 @@ the TPU kernels they replace, their bound and their design):
   0/1 masks, GROUP BY ids, an index map whose out-of-range entries drop);
   one launch folds every key of a stack (``isla_fold_stack``), reading
   each sample once for all of them;
-* ``pilot_stats`` — ``(count, sum (x-c), sum (x-c)^2, min x)`` of a flat
-  fp32 run;
+* ``pilot_stats`` — one pass over a flat fp32 run: its ``(count, mean,
+  M2, min)``, returned as the device pilot's ``(count, mean, M2, min,
+  sigma)`` (``pilot_moments``) or as the TPU kernel's ``(count, sum
+  (x-c), sum (x-c)^2, min x)`` (``pilot_stats``);
 * ``isla_sketch`` — the HLL COUNT DISTINCT register merge: splitmix64 of
   each live lane's raw float64 bits (one int64 pane), encoded to
   ``(j, rho)`` and maxed in place into resident uint8 register rows
@@ -35,8 +37,8 @@ calls of either entry that launched the kernel on the card, one a call,
 and nothing else.  An ``isla_sketch`` call is one ``__global__`` launch;
 an ``isla_fold`` call is one, or two when its rows exceed ``FOLD_SLICE``
 samples (per-slice partial rows, then their fixed-order combine); a
-``pilot_stats`` call is two (per-block partials, then the fixed-order
-combine).
+``pilot_stats`` or ``pilot_moments`` call is one at every run length
+(``pilot_stats.launches`` counts both).
 
 The Pallas-signature wrappers (``isla_moments_batched``, ``isla_moments``,
 ``isla_moments_grouped``, ``isla_fused``; ``isla_sketch_batched``,
@@ -134,7 +136,8 @@ SIGNATURES = {
         "isla_fold": [_P, _I, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _P,
                       _I, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _I, _P, _P,
                       _P, _P, _LL, _I, _P, _I, _I, _P],
-        "pilot_stats": [_P, _LL, _P, _P, _I, _P, _P],
+        "pilot_moments": [_P, _LL, _I, _P, _P, _I, _P, _P, _I, _P],
+        "pilot_workspace_bytes": [_I],
         "isla_sketch": [_P, _LL, _LL, _LL, _P, _P, _I, _P, _I, _P, _P, _LL,
                         _I, _P, _P, _P],
     },
@@ -505,40 +508,92 @@ isla_fold.launches = 0
 # Kernel B: pilot statistics.
 # ---------------------------------------------------------------------------
 
-_PILOT_THREADS = 256
-_PILOT_MAX_BLOCKS = 1024
+PILOT_BLOCKS_PER_SM = 4  # the pilot kernel's grid cap (its launch bounds)
+_pilot_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, int, int]] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _pilot_workspace(device: torch.device, stream: int) -> Tuple[int, int]:
+    """``(pointer, max_blocks)`` of the pilot kernel's workspace for one
+    stream of one card: a ticket counter and a state a block, zeroed once
+    and kept.  Launches on one stream run in order, so they share it;
+    another stream gets its own, so pilots on two streams never mix."""
+    ws = _pilot_workspaces.get((device.index, stream))
+    if ws is None:
+        max_blocks = PILOT_BLOCKS_PER_SM * _sm_count(device.index)
+        buf = torch.zeros(library().pilot_workspace_bytes(max_blocks),
+                          dtype=torch.uint8, device=device)
+        ws = _pilot_workspaces[(device.index, stream)] = (
+            buf, buf.data_ptr(), max_blocks)
+    return ws[1], ws[2]
+
+
+def _check_run(values: torch.Tensor) -> int:
+    if values.dtype != torch.float32 or values.dim() != 1 \
+            or not values.is_contiguous():
+        raise ValueError("the pilot kernel takes a contiguous 1-D fp32 run")
+    n = values.shape[0]
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"the pilot kernel takes a non-empty run of fewer "
+                         f"than 2^31 samples, got {n}")
+    return n
+
+
+def _launch_pilot(values: torch.Tensor, n: int,
+                  center: Optional[torch.Tensor],
+                  stats: Optional[torch.Tensor],
+                  moments: Optional[torch.Tensor]) -> None:
+    """One ``pilot_moments_kernel`` launch on the current stream of the
+    run's own card (made current for the launch inside the C entry, with
+    no ``torch.cuda.device`` context)."""
+    dev = values.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws, max_blocks = _pilot_workspace(dev, stream)
+    ptr = values.data_ptr()
+    err = library().pilot_moments(
+        ptr, n, int(ptr % 16 == 0), _ptr(center), ws, max_blocks,
+        _ptr(stats), _ptr(moments), dev.index, stream)
+    _raise_on(err, "pilot_stats")
+    pilot_stats.launches += 1
+
+
+def pilot_moments(values: torch.Tensor) -> torch.Tensor:
+    """``(count, mean, M2, min, sigma)`` float64 (5,) of a flat fp32 run:
+    ``M2 = sum (x - mean)^2``, ``sigma = sqrt(M2 / max(count - 1, 1))``
+    (ddof = 1).  On the card one ``pilot_moments_kernel`` launch that reads
+    each sample once (counted in ``pilot_stats.launches``); on the CPU its
+    plain version ``ref.pilot_moments_ref``."""
+    n = _check_run(values)
+    if not on_gpu(values):
+        return ref.pilot_moments_ref(values)
+    out = torch.empty(5, dtype=torch.float64, device=values.device)
+    _launch_pilot(values, n, None, None, out)
+    return out
 
 
 def pilot_stats(values: torch.Tensor,
                 center: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``(count, sum (x-c), sum (x-c)^2, min x)`` fp32 of a flat fp32 run;
-    ``center`` is an optional one-element fp32 tensor on the same device
-    (read on the device — no host sync), 0 when absent.  One call runs
-    two kernels (per-block partials, then their combine) and counts as
-    one in ``pilot_stats.launches``."""
-    if values.dtype != torch.float32 or values.dim() != 1 \
-            or not values.is_contiguous():
-        raise ValueError("pilot_stats takes a contiguous 1-D fp32 run")
-    n = values.shape[0]
-    if n == 0:
-        raise ValueError("pilot_stats needs a non-empty run")
+    """``(count, sum (x-c), sum (x-c)^2, min x)`` fp32 of a flat fp32 run
+    (the TPU kernel's form); ``center`` is an optional one-element fp32
+    tensor on the same device (read on the device — no host sync), 0 when
+    absent.  Derived from the run's ``(count, mean, M2, min)`` as
+    ``(n, n (mean - c), M2 + n (mean - c)^2, min)`` in float64: on the
+    card by the same one launch as ``pilot_moments``, on the CPU from its
+    plain version."""
+    n = _check_run(values)
     if center is not None and (center.dtype != torch.float32
                                or center.numel() != 1):
         raise ValueError("center must be a one-element fp32 tensor")
     _same_device(values, center=center)
     if not on_gpu(values):
-        return ref.pilot_stats_ref(values, center)
-    n_part = max(1, min(-(-n // _PILOT_THREADS), _PILOT_MAX_BLOCKS))
-    part = torch.empty((n_part, 4), dtype=torch.float32,
-                       device=values.device)
+        return ref.stats_from_moments(ref.pilot_moments_ref(values), center)
     out = torch.empty(4, dtype=torch.float32, device=values.device)
-    c = None if center is None else center.contiguous()
-    with torch.cuda.device(values.device):
-        err = library().pilot_stats(
-            _ptr(values), n, _ptr(c), _ptr(part), n_part, _ptr(out),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "pilot_stats")
-    pilot_stats.launches += 1
+    _launch_pilot(values, n, None if center is None else center.contiguous(),
+                  out, None)
     return out
 
 

@@ -187,6 +187,34 @@ def pilot_stats_ref(values: torch.Tensor,
                         d.sum(), (d * d).sum(), v.min()])
 
 
+def pilot_moments_ref(values: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``pilot_moments`` kernel: ``(count, mean, M2,
+    min, sigma)`` float64 of a flat run — the mean, then the sum of
+    squared deviations from it, then the min, all in float64; ``sigma =
+    sqrt(M2 / max(count - 1, 1))`` (ddof = 1)."""
+    v = values.reshape(-1).to(torch.float64)
+    n = v.shape[0]
+    mean = v.sum() / n
+    d = v - mean
+    m2 = (d * d).sum()
+    sigma = torch.sqrt(m2.clamp_min(0.0) / max(n - 1, 1))
+    return torch.stack([torch.tensor(float(n), dtype=torch.float64,
+                                     device=v.device),
+                        mean, m2, v.min(), sigma])
+
+
+def stats_from_moments(moments: torch.Tensor,
+                       center: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """``pilot_stats``'s ``(count, sum (x-c), sum (x-c)^2, min)`` fp32 from
+    a run's ``(count, mean, M2, min, ...)``: ``(n, n (mean - c), M2 + n
+    (mean - c)^2, min)`` in float64, ``c`` 0 when absent."""
+    n, mean, m2, mn = moments[:4].to(torch.float64).unbind()
+    dm = mean if center is None else \
+        mean - center.to(torch.float64).reshape(())
+    return torch.stack([n, n * dm, m2 + n * dm * dm, mn]).to(F32)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         groups: int = 1) -> torch.Tensor:
     """Plain version of the ``flash_attention`` kernel (the reference's

@@ -10,9 +10,13 @@ import pytest
 import torch
 
 import repro_torch.core as TC
+from repro_torch.core import distributed as TD
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import isla_moments as K
 from repro_torch.kernels import ref
+from _torch_pilot_cases import CASES as PILOT_CASES
+from _torch_pilot_cases import SIZES as PILOT_SIZES
+from _torch_pilot_cases import run as pilot_run
 from _torch_sketch_cases import SKETCH_CASES, sketch_case
 
 pytestmark = pytest.mark.cuda
@@ -125,6 +129,102 @@ def test_pilot_kernel_matches_plain_version(cuda, n):
                                    rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("n", PILOT_SIZES + (10_000_000,))
+@pytest.mark.parametrize("case", PILOT_CASES)
+def test_pilot_moments_kernel_matches_plain_version(cuda, case, n):
+    """``pilot_moments`` on the card (one launch, each sample read once)
+    against its float64 plain version on the same card tensor: count and
+    min exact, mean, M2 and sigma within rel 1e-5; two runs give identical
+    bits; ``pilot_stats`` (the same launch, the TPU kernel's form) within
+    rel 1e-5 of the form derived from the plain moments."""
+    x = torch.as_tensor(pilot_run(case, n), dtype=torch.float32,
+                        device=cuda)
+    got = K.pilot_moments(x)
+    again = K.pilot_moments(x)
+    want = ref.pilot_moments_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g[0] == w[0] == n and g[3] == w[3]
+    np.testing.assert_allclose(g[[1, 2, 4]], w[[1, 2, 4]], rtol=1e-5,
+                               atol=0)
+    stats = K.pilot_stats(x).cpu().numpy()
+    derived = ref.stats_from_moments(want).cpu().numpy()
+    assert stats[0] == derived[0] and stats[3] == derived[3]
+    np.testing.assert_allclose(stats, derived, rtol=1e-5)
+
+
+def test_pilot_kernel_streams_do_not_mix(cuda):
+    """Pilots in flight on two streams at once, each over a grid of many
+    blocks (so each takes tickets), give the same bits as one at a time:
+    each stream has its own workspace."""
+    a = torch.as_tensor(pilot_run("far", 1_000_000), dtype=torch.float32,
+                        device=cuda)
+    b = torch.as_tensor(pilot_run("normal", 300_007), dtype=torch.float32,
+                        device=cuda)
+    want = (K.pilot_moments(a), K.pilot_moments(b))
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for k, (s, x) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(s):
+                outs[k].append(K.pilot_moments(x))
+    torch.cuda.synchronize()
+    for w, got in zip(want, outs):
+        assert all(torch.equal(g, w) for g in got)
+    # The default stream's workspace and one for each of the two streams.
+    assert len([k for k in K._pilot_workspaces if k[0] == a.device.index
+                and k[1] in {s.cuda_stream for s in streams}]) == 2
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1_000_000, 10_000_000])
+def test_pilot_is_one_launch_a_call(cuda, n):
+    """Every pilot call is one ``__global__`` launch at every run length:
+    the counter and the profiler's device events agree, and the device
+    pilot launches no other kernel (its upload and readback are copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    v = pilot_run("normal", n)
+    x = torch.as_tensor(v, dtype=torch.float32, device=cuda)
+    c = x[:1].clone()
+
+    def calls():
+        K.pilot_moments(x)
+        K.pilot_stats(x, center=c)
+        TD.pilot_stats_device(v, device="cuda")
+
+    calls()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if str(e.device_type).endswith("CUDA")
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert K.pilot_stats.launches == 3
+    assert len(kernels) == 3 and all("pilot_moments_kernel" in k
+                                     for k in kernels), kernels
+
+
+@pytest.mark.parametrize("n", [1, 1000, 100_000, 1_000_000])
+@pytest.mark.parametrize("case", PILOT_CASES)
+def test_device_pilot_on_cuda_matches_cpu(cuda, case, n):
+    """``pilot_stats_device`` on the card against the same call on the
+    CPU (the plain version): sketch0 and sigma within rel 1e-5, min
+    equal."""
+    v = pilot_run(case, n)
+    mean, sigma, lo = TD.pilot_stats_device(v, device="cuda")
+    c_mean, c_sigma, c_lo = TD.pilot_stats_device(v, device="cpu")
+    assert mean == pytest.approx(c_mean, rel=1e-5)
+    assert sigma == pytest.approx(c_sigma, rel=1e-5)
+    assert lo == c_lo
+
+
 def test_executor_on_cuda_matches_cpu(cuda):
     """The whole device route on the card against the same route on the
     CPU (the plain versions), and both kernels counted on the way."""
@@ -149,7 +249,8 @@ def test_executor_on_cuda_matches_cpu(cuda):
                                incremental=True, route="device")
                         for k in range(2)]
         if dev == "cuda":
-            assert K.isla_fold.launches > 0 and K.pilot_stats.launches == 2
+            # One cold plan, one device pilot, one pilot kernel launch.
+            assert K.isla_fold.launches > 0 and K.pilot_stats.launches == 1
     for c_run, g_run in zip(answers["cpu"], answers["cuda"]):
         for c, g in zip(c_run, g_run):
             assert g.value == pytest.approx(c.value, rel=2e-3)

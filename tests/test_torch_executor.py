@@ -265,8 +265,8 @@ def test_admission_loop_matches_reference():
 
 
 def test_device_pilot_matches_host_reduction():
-    """The device pilot (two pilot_stats launches) reproduces the host
-    pilot's (sketch0, sigma, min) within fp32 tolerance."""
+    """The device pilot (one pilot kernel launch on the card) reproduces
+    the host pilot's (sketch0, sigma, min) within fp32 tolerance."""
     v = np.random.default_rng(4).normal(1234.5, 17.0, size=4097)
     mean, sigma, lo = TD.pilot_stats_device(v, device="cpu")
     assert mean == pytest.approx(v.mean(), rel=1e-6)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """Time the dense serving tick's fold and register merge on the card: one
 ``distributed.fold_panes`` and one ``distributed.sketch_panes`` call each,
-at the serving loop's panes.
+at the serving loop's panes; or, with ``--mode pilot``, the device pilot.
 
     python3 tools/isla_stack_bench.py [--src PATH] [--label NAME]
+                                      [--mode stack|pilot]
 
 ``--src`` is the ``src`` directory of the port to time (default: this
 checkout's), so two trees of the port can be timed on one card in one
@@ -24,6 +25,17 @@ launches a call made, and the milliseconds a call takes
   same pane (``warm``: every lane finds its register raised already);
 * ``event_ms``: CUDA events around 20 calls, the card held busy while
   the host enqueues them, so launch gaps count and host time does not.
+
+``--mode pilot`` times ``distributed.pilot_stats_device`` (the one
+signature every tree of the port shares) on seeded normal(100, 20)
+pilots of 1000, 10^5, 10^6 and 10^7 samples, one JSON line each:
+``host_ms``, the median host wall time of a call (it ends in its
+readback); ``kernel_ms``, the device time of the pilot kernels (names
+containing ``pilot``) a call, from the profiler; ``device_ms``, that of
+every kernel of the call (the pilot kernels and any torch op the tree
+runs after them) and ``copy_ms``, of its upload and readback; and
+``launches``, the kernel launches a call by the profiler and by the
+tree's ``pilot_stats.launches``.
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ KEYS = ((1, -1, -1), (1, -1, 0), (16, 0, -1), (16, 0, 0))  # G, gid, valid
 PANES = ((512, 0.62), (1024, 0.93))  # quota, share of real lanes
 N_BLOCKS = 1000
 REPS = 20
+PILOT_SIZES = (1000, 100_000, 1_000_000, 10_000_000)
 
 
 def event_ms(fn, reps=REPS, warm=3):
@@ -104,10 +117,60 @@ def panes(quota, fill, seed=0):
         n_real=int(live.sum()))
 
 
+def pilot_rows(card, label):
+    """One JSON line a pilot size: ``pilot_stats_device``'s host and
+    device time (see the module docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import isla_moments as K
+
+    for n in PILOT_SIZES:
+        v = np.random.default_rng(n).normal(100.0, 20.0, n)
+        reps = 5 if n >= 10 ** 7 else REPS
+
+        def call():
+            return D.pilot_stats_device(v, device="cuda")
+
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        K.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        ev = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if str(e.device_type).endswith("CUDA")]
+        copy = [us for name, us in ev if "memcpy" in name.lower()]
+        kern = [(name, us) for name, us in ev
+                if "memcpy" not in name.lower()
+                and "memset" not in name.lower()]
+        print(json.dumps(dict(
+            card=card, tree=label, mode="pilot", n=n,
+            host_ms=sorted(walls)[len(walls) // 2],
+            kernel_ms=sum(us for name, us in kern if "pilot" in name)
+            / reps * 1e-3,
+            device_ms=sum(us for _, us in kern) / reps * 1e-3,
+            copy_ms=sum(copy) / reps * 1e-3,
+            launches=dict(profiler=len(kern) / reps,
+                          pilot_kernels=sum(1 for name, _ in kern
+                                            if "pilot" in name) / reps,
+                          counter=K.pilot_stats.launches / reps),
+            bound_ms=4 * n / 3.35e12 * 1e3)), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--mode", choices=("stack", "pilot"), default="stack")
     args = ap.parse_args()
     import torch
 
@@ -122,6 +185,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     K.build()
+    if args.mode == "pilot":
+        pilot_rows(card, args.label)
+        return 0
     kw = dict(n_groups_list=tuple(k[0] for k in KEYS),
               gid_slots=tuple(k[1] for k in KEYS),
               valid_slots=tuple(k[2] for k in KEYS))
