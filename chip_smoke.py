@@ -25,6 +25,20 @@ loop's size), with the device pilot's host time and its stages; one
 device-route plan at a precision tight enough for a pilot of at least
 100,000 samples reports its pilot's size and seconds.
 
+Then the same loop twice more with the torch default dtype float64 (set
+for the run, restored after it), so every key's store runs float64 and
+each drawing tick folds one tagged stream of every key's samples with
+``isla_tagged_fold`` (and, with COUNT DISTINCT, merges it with
+``isla_sketch_tagged``): one launch each a tagged fold, no dense launch,
+one pilot launch a run.  A host-route run of the same loop under the
+same anchor (the host route takes the device pilot too) must hold every
+key's moment rows, totals, draw ledger and register plane bit for bit;
+the partials' gaps to the host solve and to Phase 2 on the CPU are
+counted in ulps.  Each tick's tagged fold and merge is replayed, kernel
+against its plain version run on the CPU over the same tensors, bit for
+bit, and timed (the stable sort's share of the fold call, and the same
+stream folded at fp32).
+
 Then it drives the LM serving path: olmo-1b at full width and depth
 (16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
 generator, six seeded prompts of 384-2048 tokens through a
@@ -109,11 +123,24 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILE_TRIES = 3       # windows a measurement takes when events go astray
+PROFILE_GAP_S = 0.005   # host pause between the last work and a window
+PROFILE_LEAD_S = 1e-4   # device spin that opens a window, not counted
+
+
 def kernel_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
     """The profiler's device events of the kernels whose names contain one
     of ``names`` over ``reps`` calls of ``fn``, each after ``setup()`` when
     given (untimed unless it runs such a kernel): ``(mean device ms a call
-    or None when the trace holds no such event, events a call)``."""
+    or None when the trace holds no such event, events a call)``.
+
+    The trace's window edges are not exact on the card: a kernel that ran
+    just before a window can land in it, and the first kernel inside it
+    can be left out (seen on the parent tree too).  So a window opens
+    after a host pause with a short device spin (``torch.cuda._sleep``,
+    never counted), and a window whose events are not a whole number a
+    call is taken again, up to ``PROFILE_TRIES`` windows (the last one is
+    reported)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,16 +148,22 @@ def kernel_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
         if setup is not None:
             setup()
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if setup is not None:
-                setup()
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if str(e.device_type).endswith("CUDA")
-          and any(n in e.name for n in names)]
+        time.sleep(PROFILE_GAP_S)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(PROFILE_LEAD_S * SLEEP_CYCLES_PER_S))
+            for _ in range(reps):
+                if setup is not None:
+                    setup()
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if str(e.device_type).endswith("CUDA")
+              and "spin_kernel" not in e.name
+              and any(n in e.name for n in names)]
+        if us and len(us) % reps == 0:
+            break
     return (sum(us) / reps * 1e-3 if us else None), len(us) / reps
 
 
@@ -778,13 +811,19 @@ def serve_queries(C, e: float, distinct: bool):
 
 def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
               rows: int, ticks, distinct: bool, seed: int = 0,
-              profile_at: "int | None" = None):
+              profile_at: "int | None" = None,
+              pilot_device: "str | None" = None):
     """Drive the admission loop: one batch of ``serve_queries`` per entry
     of ``ticks`` (its precision e), tick ``profile_at`` under the torch
-    profiler.  Returns the finished tickets, the executor and per-tick
-    records."""
+    profiler.  ``pilot_device`` gives the executor the device pilot on
+    that device whatever its route (a host-route run that shares the
+    device route's anchor).  Returns the finished tickets, the executor
+    and per-tick records."""
+    import functools
+
     import numpy as np
     import repro_torch.core as C
+    import repro_torch.core.multiquery as MQ
     from repro_torch.kernels import isla_moments as K
     from repro_torch.launch.serve import (IslaAdmissionLoop,
                                           _synthetic_grouped_blocks)
@@ -794,17 +833,23 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
                               params=C.IslaParams(e=ticks[0]),
                               group_domains={"region": n_groups},
                               device=device)
+    if pilot_device is not None:
+        ex._pilot_stats_fn = lambda route: functools.partial(
+            MQ.pilot_stats_device, device=pilot_device)
     loop = IslaAdmissionLoop(ex, np.random.default_rng(seed + 1),
                              route=route, incremental=True)
     done, records = [], []
     with Recorder("fold_panes", keep=False) as folds, \
-            Recorder("sketch_panes", keep=False) as merges:
+            Recorder("sketch_panes", keep=False) as merges, \
+            Recorder("_segment_carry_sum", keep=False) as tagged:
         for k, e in enumerate(ticks):
             for q in serve_queries(C, e, distinct):
                 loop.submit(q)
             f0, p0 = K.isla_fold.launches, K.pilot_stats.launches
             s0 = K.isla_sketch.launches
-            fc0, sc0 = folds.count, merges.count
+            tt0, ts0 = K.isla_tagged_fold.launches, \
+                K.isla_sketch_tagged.launches
+            fc0, sc0, tc0 = folds.count, merges.count, tagged.count
             prof = profile_tick(device, k == profile_at)
             t0 = time.perf_counter()
             with prof:
@@ -821,9 +866,12 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
                                  for a in out}.values()),
                 fold_calls=folds.count - fc0,
                 sketch_calls=merges.count - sc0,
+                tagged_calls=tagged.count - tc0,
                 fold_launches=K.isla_fold.launches - f0,
                 pilot_launches=K.pilot_stats.launches - p0,
                 sketch_launches=K.isla_sketch.launches - s0,
+                tagged_launches=K.isla_tagged_fold.launches - tt0,
+                tagged_sketch_launches=K.isla_sketch_tagged.launches - ts0,
                 stages_s=dict(ex.last_stage_times)))
             done.extend(out)
     return done, ex, records
@@ -865,7 +913,8 @@ def device_kernel_seconds(prof) -> dict:
 
 
 ISLA_KERNELS = ("isla_fold_kernel", "isla_fold_combine_kernel",
-                "isla_sketch_kernel", "pilot_moments_kernel")
+                "isla_sketch_kernel", "pilot_moments_kernel",
+                "isla_tagged_fold_kernel")
 
 
 def device_kernel_counts(prof) -> "dict | None":
@@ -953,6 +1002,8 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
     launches = {"isla_fold": K.isla_fold.launches,
                 "pilot_stats": K.pilot_stats.launches,
                 "isla_sketch": K.isla_sketch.launches}
+    check(K.isla_tagged_fold.launches == K.isla_sketch_tagged.launches == 0,
+          f"the {name} run (fp32) launched a tagged kernel")
     for kernel, n in launches.items():
         if kernel == "isla_sketch" and not distinct:
             check(n == 0, f"the {name} run launched isla_sketch: its "
@@ -1000,6 +1051,274 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
                 agreement=agree, fold_calls=folds.calls,
                 sketch_calls=sketches.calls,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
+
+
+# ---------------------------------------------------------------------------
+# The float64 tagged tick: the same loop with the torch default dtype
+# float64, so every key's device store runs float64 (scale 1.0) and each
+# drawing tick folds its tagged stream with isla_tagged_fold.
+# ---------------------------------------------------------------------------
+
+F64_RUNS = (("moments f64", False), ("distinct f64", True))
+FP64_FLOP_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+                         # (NVIDIA's data sheet; the guide lists none)
+
+
+def ulp_gap(got, want) -> "tuple[int, float]":
+    """How many float64 values differ and the largest gap in ulps of the
+    wanted value."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    diff = got != want
+    if not diff.any():
+        return 0, 0.0
+    gap = np.abs(got - want)[diff] / np.spacing(np.abs(want[diff]))
+    return int(diff.sum()), float(gap.max())
+
+
+def check_f64_state(dev_ex, host_ex) -> dict:
+    """Every key's float64 device state against the host route's
+    ``MomentStore`` after the same draws under the same anchor: moment
+    rows, totals, draw ledger and register plane bit for bit.  The
+    device partials are compared with the host solve of the same state
+    and with Phase 2 run on the CPU over the card's state (counts and ulp
+    gaps; not gated)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed as D
+
+    n_keys, p_host, p_cpu, gap_host, gap_cpu, cells = 0, 0, 0, 0.0, 0.0, 0
+    div_n = 0
+    for skey, dst in dev_ex._device_stores.items():
+        check(dst.dtype == torch.float64 and dst.scale == 1.0,
+              f"the float64 run's store {skey} runs {dst.dtype} at scale "
+              f"{dst.scale}")
+        hs = host_ex._stores[skey]
+        got = dst.to_host()
+        for f in ("mom_s", "mom_l", "totals", "n_sampled"):
+            check(np.array_equal(getattr(got, f), getattr(hs, f)),
+                  f"the float64 store {skey} is not bit-identical to the "
+                  f"host route's in {f}")
+        if hs.has_sketch:
+            check(np.array_equal(got.regs, hs.regs),
+                  f"the float64 store {skey}'s register plane differs from "
+                  f"the host route's")
+        params, mode, geometry = dst._stats_cfg
+        card = dst.partials_host()
+        host = hs.solve(params, mode=mode, geometry=geometry).avg
+        ones = torch.ones(dst.n_cells, dtype=torch.float64)
+        thr, geo = D._scaled_solve_args(params, geometry, ones)
+        cpu = D.phase2(dst.mom_s.cpu(), dst.mom_l.cpu(), ones * dst.sketch0,
+                       params, mode=mode, geometry=geo, thr=thr).numpy()
+        n, g = ulp_gap(card, host)
+        p_host, gap_host = p_host + n, max(gap_host, g)
+        n, g = ulp_gap(card, cpu)
+        p_cpu, gap_cpu = p_cpu + n, max(gap_cpu, g)
+        # torch divides a CUDA tensor by a host scalar as a product with
+        # the scalar's reciprocal: Phase 2's total_shrink / (1 + lambda*)
+        # on the card is not the CPU's quotient in every cell.
+        col = dst.mom_s[:, 1]
+        lam = 1.0 + D._lambda_star(params.p1, params.p2)
+        div_n += int(((col / lam).cpu() != col.cpu() / lam).sum())
+        n_keys += 1
+        cells += dst.n_cells
+    check(n_keys > 0, "the float64 run kept no device store")
+    return dict(keys=n_keys, cells=cells, state_bit_identical=True,
+                partials_differing_from_host_solve=p_host,
+                max_ulps_from_host_solve=gap_host,
+                partials_differing_from_cpu_phase2=p_cpu,
+                max_ulps_from_cpu_phase2=gap_cpu,
+                host_scalar_quotients_differing_from_cpu=div_n)
+
+
+def main_path_f64(name: str, distinct: bool, n_blocks=1000, n_groups=16,
+                  rows=20000, ticks=(0.5, 0.25, 0.25)) -> dict:
+    """One float64 run of the main path, the torch default dtype float64
+    for the run and restored after it: the launch counts are set to 0 just
+    before the loop and read just after; every drawing tick must make one
+    ``isla_tagged_fold`` launch a tagged fold (and, with COUNT DISTINCT,
+    one ``isla_sketch_tagged`` launch), no dense launch, one pilot launch
+    a run.  A host-route run of the same loop under the same anchor (the
+    host route takes the device pilot too) then holds every key's state
+    bit for bit and the answers."""
+    import torch
+    from repro_torch.kernels import isla_moments as K
+
+    was = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with Recorder("_segment_carry_sum") as folds, \
+                Recorder("isla_sketch_tagged") as merges:
+            dev_done, ex, records = run_serve("cuda", "device", n_blocks,
+                                              n_groups, rows, ticks,
+                                              distinct)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"isla_tagged_fold": K.isla_tagged_fold.launches,
+                    "isla_sketch_tagged": K.isla_sketch_tagged.launches,
+                    "pilot_stats": K.pilot_stats.launches,
+                    "isla_fold": K.isla_fold.launches,
+                    "isla_sketch": K.isla_sketch.launches}
+        check(launches["isla_tagged_fold"] > 0
+              and launches["isla_fold"] == launches["isla_sketch"] == 0,
+              f"the {name} run launched {launches}")
+        check((launches["isla_sketch_tagged"] > 0) == distinct,
+              f"the {name} run made {launches['isla_sketch_tagged']} "
+              f"tagged register merges")
+        for k, r in enumerate(records):
+            check(r["tagged_launches"] == r["tagged_calls"]
+                  and r["tagged_sketch_launches"]
+                  == (r["tagged_calls"] if distinct else 0)
+                  and r["fold_calls"] == r["sketch_calls"] == 0,
+                  f"the {name} run's tick {k + 1} made {r['tagged_calls']} "
+                  f"tagged folds with {r['tagged_launches']} isla_tagged_fold "
+                  f"and {r['tagged_sketch_launches']} isla_sketch_tagged "
+                  f"launches")
+        check(launches["pilot_stats"] == 1
+              and records[0]["pilot_launches"] == 1,
+              f"the {name} run made {launches['pilot_stats']} pilot "
+              f"launches, not 1")
+        host_done, host_ex, _ = run_serve("cpu", "host", n_blocks, n_groups,
+                                          rows, ticks, distinct,
+                                          pilot_device="cuda")
+        state = check_f64_state(ex, host_ex)
+        agree = check_answers(dev_done, host_done, distinct)
+        exact = sum(d.answer.value == h.answer.value
+                    for d, h in zip(dev_done, host_done))
+    finally:
+        torch.set_default_dtype(was)
+    return dict(name=name, launches=launches, wall_s=wall, ticks=records,
+                agreement=dict(agree, answers_equal=exact), state=state,
+                tagged_calls=folds.calls, sketch_calls=merges.calls,
+                shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
+
+
+def tagged_bound_ms(values, seg, bounds, n_cells: int
+                    ) -> "tuple[float, float]":
+    """Least time for one tagged fold on this stream: every sample's value
+    and id read once, the cuts read once, every resident row (11 columns)
+    read and written once; against ~17 operations a sample (two
+    multiplies, four compares, up to eleven adds) at the float64 (or
+    fp32) rate outside the tensor cores."""
+    w = values.element_size()
+    in_bytes = values.numel() * (w + 4) + bounds.numel() * w
+    t_bytes = (in_bytes + 2 * 11 * w * n_cells) / HBM_BYTES_PER_S * 1e3
+    rate = FP64_FLOP_PER_S if w == 8 else FP32_FLOP_PER_S
+    return t_bytes, 17 * values.numel() / rate * 1e3
+
+
+def check_main_path_tagged(calls) -> "list[dict]":
+    """Replay each tagged fold of the float64 runs on a copy of its rows:
+    the kernel twice (identical bits) against its plain version run on the
+    CPU over the same tensors, bit for bit; then the whole call's device
+    time (stable sort + fold), the fold kernel's share, the plain version
+    on the card, and the same stream folded at fp32."""
+    import torch
+    from repro_torch.kernels import isla_moments as K
+
+    out = []
+    for c in calls:
+        state, (values, seg, bounds) = c["args"][:3], c["args"][3:]
+        table = bounds.reshape(-1, 4).contiguous()
+
+        def fold(rows, v=values, b=table):
+            K.isla_tagged_fold(v, seg, b, *rows)
+
+        def run():
+            rows = [t.clone() for t in state]
+            fold(rows)
+            return torch.cat(rows, dim=1)
+
+        got, again = run(), run()
+        rows = [t.to("cpu", copy=True) for t in state]
+        K.isla_tagged_fold(values.cpu(), seg.cpu(), table.cpu(), *rows)
+        want = torch.cat(rows, dim=1)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              "isla_tagged_fold is not deterministic on the main path")
+        check(torch.equal(got.cpu(), want),
+              f"isla_tagged_fold disagrees with its plain version on the "
+              f"main path's {values.numel()}-sample stream")
+        scratch = [t.clone() for t in state]
+        call_ms, events = kernel_events(lambda: fold(scratch), ("",))
+        fold_ms = kernel_ms(lambda: fold(scratch), ("isla_tagged_fold",))
+        with PlainVersions():
+            plain_ms = time_ms(lambda: fold(scratch), reps=3, warm=1)
+        s32 = [t.float() for t in state]
+        v32, b32 = values.float(), table.float()
+        f32_ms = kernel_events(lambda: fold(s32, v32, b32), ("",))[0]
+        n = state[0].shape[0]
+        t_bytes, t_ops = tagged_bound_ms(values, seg, table, n)
+        b32_bytes, b32_ops = tagged_bound_ms(v32, seg, b32, n)
+        out.append(dict(samples=values.numel(), cells=n,
+                        per_cell_cuts=table.shape[0] > 1,
+                        max_abs_err=max_abs_err(got.cpu(), want),
+                        tolerance="0 (bit-identical)", ms=call_ms,
+                        kernel_ms=fold_ms, kernels_a_call=events,
+                        sort_share=(None if call_ms is None or fold_ms is None
+                                    else 1.0 - fold_ms / call_ms),
+                        plain_ms=plain_ms, fp32_ms=f32_ms,
+                        fp32_bound_ms=max(b32_bytes, b32_ops),
+                        bytes_ms=t_bytes, ops_ms=t_ops,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations"))
+    return out
+
+
+def check_main_path_tagged_sketches(calls) -> "list[dict]":
+    """Replay each tagged register merge of the float64 distinct run on a
+    copy of the plane it found: the kernel twice against its plain version
+    run on the CPU over the same tensors, bit for bit, then timed from
+    that plane, with the call's bound."""
+    import torch
+    from repro_torch.kernels import isla_moments as K
+
+    out = []
+    for c in calls:
+        bits, seg, regs0 = c["args"]
+
+        def run():
+            regs = regs0.clone()
+            K.isla_sketch_tagged(bits, seg, regs)
+            return regs
+
+        got, again = run(), run()
+        want = regs0.to("cpu", copy=True)
+        K.isla_sketch_tagged(bits.cpu(), seg.cpu(), want)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again),
+              "isla_sketch_tagged is not deterministic on the main path")
+        check(torch.equal(got.cpu(), want),
+              f"isla_sketch_tagged disagrees with its plain version on the "
+              f"main path's {bits.numel()}-lane stream")
+        changed = int((got != regs0).sum())
+        scratch = regs0.clone()
+        dev_ms = kernel_ms(lambda: K.isla_sketch_tagged(bits, seg, scratch),
+                           ("isla_sketch",),
+                           setup=lambda: scratch.copy_(regs0))
+        event_ms = time_ms(lambda: K.isla_sketch_tagged(bits, seg, scratch))
+        with PlainVersions():
+            plain_ms = time_ms(lambda: K.isla_sketch_tagged(bits, seg,
+                                                            scratch),
+                               reps=3, warm=1)
+        live = int(((seg >= 0) & (seg < regs0.shape[0])).sum())
+        t_bytes = (live * 12 + 2 * changed) / HBM_BYTES_PER_S * 1e3
+        t_ops = SKETCH_OPS_PER_LANE * live / FP32_FLOP_PER_S * 1e3
+        out.append(dict(lanes=bits.numel(), live_lanes=live,
+                        changed_registers=changed,
+                        max_abs_err=max_abs_err(got.cpu(), want),
+                        tolerance="0 (bit-identical)",
+                        ms=event_ms if dev_ms is None else dev_ms,
+                        kernel_ms=dev_ms, repeat_event_ms=event_ms,
+                        plain_ms=plain_ms, bytes_ms=t_bytes, ops_ms=t_ops,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations"))
+    return out
 
 
 TIGHT_E = 0.04  # ~166 pilot samples a block, ~166,000 in all
@@ -1505,7 +1824,8 @@ def isla_ptxas(log: str) -> dict:
         for k in ISLA_KERNELS:
             if k in fn:
                 t = ("<bf16>" if "bfloat16" in fn else
-                     "<float>" if k == "isla_fold_kernel" else
+                     "<float>" if k == "isla_fold_kernel" or "IfE" in fn
+                     else "<double>" if "IdE" in fn else
                      "<one_warp>" if "ILb1E" in fn else
                      "<grid>" if "ILb0E" in fn else "")
                 out[k + t] = fig
@@ -1627,7 +1947,7 @@ def main() -> int:
     islaptx = {}
     if K.SOURCES[0] in logs:
         islaptx = isla_ptxas(logs[K.SOURCES[0]])
-        check(len(islaptx) == 6, f"isla_kernels.cu: a kernel is missing "
+        check(len(islaptx) == 8, f"isla_kernels.cu: a kernel is missing "
                                  f"from the ptxas log: {islaptx}")
         print("isla_kernels.cu -Xptxas -v: " + "; ".join(
             f"{n} {f['registers']} regs, {f['smem_bytes']} B static smem, "
@@ -1705,6 +2025,72 @@ def main() -> int:
               f"{f['plain_reps']} reps, bound {f['bound_ms']:.4f} ms by "
               f"{f['bound_by']}), bit-identical to its plain version")
     lap("isla main path replays")
+    f64_runs = [main_path_f64(name, distinct)
+                for name, distinct in F64_RUNS]
+    lap("isla float64 runs")
+    for path, fp32 in zip(f64_runs, runs):
+        st = path["state"]
+        print(f"main path, {path['name']} run: "
+              f"{json.dumps(path['launches'])} launches, "
+              f"{path['agreement']}, {path['wall_s']:.2f} s; "
+              f"{st['keys']} keys, {st['cells']} cells: moment rows, "
+              f"totals, draw ledger"
+              + (" and register planes" if path["name"].startswith("dist")
+                 else "")
+              + " bit-identical to the host route's; partials: "
+              f"{st['partials_differing_from_host_solve']} differ from the "
+              f"host solve (max {st['max_ulps_from_host_solve']:g} ulp), "
+              f"{st['partials_differing_from_cpu_phase2']} from Phase 2 on "
+              f"the CPU over the card's state (max "
+              f"{st['max_ulps_from_cpu_phase2']:g} ulp; the card's s1 "
+              f"column over 1 + lambda*, a host scalar: "
+              f"{st['host_scalar_quotients_differing_from_cpu']} of "
+              f"{st['cells']} quotients differ from the CPU's)")
+        for k, (r, q) in enumerate(zip(path["ticks"], fp32["ticks"])):
+            stages = ", ".join(f"{n} {t:.4f}"
+                               for n, t in r["stages_s"].items())
+            print(f"  tick {k + 1} (e={r['e']}): {r['new_samples']} new "
+                  f"samples, {r['tagged_calls']} tagged folds, "
+                  f"{r['tagged_launches']} isla_tagged_fold / "
+                  f"{r['tagged_sketch_launches']} isla_sketch_tagged "
+                  f"launches, stages s: {stages}; fp32 run's tick "
+                  f"{q['wall_s']:.4f} s wall (h2d "
+                  f"{q['stages_s'].get('h2d', 0.0):.4f}), this tick "
+                  f"{r['wall_s']:.4f} s")
+    tagged = []
+    for path in f64_runs:
+        for f in check_main_path_tagged(path.pop("tagged_calls")):
+            tagged.append(dict(f, run=path["name"]))
+    check(len(tagged) > 0, "the float64 runs folded no tagged stream")
+    for f in tagged:
+        print(f"isla_tagged_fold on the {f['run']} run's stream "
+              f"({f['samples']} samples, {f['cells']} cells"
+              + (", per-cell cuts" if f["per_cell_cuts"] else "") + "): "
+              f"{f['ms']:.4f} ms on the card a call ({f['kernels_a_call']:g} "
+              f"device events; the fold kernel {f['kernel_ms']:.4f} ms, the "
+              f"stable sort's share {f['sort_share']:.2f}), bound "
+              f"{f['bound_ms']:.4f} ms by {f['bound_by']}; fp32 "
+              f"{f['fp32_ms']:.4f} ms (bound {f['fp32_bound_ms']:.4f}); "
+              f"plain {f['plain_ms']:.3f} ms; bit-identical to its plain "
+              f"version on the CPU, two runs identical")
+    tagged_merges = []
+    for path in f64_runs:
+        for f in check_main_path_tagged_sketches(path.pop("sketch_calls")):
+            tagged_merges.append(dict(f, run=path["name"]))
+    check(len(tagged_merges) > 0,
+          "the float64 distinct run merged no tagged lane stream")
+    for f in tagged_merges:
+        print(f"isla_sketch_tagged on the {f['run']} run's stream "
+              f"({f['lanes']} lanes, {f['changed_registers']} registers "
+              f"raised): {f['ms']:.4f} ms on the card from the tick's plane "
+              + ("(profiler" if f["kernel_ms"] is not None
+                 else "(the profiler saw no event: CUDA events")
+              + f"; a repeat on the merged plane {f['repeat_event_ms']:.4f} "
+              f"ms by CUDA events; "
+              f"plain {f['plain_ms']:.3f} ms, bound {f['bound_ms']:.4f} ms "
+              f"by {f['bound_by']}), bit-identical to its plain version on "
+              f"the CPU")
+    lap("isla float64 replays")
     folds = [check_fold(dev, 1000, q) for q in (64, 4096)]
     for f in folds:
         print(f"isla_fold synthetic quota {f['quota']}: {f['ms']:.4f} ms "
@@ -1845,6 +2231,10 @@ def main() -> int:
     f_ops = sum(f["ops_ms"] for f in served)
     s_bytes = sum(f["bytes_ms"] for f in merged)
     s_ops = sum(f["ops_ms"] for f in merged)
+    t_bytes = sum(f["bytes_ms"] for f in tagged)
+    t_ops = sum(f["ops_ms"] for f in tagged)
+    g_bytes = sum(f["bytes_ms"] for f in tagged_merges)
+    g_ops = sum(f["ops_ms"] for f in tagged_merges)
     lm_flash = flash + vflash
     a_bytes = sum(f["bytes_ms"] for f in lm_flash)
     a_ops = sum(f["ops_ms"] for f in lm_flash)
@@ -1873,6 +2263,26 @@ def main() -> int:
              bound_ms=max(s_bytes, s_ops),
              bound_by="bytes" if s_bytes >= s_ops else "operations",
              library_ms=None),
+        dict(name="isla_tagged_fold", route="cuda", source=FOLD_SOURCE,
+             replaces="src/repro/core/distributed.py:269",
+             launches=sum(p["launches"]["isla_tagged_fold"]
+                          for p in f64_runs),
+             max_abs_err=max(f["max_abs_err"] for f in tagged),
+             ms=sum(f["ms"] for f in tagged),
+             plain_ms=sum(f["plain_ms"] for f in tagged),
+             bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             library_ms=None),
+        dict(name="isla_sketch_tagged", route="cuda", source=FOLD_SOURCE,
+             replaces="src/repro/kernels/isla_moments.py:362",
+             launches=sum(p["launches"]["isla_sketch_tagged"]
+                          for p in f64_runs),
+             max_abs_err=max(f["max_abs_err"] for f in tagged_merges),
+             ms=sum(f["ms"] for f in tagged_merges),
+             plain_ms=sum(f["plain_ms"] for f in tagged_merges),
+             bound_ms=max(g_bytes, g_ops),
+             bound_by="bytes" if g_bytes >= g_ops else "operations",
+             library_ms=None),
         dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
              replaces="src/repro/kernels/flash_attention.py:65",
              launches=(lm["launches"]["flash_attention"]
@@ -1888,7 +2298,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, build_logs=logs, main_path=runs,
-        main_path_folds=served, main_path_sketches=merged, fold=folds,
+        main_path_folds=served, main_path_sketches=merged,
+        main_path_f64=f64_runs, main_path_tagged=tagged,
+        main_path_tagged_sketches=tagged_merges, fold=folds,
         batched=batched, wrappers=wrappers, pilot=pilots, tight_plan=tight,
         lm_path=lm,
         phase_s=phase_s,

@@ -18,8 +18,9 @@ port continues it tick for tick:
 (2, 0.5)
 
 ``DeviceMomentStore.from_host(store_from(...), sizes, device=...)`` then
-puts a carried store on the device.  ``params_from`` also carries an LM's
-param pytree into the port's ``models``.
+puts a carried store on the device (``dtype=torch.float64`` continues a
+float64 reference store tick for tick, bit for bit).  ``params_from`` also
+carries an LM's param pytree into the port's ``models``.
 """
 from __future__ import annotations
 
@@ -29,25 +30,29 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .core.distributed import resolve_device
 from .core.moment_store import MomentStore
 from .core.sketch import M
 from .core.types import Anchor, Boundaries, IslaParams
 
 
-def params_from(fields: Mapping[str, Any], device="cpu"):
+def params_from(fields: Mapping[str, Any], device="cuda"):
     """The port's parameters from the reference's, as numbers and arrays.
 
     * An LM param pytree (a mapping with ``"blocks"``, the reference's
       ``models.model.init_params`` layout with every leaf a numpy array —
       ``jax.tree_util.tree_map(np.asarray, params)``) becomes the same
-      pytree of tensors on ``device``, dtype kept (bfloat16 arrays cross
-      bit for bit): the port's ``models`` take that layout as it is, the
-      ``blocks`` leaves stacked over groups.
+      pytree of tensors on ``device`` — the card unless the caller asks
+      for the CPU, like the port's other entry points (without a card it
+      raises) — dtype kept (bfloat16 arrays cross bit for bit): the port's
+      ``models`` take that layout as it is, the ``blocks`` leaves stacked
+      over groups.
     * Otherwise ``fields`` are ``IslaParams`` field values (any subset; the
-      rest keep their defaults).  Unknown fields raise.
+      rest keep their defaults), plain numbers on no device: ``device`` is
+      not read.  Unknown fields raise.
     """
     if "blocks" in fields:
-        return _tensors(fields, torch.device(device))
+        return _tensors(fields, resolve_device(device))
     known = {f.name for f in dataclasses.fields(IslaParams)}
     extra = set(fields) - known
     if extra:

@@ -4,20 +4,23 @@ serving tick and the device pilot.
 This mirrors ``repro.core.distributed``.  Everything is branchless
 (``torch.where`` over the modulation cases) and fp32-safe (values are
 pre-scaled by a per-anchor normalizer; ISLA is exactly scale-equivariant).
-The serving tick's Phase 1 fold runs through the hand-written CUDA kernel
-``isla_fold`` on the card (its plain PyTorch version on the CPU), one
-launch for every key of the stack (``kernels.isla_moments.isla_fold_stack``),
-and a sketch stack's HLL register merge through ``isla_sketch``, also one
-launch a tick (``isla_sketch_stack``); Phase 2, the group statistics and
-the group fold of the registers are plain tensor code.
+The fp32 serving tick (``fused_tick_dense``) folds its dense pane through
+the hand-written CUDA kernel ``isla_fold`` on the card (its plain PyTorch
+version on the CPU), one launch for every key of the stack
+(``kernels.isla_moments.isla_fold_stack``), and a sketch stack's HLL
+register merge through ``isla_sketch``, also one launch a tick
+(``isla_sketch_stack``).  The tagged tick (``fused_tick``, the float64
+exact mode, bit-identical to the host fold) folds its stream through
+``isla_tagged_fold`` and merges registers through ``isla_sketch_tagged``.
+Phase 2, the group statistics and the group fold of the registers are
+plain tensor code, in the type of the state.
 
 Where the JAX reference donates the resident state to a jitted launch and
 gets successors back, these functions update the resident tensors IN
 PLACE and return the same objects.
 
-Not ported yet (ROADMAP Queue A): the float64 tagged tick (``fused_tick``
-and its sketch twin ``fused_tick_sketch``), the pipelined launch pool, the
-mesh launches with their sketch variants, and the telemetry helpers
+Not ported yet (ROADMAP Queue A): the pipelined launch pool, the mesh
+launches with their sketch variants, and the telemetry helpers
 (``isla_mean`` and friends).
 """
 from __future__ import annotations
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 
 from ..kernels.isla_moments import (MAX_KEYS, StackKey, isla_fold_stack,
-                                     isla_sketch_stack, pilot_moments)
+                                     isla_sketch_stack, isla_sketch_tagged,
+                                     isla_tagged_fold, pilot_moments)
 from .types import IslaParams
 
 F32 = torch.float32
@@ -50,8 +54,10 @@ def resolve_device(device) -> torch.device:
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
 
 
-def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=F32, device=device)
+def _const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a 0-d tensor of ``like``'s type and device: Phase 2 runs in
+    the type of the moments it solves (fp32 serving, float64 exact)."""
+    return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +105,10 @@ def moments(values: torch.Tensor, bounds: Tuple, valid=None, prior=None
 def choose_q(dev: torch.Tensor, params: IslaParams) -> torch.Tensor:
     """§IV-A4 q schedule as nested where."""
     mild = torch.where((dev >= params.mild_lo) & (dev <= params.mild_hi),
-                       _f32(params.q_mild, dev.device),
-                       _f32(params.q_strong, dev.device))
+                       _const(params.q_mild, dev),
+                       _const(params.q_strong, dev))
     qp = torch.where((dev >= 0.97) & (dev <= 1.03),
-                     _f32(1.0, dev.device), mild)
+                     _const(1.0, dev), mild)
     return torch.where(dev > 1.0, 1.0 / qp, qp)
 
 
@@ -126,7 +132,7 @@ def theorem3_kc(mom_s: torch.Tensor, mom_l: torch.Tensor, q: torch.Tensor
 
 def n_iterations(d0: torch.Tensor, thr, eta: float) -> torch.Tensor:
     ad = d0.abs()
-    log_inv_eta = torch.log(_f32(1.0 / eta, d0.device))
+    log_inv_eta = torch.log(_const(1.0 / eta, d0))
     return torch.ceil(torch.log((ad / thr).clamp_min(1.0)) / log_inv_eta)
 
 
@@ -170,7 +176,7 @@ def phase2(mom_s: torch.Tensor, mom_l: torch.Tensor, sketch0,
         avg = c + mu_move
         balanced = None  # calibrated always modulates
     elif mode == "faithful":
-        one = _f32(1.0, k.device)
+        one = _const(1.0, k)
         sgn_k = torch.where(k >= 0, one, -one)
         case1 = (d0 < 0) & (u < v)
         case2 = (d0 < 0) & (u >= v)
@@ -400,19 +406,86 @@ def fused_tick_dense(mom_s: torch.Tensor, mom_l: torch.Tensor,
 
 # Where each part still to port stands in ROADMAP.md, by number and name
 # (the messages of the NotImplementedErrors that refuse it).
-TAGGED_TICK_ITEM = ("ROADMAP Queue A item 1, 'The float64 tagged tick': "
-                    "it needs a deterministic, FMA-free segmented "
-                    "reduction to stay bit-exact")
+DENSE64_ITEM = "ROADMAP Queue A item 1b, 'The float64 dense tick'"
 PIPELINE_ITEM = "ROADMAP Queue A item 3, 'Pipelined tick'"
 MESH_ITEM = "ROADMAP Queue A item 4, 'Mesh route'"
 
 
-def fused_tick(*args, **kwargs):
-    """The float64 tagged tick (carry-prepend segmented fold) is not
-    ported yet."""
-    raise NotImplementedError(
-        "the float64 tagged tick (fused_tick / layout='tagged') is not "
-        f"ported yet ({TAGGED_TICK_ITEM})")
+# ---------------------------------------------------------------------------
+# The tagged tick: a stream of samples, each tagged with its stacked cell,
+# folded onto the resident rows in stream order — the float64 exact mode
+# (bit-identical to the host ``MomentStore`` fold) and ``layout="tagged"``.
+# ---------------------------------------------------------------------------
+
+
+def _sample_bounds(bounds: torch.Tensor) -> torch.Tensor:
+    """Region cuts aligned with a tagged sample stream, as the table the
+    fold reads: one broadcast row ((4,) or (1, 4): every cell shares the
+    anchor) or a per-cell table ((n_cells + 1, 4), the per-key anchor
+    path; the pad row, the drop segment's, holds +inf cuts).  The fold
+    looks each cell's row up itself, where the reference gathers a row
+    per sample."""
+    return bounds.reshape(-1, 4).contiguous()
+
+
+def _segment_carry_sum(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                       totals: torch.Tensor, values: torch.Tensor,
+                       seg: torch.Tensor, bounds: torch.Tensor) -> None:
+    """The carry-prepend segmented sum of the tagged tick, in place: each
+    cell's S and L region moments and plain totals continue from its
+    resident row as the left fold ``((carry + a1) + a2) + ...`` over its
+    samples in stream order — the host ``np.bincount`` carry's order
+    (``engine._segment_moment_rows``), so a float64 store is bit-identical
+    to the host fold.  One ``isla_tagged_fold`` launch (its plain version
+    on the CPU); ids equal to ``n_cells`` (the drop segment) fold
+    nowhere."""
+    isla_tagged_fold(values, seg, _sample_bounds(bounds), mom_s, mom_l,
+                     totals)
+
+
+def _tick_core(mom_s: torch.Tensor, mom_l: torch.Tensor,
+               totals: torch.Tensor, n_sampled: torch.Tensor,
+               values: torch.Tensor, seg: torch.Tensor,
+               quotas: torch.Tensor, bounds: torch.Tensor, sketch0,
+               sizes: torch.Tensor, inv_scale: Optional[torch.Tensor], *,
+               params: IslaParams, mode: str, geometry, n_groups_list):
+    """The tagged tick body: the carry-prepend fold of the stream onto the
+    resident rows (in place), the draw ledger, then Phase 2 and the group
+    stat rows over the full state."""
+    _segment_carry_sum(mom_s, mom_l, totals, values, seg, bounds)
+    n_sampled += quotas.repeat(len(n_groups_list))
+    thr, geometry = _scaled_solve_args(params, geometry, inv_scale)
+    partials = phase2(mom_s, mom_l, sketch0, params, mode=mode,
+                      geometry=geometry, thr=thr)
+    rows = group_row_stats(mom_s, mom_l, totals, partials, n_sampled,
+                           sizes, n_groups_list,
+                           float(params.min_region_count))
+    return mom_s, mom_l, totals, n_sampled, partials, rows
+
+
+def fused_tick(mom_s: torch.Tensor, mom_l: torch.Tensor,
+               totals: torch.Tensor, n_sampled: torch.Tensor,
+               values: torch.Tensor, seg: torch.Tensor,
+               quotas: torch.Tensor, bounds: torch.Tensor, sketch0,
+               sizes: torch.Tensor, inv_scale: Optional[torch.Tensor] = None,
+               *, params: IslaParams, mode: str = "calibrated",
+               geometry=None, n_groups_list=(1,)):
+    """One device-resident continuation round on the tagged layout.
+
+    ``values`` (m,) are the samples in each cell's own anchor frame
+    (pre-scaled and shifted on the host), ``seg`` (m,) int32 their stacked
+    cell ids (``n_cells`` is the drop segment), ``quotas`` the pass's
+    per-block draws.  ``bounds`` is one broadcast row for a shared-anchor
+    stack or a per-cell (+pad) table for per-key anchors; ``sketch0`` is
+    per cell and ``inv_scale`` the per-cell anchor-scale vector the
+    stopping threshold rides.  The four state tensors are updated in place
+    (the reference donates them); returns ``(mom_s, mom_l, totals,
+    n_sampled, partials, rows)`` with ``rows`` per ``group_row_stats``.
+    In float64 (scale 1.0) the state is the host fold's bit for bit."""
+    return _tick_core(mom_s, mom_l, totals, n_sampled, values, seg, quotas,
+                      bounds, sketch0, sizes, inv_scale, params=params,
+                      mode=mode, geometry=geometry,
+                      n_groups_list=n_groups_list)
 
 
 def fused_solve(mom_s: torch.Tensor, mom_l: torch.Tensor,
@@ -483,12 +556,29 @@ def _sketch_fold(regs: torch.Tensor, n_groups_list) -> torch.Tensor:
     return torch.cat(out) if len(out) > 1 else out[0]
 
 
-def fused_tick_sketch(*args, **kwargs):
-    """The tagged tick with the register plane riding it is not ported
-    yet (it rides the float64 tagged tick)."""
-    raise NotImplementedError(
-        "the tagged sketch tick (fused_tick_sketch) is not ported yet "
-        f"({TAGGED_TICK_ITEM})")
+def fused_tick_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,
+                      totals: torch.Tensor, n_sampled: torch.Tensor,
+                      regs: torch.Tensor, values: torch.Tensor,
+                      seg: torch.Tensor, bits: torch.Tensor,
+                      quotas: torch.Tensor, bounds: torch.Tensor, sketch0,
+                      sizes: torch.Tensor,
+                      inv_scale: Optional[torch.Tensor] = None, *,
+                      params: IslaParams, mode: str = "calibrated",
+                      geometry=None, n_groups_list=(1,)):
+    """``fused_tick`` with the register plane riding the tick: ``regs``
+    is the fifth state tensor, updated in place; ``bits`` (m,) int64 are
+    the samples' RAW float64 measure bits, aligned with ``values`` and
+    ``seg`` (the reference ships them as (hi, lo) uint32 limbs), merged by
+    one ``isla_sketch_tagged`` launch (drop-segment lanes drop).  Returns
+    ``(mom_s, mom_l, totals, n_sampled, regs, partials, rows,
+    group_regs)``."""
+    mom_s, mom_l, totals, n_sampled, partials, rows = _tick_core(
+        mom_s, mom_l, totals, n_sampled, values, seg, quotas, bounds,
+        sketch0, sizes, inv_scale, params=params, mode=mode,
+        geometry=geometry, n_groups_list=n_groups_list)
+    isla_sketch_tagged(bits, seg, regs)
+    return (mom_s, mom_l, totals, n_sampled, regs, partials, rows,
+            _sketch_fold(regs, n_groups_list))
 
 
 def fused_tick_dense_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,

@@ -29,8 +29,10 @@ The DEVICE-RESIDENT layer keeps that state where the compute is:
 ``DeviceMomentStore`` holds the same rows as torch tensors on the device
 between ticks, ``DeviceStack`` concatenates the warm stores of a
 mode-group onto one stacked cell axis, and a continuation round is ONE
-fused tick (``distributed.fused_tick_dense``: the CUDA fold adds the
-fresh samples onto the resident rows in place, then Phase 2 and the
+fused tick (fp32: ``distributed.fused_tick_dense``, the CUDA fold adds the
+fresh samples onto the resident rows in place; float64:
+``distributed.fused_tick``, the tagged CUDA fold continues each cell in
+stream order, bit-identical to the host carry fold; then Phase 2 and the
 group rows; a store with ``has_sketch`` also merges the fresh samples
 into its resident HLL register plane through the CUDA ``isla_sketch``
 kernel) — the host touches only scalar answers, O(groups) statistics and
@@ -455,14 +457,15 @@ class DeviceMomentStore:
     """Device-resident mirror of ``MomentStore``: the stacked (group,
     block) moment rows, totals and per-block draw ledger live as torch
     tensors on ``device`` BETWEEN ticks, so a continuation round is one
-    fused tick (``distributed.fused_tick_dense``) that folds the fresh
-    samples into the resident tensors IN PLACE — moments never cross the
-    host boundary in steady state.
+    fused tick that folds the fresh samples into the resident tensors IN
+    PLACE — moments never cross the host boundary in steady state.
 
     Units: moments are stored on the SHIFTED scale (the host store's
     contract) additionally divided by ``scale`` — the fp32-safety lever
-    (ISLA is exactly scale-equivariant).  The store runs fp32; the float64
-    bit-exact store (the tagged tick) is not ported yet.
+    (ISLA is exactly scale-equivariant).  When the torch default dtype is
+    float64 the store defaults to float64 with ``scale=1.0``, where the
+    tagged tick's carry-prepend fold is **bit-identical** to the host
+    bincount path (``default_dtype``).
 
     ``has_sketch=True`` adds the COUNT DISTINCT plane: ``regs``, a resident
     (n_cells, 4096) uint8 HLL register plane keyed on the RAW measure bits,
@@ -481,11 +484,9 @@ class DeviceMomentStore:
                  has_sketch: bool = False, device="cuda") -> None:
         from . import distributed as D
 
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"a {dtype} device store needs the float64 tagged tick, "
-                f"which is not ported yet ({D.TAGGED_TICK_ITEM}); the "
-                "port's device stores run float32")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"device stores run float32 or float64, not "
+                             f"{dtype}")
         if len(block_sizes) != n_blocks:
             raise ValueError(f"need {n_blocks} block sizes, got "
                              f"{len(block_sizes)}")
@@ -607,7 +608,10 @@ class DeviceMomentStore:
 
     @staticmethod
     def default_dtype():
-        return torch.float32
+        """float64 (the exact mode) when the torch default dtype is
+        float64, else float32 — the reference's ``jax_enable_x64`` test."""
+        return (torch.float64 if torch.get_default_dtype() == torch.float64
+                else torch.float32)
 
     @staticmethod
     def anchor_scale(boundaries: Boundaries, sketch0: float) -> float:
@@ -627,7 +631,9 @@ class DeviceMomentStore:
         if dtype is None:
             dtype = DeviceMomentStore.default_dtype()
         if scale is None:
-            scale = DeviceMomentStore.anchor_scale(boundaries, sketch0)
+            scale = (1.0 if dtype == torch.float64
+                     else DeviceMomentStore.anchor_scale(boundaries,
+                                                         sketch0))
         return DeviceMomentStore(n_blocks, n_groups, boundaries,
                                  float(sketch0), float(shift), float(scale),
                                  block_sizes, dtype, anchor=anchor,
@@ -638,7 +644,8 @@ class DeviceMomentStore:
                   scale: Optional[float] = None, dtype=None,
                   device="cuda") -> "DeviceMomentStore":
         """One-time cold-start upload of a host store's state (warm
-        promotion); after this the device copy is authoritative."""
+        promotion); after this the device copy is authoritative.  A
+        float64 store (scale 1.0) is an exact copy, as ``to_host`` is."""
         from . import distributed as D
 
         dst = DeviceMomentStore.fresh_device(
@@ -745,6 +752,21 @@ class DeviceMomentStore:
             self._stack = DeviceStack([self])
         return self._stack
 
+    def build_seg(self, block_ids: np.ndarray,
+                  group_ids: Optional[np.ndarray] = None,
+                  mask: Optional[np.ndarray] = None,
+                  offset: int = 0) -> np.ndarray:
+        """Flatten (group, block) tags onto this store's cell axis (the
+        engine's ``flat_segments`` contract), mask-filtered, offset for
+        stacked ticks.  Returns int32 segment ids aligned with the
+        POST-mask value stream (callers apply the same mask to values)."""
+        block_ids = np.asarray(block_ids).reshape(-1)
+        seg, _ = flat_segments(block_ids.astype(np.intp), self.n_blocks,
+                               group_ids, self.n_groups)
+        if mask is not None:
+            seg = seg[np.asarray(mask, dtype=bool).reshape(-1)]
+        return (seg + offset).astype(np.int32)
+
     def ingest_tick(self, values: np.ndarray, block_ids: np.ndarray,
                     quotas: np.ndarray, params: IslaParams, *,
                     mode: str = "calibrated", geometry=None,
@@ -756,30 +778,48 @@ class DeviceMomentStore:
         one fused tick.  Returns ``(partials, rows)`` (device partials in
         scaled shifted units; see ``DeviceStack.tick``).
 
-        The stream must be block-major canonical (the dense layout);
-        ``layout="tagged"`` and non-canonical streams need the tagged
-        tick, which is not in this slice of the port.
+        ``layout="auto"`` picks the dense pane when the stream is
+        block-major canonical and the store runs fp32; float64 stores and
+        other streams take the tagged tick (the bit-exact merge contract
+        in float64).  Force with "dense" (canonical streams only) or
+        "tagged".
         """
         values = np.asarray(values, dtype=np.float64).reshape(-1)
         quotas_arr = np.asarray(quotas, dtype=np.int64).reshape(-1)
         block_ids = np.asarray(block_ids).reshape(-1)
-        canonical = np.array_equal(
-            block_ids, np.repeat(np.arange(self.n_blocks), quotas_arr))
         if layout not in ("auto", "dense", "tagged"):
             raise ValueError(f"unknown layout {layout!r}")
-        if layout == "tagged" or not canonical:
-            from . import distributed as D
-
-            raise NotImplementedError(
-                "the tagged tick (non-block-major streams, "
-                f"layout='tagged') is not ported yet ({D.TAGGED_TICK_ITEM})")
-        # The stack's dense pane takes RAW measure values; this API takes
-        # shifted ones (the MomentStore contract), so un-shift first — a
-        # float64 round trip well inside the fp32 tolerance.
-        out = self._own_stack().tick(
+        if layout != "tagged":
+            canonical = np.array_equal(
+                block_ids, np.repeat(np.arange(self.n_blocks), quotas_arr))
+            if layout == "dense" and not canonical:
+                raise ValueError("the dense layout takes a block-major "
+                                 "canonical stream; use layout='tagged'")
+            if layout == "auto":
+                layout = ("dense" if canonical
+                          and self.dtype != torch.float64 else "tagged")
+        stack = self._own_stack()
+        if layout == "dense":
+            # The stack's dense pane takes RAW measure values; this API
+            # takes shifted ones (the MomentStore contract), so un-shift
+            # first — a float64 round trip well inside the fp32 tolerance.
+            out = stack.tick(
+                params, mode=mode, geometry=geometry,
+                values=values - self.shift, quotas=quotas_arr,
+                dense=([group_ids], [mask]), count_round=count_round)
+            return out[0]
+        # key_seg is the stack's cell-placement contract.
+        seg = stack.key_seg(0, self, block_ids, group_ids, mask)
+        if mask is not None:
+            values = values[np.asarray(mask, dtype=bool).reshape(-1)]
+        hash_limbs = None
+        if self.has_sketch:
+            # Hash-input contract: raw UN-shifted float64 bits.
+            hash_limbs = _sketch.value_limbs(values - self.shift)
+        out = stack.tick(
             params, mode=mode, geometry=geometry,
-            values=values - self.shift, quotas=quotas_arr,
-            dense=([group_ids], [mask]), count_round=count_round)
+            values=values / self.scale, seg=seg, quotas=quotas_arr,
+            count_round=count_round, hash_limbs=hash_limbs)
         return out[0]
 
     def solve_device(self, params: IslaParams, mode: str = "calibrated",
@@ -805,12 +845,14 @@ class DeviceStack:
     continuation rounds are ONE fused tick.
 
     Member stores must share the block axis, dtype and device, but each
-    store may carry its OWN anchor (boundaries / shift / scale): the tick
-    gets one bounds row per distinct anchor with a static slot per key, a
-    per-cell inverse-scale vector (the Phase 2 stopping threshold rides
-    it) and per-key value affines, so every cell classifies and solves in
-    its own anchor's frame.  A stack whose stores all share one anchor
-    keeps the identity affine.  ``sketch0`` may differ per store
+    store may carry its OWN anchor (boundaries / shift / scale): the dense
+    tick gets one bounds row per distinct anchor with a static slot per
+    key and per-key value affines, the tagged tick a per-cell cuts table
+    (+ an inert pad row for the drop segment), and both a per-cell
+    inverse-scale vector (the Phase 2 stopping threshold rides it), so
+    every cell classifies and solves in its own anchor's frame.  A stack
+    whose stores all share one anchor keeps one bounds row and the
+    identity affine.  ``sketch0`` may differ per store
     (re-anchoring), so Phase 2 takes a per-cell sketch vector.  Stack
     constants are uploaded once at stack build.
 
@@ -851,8 +893,16 @@ class DeviceStack:
         if self._uniform:
             self._bound_rows = first._bounds.reshape(1, 4)
             self._bound_slots = (0,) * len(self.stores)
+            self._bounds = self._bound_rows  # the tagged tick broadcasts it
         else:
-            # One row per DISTINCT anchor, a static slot per key.
+            # Tagged layout: per-cell cuts, +1 inert pad row for the drop
+            # segment (+inf matches no sample).
+            self._bounds = torch.cat(
+                [st._bounds.expand(st.n_cells, 4) for st in self.stores]
+                + [torch.full((1, 4), math.inf, dtype=self.dtype,
+                              device=self.device)])
+            # Dense layout: one row per DISTINCT anchor, a static slot per
+            # key.
             seen = {}
             rows, slots = [], []
             for st in self.stores:
@@ -929,6 +979,16 @@ class DeviceStack:
         b = self.n_blocks
         return self._state[3][k * b:(k + 1) * b]
 
+    def key_seg(self, k: int, store: DeviceMomentStore,
+                block_ids: np.ndarray,
+                group_ids: Optional[np.ndarray] = None,
+                mask: Optional[np.ndarray] = None) -> np.ndarray:
+        """Cell ids for store ``k``'s tagged draw in THIS stack's layout —
+        the placement contract callers use instead of assuming the offset
+        arithmetic."""
+        return store.build_seg(block_ids, group_ids, mask,
+                               offset=int(self.offsets[k]))
+
     def release(self) -> None:
         """Dissolve the stack: hand every store a copy of its slices so
         each owns its state again (e.g. before a store joins a new stack
@@ -984,7 +1044,8 @@ class DeviceStack:
     _FP32_COUNT_HEADROOM = 1 << 22
 
     def _check_fp32_headroom(self, quotas: np.ndarray) -> None:
-        if getattr(self, "_sat_warned", False):
+        if self.dtype == torch.float64 or getattr(self, "_sat_warned",
+                                                  False):
             return
         # Per-block cells accumulate per-block draws; the group-stat rows
         # additionally sum matched counts across a whole store, bounded
@@ -1066,41 +1127,48 @@ class DeviceStack:
              seg: Optional[np.ndarray] = None,
              quotas: Optional[np.ndarray] = None,
              dense=None, count_round: bool = True, timings=None,
-             defer_stats: bool = False):
+             defer_stats: bool = False, hash_limbs=None):
         """One continuation round for every store in the stack.
 
-        ``values`` is the FULL block-major chunk stream of RAW (unshifted)
-        measure values and ``dense=(key_gids, key_valids)`` carries
-        per-store (m,) GROUP BY codes / predicate masks (None where
-        absent).  The stream is packed into one (n_blocks, quota_max)
-        pane, uploaded once, and each key folds it in its own anchor frame
-        through its affine (``distributed.fused_tick_dense``: one
-        ``isla_fold`` launch for every key, then Phase 2 and the group
-        rows).
+        Two sample payloads, one fused tick either way:
+
+         * tagged — ``values`` (each store's OWN scaled shifted frame —
+           ``(raw + store.shift) / store.scale`` per key slice, float64
+           host, matched samples only) aligned with ``seg`` (stacked cell
+           ids from ``key_seg``; ``n_cells`` is the drop segment): the
+           carry-prepend fold (``distributed.fused_tick``: one
+           ``isla_tagged_fold`` launch), bit-identical to the host fold
+           when the store runs float64 (scale 1.0).  A sketch stack also
+           takes ``hash_limbs=(hi, lo)``, the ``sketch.value_limbs`` of the
+           RAW unshifted values aligned with ``values`` (the scaled values
+           cannot give back the raw bits); they cross as one int64 lane
+           each and merge through ``isla_sketch_tagged``.
+         * dense (fp32 stacks) — ``values`` is the FULL block-major chunk
+           stream of RAW (unshifted) measure values and ``dense=(key_gids,
+           key_valids)`` carries per-store (m,) GROUP BY codes / predicate
+           masks (None where absent).  The stream is packed into one
+           (n_blocks, quota_max) pane, uploaded once, and each key folds it
+           in its own anchor frame through its affine
+           (``distributed.fused_tick_dense``: one ``isla_fold`` launch for
+           every key, then Phase 2 and the group rows).  A sketch stack
+           also ships the stream's RAW float64 bits as an int64 pane laid
+           out like the value pane (one ``isla_sketch`` launch).
+
         ``quotas`` is the pass's per-block draw count.  With no draw the
         resident moments are re-solved (served from the stats cache when
-        nothing changed — no launch, no transfer).
-
-        A sketch stack also ships the same stream's RAW float64 bits —
-        never the anchor-scaled pane — as an int64 pane laid out like the
-        value pane and merges them into the resident register plane
-        (``distributed.fused_tick_dense_sketch``: one ``isla_sketch``
-        launch for every key); the zero-draw re-solve re-folds the registers.
+        nothing changed — no launch, no transfer; a sketch stack re-folds
+        its registers).
 
         Returns ``[(partials, rows), ...]`` per store — device partial
         answers and the numpy group-stat rows, both in EACH STORE'S scaled
         shifted units.  ``timings`` (optional dict) accumulates wall
         seconds under ``"h2d"``/``"launch"``/``"readback"``.
 
-        The tagged payload (``seg=``) and deferred stats
-        (``defer_stats=True``, the pipelined tick) are not ported yet.
+        Deferred stats (``defer_stats=True``, the pipelined tick) and the
+        dense payload on a float64 stack are not ported yet.
         """
         from . import distributed as D
 
-        if seg is not None:
-            raise NotImplementedError(
-                "the tagged tick (seg=) is not ported yet "
-                f"({D.TAGGED_TICK_ITEM})")
         if defer_stats:
             raise NotImplementedError(
                 "deferred stats (the pipelined tick) are not ported yet "
@@ -1137,9 +1205,14 @@ class DeviceStack:
                                      + time.perf_counter() - t0)
             return self._install_stats(partials, rows, cfg, timings,
                                        group_regs)
-        if dense is None:
-            raise ValueError("a drawing tick needs dense=(key_gids, "
-                             "key_valids)")
+        if seg is None and dense is None:
+            raise ValueError("a drawing tick needs seg= (tagged) or "
+                             "dense=(key_gids, key_valids)")
+        if seg is None and self.dtype == torch.float64:
+            raise NotImplementedError(
+                "the dense payload on a float64 stack (tick(dense=...)) is "
+                f"not ported yet ({D.DENSE64_ITEM}); float64 stacks take "
+                "the tagged payload (seg=)")
 
         values = np.asarray(values, dtype=np.float64).reshape(-1)
         quotas = np.asarray(quotas, dtype=np.int64).reshape(-1)
@@ -1147,6 +1220,79 @@ class DeviceStack:
             raise ValueError(f"quotas must be ({self.n_blocks},), got "
                              f"{quotas.shape}")
         self._check_fp32_headroom(quotas)
+        tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                       timings=timings)
+        if seg is None:
+            partials, rows, group_regs = self._dense_tick(
+                values, quotas, dense, **tick_kw)
+        else:
+            partials, rows, group_regs = self._tagged_tick(
+                values, seg, quotas, hash_limbs, **tick_kw)
+        for st in self.stores:
+            st.n_sampled = st.n_sampled + quotas
+            if count_round:
+                st.rounds += 1
+        return self._install_stats(partials, rows, cfg, timings, group_regs)
+
+    def _tagged_tick(self, values: np.ndarray, seg, quotas: np.ndarray,
+                     hash_limbs, *, params: IslaParams, mode: str, geometry,
+                     timings):
+        """The tagged payload's uploads and fused tick (see ``tick``);
+        returns ``(partials, rows, group_regs)``."""
+        from . import distributed as D
+
+        seg = np.asarray(seg, dtype=np.int32).reshape(-1)
+        if values.shape != seg.shape:
+            raise ValueError("values and seg must align")
+        if self.has_sketch:
+            if hash_limbs is None:
+                raise ValueError("a sketch stack's tagged tick needs "
+                                 "hash_limbs (sketch.value_limbs of the raw "
+                                 "values)")
+            hi, lo = (np.asarray(h, dtype=np.uint64).reshape(-1)
+                      for h in hash_limbs)
+            if hi.shape != values.shape or lo.shape != values.shape:
+                raise ValueError("hash_limbs must align with values")
+        mom_s, mom_l, totals, ns = self._state
+        dev = self.device
+        t_h = time.perf_counter()
+        q_dev = D.h2d(quotas.astype(np.float64), self.dtype, dev)
+        v_dev = D.h2d(values, self.dtype, dev)
+        s_dev = D.h2d(seg, torch.int32, dev)
+        if self.has_sketch:
+            # The limbs cross as the raw 64-bit pattern the kernel hashes.
+            bits_dev = D.h2d(((hi << np.uint64(32)) | lo).view(np.int64),
+                             torch.int64, dev)
+        if timings is not None:
+            timings["h2d"] = (timings.get("h2d", 0.0)
+                              + time.perf_counter() - t_h)
+        t_l = time.perf_counter()
+        tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                       n_groups_list=self.n_groups_list)
+        group_regs = None
+        if self.has_sketch:
+            out = D.fused_tick_sketch(
+                mom_s, mom_l, totals, ns, self._regs_state, v_dev, s_dev,
+                bits_dev, q_dev, self._bounds, self._sketch0_cells(),
+                self._sizes, self._inv_scale, **tick_kw)
+            partials, rows, group_regs = out[5:]
+        else:
+            partials, rows = D.fused_tick(
+                mom_s, mom_l, totals, ns, v_dev, s_dev, q_dev, self._bounds,
+                self._sketch0_cells(), self._sizes, self._inv_scale,
+                **tick_kw)[4:]
+        if timings is not None:
+            timings["launch"] = (timings.get("launch", 0.0)
+                                 + time.perf_counter() - t_l)
+        return partials, rows, group_regs
+
+    def _dense_tick(self, values: np.ndarray, quotas: np.ndarray, dense, *,
+                    params: IslaParams, mode: str, geometry, timings):
+        """The dense payload's panes, uploads and fused tick (see
+        ``tick``); returns ``(partials, rows, group_regs)``."""
+        from . import distributed as D
+
+        mom_s, mom_l, totals, ns = self._state
         key_gids, key_valids = dense
         if self._uniform:
             # One shared anchor: prepare the pane in its frame on the host
@@ -1229,11 +1375,7 @@ class DeviceStack:
         if timings is not None:
             timings["launch"] = (timings.get("launch", 0.0)
                                  + time.perf_counter() - t_l)
-        for st in self.stores:
-            st.n_sampled = st.n_sampled + quotas
-            if count_round:
-                st.rounds += 1
-        return self._install_stats(partials, rows, cfg, timings, group_regs)
+        return partials, rows, group_regs
 
 
 def proportional_allocate(amounts: np.ndarray, budget: int) -> np.ndarray:

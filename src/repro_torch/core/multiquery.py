@@ -1678,7 +1678,7 @@ class MultiQueryExecutor:
         return keys, dstores, stack
 
     def _draw_and_tick_device(self, stack: DeviceStack, keys: list,
-                              draw: np.ndarray,
+                              dstores: dict, draw: np.ndarray,
                               rng: np.random.Generator,
                               mg: ModeGroup,
                               chunk_blocks: Optional[int],
@@ -1687,35 +1687,70 @@ class MultiQueryExecutor:
         host path (shared ``iter_chunked_draws`` contract — identical RNG
         stream), but each chunk is folded into every key's store by ONE
         fused tick over the stacked cells instead of per-key host
-        bincounts: the full chunk stream crosses once as a dense
-        block-major pane, plus each key's GROUP BY codes / predicate mask,
-        and each key recovers its own anchor frame from the pane via the
-        stack's per-key affine."""
+        bincounts.  Each key's samples enter the tick in that key's OWN
+        anchor frame.  An fp32 stack takes the dense payload: the full
+        chunk stream crosses once as a block-major pane, plus each key's
+        GROUP BY codes / predicate mask, and each key recovers its frame
+        from the pane via the stack's per-key affine.  A float64 stack
+        takes the tagged payload: each key's matched slice is shifted (and
+        scaled) on the host, placed by ``key_seg``, and the stack folds the
+        concatenated stream in order (a sketch stack's registers key on the
+        raw values' limbs)."""
         dev_mode = self._device_mode(mg.mode)
+        dense = stack.dtype != torch.float64
         for chunk, columns, block_ids in self._iter_row_chunks(
                 draw, rng, chunk_blocks):
-            key_gids, key_valids = [], []
-            gid_cache, mask_cache = {}, {}  # shared panes dedupe
-            for where, group_by in keys:
-                if where is None:
-                    key_valids.append(None)
-                else:
-                    if where not in mask_cache:
-                        mask_cache[where] = self._zone_mask(
-                            where, columns, block_ids)
-                    key_valids.append(mask_cache[where])
-                if group_by is None:
-                    key_gids.append(None)
-                else:
-                    if group_by not in gid_cache:
-                        gid_cache[group_by] = self._group_ids(
-                            group_by, columns)[0]
-                    key_gids.append(gid_cache[group_by])
+            raw = self._measure_of(columns)
+            if dense:
+                key_gids, key_valids = [], []
+                gid_cache, mask_cache = {}, {}  # shared panes dedupe
+                for where, group_by in keys:
+                    if where is None:
+                        key_valids.append(None)
+                    else:
+                        if where not in mask_cache:
+                            mask_cache[where] = self._zone_mask(
+                                where, columns, block_ids)
+                        key_valids.append(mask_cache[where])
+                    if group_by is None:
+                        key_gids.append(None)
+                    else:
+                        if group_by not in gid_cache:
+                            gid_cache[group_by] = self._group_ids(
+                                group_by, columns)[0]
+                        key_gids.append(gid_cache[group_by])
+                stack.tick(self.params, mode=dev_mode, geometry=mg.geometry,
+                           values=raw, quotas=chunk.chunk_quotas,
+                           dense=(key_gids, key_valids),
+                           count_round=chunk.first, timings=timings)
+                continue
+            segs, vals, his, los = [], [], [], []
+            if stack.has_sketch:
+                # Register hashes key on the RAW (unshifted) float64 bits
+                # — shared across every key regardless of anchor frame.
+                hhi, hlo = _sketch.value_limbs(raw)
+            shifted = {}  # (shift, scale) -> prepared stream (shared)
+            for k_i, key in enumerate(keys):
+                where, group_by = key
+                dst = dstores[key]
+                fkey = (dst.shift, dst.scale)
+                if fkey not in shifted:
+                    shifted[fkey] = (raw + dst.shift) / dst.scale
+                values = shifted[fkey]
+                mask = self._zone_mask(where, columns, block_ids)
+                gids = (self._group_ids(group_by, columns)[0]
+                        if group_by is not None else None)
+                segs.append(stack.key_seg(k_i, dst, block_ids, gids, mask))
+                vals.append(values if mask is None else values[mask])
+                if stack.has_sketch:
+                    his.append(hhi if mask is None else hhi[mask])
+                    los.append(hlo if mask is None else hlo[mask])
             stack.tick(self.params, mode=dev_mode, geometry=mg.geometry,
-                       values=self._measure_of(columns),
-                       quotas=chunk.chunk_quotas,
-                       dense=(key_gids, key_valids),
-                       count_round=chunk.first, timings=timings)
+                       values=np.concatenate(vals), seg=np.concatenate(segs),
+                       quotas=chunk.chunk_quotas, count_round=chunk.first,
+                       timings=timings,
+                       hash_limbs=((np.concatenate(his), np.concatenate(los))
+                                   if stack.has_sketch else None))
 
     def _keyed_stats_device(self, dst: DeviceMomentStore,
                             need_distinct: bool = False) -> KeyedPass:
@@ -2059,8 +2094,9 @@ class MultiQueryExecutor:
         new_samples = int(draw.sum())
         if device_resident:
             if new_samples:
-                self._draw_and_tick_device(stack, keys, draw, rng, mg,
-                                           chunk_blocks, timings=timings)
+                self._draw_and_tick_device(stack, keys, dstores, draw,
+                                           rng, mg, chunk_blocks,
+                                           timings=timings)
             else:
                 # Warm repeat: re-solve resident moments (served from the
                 # stats cache when nothing changed — zero transfers).
@@ -2253,7 +2289,9 @@ class MultiQueryExecutor:
         route : str, optional
             Where the pilot, Phase 2 and (incrementally) the whole tick
             run: ``"device"`` (the default: torch on the executor's
-            ``device``, fp32 with anchor-scale normalization) or
+            ``device``, fp32 with anchor-scale normalization; the
+            incremental stores run float64, bit-exact against the host
+            fold, when the torch default dtype is float64) or
             ``"host"`` (float64 numpy on the CPU, when asked for).
             ``"mesh"`` is not ported yet and raises.
         rate_override : float, optional
@@ -2316,7 +2354,9 @@ class MultiQueryExecutor:
         fold onto the resident rows + Phase 2 + group stats), and the host
         reads only scalar answers and O(groups) statistics — moments
         never cross the host boundary in steady state.  Answers match the
-        host float64 path within float32 tolerances; per-block provenance
+        host float64 path within float32 tolerances (float64 stores, with
+        the torch default dtype float64, hold the host fold's moment bits);
+        per-block provenance
         is avg-only (moment columns report zeros).  The route must stay
         consistent for a given warm state — call ``reset_stores()``
         before switching an executor between warm host and device

@@ -68,6 +68,15 @@ def value_bits(values) -> np.ndarray:
     return v.view(np.uint64).reshape(v.shape)
 
 
+def value_limbs(values):
+    """Raw measure bits as ``(hi, lo)`` uint32 limb arrays — the form the
+    tagged tick's callers hand ``DeviceStack.tick`` (``hash_limbs``)."""
+    bits = value_bits(values)
+    hi = (bits >> np.uint64(32)).astype(np.uint32)
+    lo = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return hi, lo
+
+
 def hash_values(values) -> np.ndarray:
     """64-bit hash of raw measure values (host twin)."""
     return splitmix64(value_bits(values))

@@ -128,6 +128,42 @@
 //   word.  Max is commutative and idempotent, so the plane is the same
 //   bits whatever order the lanes arrive in.  No cell is zeroed or
 //   scanned: only the words the lanes address are touched.
+//   The tagged tick's merge is the same kernel on a one-row pane whose
+//   GROUP BY ids are the samples' cell ids (the wrapper's
+//   isla_sketch_tagged): a lane's register row is its id, and the drop
+//   segment (id n_out) matches no group.
+//
+// isla_tagged_fold — the Phase 1 fold of the tagged tick (the float64
+//   exact mode, and layout="tagged" at fp32).
+//   Replaces the carry-prepend segment sum of
+//   src/repro/core/distributed.py _tick_core (_segment_carry_sum :269,
+//   _sample_bounds :351), which XLA computes outside any Pallas kernel.
+//   Each sample v of a tagged stream carries a cell id; for every cell it
+//   folds, in stream order and starting from the cell's resident row,
+//     S = (s_lo, s_hi):  count, sum v, sum v^2, sum v^3   (samples in S)
+//     L = (l_lo, l_hi):  count, sum v, sum v^2, sum v^3   (samples in L)
+//     all samples:       count, sum v, sum v^2
+//   as the left fold ((0 + carry) + a1) + a2 ..., the order in which the
+//   host's np.bincount folds the carry-prepended stream.  A sample outside
+//   a region adds nothing to that region's columns (the host folds only
+//   the region's samples: no v * 0 is added).  Ids outside [0, n_cells)
+//   -- the drop segment n_cells -- fold nowhere.  Cuts are one shared row
+//   or a row per cell.
+//
+//   Bound on the H100: bytes.  Each sample is read once (its value and
+//   its id) and each resident row read and written once.  What the design
+//   has to keep is the order: CUDA's index_add_ and scatter_add_ add
+//   through float atomics in no fixed order, so they cannot give the
+//   host's bits.  Design (simple first): the wrapper orders the ids with
+//   a stable integer sort (torch.sort moves the ids and indices and adds
+//   nothing), so each cell's samples lie in one run, in stream order.
+//   One thread a cell finds its run by two binary searches of the sorted
+//   ids, loads its row into registers, walks the run kTaggedBatch samples
+//   at a time (the loads of a batch issued together), and writes the row
+//   once.  Every add and multiply is __dadd_rn / __dmul_rn (__fadd_rn /
+//   __fmul_rn at fp32), so nvcc cannot contract them into an FMA, and the
+//   region tests are exact comparisons: the bits are the host fold's, and
+//   two runs give identical bits.  No float atomic is used.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -156,6 +192,9 @@ constexpr long long kPilotTicketBytes = 16;  // then the block states
 constexpr int kSketchThreads = 256;
 constexpr int kRegs = 4096;  // HLL registers per cell (2^12)
 constexpr unsigned long long kRemMask = (1ull << 52) - 1ull;
+constexpr int kTaggedThreads = 128;
+constexpr int kTaggedBatch = 8;  // samples whose loads a fold thread issues
+                                 // together
 
 // One stacked key of a fold launch, with its share of a row's work: its
 // cells are cut into warp tasks of 32 / lanes groups (lanes a group), and
@@ -1016,6 +1055,140 @@ isla_sketch_kernel(const __grid_constant__ SketchArgs a) {
   }
 }
 
+// Round-to-nearest adds and multiplies that nvcc never contracts into an
+// FMA, one overload a type, so the fold is one template.
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+
+template <typename T>
+struct TaggedArgs {
+  const T* values;           // the tagged stream, in stream order
+  const int* sorted_seg;     // its cell ids, sorted stably
+  const long long* perm;     // the stream index of each sorted id
+  long long m, n_cells;
+  const T* bounds;           // (1, 4) shared cuts or a row per cell
+  int per_cell;
+  T* s_out;
+  T* l_out;
+  T* t_out;
+  long long s_stride, l_stride, t_stride;
+};
+
+// The first index in [lo, hi) whose sorted id is not below c.
+__device__ __forceinline__ long long first_not_below(const int* s,
+                                                     long long lo,
+                                                     long long hi,
+                                                     long long c) {
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (__ldg(s + mid) < c)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Grid ceil(n_cells / kTaggedThreads): thread c folds cell c's run of the
+// sorted stream (its samples in stream order) onto its row, starting from
+// 0 + the resident row, and writes the row back.  A cell with no sample
+// is rewritten as 0 + row, as the host's bincount rewrites it.
+template <typename T>
+__global__ void __launch_bounds__(kTaggedThreads)
+isla_tagged_fold_kernel(const __grid_constant__ TaggedArgs<T> a) {
+  const long long c =
+      static_cast<long long>(blockIdx.x) * kTaggedThreads + threadIdx.x;
+  if (c >= a.n_cells) return;
+  const long long b = first_not_below(a.sorted_seg, 0, a.m, c);
+  const long long e = first_not_below(a.sorted_seg, b, a.m, c + 1);
+  const T* cut = a.bounds + 4 * (a.per_cell ? c : 0);
+  const T s_lo = cut[0], s_hi = cut[1], l_lo = cut[2], l_hi = cut[3];
+  T* so = a.s_out + c * a.s_stride;
+  T* lo = a.l_out + c * a.l_stride;
+  T* to = a.t_out + c * a.t_stride;
+  const T zero = static_cast<T>(0), one = static_cast<T>(1);
+  T acc[kCols];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[k] = add_rn(zero, so[k]);
+    acc[4 + k] = add_rn(zero, lo[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[8 + k] = add_rn(zero, to[k]);
+  for (long long i = b; i < e; i += kTaggedBatch) {
+    T v[kTaggedBatch];
+#pragma unroll
+    for (int u = 0; u < kTaggedBatch; ++u)
+      v[u] = i + u < e ? __ldg(a.values + __ldg(a.perm + i + u)) : zero;
+#pragma unroll
+    for (int u = 0; u < kTaggedBatch; ++u) {
+      if (i + u >= e) break;
+      const T x = v[u];
+      const T x2 = mul_rn(x, x);
+      const T x3 = mul_rn(x2, x);
+      if (x > s_lo && x < s_hi) {
+        acc[0] = add_rn(acc[0], one);
+        acc[1] = add_rn(acc[1], x);
+        acc[2] = add_rn(acc[2], x2);
+        acc[3] = add_rn(acc[3], x3);
+      }
+      if (x > l_lo && x < l_hi) {
+        acc[4] = add_rn(acc[4], one);
+        acc[5] = add_rn(acc[5], x);
+        acc[6] = add_rn(acc[6], x2);
+        acc[7] = add_rn(acc[7], x3);
+      }
+      acc[8] = add_rn(acc[8], one);
+      acc[9] = add_rn(acc[9], x);
+      acc[10] = add_rn(acc[10], x2);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    so[k] = acc[k];
+    lo[k] = acc[4 + k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) to[k] = acc[8 + k];
+}
+
+template <typename T>
+int launch_tagged_fold(const void* values, const int* sorted_seg,
+                       const long long* perm, long long m,
+                       const void* bounds, int per_cell, void* s_out,
+                       long long s_stride, void* l_out, long long l_stride,
+                       void* t_out, long long t_stride, long long n_cells,
+                       cudaStream_t st) {
+  TaggedArgs<T> a = {};
+  a.values = static_cast<const T*>(values);
+  a.sorted_seg = sorted_seg;
+  a.perm = perm;
+  a.m = m;
+  a.n_cells = n_cells;
+  a.bounds = static_cast<const T*>(bounds);
+  a.per_cell = per_cell;
+  a.s_out = static_cast<T*>(s_out);
+  a.l_out = static_cast<T*>(l_out);
+  a.t_out = static_cast<T*>(t_out);
+  a.s_stride = s_stride;
+  a.l_stride = l_stride;
+  a.t_stride = t_stride;
+  const unsigned grid =
+      static_cast<unsigned>((n_cells + kTaggedThreads - 1) / kTaggedThreads);
+  isla_tagged_fold_kernel<T><<<grid, kTaggedThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1226,6 +1399,30 @@ int isla_sketch(const unsigned long long* bits, long long n_rows,
   isla_sketch_kernel<<<grid, kSketchThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One tagged fold over n_cells cells.  values: the (m,) stream, double
+// when is_double else float; sorted_seg (m,) int32 and perm (m,) int64:
+// its cell ids sorted stably and the stream index of each.  bounds: (1, 4)
+// cuts, or (>= n_cells, 4) with per_cell.  s_out, l_out (n_cells, 4) and
+// t_out (n_cells, 3) of the stream's type, unit column stride, updated in
+// place.  Returns cudaGetLastError() after the launch.
+int isla_tagged_fold(const void* values, int is_double,
+                     const int* sorted_seg, const long long* perm,
+                     long long m, const void* bounds, int per_cell,
+                     void* s_out, long long s_stride, void* l_out,
+                     long long l_stride, void* t_out, long long t_stride,
+                     long long n_cells, void* stream) {
+  if (n_cells <= 0) return 0;
+  if (m < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_tagged_fold<double>(values, sorted_seg, perm, m, bounds,
+                                      per_cell, s_out, s_stride, l_out,
+                                      l_stride, t_out, t_stride, n_cells, st);
+  return launch_tagged_fold<float>(values, sorted_seg, perm, m, bounds,
+                                   per_cell, s_out, s_stride, l_out, l_stride,
+                                   t_out, t_stride, n_cells, st);
 }
 
 }  // extern "C"

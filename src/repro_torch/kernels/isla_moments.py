@@ -1,7 +1,8 @@
 """Wrappers and binding of the hand-written ISLA kernels (Hopper, sm_90a).
 
-Three CUDA kernels live in ``csrc/isla_kernels.cu`` (the note there names
-the TPU kernels they replace, their bound and their design):
+Four CUDA kernels live in ``csrc/isla_kernels.cu`` (the note there names
+the TPU kernels or the reference code they replace, their bound and their
+design):
 
 * ``isla_fold`` — the Phase 1 fold: per output cell, the S/L region
   moments and the plain totals of its samples, added in place onto
@@ -18,7 +19,12 @@ the TPU kernels they replace, their bound and their design):
   ``(j, rho)`` and maxed in place into resident uint8 register rows
   (GROUP BY ids, 0/1 masks, an index map whose out-of-range entries
   drop); one launch merges every key of a stack (``isla_sketch_stack``),
-  hashing each lane once.
+  hashing each lane once; its tagged entry (``isla_sketch_tagged``) merges
+  a stream of lanes that each carry their register row;
+* ``isla_tagged_fold`` — the tagged tick's Phase 1: a stream of samples,
+  each tagged with its cell, folded onto resident float64 (or fp32) rows
+  in stream order, each add rounded once — the host ``np.bincount``
+  carry fold's bits.
 
 A stack's keys are ``StackKey`` entries, at most ``MAX_KEYS`` a launch:
 they travel as a small table in the kernel's parameters.  ``isla_fold``
@@ -34,7 +40,9 @@ version (``ref.py``); given CUDA tensors it launches the kernel, or
 raises — it never falls back.  Each kernel's
 ``launches`` counter (an attribute of its one-key wrapper) counts the
 calls of either entry that launched the kernel on the card, one a call,
-and nothing else.  An ``isla_sketch`` call is one ``__global__`` launch;
+and nothing else (``isla_sketch_tagged`` keeps its own count).  An
+``isla_sketch`` call is one ``__global__`` launch, an ``isla_tagged_fold``
+call one after a stable ``torch.sort`` of its ids;
 an ``isla_fold`` call is one, or two when its rows exceed ``FOLD_SLICE``
 samples (per-slice partial rows, then their fixed-order combine); a
 ``pilot_stats`` or ``pilot_moments`` call is one at every run length
@@ -140,6 +148,8 @@ SIGNATURES = {
         "pilot_workspace_bytes": [_I],
         "isla_sketch": [_P, _LL, _LL, _LL, _P, _P, _I, _P, _I, _P, _P, _LL,
                         _I, _P, _P, _P],
+        "isla_tagged_fold": [_P, _I, _P, _P, _LL, _P, _I, _P, _LL, _P, _LL,
+                             _P, _LL, _LL, _P],
     },
     "flash_attention.cu": {
         "flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
@@ -713,10 +723,23 @@ def isla_sketch_stack(bits: torch.Tensor, regs: torch.Tensor, *,
         return
     if n_rows == 0 or q == 0:
         return
-    if q >= 256 * 2 ** 16:
+    if q > SKETCH_ROW_LANES:
         raise ValueError(f"{q} lanes a row exceed one launch's grid")
+    _launch_sketch(bits, regs, keys, pad, gid_panes, valid_panes, cell_idx)
+    isla_sketch.launches += 1
+
+
+isla_sketch.launches = 0
+
+SKETCH_ROW_LANES = 256 * (2 ** 16 - 1)  # lanes of a pane row one merge takes
+
+
+def _launch_sketch(bits: torch.Tensor, regs: torch.Tensor, keys, pad,
+                   gid_panes, valid_panes, cell_idx) -> None:
+    """One ``isla_sketch_kernel`` launch over checked arguments."""
     if regs.data_ptr() % 4 != 0:
         raise ValueError("regs must be 4-byte aligned")
+    n_rows, q = bits.shape
     gids, g_slot = _pane_slots(keys, gid_panes, "gid_slot")
     valids, v_slot = _pane_slots(keys, valid_panes, "valid_slot")
     nk = len(keys)
@@ -728,13 +751,123 @@ def isla_sketch_stack(bits: torch.Tensor, regs: torch.Tensor, *,
         err = library().isla_sketch(
             _ptr(bits), n_rows, bits.stride(0), q, _ptr(pad),
             _ptr_array(valids), len(valids), _ptr_array(gids), len(gids),
-            _ptr(regs), _ptr(cell_idx), n_out, nk, kint, koff,
+            _ptr(regs), _ptr(cell_idx), regs.shape[0], nk, kint, koff,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "isla_sketch")
-    isla_sketch.launches += 1
 
 
-isla_sketch.launches = 0
+def _check_tagged(seg: torch.Tensor, m: int) -> None:
+    if seg.dtype != torch.int32 or seg.shape != (m,) \
+            or not seg.is_contiguous():
+        raise ValueError(f"seg must be a contiguous ({m},) int32 stream of "
+                         f"cell ids")
+
+
+def isla_sketch_tagged(bits: torch.Tensor, seg: torch.Tensor,
+                       regs: torch.Tensor) -> None:
+    """Merge a tagged lane stream into resident HLL register rows, in
+    place: the tagged tick's register merge (the reference's
+    ``regs.at[seg, j].max(rho)`` in ``fused_tick_sketch``).
+
+    bits : (m,) int64 — each sample's RAW float64 measure bits.
+    seg : (m,) int32 — each sample's register row; ids outside ``[0, N)``
+        (the drop segment ``N``) drop.
+    regs : (N, 4096) uint8, contiguous.
+
+    It is the ``isla_sketch`` kernel on a one-row pane whose GROUP BY ids
+    are ``seg`` (one lane a sample, hashed once), in one launch a call —
+    one per ``SKETCH_ROW_LANES`` lanes of a longer stream — counted in
+    ``isla_sketch_tagged.launches``; on the CPU its plain version."""
+    if bits.dim() != 1 or bits.dtype != torch.int64 \
+            or not bits.is_contiguous():
+        raise ValueError("bits must be a contiguous 1-D int64 stream")
+    m = bits.shape[0]
+    _check_tagged(seg, m)
+    _check_regs(regs)
+    _same_device(bits, seg=seg, regs=regs)
+    if not on_gpu(bits):
+        ref.isla_sketch_tagged_ref(bits, seg, regs)
+        return
+    if regs.shape[0] == 0:
+        return
+    key = (StackKey(n_groups=regs.shape[0], gid_slot=0),)
+    for s in range(0, m, SKETCH_ROW_LANES):
+        e = min(m, s + SKETCH_ROW_LANES)
+        _launch_sketch(bits[None, s:e], regs, key, None, (seg[None, s:e],),
+                       (), None)
+        isla_sketch_tagged.launches += 1
+
+
+isla_sketch_tagged.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: the tagged fold.
+# ---------------------------------------------------------------------------
+
+
+def isla_tagged_fold(values: torch.Tensor, seg: torch.Tensor,
+                     bounds: torch.Tensor, out_s: torch.Tensor,
+                     out_l: torch.Tensor, out_t: torch.Tensor) -> None:
+    """Fold a tagged sample stream onto resident moment rows, in place, in
+    stream order: the tagged tick's Phase 1 (the reference's carry-prepend
+    ``_segment_carry_sum`` in ``_tick_core``).
+
+    values : (m,) float64 (the exact mode) or fp32, contiguous.
+    seg : (m,) int32 — each sample's cell; ids outside ``[0, N)`` (the
+        drop segment ``N``) fold nowhere.
+    bounds : (1, 4) cuts ``(s_lo, s_hi, l_lo, l_hi)`` shared by every cell,
+        or (N + 1, 4) a row per cell (the last, the drop segment's, is not
+        read), of the stream's type, contiguous.
+    out_s, out_l : (N, 4) rows ``(count, s1, s2, s3)`` of the samples in S
+        and in L; ``out_t`` (N, 3) ``(count, s1, s2)`` of every sample; of
+        the stream's type, unit column stride.
+
+    Every cell becomes ``((0 + row) + a1) + a2 ...`` over its samples in
+    stream order, each add and multiply rounded once — the host
+    ``np.bincount`` carry fold's bits.  On the card a stable ``torch.sort``
+    of the ids, then one ``isla_tagged_fold_kernel`` launch (counted in
+    ``isla_tagged_fold.launches``); on the CPU its plain version."""
+    if values.dim() != 1 or values.dtype not in (torch.float64,
+                                                 torch.float32) \
+            or not values.is_contiguous():
+        raise ValueError("values must be a contiguous 1-D float64 or fp32 "
+                         "stream")
+    m = values.shape[0]
+    _check_tagged(seg, m)
+    n = out_s.shape[0]
+    for name, t, w in (("out_s", out_s, 4), ("out_l", out_l, 4),
+                       ("out_t", out_t, 3)):
+        if t.dtype != values.dtype or t.dim() != 2 or t.shape != (n, w) \
+                or t.stride(1) != 1:
+            raise ValueError(f"{name} must be ({n}, {w}) {values.dtype} "
+                             f"with unit column stride")
+    if bounds.dtype != values.dtype or not bounds.is_contiguous() \
+            or bounds.shape not in ((1, 4), (n + 1, 4)):
+        raise ValueError(f"bounds must be a contiguous (1, 4) or "
+                         f"({n + 1}, 4) {values.dtype} table")
+    _same_device(values, seg=seg, bounds=bounds, out_s=out_s, out_l=out_l,
+                 out_t=out_t)
+    if not on_gpu(values):
+        ref.isla_tagged_fold_ref(values, seg, bounds, out_s, out_l, out_t)
+        return
+    if n == 0:
+        return
+    if m >= 2 ** 31:
+        raise ValueError(f"{m} samples exceed one tagged fold")
+    sorted_seg, perm = torch.sort(seg, stable=True)
+    with torch.cuda.device(values.device):
+        err = library().isla_tagged_fold(
+            _ptr(values), int(values.dtype == torch.float64),
+            _ptr(sorted_seg), _ptr(perm), m, _ptr(bounds),
+            int(bounds.shape[0] > 1), _ptr(out_s), out_s.stride(0),
+            _ptr(out_l), out_l.stride(0), _ptr(out_t), out_t.stride(0), n,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "isla_tagged_fold")
+    isla_tagged_fold.launches += 1
+
+
+isla_tagged_fold.launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -745,6 +878,8 @@ def reset_launch_counts() -> None:
     isla_fold.launches = 0
     pilot_stats.launches = 0
     isla_sketch.launches = 0
+    isla_sketch_tagged.launches = 0
+    isla_tagged_fold.launches = 0
     flash_attention.launches = 0
 
 

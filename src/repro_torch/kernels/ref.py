@@ -176,6 +176,51 @@ def isla_sketch_stack_ref(bits: torch.Tensor, regs: torch.Tensor, *, keys,
             isla_sketch_ref(bits, regs, cell_idx=cell_idx[rows], **kw)
 
 
+def isla_sketch_tagged_ref(bits: torch.Tensor, seg: torch.Tensor,
+                           regs: torch.Tensor) -> None:
+    """Plain version of ``isla_sketch_tagged``: the merge of a one-row
+    pane whose GROUP BY ids are the lanes' register rows (ids outside
+    ``[0, N)`` drop)."""
+    isla_sketch_ref(bits[None], regs, gid=seg[None], n_groups=regs.shape[0])
+
+
+def segment_carry_sum(prior: torch.Tensor, rows: torch.Tensor,
+                      ids: torch.Tensor) -> torch.Tensor:
+    """The carry-prepend segmented sum: ``prior`` (N, w) rows with ``rows``
+    (m, w) added onto rows ``ids`` (int64 in ``[0, N)``), each row of the
+    result the left fold ``((0 + prior) + a1) + a2 ...`` in stream order.
+    On the CPU ``index_add_`` adds in index order, so this is the host
+    ``np.bincount`` carry fold bit for bit."""
+    n = prior.shape[0]
+    all_ids = torch.cat([torch.arange(n, device=ids.device), ids])
+    return torch.zeros_like(prior).index_add_(0, all_ids,
+                                              torch.cat([prior, rows]))
+
+
+def isla_tagged_fold_ref(values: torch.Tensor, seg: torch.Tensor,
+                         bounds: torch.Tensor, out_s: torch.Tensor,
+                         out_l: torch.Tensor, out_t: torch.Tensor) -> None:
+    """Plain version of the ``isla_tagged_fold`` kernel: for each of S, L
+    and the totals, the samples it admits — in S (or L) by the cuts of
+    their cell, or any sample of a cell in ``[0, N)`` — folded in stream
+    order onto the rows by ``segment_carry_sum``, in place."""
+    n = out_s.shape[0]
+    ids = seg.to(torch.int64)
+    keep = (ids >= 0) & (ids < n)
+    b = bounds.reshape(-1, 4)
+    cuts = b if b.shape[0] == 1 else b[ids.clamp(0, b.shape[0] - 1)]
+    v = values
+    v2 = v * v
+    v3 = v2 * v
+    one = torch.ones_like(v)
+    in_s = keep & (v > cuts[:, 0]) & (v < cuts[:, 1])
+    in_l = keep & (v > cuts[:, 2]) & (v < cuts[:, 3])
+    cols = torch.stack([one, v, v2, v3], dim=1)
+    for out, m, w in ((out_s, in_s, cols), (out_l, in_l, cols),
+                      (out_t, keep, cols[:, :3])):
+        out.copy_(segment_carry_sum(out, w[m], ids[m]))
+
+
 def pilot_stats_ref(values: torch.Tensor,
                     center: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the ``pilot_stats`` kernel: ``(count, sum (x-c),

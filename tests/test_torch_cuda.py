@@ -18,6 +18,8 @@ from _torch_pilot_cases import CASES as PILOT_CASES
 from _torch_pilot_cases import SIZES as PILOT_SIZES
 from _torch_pilot_cases import run as pilot_run
 from _torch_sketch_cases import SKETCH_CASES, sketch_case
+from _torch_tagged_cases import CASES as TAGGED_CASES
+from _torch_tagged_cases import host_fold, tagged_case
 
 pytestmark = pytest.mark.cuda
 
@@ -601,3 +603,113 @@ def test_paligemma_prefix_prefill_on_cuda_matches_cpu(cuda, head_dim):
         tol = 1e-4 if step == 0 else 1e-3
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, c, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", TAGGED_CASES)
+def test_tagged_fold_kernel_matches_plain_version(cuda, case, dtype):
+    """``isla_tagged_fold`` on the card against its plain version on CPU
+    copies of the same tensors: bit for bit (tolerance 0) in both types,
+    the host carry fold's bits in float64; two launches give identical
+    bits and are the only two the counter sees."""
+    values, seg, bounds, prior = tagged_case(
+        case, np.random.default_rng(8), n_cells=3000, m=300_000)
+    args = [torch.as_tensor(values, dtype=dtype), torch.as_tensor(seg),
+            torch.as_tensor(bounds, dtype=dtype)]
+    K.reset_launch_counts()
+    outs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        rows = torch.tensor(prior, dtype=dtype, device=dev)  # a copy
+        K.isla_tagged_fold(*(a.to(dev) for a in args), rows[:, 0:4],
+                           rows[:, 4:8], rows[:, 8:11])
+        outs.append(rows.cpu())
+    assert K.isla_tagged_fold.launches == 2
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[2])
+    if dtype == torch.float64:
+        assert np.array_equal(outs[0].numpy(),
+                              host_fold(values, seg, bounds, prior))
+
+
+def test_tagged_sketch_kernel_matches_plain_version(cuda):
+    """``isla_sketch_tagged`` on the card against its plain version on CPU
+    copies: registers bit for bit from a warm plane, out-of-range and
+    drop-segment lanes dropped, two launches identical; its own counter
+    counts them and ``isla_sketch``'s does not."""
+    rng = np.random.default_rng(9)
+    n, m = 3000, 400_000
+    raw = rng.normal(100.0, 20.0, m)
+    bits = torch.as_tensor(raw).view(torch.int64)
+    seg = torch.as_tensor(rng.integers(-2, n + 3, m).astype(np.int32))
+    warm = torch.as_tensor(rng.integers(0, 4, (n, K.N_REGS)),
+                           dtype=torch.uint8)
+    K.reset_launch_counts()
+    outs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        regs = warm.clone().to(dev)
+        K.isla_sketch_tagged(bits.to(dev), seg.to(dev), regs)
+        outs.append(regs.cpu())
+    assert K.isla_sketch_tagged.launches == 2 and K.isla_sketch.launches == 0
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[2])
+
+
+def test_float64_executor_on_cuda_matches_cpu(cuda):
+    """The float64 device route (torch default dtype float64) on the card
+    against the same route on the CPU, both planned from the card's pilot
+    (the pilot kernel runs fp32 and sits within rel 1.1e-7 of its float64
+    plain version, and sketch0 moves every partial): every key's moment
+    state, totals and register plane bit for bit, tagged folds and merges
+    and no dense launch; partials within one ulp (torch's CUDA division
+    by a host scalar multiplies by its reciprocal) and answers within rel
+    1e-12."""
+    import functools
+
+    from repro_torch.core import multiquery as TMQ
+
+    rng = np.random.default_rng(3)
+    tables = []
+    for _ in range(6):
+        g = rng.integers(0, 3, size=2000)
+        tables.append({"value": rng.normal(90 + 3.0 * g, 15.0),
+                       "region": g.astype(np.float64),
+                       "flag": rng.integers(0, 2, 2000).astype(np.float64)})
+    flag = TC.Predicate(column="flag", eq=1.0)
+    qs = [TC.IslaQuery(e=0.5, agg="AVG"),
+          TC.IslaQuery(e=0.5, agg="AVG", group_by="region", where=flag),
+          TC.IslaQuery(e=0.5, agg="count_distinct", group_by="region")]
+    answers, states, partials = {}, {}, {}
+    was = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for dev in ("cpu", "cuda"):
+            ex = TC.MultiQueryExecutor(
+                [TC.table_sampler(t) for t in tables], [10 ** 6] * 6,
+                params=TC.IslaParams(e=0.5), group_domains={"region": 3},
+                device=dev)
+            ex._pilot_stats_fn = lambda route: functools.partial(
+                TMQ.pilot_stats_device, device="cuda")
+            K.reset_launch_counts()
+            answers[dev] = ex.run(qs, np.random.default_rng(5),
+                                  incremental=True, route="device")
+            states[dev] = {k: st.to_host()
+                           for k, st in ex._device_stores.items()}
+            partials[dev] = {k: st.partials_host()
+                             for k, st in ex._device_stores.items()}
+            if dev == "cuda":
+                assert K.isla_tagged_fold.launches > 0
+                assert K.isla_sketch_tagged.launches > 0
+                assert K.isla_fold.launches == K.isla_sketch.launches == 0
+    finally:
+        torch.set_default_dtype(was)
+    for k, c in states["cpu"].items():
+        g = states["cuda"][k]
+        for f in ("mom_s", "mom_l", "totals", "n_sampled"):
+            assert np.array_equal(getattr(g, f), getattr(c, f)), (k, f)
+        if c.has_sketch:
+            assert np.array_equal(g.regs, c.regs)
+        pc, pg = partials["cpu"][k], partials["cuda"][k]
+        assert np.all(np.abs(pg - pc) <= np.spacing(np.abs(pc))), k
+    for c, g in zip(answers["cpu"], answers["cuda"]):
+        assert g.new_samples == c.new_samples
+        assert g.value == pytest.approx(c.value, rel=1e-12)

@@ -562,10 +562,10 @@ def test_convert_carries_the_register_plane(rng):
 
 
 def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
-    """The tagged sketch tick, the mesh route (its sketch families with
-    it), the pipelined tick and LM serving of an MoE config still raise,
-    each naming its ROADMAP Queue A item by number and name, and
-    ROADMAP.md lists that item."""
+    """The dense payload on a float64 sketch stack, the mesh route (its
+    sketch families with it), the pipelined tick and LM serving of an MoE
+    config still raise, each naming its ROADMAP Queue A item by number and
+    name, and ROADMAP.md lists that item."""
     monkeypatch.setattr(sys, "argv", [
         "serve", "--workload", "lm", "--arch", "arctic-480b", "--reduced",
         "--device", "cpu"])
@@ -574,8 +574,14 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
         [TC.table_sampler(t) for t in _distinct_tables(n_blocks=2)],
         [10 ** 6] * 2, device="cpu")
     q = [TC.IslaQuery(e=1.0, agg="count_distinct")]
+    b = TC.make_boundaries(100.0, 20.0, TC.IslaParams())
+    dev64 = TDev.fresh_device(
+        2, b, 100.0, [10, 10], dtype=torch.float64, has_sketch=True,
+        device="cpu")
     for call, item in (
-            (TD.fused_tick_sketch, (1, "The float64 tagged tick")),
+            (lambda: TStack([dev64]).tick(
+                TC.IslaParams(), values=np.ones(2), quotas=np.ones(2),
+                dense=([None], [None])), ("1b", "The float64 dense tick")),
             (lambda: ex.run(q, np.random.default_rng(0), route="mesh"),
              (4, "Mesh route")),
             (lambda: ex.run(q, np.random.default_rng(0), incremental=True,

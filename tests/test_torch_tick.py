@@ -228,20 +228,17 @@ def test_steady_tick_upload_count_matches_reference(case, expected, rng,
 
 
 def test_unported_paths_raise():
+    """Deferred stats (the pipelined tick) and the dense payload on a
+    float64 stack still raise, each naming its ROADMAP item."""
     b = TC.make_boundaries(MU, SIGMA, TC.IslaParams())
-    with pytest.raises(NotImplementedError, match="float64"):
-        TDev.fresh_device(2, b, MU, [10, 10], dtype=torch.float64,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="tagged"):
-        TD.fused_tick()
-    with pytest.raises(NotImplementedError, match="tagged sketch"):
-        TD.fused_tick_sketch()
     dev = TDev.fresh_device(2, b, MU, [10, 10], device="cpu")
-    with pytest.raises(NotImplementedError, match="tagged"):
-        dev.ingest_tick(np.ones(4), np.array([1, 0, 1, 0]),
-                        np.array([2, 2]), TC.IslaParams())
     with pytest.raises(NotImplementedError, match="pipelined"):
         TStack([dev]).tick(TC.IslaParams(), defer_stats=True)
+    dev64 = TDev.fresh_device(2, b, MU, [10, 10], dtype=torch.float64,
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="item 1b"):
+        dev64.ingest_tick(np.ones(4), np.array([0, 0, 1, 1]),
+                          np.array([2, 2]), TC.IslaParams(), layout="dense")
 
 
 def test_stack_release_keeps_state(rng):
