@@ -28,16 +28,20 @@ device-route plan at a precision tight enough for a pilot of at least
 Then the same loop twice more with the torch default dtype float64 (set
 for the run, restored after it), so every key's store runs float64 and
 each drawing tick folds one tagged stream of every key's samples with
-``isla_tagged_fold`` (and, with COUNT DISTINCT, merges it with
-``isla_sketch_tagged``): one launch each a tagged fold, no dense launch,
-one pilot launch a run.  A host-route run of the same loop under the
-same anchor (the host route takes the device pilot too) must hold every
-key's moment rows, totals, draw ledger and register plane bit for bit;
-the partials' gaps to the host solve and to Phase 2 on the CPU are
-counted in ulps.  Each tick's tagged fold and merge is replayed, kernel
+``isla_tagged_fold`` by the stream's (key, block) run table (and, with
+COUNT DISTINCT, merges it with ``isla_sketch_tagged``): one launch each a
+tagged fold, no dense launch, one pilot launch a run; a profiled re-run
+of each loop must show the run kernel once a drawing tick and no sort
+kernel.  A host-route run of the same loop under the same anchor (the
+host route takes the device pilot too) must hold every key's moment
+rows, totals, draw ledger and register plane bit for bit, and the
+partials must equal Phase 2 run on the CPU over the card's state (their
+gaps to the host solve are counted in ulps; the cells the division
+repair moved are counted in every run, fp32 too).  Each tick's tagged
+fold is replayed on both paths, the run table and the stable sort, each
 against its plain version run on the CPU over the same tensors, bit for
-bit, and timed (the stable sort's share of the fold call, and the same
-stream folded at fp32).
+bit, and timed beside its bound (and the same stream folded at fp32);
+each merge likewise.
 
 Then it drives the LM serving path: olmo-1b at full width and depth
 (16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
@@ -141,6 +145,14 @@ def kernel_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
     never counted), and a window whose events are not a whole number a
     call is taken again, up to ``PROFILE_TRIES`` windows (the last one is
     reported)."""
+    events = window_events(fn, names, reps, warm, setup)
+    us = [t for _, t in events]
+    return (sum(us) / reps * 1e-3 if us else None), len(us) / reps
+
+
+def window_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
+    """``kernel_events``'s window: the ``(name, us)`` of each device event
+    whose name contains one of ``names`` over ``reps`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,13 +170,13 @@ def kernel_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
                     setup()
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if str(e.device_type).endswith("CUDA")
-              and "spin_kernel" not in e.name
-              and any(n in e.name for n in names)]
-        if us and len(us) % reps == 0:
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and "spin_kernel" not in e.name
+                  and any(n in e.name for n in names)]
+        if events and len(events) % reps == 0:
             break
-    return (sum(us) / reps * 1e-3 if us else None), len(us) / reps
+    return events
 
 
 def kernel_ms(fn, names, reps: int = 20, warm: int = 3, setup=None):
@@ -315,8 +327,12 @@ class Recorder:
         self._real = real = getattr(D, self.name)
 
         def clone(x):
+            if hasattr(x, "_fields"):  # a NamedTuple (TaggedRuns)
+                return type(x)(*(clone(v) for v in x))
             if isinstance(x, (tuple, list)):
                 return type(x)(clone(v) for v in x)
+            if isinstance(x, dict):
+                return {k: clone(v) for k, v in x.items()}
             return x.clone() if hasattr(x, "clone") else x
 
         def spy(*args, **kw):
@@ -811,18 +827,19 @@ def serve_queries(C, e: float, distinct: bool):
 
 def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
               rows: int, ticks, distinct: bool, seed: int = 0,
-              profile_at: "int | None" = None,
-              pilot_device: "str | None" = None):
+              profile_at=(), pilot_device: "str | None" = None):
     """Drive the admission loop: one batch of ``serve_queries`` per entry
-    of ``ticks`` (its precision e), tick ``profile_at`` under the torch
-    profiler.  ``pilot_device`` gives the executor the device pilot on
+    of ``ticks`` (its precision e), the ticks in ``profile_at`` (their
+    indices) under the torch profiler.  ``pilot_device`` gives the executor the device pilot on
     that device whatever its route (a host-route run that shares the
     device route's anchor).  Returns the finished tickets, the executor
-    and per-tick records."""
+    and per-tick records (with the host seconds the tick spent on its
+    run tables: ``DeviceStack.key_runs`` and ``tagged_run_table``)."""
     import functools
 
     import numpy as np
     import repro_torch.core as C
+    import repro_torch.core.moment_store as MS
     import repro_torch.core.multiquery as MQ
     from repro_torch.kernels import isla_moments as K
     from repro_torch.launch.serve import (IslaAdmissionLoop,
@@ -839,42 +856,68 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
     loop = IslaAdmissionLoop(ex, np.random.default_rng(seed + 1),
                              route=route, incremental=True)
     done, records = [], []
-    with Recorder("fold_panes", keep=False) as folds, \
-            Recorder("sketch_panes", keep=False) as merges, \
-            Recorder("_segment_carry_sum", keep=False) as tagged:
-        for k, e in enumerate(ticks):
-            for q in serve_queries(C, e, distinct):
-                loop.submit(q)
-            f0, p0 = K.isla_fold.launches, K.pilot_stats.launches
-            s0 = K.isla_sketch.launches
-            tt0, ts0 = K.isla_tagged_fold.launches, \
-                K.isla_sketch_tagged.launches
-            fc0, sc0, tc0 = folds.count, merges.count, tagged.count
-            prof = profile_tick(device, k == profile_at)
+    table_s = [0.0]
+
+    def timed(fn):
+        def run(*args, **kw):
             t0 = time.perf_counter()
-            with prof:
-                out = loop.tick()
-                if device == "cuda":
-                    import torch
-                    torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            records.append(dict(
-                e=e, wall_s=wall, answered=len(out),
-                device_busy_s=device_seconds(prof),
-                kernel_events=device_kernel_counts(prof),
-                new_samples=sum({a.answer.pass_id: a.answer.new_samples
-                                 for a in out}.values()),
-                fold_calls=folds.count - fc0,
-                sketch_calls=merges.count - sc0,
-                tagged_calls=tagged.count - tc0,
-                fold_launches=K.isla_fold.launches - f0,
-                pilot_launches=K.pilot_stats.launches - p0,
-                sketch_launches=K.isla_sketch.launches - s0,
-                tagged_launches=K.isla_tagged_fold.launches - tt0,
-                tagged_sketch_launches=K.isla_sketch_tagged.launches - ts0,
-                stages_s=dict(ex.last_stage_times)))
-            done.extend(out)
+            try:
+                return fn(*args, **kw)
+            finally:
+                table_s[0] += time.perf_counter() - t0
+        return run
+
+    real_runs, real_table = MS.DeviceStack.key_runs, MS.tagged_run_table
+    MS.DeviceStack.key_runs = timed(real_runs)
+    MS.tagged_run_table = timed(real_table)
+    try:
+        with Recorder("fold_panes", keep=False) as folds, \
+                Recorder("sketch_panes", keep=False) as merges, \
+                Recorder("_segment_carry_sum", keep=False) as tagged:
+            serve_ticks(loop, ex, C, K, ticks, distinct, device, profile_at,
+                        folds, merges, tagged, table_s, done, records)
+    finally:
+        MS.DeviceStack.key_runs, MS.tagged_run_table = real_runs, real_table
     return done, ex, records
+
+
+def serve_ticks(loop, ex, C, K, ticks, distinct, device, profile_at, folds,
+                merges, tagged, table_s, done, records) -> None:
+    """``run_serve``'s ticks, each recorded (see there)."""
+    for k, e in enumerate(ticks):
+        for q in serve_queries(C, e, distinct):
+            loop.submit(q)
+        f0, p0 = K.isla_fold.launches, K.pilot_stats.launches
+        s0 = K.isla_sketch.launches
+        tt0, ts0 = K.isla_tagged_fold.launches, \
+            K.isla_sketch_tagged.launches
+        fc0, sc0, tc0 = folds.count, merges.count, tagged.count
+        rt0 = table_s[0]
+        prof = profile_tick(device, k in profile_at)
+        t0 = time.perf_counter()
+        with prof:
+            out = loop.tick()
+            if device == "cuda":
+                import torch
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        records.append(dict(
+            e=e, wall_s=wall, answered=len(out),
+            device_busy_s=device_seconds(prof),
+            kernel_events=device_kernel_counts(prof),
+            new_samples=sum({a.answer.pass_id: a.answer.new_samples
+                             for a in out}.values()),
+            fold_calls=folds.count - fc0,
+            sketch_calls=merges.count - sc0,
+            tagged_calls=tagged.count - tc0,
+            fold_launches=K.isla_fold.launches - f0,
+            pilot_launches=K.pilot_stats.launches - p0,
+            sketch_launches=K.isla_sketch.launches - s0,
+            tagged_launches=K.isla_tagged_fold.launches - tt0,
+            tagged_sketch_launches=K.isla_sketch_tagged.launches - ts0,
+            run_table_host_s=table_s[0] - rt0,
+            stages_s=dict(ex.last_stage_times)))
+        done.extend(out)
 
 
 def profile_tick(device: str, on: bool):
@@ -914,20 +957,23 @@ def device_kernel_seconds(prof) -> dict:
 
 ISLA_KERNELS = ("isla_fold_kernel", "isla_fold_combine_kernel",
                 "isla_sketch_kernel", "pilot_moments_kernel",
-                "isla_tagged_fold_kernel")
+                "isla_tagged_fold_kernel", "isla_tagged_runs_kernel")
 
 
 def device_kernel_counts(prof) -> "dict | None":
     """How many times each ISLA ``__global__`` kernel ran on the card in a
-    profiled window (by the device events' names), None when not profiled
-    or when the trace holds no device event."""
+    profiled window (by the device events' names), and how many sort
+    kernels (``sort`` in the name), None when not profiled or when the
+    trace holds no device event."""
     if not hasattr(prof, "events"):
         return None
     names = [e.name for e in prof.events()
              if str(e.device_type).endswith("CUDA")]
     if not names:
         return None
-    return {k: sum(1 for n in names if k in n) for k in ISLA_KERNELS}
+    out = {k: sum(1 for n in names if k in n) for k in ISLA_KERNELS}
+    out["sort"] = sum(1 for n in names if "sort" in n.lower())
+    return out
 
 
 def host_op_seconds(prof, top: int = 12) -> dict:
@@ -1026,6 +1072,7 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
           f"pilot_stats launches ({launches['pilot_stats']} in the run), "
           f"not 1")
     pilot_n = int(ex._anchor[0].pilot_size)
+    repair = phase2_repair(ex)
     del ex  # the host run below rebuilds the same tables
     host_done, _, _ = run_serve("cpu", "host", n_blocks, n_groups, rows,
                                 ticks, distinct)
@@ -1034,7 +1081,7 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
     # device's busy time comes from a second, profiled run of the same
     # loop (same seed, same draws) after the counts were read.
     _, _, profiled = run_serve("cuda", "device", n_blocks, n_groups, rows,
-                               ticks, distinct, profile_at=1)
+                               ticks, distinct, profile_at=(1,))
     # The profiler's own count of the traced tick's ISLA kernels: one fold
     # kernel per fold_panes call (its combine only when a row is sliced,
     # which the loop's panes never are) and one merge per sketch_panes.
@@ -1048,7 +1095,7 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
               f"sketch_panes calls")
     return dict(name=name, launches=launches, wall_s=wall, ticks=records,
                 profiled_ticks=profiled, pilot_size=pilot_n,
-                agreement=agree, fold_calls=folds.calls,
+                agreement=agree, phase2=repair, fold_calls=folds.calls,
                 sketch_calls=sketches.calls,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
 
@@ -1077,19 +1124,63 @@ def ulp_gap(got, want) -> "tuple[int, float]":
     return int(diff.sum()), float(gap.max())
 
 
-def check_f64_state(dev_ex, host_ex) -> dict:
-    """Every key's float64 device state against the host route's
-    ``MomentStore`` after the same draws under the same anchor: moment
-    rows, totals, draw ledger and register plane bit for bit.  The
-    device partials are compared with the host solve of the same state
-    and with Phase 2 run on the CPU over the card's state (counts and ulp
-    gaps; not gated)."""
-    import numpy as np
+def phase2_gaps(dst) -> dict:
+    """A device store's last partials against Phase 2 run on the CPU over
+    the card's state (cells that differ, the largest gap in ulps), and
+    the cells the division repair moved: Phase 2 on the card again with
+    its divisions by constants taken by a host scalar, as torch does it
+    (a product with the reciprocal), against the partials."""
     import torch
     from repro_torch.core import distributed as D
 
-    n_keys, p_host, p_cpu, gap_host, gap_cpu, cells = 0, 0, 0, 0.0, 0.0, 0
-    div_n = 0
+    params, mode, geometry = dst._stats_cfg
+    card = dst._partials
+    cpu, old = [], None
+    for dev in ("cpu", card.device):
+        inv = torch.full((dst.n_cells,), 1.0 / dst.scale, dtype=dst.dtype,
+                         device=dev)
+        thr, geo = D._scaled_solve_args(params, geometry, inv)
+        args = (dst.mom_s.to(dev), dst.mom_l.to(dev),
+                dst._sketch0_dev.to(dev).expand(dst.n_cells), params)
+        kw = dict(mode=mode, geometry=geo, thr=thr)
+        if dev == "cpu":
+            cpu = D.phase2(*args, **kw)
+            continue
+        real = D._div
+        D._div = lambda x, d: x / d
+        try:
+            old = D.phase2(*args, **kw)
+        finally:
+            D._div = real
+    n, g = ulp_gap(card.cpu().numpy(), cpu.numpy())
+    return dict(cells=dst.n_cells, differ_from_cpu=n, max_ulps_from_cpu=g,
+                moved_by_repair=int((old != card).sum()))
+
+
+def phase2_repair(ex) -> dict:
+    """``phase2_gaps`` summed over an executor's device stores."""
+    out = dict(cells=0, differ_from_cpu=0, max_ulps_from_cpu=0.0,
+               moved_by_repair=0)
+    for dst in ex._device_stores.values():
+        g = phase2_gaps(dst)
+        for k in ("cells", "differ_from_cpu", "moved_by_repair"):
+            out[k] += g[k]
+        out["max_ulps_from_cpu"] = max(out["max_ulps_from_cpu"],
+                                       g["max_ulps_from_cpu"])
+    return out
+
+
+def check_f64_state(dev_ex, host_ex) -> dict:
+    """Every key's float64 device state against the host route's
+    ``MomentStore`` after the same draws under the same anchor: moment
+    rows, totals, draw ledger and register plane bit for bit, and the
+    partials equal to Phase 2 run on the CPU over the card's state.  The
+    device partials' gaps to the host solve of the same state are counted
+    (the reference's own formula parts from it; not gated)."""
+    import numpy as np
+    import torch
+
+    n_keys, p_host, gap_host, cells = 0, 0, 0.0, 0
     for skey, dst in dev_ex._device_stores.items():
         check(dst.dtype == torch.float64 and dst.scale == 1.0,
               f"the float64 run's store {skey} runs {dst.dtype} at scale "
@@ -1105,31 +1196,20 @@ def check_f64_state(dev_ex, host_ex) -> dict:
                   f"the float64 store {skey}'s register plane differs from "
                   f"the host route's")
         params, mode, geometry = dst._stats_cfg
-        card = dst.partials_host()
         host = hs.solve(params, mode=mode, geometry=geometry).avg
-        ones = torch.ones(dst.n_cells, dtype=torch.float64)
-        thr, geo = D._scaled_solve_args(params, geometry, ones)
-        cpu = D.phase2(dst.mom_s.cpu(), dst.mom_l.cpu(), ones * dst.sketch0,
-                       params, mode=mode, geometry=geo, thr=thr).numpy()
-        n, g = ulp_gap(card, host)
+        n, g = ulp_gap(dst.partials_host(), host)
         p_host, gap_host = p_host + n, max(gap_host, g)
-        n, g = ulp_gap(card, cpu)
-        p_cpu, gap_cpu = p_cpu + n, max(gap_cpu, g)
-        # torch divides a CUDA tensor by a host scalar as a product with
-        # the scalar's reciprocal: Phase 2's total_shrink / (1 + lambda*)
-        # on the card is not the CPU's quotient in every cell.
-        col = dst.mom_s[:, 1]
-        lam = 1.0 + D._lambda_star(params.p1, params.p2)
-        div_n += int(((col / lam).cpu() != col.cpu() / lam).sum())
         n_keys += 1
         cells += dst.n_cells
     check(n_keys > 0, "the float64 run kept no device store")
+    repair = phase2_repair(dev_ex)
+    check(repair["differ_from_cpu"] == 0,
+          f"{repair['differ_from_cpu']} float64 partials differ from Phase 2 "
+          f"run on the CPU over the card's state (max "
+          f"{repair['max_ulps_from_cpu']:g} ulp)")
     return dict(keys=n_keys, cells=cells, state_bit_identical=True,
                 partials_differing_from_host_solve=p_host,
-                max_ulps_from_host_solve=gap_host,
-                partials_differing_from_cpu_phase2=p_cpu,
-                max_ulps_from_cpu_phase2=gap_cpu,
-                host_scalar_quotients_differing_from_cpu=div_n)
+                max_ulps_from_host_solve=gap_host, phase2=repair)
 
 
 def main_path_f64(name: str, distinct: bool, n_blocks=1000, n_groups=16,
@@ -1188,9 +1268,24 @@ def main_path_f64(name: str, distinct: bool, n_blocks=1000, n_groups=16,
         agree = check_answers(dev_done, host_done, distinct)
         exact = sum(d.answer.value == h.answer.value
                     for d, h in zip(dev_done, host_done))
+        del ex, host_ex
+        # The profiler's view of both drawing ticks, in a re-run of the
+        # same loop: the run kernel once a tagged fold, the sorted path's
+        # kernel never, no sort kernel at all.
+        _, _, profiled = run_serve("cuda", "device", n_blocks, n_groups,
+                                   rows, ticks, distinct,
+                                   profile_at=(0, 1))
+        for k in (0, 1):
+            ev, r = profiled[k]["kernel_events"], profiled[k]
+            check(ev is not None and r["tagged_calls"] > 0
+                  and ev["isla_tagged_runs_kernel"] == r["tagged_calls"]
+                  and ev["isla_tagged_fold_kernel"] == 0 and ev["sort"] == 0,
+                  f"the {name} run's profiled tick {k + 1} ran {ev} for "
+                  f"{r['tagged_calls']} tagged folds")
     finally:
         torch.set_default_dtype(was)
     return dict(name=name, launches=launches, wall_s=wall, ticks=records,
+                profiled_ticks=profiled,
                 agreement=dict(agree, answers_equal=exact), state=state,
                 tagged_calls=folds.calls, sketch_calls=merges.calls,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
@@ -1211,61 +1306,88 @@ def tagged_bound_ms(values, seg, bounds, n_cells: int
 
 
 def check_main_path_tagged(calls) -> "list[dict]":
-    """Replay each tagged fold of the float64 runs on a copy of its rows:
-    the kernel twice (identical bits) against its plain version run on the
-    CPU over the same tensors, bit for bit; then the whole call's device
-    time (stable sort + fold), the fold kernel's share, the plain version
-    on the card, and the same stream folded at fp32."""
+    """Replay each tagged fold of the float64 runs on a copy of its rows,
+    on both paths: the run table the tick carried (the main path) and the
+    stable sort (the path of streams in any order).  On each, the kernel
+    twice (identical bits) against its plain version run on the CPU over
+    the same tensors, bit for bit; then the call's device time and
+    events, its kernel's time, its bound and the ratio, the plain version
+    on the card, and (run table) the same stream folded at fp32.  A
+    run-table call must hold one run kernel and no sort kernel."""
     import torch
     from repro_torch.kernels import isla_moments as K
 
     out = []
     for c in calls:
         state, (values, seg, bounds) = c["args"][:3], c["args"][3:]
+        runs = c["kw"].get("runs")
+        check(runs is not None, "a float64 tick folded with no run table")
         table = bounds.reshape(-1, 4).contiguous()
+        n = state[0].shape[0]
+        t_bytes, t_ops = tagged_bound_ms(values, seg, table, n)
+        bound = max(t_bytes, t_ops)
 
-        def fold(rows, v=values, b=table):
-            K.isla_tagged_fold(v, seg, b, *rows)
+        def fold(rows, v=values, b=table, r=runs):
+            K.isla_tagged_fold(v, seg, b, *rows, runs=r)
 
-        def run():
-            rows = [t.clone() for t in state]
-            fold(rows)
-            return torch.cat(rows, dim=1)
-
-        got, again = run(), run()
         rows = [t.to("cpu", copy=True) for t in state]
-        K.isla_tagged_fold(values.cpu(), seg.cpu(), table.cpu(), *rows)
+        K.isla_tagged_fold(values.cpu(), seg.cpu(), table.cpu(), *rows,
+                           runs=runs._replace(table=runs.table.cpu()))
         want = torch.cat(rows, dim=1)
-        torch.cuda.synchronize()
-        check(torch.equal(got, again),
-              "isla_tagged_fold is not deterministic on the main path")
-        check(torch.equal(got.cpu(), want),
-              f"isla_tagged_fold disagrees with its plain version on the "
-              f"main path's {values.numel()}-sample stream")
+        row = dict(samples=values.numel(), cells=n,
+                   per_cell_cuts=table.shape[0] > 1,
+                   tolerance="0 (bit-identical)", bytes_ms=t_bytes,
+                   ops_ms=t_ops, bound_ms=bound,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        for path, r, kernel in (("runs", runs, "isla_tagged_runs_kernel"),
+                                ("sorted", None, "isla_tagged_fold_kernel")):
+            def run():
+                rows = [t.clone() for t in state]
+                fold(rows, r=r)
+                return torch.cat(rows, dim=1)
+
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"isla_tagged_fold ({path}) is "
+                                           f"not deterministic on the main "
+                                           f"path")
+            check(torch.equal(got.cpu(), want),
+                  f"isla_tagged_fold ({path}) disagrees with its plain "
+                  f"version on the main path's {values.numel()}-sample "
+                  f"stream")
+            scratch = [t.clone() for t in state]
+            call_ms, events = kernel_events(lambda: fold(scratch, r=r),
+                                            ("",))
+            kern_ms = kernel_ms(lambda: fold(scratch, r=r), (kernel,))
+            row[path] = dict(ms=call_ms, kernel_ms=kern_ms,
+                             kernels_a_call=events,
+                             over_bound=(None if call_ms is None
+                                         else call_ms / bound),
+                             max_abs_err=max_abs_err(got.cpu(), want))
+        check(int(runs.count) == 0, "the main path's run table was found "
+                                    "out of place")
         scratch = [t.clone() for t in state]
-        call_ms, events = kernel_events(lambda: fold(scratch), ("",))
-        fold_ms = kernel_ms(lambda: fold(scratch), ("isla_tagged_fold",))
+        names = [n for n, _ in window_events(lambda: fold(scratch), ("",),
+                                             reps=5)]
+        check(sum("isla_tagged_runs_kernel" in n for n in names) == 5
+              and not any("sort" in n.lower() for n in names),
+              f"five run-table folds ran {names}")
+        rs, sd = row["runs"], row["sorted"]
         with PlainVersions():
             plain_ms = time_ms(lambda: fold(scratch), reps=3, warm=1)
         s32 = [t.float() for t in state]
         v32, b32 = values.float(), table.float()
         f32_ms = kernel_events(lambda: fold(s32, v32, b32), ("",))[0]
-        n = state[0].shape[0]
-        t_bytes, t_ops = tagged_bound_ms(values, seg, table, n)
         b32_bytes, b32_ops = tagged_bound_ms(v32, seg, b32, n)
-        out.append(dict(samples=values.numel(), cells=n,
-                        per_cell_cuts=table.shape[0] > 1,
-                        max_abs_err=max_abs_err(got.cpu(), want),
-                        tolerance="0 (bit-identical)", ms=call_ms,
-                        kernel_ms=fold_ms, kernels_a_call=events,
-                        sort_share=(None if call_ms is None or fold_ms is None
-                                    else 1.0 - fold_ms / call_ms),
-                        plain_ms=plain_ms, fp32_ms=f32_ms,
-                        fp32_bound_ms=max(b32_bytes, b32_ops),
-                        bytes_ms=t_bytes, ops_ms=t_ops,
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops
-                        else "operations"))
+        row.update(ms=rs["ms"], kernel_ms=rs["kernel_ms"],
+                   max_abs_err=max(rs["max_abs_err"], sd["max_abs_err"]),
+                   call_kernels=sorted(set(names)),
+                   sort_share=(None if sd["ms"] is None
+                               or sd["kernel_ms"] is None
+                               else 1.0 - sd["kernel_ms"] / sd["ms"]),
+                   plain_ms=plain_ms, fp32_ms=f32_ms,
+                   fp32_bound_ms=max(b32_bytes, b32_ops))
+        out.append(row)
     return out
 
 
@@ -1947,8 +2069,11 @@ def main() -> int:
     islaptx = {}
     if K.SOURCES[0] in logs:
         islaptx = isla_ptxas(logs[K.SOURCES[0]])
-        check(len(islaptx) == 8, f"isla_kernels.cu: a kernel is missing "
-                                 f"from the ptxas log: {islaptx}")
+        check(len(islaptx) == 10 and all(
+            f.get("spill_bytes", 0) == 0 for n, f in islaptx.items()
+            if n.startswith("isla_tagged_runs")),
+              f"isla_kernels.cu: a kernel is missing from the ptxas log or "
+              f"the run kernel spills: {islaptx}")
         print("isla_kernels.cu -Xptxas -v: " + "; ".join(
             f"{n} {f['registers']} regs, {f['smem_bytes']} B static smem, "
             f"{f.get('spill_bytes', 0)} B spilled"
@@ -1976,9 +2101,14 @@ def main() -> int:
     runs = [main_path(name, distinct) for name, distinct in MAIN_RUNS]
     lap("isla main path runs")
     for path in runs:
+        rp = path["phase2"]
         print(f"main path, {path['name']} run: "
               f"{json.dumps(path['launches'])} launches, "
-              f"{path['agreement']}, {path['wall_s']:.2f} s")
+              f"{path['agreement']}, {path['wall_s']:.2f} s; partials: "
+              f"{rp['differ_from_cpu']} of {rp['cells']} differ from Phase 2 "
+              f"on the CPU over the card's state (max "
+              f"{rp['max_ulps_from_cpu']:g} fp32 ulp), the division repair "
+              f"moved {rp['moved_by_repair']}")
         for k, (r, q) in enumerate(zip(path["ticks"],
                                        path["profiled_ticks"])):
             stages = ", ".join(f"{n} {t:.4f}"
@@ -2040,12 +2170,9 @@ def main() -> int:
               + " bit-identical to the host route's; partials: "
               f"{st['partials_differing_from_host_solve']} differ from the "
               f"host solve (max {st['max_ulps_from_host_solve']:g} ulp), "
-              f"{st['partials_differing_from_cpu_phase2']} from Phase 2 on "
-              f"the CPU over the card's state (max "
-              f"{st['max_ulps_from_cpu_phase2']:g} ulp; the card's s1 "
-              f"column over 1 + lambda*, a host scalar: "
-              f"{st['host_scalar_quotients_differing_from_cpu']} of "
-              f"{st['cells']} quotients differ from the CPU's)")
+              f"{st['phase2']['differ_from_cpu']} from Phase 2 on the CPU "
+              f"over the card's state; the division repair moved "
+              f"{st['phase2']['moved_by_repair']} of {st['cells']}")
         for k, (r, q) in enumerate(zip(path["ticks"], fp32["ticks"])):
             stages = ", ".join(f"{n} {t:.4f}"
                                for n, t in r["stages_s"].items())
@@ -2053,26 +2180,33 @@ def main() -> int:
                   f"samples, {r['tagged_calls']} tagged folds, "
                   f"{r['tagged_launches']} isla_tagged_fold / "
                   f"{r['tagged_sketch_launches']} isla_sketch_tagged "
-                  f"launches, stages s: {stages}; fp32 run's tick "
-                  f"{q['wall_s']:.4f} s wall (h2d "
+                  f"launches, stages s: {stages}; run tables "
+                  f"{r['run_table_host_s'] * 1e3:.3f} ms of host time; "
+                  f"fp32 run's tick {q['wall_s']:.4f} s wall (h2d "
                   f"{q['stages_s'].get('h2d', 0.0):.4f}), this tick "
-                  f"{r['wall_s']:.4f} s")
+                  f"{r['wall_s']:.4f} s; profiled re-run: ISLA kernels "
+                  f"{json.dumps(path['profiled_ticks'][k]['kernel_events'])}")
     tagged = []
     for path in f64_runs:
         for f in check_main_path_tagged(path.pop("tagged_calls")):
             tagged.append(dict(f, run=path["name"]))
     check(len(tagged) > 0, "the float64 runs folded no tagged stream")
     for f in tagged:
+        rs, sd = f["runs"], f["sorted"]
         print(f"isla_tagged_fold on the {f['run']} run's stream "
               f"({f['samples']} samples, {f['cells']} cells"
-              + (", per-cell cuts" if f["per_cell_cuts"] else "") + "): "
-              f"{f['ms']:.4f} ms on the card a call ({f['kernels_a_call']:g} "
-              f"device events; the fold kernel {f['kernel_ms']:.4f} ms, the "
-              f"stable sort's share {f['sort_share']:.2f}), bound "
-              f"{f['bound_ms']:.4f} ms by {f['bound_by']}; fp32 "
-              f"{f['fp32_ms']:.4f} ms (bound {f['fp32_bound_ms']:.4f}); "
-              f"plain {f['plain_ms']:.3f} ms; bit-identical to its plain "
-              f"version on the CPU, two runs identical")
+              + (", per-cell cuts" if f["per_cell_cuts"] else "") + "), "
+              f"bound {f['bound_ms']:.4f} ms by {f['bound_by']}: run table "
+              f"{rs['ms']:.4f} ms a call ({rs['kernels_a_call']:g} device "
+              f"events, the run kernel {rs['kernel_ms']:.4f} ms, "
+              f"{rs['over_bound']:.1f}x the bound); stable sort "
+              f"{sd['ms']:.4f} ms ({sd['kernels_a_call']:g} events, the fold "
+              f"kernel {sd['kernel_ms']:.4f} ms, the sort's share "
+              f"{f['sort_share']:.2f}, {sd['over_bound']:.1f}x); fp32 by the "
+              f"run table {f['fp32_ms']:.4f} ms (bound "
+              f"{f['fp32_bound_ms']:.4f}); plain {f['plain_ms']:.3f} ms; "
+              f"both paths bit-identical to the plain version on the CPU, "
+              f"two runs identical")
     tagged_merges = []
     for path in f64_runs:
         for f in check_main_path_tagged_sketches(path.pop("sketch_calls")):

@@ -30,9 +30,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.isla_moments import (MAX_KEYS, StackKey, isla_fold_stack,
-                                     isla_sketch_stack, isla_sketch_tagged,
-                                     isla_tagged_fold, pilot_moments)
+from ..kernels.isla_moments import (MAX_KEYS, StackKey, TaggedRuns,
+                                     isla_fold_stack, isla_sketch_stack,
+                                     isla_sketch_tagged, isla_tagged_fold,
+                                     pilot_moments)
 from .types import IslaParams
 
 F32 = torch.float32
@@ -55,9 +56,18 @@ def resolve_device(device) -> torch.device:
 
 
 def _const(x: float, like: torch.Tensor) -> torch.Tensor:
-    """``x`` as a 0-d tensor of ``like``'s type and device: Phase 2 runs in
-    the type of the moments it solves (fp32 serving, float64 exact)."""
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    """``x`` as a 0-d tensor of ``like``'s type and device, made by a fill
+    there (no upload): Phase 2 runs in the type of the moments it solves
+    (fp32 serving, float64 exact)."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def _div(x: torch.Tensor, d) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device.  torch divides a CUDA
+    tensor by a host scalar as a product with the scalar's reciprocal,
+    which parts from the CPU's (and XLA's) quotient by an ulp in some
+    cells; a 0-d divisor on ``x``'s device is divided by."""
+    return x / (d if isinstance(d, torch.Tensor) else _const(d, x))
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +143,7 @@ def theorem3_kc(mom_s: torch.Tensor, mom_l: torch.Tensor, q: torch.Tensor
 def n_iterations(d0: torch.Tensor, thr, eta: float) -> torch.Tensor:
     ad = d0.abs()
     log_inv_eta = torch.log(_const(1.0 / eta, d0))
-    return torch.ceil(torch.log((ad / thr).clamp_min(1.0)) / log_inv_eta)
+    return torch.ceil(torch.log(_div(ad, thr).clamp_min(1.0)) / log_inv_eta)
 
 
 def _lambda_star(p1: float, p2: float) -> float:
@@ -167,11 +177,11 @@ def phase2(mom_s: torch.Tensor, mom_l: torch.Tensor, sketch0,
         d0 = c_adj - sketch0
         t = n_iterations(d0, thr, eta)
         shrink = (1.0 - eta ** t) * d0.abs()
-        avg = c_adj - torch.sign(d0) * kappa * shrink / (1.0 + kappa)
+        avg = c_adj - _div(torch.sign(d0) * kappa * shrink, 1.0 + kappa)
         balanced = None
     elif mode == "calibrated":
         lam_c = _lambda_star(params.p1, params.p2)
-        s_sk = total_shrink / (1.0 + lam_c)
+        s_sk = _div(total_shrink, 1.0 + lam_c)
         mu_move = -torch.sign(d0) * lam_c * s_sk
         avg = c + mu_move
         balanced = None  # calibrated always modulates
@@ -181,8 +191,8 @@ def phase2(mom_s: torch.Tensor, mom_l: torch.Tensor, sketch0,
         case1 = (d0 < 0) & (u < v)
         case2 = (d0 < 0) & (u >= v)
         case3 = (d0 >= 0) & (u < v)
-        mu_dom_move = torch.where(case1, total_shrink / (1.0 - lam),
-                                  -total_shrink / (1.0 - lam))
+        mu_dom_move = torch.where(case1, _div(total_shrink, 1.0 - lam),
+                                  _div(-total_shrink, 1.0 - lam))
         gain2 = 1.0 + sgn_k * lam
         gain3 = 1.0 - sgn_k * lam
         sk_dom_move = torch.where(case2,
@@ -430,17 +440,19 @@ def _sample_bounds(bounds: torch.Tensor) -> torch.Tensor:
 
 def _segment_carry_sum(mom_s: torch.Tensor, mom_l: torch.Tensor,
                        totals: torch.Tensor, values: torch.Tensor,
-                       seg: torch.Tensor, bounds: torch.Tensor) -> None:
+                       seg: torch.Tensor, bounds: torch.Tensor, *,
+                       runs: Optional[TaggedRuns] = None) -> None:
     """The carry-prepend segmented sum of the tagged tick, in place: each
     cell's S and L region moments and plain totals continue from its
     resident row as the left fold ``((carry + a1) + a2) + ...`` over its
     samples in stream order — the host ``np.bincount`` carry's order
     (``engine._segment_moment_rows``), so a float64 store is bit-identical
     to the host fold.  One ``isla_tagged_fold`` launch (its plain version
-    on the CPU); ids equal to ``n_cells`` (the drop segment) fold
+    on the CPU), by the stream's (key, block) run table when ``runs``
+    gives one; ids equal to ``n_cells`` (the drop segment) fold
     nowhere."""
     isla_tagged_fold(values, seg, _sample_bounds(bounds), mom_s, mom_l,
-                     totals)
+                     totals, runs=runs)
 
 
 def _tick_core(mom_s: torch.Tensor, mom_l: torch.Tensor,
@@ -448,11 +460,12 @@ def _tick_core(mom_s: torch.Tensor, mom_l: torch.Tensor,
                values: torch.Tensor, seg: torch.Tensor,
                quotas: torch.Tensor, bounds: torch.Tensor, sketch0,
                sizes: torch.Tensor, inv_scale: Optional[torch.Tensor], *,
-               params: IslaParams, mode: str, geometry, n_groups_list):
+               params: IslaParams, mode: str, geometry, n_groups_list,
+               runs: Optional[TaggedRuns] = None):
     """The tagged tick body: the carry-prepend fold of the stream onto the
     resident rows (in place), the draw ledger, then Phase 2 and the group
     stat rows over the full state."""
-    _segment_carry_sum(mom_s, mom_l, totals, values, seg, bounds)
+    _segment_carry_sum(mom_s, mom_l, totals, values, seg, bounds, runs=runs)
     n_sampled += quotas.repeat(len(n_groups_list))
     thr, geometry = _scaled_solve_args(params, geometry, inv_scale)
     partials = phase2(mom_s, mom_l, sketch0, params, mode=mode,
@@ -469,7 +482,8 @@ def fused_tick(mom_s: torch.Tensor, mom_l: torch.Tensor,
                quotas: torch.Tensor, bounds: torch.Tensor, sketch0,
                sizes: torch.Tensor, inv_scale: Optional[torch.Tensor] = None,
                *, params: IslaParams, mode: str = "calibrated",
-               geometry=None, n_groups_list=(1,)):
+               geometry=None, n_groups_list=(1,),
+               runs: Optional[TaggedRuns] = None):
     """One device-resident continuation round on the tagged layout.
 
     ``values`` (m,) are the samples in each cell's own anchor frame
@@ -478,14 +492,16 @@ def fused_tick(mom_s: torch.Tensor, mom_l: torch.Tensor,
     per-block draws.  ``bounds`` is one broadcast row for a shared-anchor
     stack or a per-cell (+pad) table for per-key anchors; ``sketch0`` is
     per cell and ``inv_scale`` the per-cell anchor-scale vector the
-    stopping threshold rides.  The four state tensors are updated in place
-    (the reference donates them); returns ``(mom_s, mom_l, totals,
-    n_sampled, partials, rows)`` with ``rows`` per ``group_row_stats``.
-    In float64 (scale 1.0) the state is the host fold's bit for bit."""
+    stopping threshold rides.  ``runs`` (optional ``TaggedRuns``) is the
+    run table of a block-major stream, whose fold then needs no sort.
+    The four state tensors are updated in place (the reference donates
+    them); returns ``(mom_s, mom_l, totals, n_sampled, partials, rows)``
+    with ``rows`` per ``group_row_stats``.  In float64 (scale 1.0) the
+    state is the host fold's bit for bit."""
     return _tick_core(mom_s, mom_l, totals, n_sampled, values, seg, quotas,
                       bounds, sketch0, sizes, inv_scale, params=params,
                       mode=mode, geometry=geometry,
-                      n_groups_list=n_groups_list)
+                      n_groups_list=n_groups_list, runs=runs)
 
 
 def fused_solve(mom_s: torch.Tensor, mom_l: torch.Tensor,
@@ -564,7 +580,8 @@ def fused_tick_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,
                       sizes: torch.Tensor,
                       inv_scale: Optional[torch.Tensor] = None, *,
                       params: IslaParams, mode: str = "calibrated",
-                      geometry=None, n_groups_list=(1,)):
+                      geometry=None, n_groups_list=(1,),
+                      runs: Optional[TaggedRuns] = None):
     """``fused_tick`` with the register plane riding the tick: ``regs``
     is the fifth state tensor, updated in place; ``bits`` (m,) int64 are
     the samples' RAW float64 measure bits, aligned with ``values`` and
@@ -575,7 +592,7 @@ def fused_tick_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,
     mom_s, mom_l, totals, n_sampled, partials, rows = _tick_core(
         mom_s, mom_l, totals, n_sampled, values, seg, quotas, bounds,
         sketch0, sizes, inv_scale, params=params, mode=mode,
-        geometry=geometry, n_groups_list=n_groups_list)
+        geometry=geometry, n_groups_list=n_groups_list, runs=runs)
     isla_sketch_tagged(bits, seg, regs)
     return (mom_s, mom_l, totals, n_sampled, regs, partials, rows,
             _sketch_fold(regs, n_groups_list))

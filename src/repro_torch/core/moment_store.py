@@ -54,6 +54,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..kernels.isla_moments import (TaggedRuns, check_run_count,
+                                     tagged_run_table)
 from . import sketch as _sketch
 from .engine import (Sampler, block_quotas, flat_segments,
                      phase1_sampling_batch, phase2_iteration_batch,
@@ -989,6 +991,27 @@ class DeviceStack:
         return store.build_seg(block_ids, group_ids, mask,
                                offset=int(self.offsets[k]))
 
+    def key_runs(self, quotas: np.ndarray,
+                 mask: Optional[np.ndarray] = None) -> np.ndarray:
+        """A key's (n_blocks,) run lengths in a block-major draw (the
+        chunk's ``quotas``, block b's samples after block b - 1's): its
+        samples of each block, all of them, or those its WHERE ``mask``
+        keeps — the row of ``tick(runs=...)`` that ``key_seg``'s ids of
+        the same draw take."""
+        quotas = np.asarray(quotas, dtype=np.int64).reshape(-1)
+        if mask is None:
+            return quotas.copy()
+        drawn = np.flatnonzero(quotas)
+        out = np.zeros(self.n_blocks, dtype=np.int64)
+        if drawn.size:
+            at = np.concatenate([[0], np.cumsum(quotas[drawn])[:-1]])
+            # The narrowest sum that holds a block's count is the fastest.
+            dt = np.uint16 if quotas.max() < 2 ** 16 else np.int64
+            out[drawn] = np.add.reduceat(
+                np.asarray(mask, dtype=bool).reshape(-1).view(np.uint8), at,
+                dtype=dt)
+        return out
+
     def release(self) -> None:
         """Dissolve the stack: hand every store a copy of its slices so
         each owns its state again (e.g. before a store joins a new stack
@@ -1014,13 +1037,22 @@ class DeviceStack:
         self._released = True
 
     def _install_stats(self, partials, rows, cfg, timings=None,
-                       group_regs=None):
+                       group_regs=None, runs=None):
         """Hand each store its slice of the tick's stats: one blocking
         device->host copy of the O(groups) rows (and, on a sketch stack,
         of the (n_rows, 4096) folded register rows ``group_regs``);
-        per-cell partials stay on the device as views."""
+        per-cell partials stay on the device as views.  A tick folded by a
+        run table (``runs``, deferred) reads the fold's count of runs and
+        samples out of place in the same copy and raises on it."""
         t0 = time.perf_counter()
-        rows_np = rows.to("cpu", torch.float64).numpy()  # d2h: stats
+        if runs is None:
+            rows_np = rows.to("cpu", torch.float64).numpy()  # d2h: stats
+        else:
+            flat = torch.cat([rows.reshape(-1).to(torch.float64),
+                              runs.count.to(torch.float64)])
+            flat = flat.to("cpu").numpy()  # d2h: stats and the run count
+            rows_np = flat[:-1].reshape(rows.shape)
+            check_run_count(int(flat[-1]))
         regs_np = (None if group_regs is None
                    else group_regs.to("cpu").numpy())   # d2h: folded regs
         if timings is not None:
@@ -1127,7 +1159,7 @@ class DeviceStack:
              seg: Optional[np.ndarray] = None,
              quotas: Optional[np.ndarray] = None,
              dense=None, count_round: bool = True, timings=None,
-             defer_stats: bool = False, hash_limbs=None):
+             defer_stats: bool = False, hash_limbs=None, runs=None):
         """One continuation round for every store in the stack.
 
         Two sample payloads, one fused tick either way:
@@ -1142,7 +1174,12 @@ class DeviceStack:
            takes ``hash_limbs=(hi, lo)``, the ``sketch.value_limbs`` of the
            RAW unshifted values aligned with ``values`` (the scaled values
            cannot give back the raw bits); they cross as one int64 lane
-           each and merge through ``isla_sketch_tagged``.
+           each and merge through ``isla_sketch_tagged``.  A block-major
+           stream (each key's slice in key order, block by block) may come
+           with ``runs``, its (n_stores, n_blocks) run lengths
+           (``key_runs``): the table crosses with the stream and the fold
+           takes a block a run with no sort; a table that does not
+           describe the stream raises after the tick's readback.
          * dense (fp32 stacks) — ``values`` is the FULL block-major chunk
            stream of RAW (unshifted) measure values and ``dense=(key_gids,
            key_valids)`` carries per-store (m,) GROUP BY codes / predicate
@@ -1222,23 +1259,29 @@ class DeviceStack:
         self._check_fp32_headroom(quotas)
         tick_kw = dict(params=params, mode=mode, geometry=geometry,
                        timings=timings)
+        runs_dev = None
+        if seg is None and runs is not None:
+            raise ValueError("runs= describes a tagged stream (seg=)")
         if seg is None:
             partials, rows, group_regs = self._dense_tick(
                 values, quotas, dense, **tick_kw)
         else:
-            partials, rows, group_regs = self._tagged_tick(
-                values, seg, quotas, hash_limbs, **tick_kw)
+            partials, rows, group_regs, runs_dev = self._tagged_tick(
+                values, seg, quotas, hash_limbs, runs, **tick_kw)
         for st in self.stores:
             st.n_sampled = st.n_sampled + quotas
             if count_round:
                 st.rounds += 1
-        return self._install_stats(partials, rows, cfg, timings, group_regs)
+        kw = {} if runs_dev is None else dict(runs=runs_dev)
+        return self._install_stats(partials, rows, cfg, timings, group_regs,
+                                   **kw)
 
     def _tagged_tick(self, values: np.ndarray, seg, quotas: np.ndarray,
-                     hash_limbs, *, params: IslaParams, mode: str, geometry,
-                     timings):
+                     hash_limbs, runs, *, params: IslaParams, mode: str,
+                     geometry, timings):
         """The tagged payload's uploads and fused tick (see ``tick``);
-        returns ``(partials, rows, group_regs)``."""
+        returns ``(partials, rows, group_regs, runs)``, the last the
+        uploaded ``TaggedRuns`` (None without ``runs``)."""
         from . import distributed as D
 
         seg = np.asarray(seg, dtype=np.int32).reshape(-1)
@@ -1263,6 +1306,10 @@ class DeviceStack:
             # The limbs cross as the raw 64-bit pattern the kernel hashes.
             bits_dev = D.h2d(((hi << np.uint64(32)) | lo).view(np.int64),
                              torch.int64, dev)
+        if runs is not None:
+            table = tagged_run_table(runs, self.offsets)
+            runs = TaggedRuns(D.h2d(table, torch.int32, dev),
+                              len(self.stores), self.n_blocks, deferred=True)
         if timings is not None:
             timings["h2d"] = (timings.get("h2d", 0.0)
                               + time.perf_counter() - t_h)
@@ -1274,17 +1321,17 @@ class DeviceStack:
             out = D.fused_tick_sketch(
                 mom_s, mom_l, totals, ns, self._regs_state, v_dev, s_dev,
                 bits_dev, q_dev, self._bounds, self._sketch0_cells(),
-                self._sizes, self._inv_scale, **tick_kw)
+                self._sizes, self._inv_scale, runs=runs, **tick_kw)
             partials, rows, group_regs = out[5:]
         else:
             partials, rows = D.fused_tick(
                 mom_s, mom_l, totals, ns, v_dev, s_dev, q_dev, self._bounds,
                 self._sketch0_cells(), self._sizes, self._inv_scale,
-                **tick_kw)[4:]
+                runs=runs, **tick_kw)[4:]
         if timings is not None:
             timings["launch"] = (timings.get("launch", 0.0)
                                  + time.perf_counter() - t_l)
-        return partials, rows, group_regs
+        return partials, rows, group_regs, runs
 
     def _dense_tick(self, values: np.ndarray, quotas: np.ndarray, dense, *,
                     params: IslaParams, mode: str, geometry, timings):

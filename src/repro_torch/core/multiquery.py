@@ -1694,8 +1694,9 @@ class MultiQueryExecutor:
         from the pane via the stack's per-key affine.  A float64 stack
         takes the tagged payload: each key's matched slice is shifted (and
         scaled) on the host, placed by ``key_seg``, and the stack folds the
-        concatenated stream in order (a sketch stack's registers key on the
-        raw values' limbs)."""
+        concatenated stream in order by its (key, block) run table
+        (``key_runs``; a sketch stack's registers key on the raw values'
+        limbs)."""
         dev_mode = self._device_mode(mg.mode)
         dense = stack.dtype != torch.float64
         for chunk, columns, block_ids in self._iter_row_chunks(
@@ -1724,12 +1725,13 @@ class MultiQueryExecutor:
                            dense=(key_gids, key_valids),
                            count_round=chunk.first, timings=timings)
                 continue
-            segs, vals, his, los = [], [], [], []
+            segs, vals, his, los, runs = [], [], [], [], []
             if stack.has_sketch:
                 # Register hashes key on the RAW (unshifted) float64 bits
                 # — shared across every key regardless of anchor frame.
                 hhi, hlo = _sketch.value_limbs(raw)
             shifted = {}  # (shift, scale) -> prepared stream (shared)
+            run_cache = {}  # where -> the key's per-block run lengths
             for k_i, key in enumerate(keys):
                 where, group_by = key
                 dst = dstores[key]
@@ -1742,13 +1744,19 @@ class MultiQueryExecutor:
                         if group_by is not None else None)
                 segs.append(stack.key_seg(k_i, dst, block_ids, gids, mask))
                 vals.append(values if mask is None else values[mask])
+                # Each key's slice is block-major: its (key, block) runs
+                # ride the stream, so the fold needs no sort.
+                if where not in run_cache:
+                    run_cache[where] = stack.key_runs(chunk.chunk_quotas,
+                                                      mask)
+                runs.append(run_cache[where])
                 if stack.has_sketch:
                     his.append(hhi if mask is None else hhi[mask])
                     los.append(hlo if mask is None else hlo[mask])
             stack.tick(self.params, mode=dev_mode, geometry=mg.geometry,
                        values=np.concatenate(vals), seg=np.concatenate(segs),
                        quotas=chunk.chunk_quotas, count_round=chunk.first,
-                       timings=timings,
+                       timings=timings, runs=np.stack(runs),
                        hash_limbs=((np.concatenate(his), np.concatenate(los))
                                    if stack.has_sketch else None))
 

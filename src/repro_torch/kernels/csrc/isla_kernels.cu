@@ -154,16 +154,40 @@
 //   its id) and each resident row read and written once.  What the design
 //   has to keep is the order: CUDA's index_add_ and scatter_add_ add
 //   through float atomics in no fixed order, so they cannot give the
-//   host's bits.  Design (simple first): the wrapper orders the ids with
-//   a stable integer sort (torch.sort moves the ids and indices and adds
-//   nothing), so each cell's samples lie in one run, in stream order.
-//   One thread a cell finds its run by two binary searches of the sorted
-//   ids, loads its row into registers, walks the run kTaggedBatch samples
-//   at a time (the loads of a batch issued together), and writes the row
-//   once.  Every add and multiply is __dadd_rn / __dmul_rn (__fadd_rn /
-//   __fmul_rn at fp32), so nvcc cannot contract them into an FMA, and the
-//   region tests are exact comparisons: the bits are the host fold's, and
-//   two runs give identical bits.  No float atomic is used.
+//   host's bits.  Every add and multiply is __dadd_rn / __dmul_rn
+//   (__fadd_rn / __fmul_rn at fp32), so nvcc cannot contract them into an
+//   FMA, and the region tests are exact comparisons: the bits are the host
+//   fold's, and two runs give identical bits.  No float atomic is used.
+//   Two instantiations:
+//   - the run table (isla_tagged_runs_kernel, the executor's streams):
+//     the stream is block-major per key, so each (key, block) run is one
+//     contiguous slice whose samples belong to the key's cells of that
+//     block, the GROUP BY ids interleaved; the caller passes each run's
+//     start and each key's first cell.  One 128-thread block per run,
+//     eight an SM, stages the run tile by tile (the wrapper's tile, 512
+//     samples) in shared memory with coalesced loads, four in flight a
+//     thread, the batch's per-cell cuts loaded with them; while
+//     staging, each thread checks its samples' ids against the run's cell
+//     set (a violation is counted into the table, and the sample folds
+//     nowhere) and computes v^2, v^3 and the region flags, so the serial
+//     part is only the adds.  A grouped run's tile is bucketed by group
+//     with a stable counting sort (run_buckets, as isla_fold's
+//     bucket_slot).  The 11 columns of a cell are independent left folds,
+//     so each is a chain of its own, one thread a chain (an ungrouped
+//     cell takes 11 threads): it walks its cell's samples in stream order
+//     with no branch, adding its operand where the sample is in the
+//     column's region and +0 elsewhere (exact: the accumulator starts as
+//     0 + row and is never -0), and carries its value from tile to tile
+//     in its row.  A key of more than 128 groups takes its cells 128 at a
+//     time, re-staging the run.  No sort of the stream, no gather, no
+//     search: the critical path is the longest cell's chain of dependent
+//     adds, one a sample.
+//   - any order (isla_tagged_fold_kernel, e.g. a shuffled single-store
+//     stream): the wrapper orders the ids with a stable integer sort
+//     (torch.sort), so each cell's samples lie in one run in stream order;
+//     one thread a cell finds its run by two binary searches of the sorted
+//     ids, loads its row into registers, walks the run kTaggedBatch
+//     samples at a time and writes the row once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -195,6 +219,14 @@ constexpr unsigned long long kRemMask = (1ull << 52) - 1ull;
 constexpr int kTaggedThreads = 128;
 constexpr int kTaggedBatch = 8;  // samples whose loads a fold thread issues
                                  // together
+constexpr int kRunThreads = 128;  // a run block's threads: cells at once
+constexpr int kRunWarps = kRunThreads / 32;
+constexpr int kRunUnroll = 4;     // samples whose loads a thread issues
+                                  // together while staging
+constexpr int kRunBlocksPerSM = 8;  // <= 64 registers: a run's time is
+                                    // latency, so residency pays
+constexpr unsigned kRunSkip = 0xffffffffu;  // a staged sample no cell takes
+constexpr int kColumnBatch = 8;   // samples a column chain loads at once
 
 // One stacked key of a fold launch, with its share of a row's work: its
 // cells are cut into warp tasks of 32 / lanes groups (lanes a group), and
@@ -1070,6 +1102,14 @@ __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
 }
 
+// A sample's region bits under a cell's cuts (s_lo, s_hi, l_lo, l_hi): 1
+// in S, 2 in L, each by exact comparisons.
+template <typename T>
+__device__ __forceinline__ unsigned region_flags(T x, const T* cut) {
+  return ((x > cut[0] && x < cut[1]) ? 1u : 0u) |
+         ((x > cut[2] && x < cut[3]) ? 2u : 0u);
+}
+
 template <typename T>
 struct TaggedArgs {
   const T* values;           // the tagged stream, in stream order
@@ -1186,6 +1226,319 @@ int launch_tagged_fold(const void* values, const int* sorted_seg,
   const unsigned grid =
       static_cast<unsigned>((n_cells + kTaggedThreads - 1) / kTaggedThreads);
   isla_tagged_fold_kernel<T><<<grid, kTaggedThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The run-table instantiation.  Run r = k * n_blocks + b is key k's slice
+// of block b: stream indices [starts[r], starts[r + 1]); key k's cells are
+// [key_off[k], key_off[k + 1]), G = (key_off[k + 1] - key_off[k]) /
+// n_blocks groups, cell g of run r being key_off[k] + g * n_blocks + b.
+template <typename T>
+struct TaggedRunArgs {
+  const T* values;
+  const int* seg;
+  long long m, n_cells;
+  const T* bounds;
+  int per_cell;
+  T* s_out;
+  T* l_out;
+  T* t_out;
+  long long s_stride, l_stride, t_stride;
+  const int* starts;   // (n_keys * n_blocks + 1,)
+  const int* key_off;  // (n_keys + 1,)
+  int* bad;            // runs and samples out of place, counted
+  int n_blocks, tile;
+};
+
+// A run block's dynamic shared memory: the staged tile (v, v^2, v^3 of a
+// sample side by side, and a key word a sample: (group - g0) << 2 |
+// region flags, or kRunSkip), the batch's per-cell cuts, the counting
+// sort's per-warp counts, the bucket starts, and the order (sample
+// indices, group by group).
+template <typename T>
+struct RunSmem {
+  T* v;
+  T* cut;
+  unsigned* key;
+  int* cnt;
+  int* start;
+  unsigned short* order;
+};
+
+template <typename T>
+__device__ __forceinline__ RunSmem<T> run_smem(unsigned char* base,
+                                               int tile) {
+  RunSmem<T> m;
+  m.v = reinterpret_cast<T*>(base);
+  m.cut = m.v + 3 * tile;
+  m.key = reinterpret_cast<unsigned*>(m.cut + 4 * kRunThreads);
+  m.cnt = reinterpret_cast<int*>(m.key + tile);
+  m.start = m.cnt + kRunWarps * kRunThreads;
+  m.order = reinterpret_cast<unsigned short*>(m.start + kRunThreads + 1);
+  return m;
+}
+
+// Bytes of RunSmem for `tile` samples (the host's launch uses the same).
+template <typename T>
+constexpr size_t run_smem_bytes(int tile) {
+  return static_cast<size_t>(tile) * (3 * sizeof(T) + 4 + 2) +
+         4 * sizeof(T) * kRunThreads +
+         4 * static_cast<size_t>(kRunWarps * kRunThreads + kRunThreads + 1);
+}
+
+// Buckets the staged samples [0, len) whose key names a group below nb,
+// stably, as isla_fold's bucket_slot does: each warp takes a contiguous
+// span of the tile 32 samples at a time, the lanes holding one group find
+// each other with __match_any_sync, and a sample's rank is the count of
+// its peers on lower lanes; per-warp counts, their prefix over (group,
+// warp), then a second pass writes each sample's index at its place:
+// start[g] .. start[g + 1] of order holds group g's samples in stream
+// order.  Called by the whole block; ends synchronised.
+template <typename T>
+__device__ __forceinline__ void run_buckets(const RunSmem<T>& m, int len,
+                                            int nb) {
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  int* cnt = m.cnt + w * kRunThreads;
+  const unsigned lt = (1u << lane) - 1u;
+  for (int g = lane; g < nb; g += 32) cnt[g] = 0;
+  __syncwarp();
+  const int per = ((len + kRunThreads - 1) / kRunThreads) * 32;
+  const int lo = w * per, hi = min(len, lo + per);
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int i = c0 + lane;
+    const unsigned g = i < hi ? m.key[i] >> 2 : kRunSkip;
+    const unsigned peers = __match_any_sync(0xffffffffu, g);
+    if (g < static_cast<unsigned>(nb) && (peers & lt) == 0u)
+      cnt[g] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  if (w == 0) {
+    int carry = 0;
+    for (int g0 = 0; g0 < nb; g0 += 32) {
+      const int g = g0 + lane;
+      int tot = 0;
+      if (g < nb)
+        for (int ww = 0; ww < kRunWarps; ++ww)
+          tot += m.cnt[ww * kRunThreads + g];
+      int incl = tot;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (g < nb) {
+        int at = carry + incl - tot;
+        m.start[g] = at;
+        for (int ww = 0; ww < kRunWarps; ++ww) {
+          const int n = m.cnt[ww * kRunThreads + g];
+          m.cnt[ww * kRunThreads + g] = at;
+          at += n;
+        }
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) m.start[nb] = carry;
+  }
+  __syncthreads();
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int i = c0 + lane;
+    const unsigned g = i < hi ? m.key[i] >> 2 : kRunSkip;
+    const unsigned peers = __match_any_sync(0xffffffffu, g);
+    const bool ok = g < static_cast<unsigned>(nb);
+    if (ok)
+      m.order[cnt[g] + __popc(peers & lt)] = static_cast<unsigned short>(i);
+    __syncwarp();
+    if (ok && (peers & lt) == 0u) cnt[g] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+// One column of one cell over the staged samples lo .. hi (through the
+// order when kBucketed): the column adds its operand (1, v, v^2 or v^3:
+// kind 0 to 3) of each sample of local group g that carries the region
+// bits `need` (0: every sample of the group), and +0 for any other.  The
+// accumulator starts as 0 + row, so it is never -0 and adding +0 leaves
+// its bits as they are: the column's value is the fold of its own samples
+// in stream order, with no branch in the loop.  The loads of
+// kColumnBatch samples are issued before their adds.
+template <typename T>
+__device__ __forceinline__ T column_operand(unsigned kw, T w, unsigned g,
+                                            int kind, unsigned need) {
+  const bool in = (kw >> 2) == g && (need == 0u || (kw & need) != 0u);
+  return in ? (kind == 0 ? static_cast<T>(1) : w) : static_cast<T>(0);
+}
+
+template <typename T, bool kBucketed>
+__device__ __forceinline__ T fold_column(T acc, const RunSmem<T>& m, int lo,
+                                         int hi, unsigned g, int kind,
+                                         unsigned need) {
+  const int at = kind > 0 ? kind - 1 : 0;
+  int j = lo;
+  for (; j + kColumnBatch <= hi; j += kColumnBatch) {
+    unsigned kw[kColumnBatch];
+    T w[kColumnBatch];
+#pragma unroll
+    for (int u = 0; u < kColumnBatch; ++u) {
+      const int i = kBucketed ? m.order[j + u] : j + u;
+      kw[u] = m.key[i];
+      w[u] = m.v[3 * i + at];
+    }
+#pragma unroll
+    for (int u = 0; u < kColumnBatch; ++u)
+      acc = add_rn(acc, column_operand(kw[u], w[u], g, kind, need));
+  }
+  for (; j < hi; ++j) {
+    const int i = kBucketed ? m.order[j] : j;
+    acc = add_rn(acc, column_operand(m.key[i], m.v[3 * i + at], g, kind,
+                                     need));
+  }
+  return acc;
+}
+
+// Grid n_keys * n_blocks, kRunThreads threads: block r folds run r's cells
+// (see TaggedRunArgs), each cell's 11 columns as 11 independent chains,
+// a thread a chain: an ungrouped run's cell takes 11 threads.  A run whose
+// table entries are inconsistent (start after end, outside the stream, a
+// key span that is not a positive multiple of n_blocks, the first run not
+// at 0, the last not ending the stream and the cells) counts one
+// violation and folds nothing; a sample whose id lies in [0, n_cells) but
+// not among the run's cells counts one and folds nowhere; ids outside
+// [0, n_cells) (the drop segment) fold nowhere.  Every cell of a
+// consistent run is rewritten as 0 + row.  A chain's value crosses from
+// tile to tile in its row.  A tile is at most kRunThreads * kRunUnroll
+// samples: each thread's loads of a tile are issued at once, with the
+// batch's per-cell cuts.
+template <typename T>
+__global__ void __launch_bounds__(kRunThreads, kRunBlocksPerSM)
+isla_tagged_runs_kernel(const __grid_constant__ TaggedRunArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char run_base[];
+  const RunSmem<T> m = run_smem<T>(run_base, a.tile);
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int k = r / a.n_blocks, b = r - k * a.n_blocks;
+  const long long off = a.key_off[k];
+  const long long span = a.key_off[k + 1] - off;
+  const long long s = a.starts[r], e = a.starts[r + 1];
+  bool ok = span > 0 && span % a.n_blocks == 0 && off >= 0 &&
+            off + span <= a.n_cells && 0 <= s && s <= e && e <= a.m;
+  if (r == 0) ok = ok && s == 0 && off == 0;
+  if (r == static_cast<int>(gridDim.x) - 1)
+    ok = ok && e == a.m && off + span == a.n_cells;
+  if (!ok) {
+    if (tid == 0) atomicAdd(a.bad, 1);
+    return;
+  }
+  // Cell ids and spans fit 32 bits (the wrapper's n_cells < 2^31).
+  const unsigned n_b = static_cast<unsigned>(a.n_blocks);
+  const unsigned G = static_cast<unsigned>(span) / n_b;
+  T cut[4];
+  if (!a.per_cell) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cut[q] = a.bounds[q];
+  }
+  for (unsigned g0 = 0; g0 < G; g0 += kRunThreads) {
+    const int nb = static_cast<int>(min(G - g0, (unsigned)kRunThreads));
+    T cr[4];
+    if (a.per_cell && tid < nb) {
+      const long long cell = off + (g0 + tid) * (long long)n_b + b;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cr[q] = a.bounds[4 * cell + q];
+    }
+    long long t0 = s;
+    do {  // an empty run still rewrites its cells
+      const int len = static_cast<int>(min(e - t0, (long long)a.tile));
+      __syncthreads();  // the last tile's readers are done
+      int id[kRunUnroll];
+      T v[kRunUnroll];
+#pragma unroll
+      for (int u = 0; u < kRunUnroll; ++u) {
+        const int i = tid + u * kRunThreads;
+        id[u] = i < len ? __ldg(a.seg + t0 + i) : -1;
+        v[u] = i < len ? __ldg(a.values + t0 + i) : static_cast<T>(0);
+      }
+      if (a.per_cell && t0 == s) {
+        if (tid < nb) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) m.cut[4 * tid + q] = cr[q];
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int u = 0; u < kRunUnroll; ++u) {
+        const int i = tid + u * kRunThreads;
+        if (i >= len) break;
+        unsigned kw = kRunSkip;
+        if (id[u] >= 0 && id[u] < a.n_cells) {
+          const unsigned rel = static_cast<unsigned>(id[u] - off);
+          const unsigned g = rel / n_b;
+          if (id[u] < off || rel >= span || rel - g * n_b != b) {
+            if (g0 == 0) atomicAdd(a.bad, 1);
+          } else if (g >= g0 && g < g0 + nb) {
+            const T x = v[u];
+            const T x2 = mul_rn(x, x);
+            m.v[3 * i] = x;
+            m.v[3 * i + 1] = x2;
+            m.v[3 * i + 2] = mul_rn(x2, x);
+            kw = (g - g0) << 2 |
+                 (a.per_cell ? region_flags(x, m.cut + 4 * (g - g0))
+                             : region_flags(x, cut));
+          }
+        }
+        m.key[i] = kw;
+      }
+      __syncthreads();
+      if (nb > 1) run_buckets(m, len, nb);
+      for (int q = tid; q < nb * kCols; q += kRunThreads) {
+        const int g = q / kCols, col = q - g * kCols;
+        const long long cell = off + (g0 + g) * (long long)n_b + b;
+        T* dst = col < 4   ? a.s_out + cell * a.s_stride + col
+                 : col < 8 ? a.l_out + cell * a.l_stride + (col - 4)
+                           : a.t_out + cell * a.t_stride + (col - 8);
+        T acc = t0 == s ? add_rn(static_cast<T>(0), *dst) : *dst;
+        const int kind = col < 8 ? (col & 3) : col - 8;
+        const unsigned need = col < 4 ? 1u : col < 8 ? 2u : 0u;
+        acc = nb > 1 ? fold_column<T, true>(acc, m, m.start[g],
+                                            m.start[g + 1], g, kind, need)
+                     : fold_column<T, false>(acc, m, 0, len, 0u, kind, need);
+        *dst = acc;
+      }
+      t0 += a.tile;
+    } while (t0 < e);
+  }
+}
+
+template <typename T>
+int launch_tagged_runs(const void* values, const int* seg, long long m,
+                       const void* bounds, int per_cell, void* s_out,
+                       long long s_stride, void* l_out, long long l_stride,
+                       void* t_out, long long t_stride, long long n_cells,
+                       int* table, int n_keys, int n_blocks, int tile,
+                       cudaStream_t st) {
+  const size_t smem = run_smem_bytes<T>(tile);
+  if (tile <= 0 || tile % 32 != 0 || tile > kRunThreads * kRunUnroll ||
+      smem > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TaggedRunArgs<T> a = {};
+  a.values = static_cast<const T*>(values);
+  a.seg = seg;
+  a.m = m;
+  a.n_cells = n_cells;
+  a.bounds = static_cast<const T*>(bounds);
+  a.per_cell = per_cell;
+  a.s_out = static_cast<T*>(s_out);
+  a.l_out = static_cast<T*>(l_out);
+  a.t_out = static_cast<T*>(t_out);
+  a.s_stride = s_stride;
+  a.l_stride = l_stride;
+  a.t_stride = t_stride;
+  const long long n_runs = static_cast<long long>(n_keys) * n_blocks;
+  a.starts = table;
+  a.key_off = table + n_runs + 1;
+  a.bad = table + n_runs + n_keys + 2;
+  a.n_blocks = n_blocks;
+  a.tile = tile;
+  isla_tagged_runs_kernel<T>
+      <<<static_cast<unsigned>(n_runs), kRunThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1423,6 +1776,34 @@ int isla_tagged_fold(const void* values, int is_double,
   return launch_tagged_fold<float>(values, sorted_seg, perm, m, bounds,
                                    per_cell, s_out, s_stride, l_out, l_stride,
                                    t_out, t_stride, n_cells, st);
+}
+
+// One tagged fold over n_cells cells by its run table: the stream's
+// (key, block) runs are contiguous (see TaggedRunArgs).  table (int32,
+// device): the n_keys * n_blocks + 1 run starts, the n_keys + 1 key
+// offsets, then a counter the kernel adds each run or sample out of place
+// to (the caller zeroes it and reads it after a synchronisation).  tile:
+// samples a run block stages at once (a multiple of 32, its shared memory
+// under 48 KB).  The other arguments as isla_tagged_fold's.  Returns
+// cudaGetLastError() after the launch.
+int isla_tagged_fold_runs(const void* values, int is_double, const int* seg,
+                          long long m, const void* bounds, int per_cell,
+                          void* s_out, long long s_stride, void* l_out,
+                          long long l_stride, void* t_out, long long t_stride,
+                          long long n_cells, int* table, int n_keys,
+                          int n_blocks, int tile, void* stream) {
+  if (n_cells <= 0) return 0;
+  if (m < 0 || n_keys <= 0 || n_blocks <= 0 || n_cells >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_double)
+    return launch_tagged_runs<double>(values, seg, m, bounds, per_cell, s_out,
+                                      s_stride, l_out, l_stride, t_out,
+                                      t_stride, n_cells, table, n_keys,
+                                      n_blocks, tile, st);
+  return launch_tagged_runs<float>(values, seg, m, bounds, per_cell, s_out,
+                                   s_stride, l_out, l_stride, t_out, t_stride,
+                                   n_cells, table, n_keys, n_blocks, tile, st);
 }
 
 }  // extern "C"

@@ -24,7 +24,8 @@ design):
 * ``isla_tagged_fold`` — the tagged tick's Phase 1: a stream of samples,
   each tagged with its cell, folded onto resident float64 (or fp32) rows
   in stream order, each add rounded once — the host ``np.bincount``
-  carry fold's bits.
+  carry fold's bits; a block-major stream comes with its (key, block)
+  run table (``TaggedRuns``) and is folded a block a run.
 
 A stack's keys are ``StackKey`` entries, at most ``MAX_KEYS`` a launch:
 they travel as a small table in the kernel's parameters.  ``isla_fold``
@@ -42,7 +43,8 @@ raises — it never falls back.  Each kernel's
 calls of either entry that launched the kernel on the card, one a call,
 and nothing else (``isla_sketch_tagged`` keeps its own count).  An
 ``isla_sketch`` call is one ``__global__`` launch, an ``isla_tagged_fold``
-call one after a stable ``torch.sort`` of its ids;
+call one (with a run table; without, one after a stable ``torch.sort`` of
+its ids);
 an ``isla_fold`` call is one, or two when its rows exceed ``FOLD_SLICE``
 samples (per-slice partial rows, then their fixed-order combine); a
 ``pilot_stats`` or ``pilot_moments`` call is one at every run length
@@ -64,6 +66,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import ref
@@ -75,6 +78,8 @@ FOLD_SLICE = 32768  # samples per fold block: longer rows are sliced
 MAX_KEYS = 16       # stacked keys one fold or merge launch takes
 STAGE_BYTES = 40 * 1024  # shared memory a fold block stages its row in
                          # (under the 48 KB a block gets without opting in)
+TAGGED_TILE = 512  # samples a run block of the tagged fold stages at once
+                   # (22 KB of shared memory at float64)
 REG_ROWS = 32       # one cell's 4096 HLL registers as a (32, 128) tile
 N_REGS = REG_ROWS * LANE
 
@@ -150,6 +155,8 @@ SIGNATURES = {
                         _I, _P, _P, _P],
         "isla_tagged_fold": [_P, _I, _P, _P, _LL, _P, _I, _P, _LL, _P, _LL,
                              _P, _LL, _LL, _P],
+        "isla_tagged_fold_runs": [_P, _I, _P, _LL, _P, _I, _P, _LL, _P, _LL,
+                                  _P, _LL, _LL, _P, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
         "flash_attention": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
@@ -806,9 +813,61 @@ isla_sketch_tagged.launches = 0
 # ---------------------------------------------------------------------------
 
 
+class TaggedRuns(NamedTuple):
+    """The (key, block) run table of a block-major tagged stream: key k's
+    samples of block b are one contiguous run, run ``r = k * n_blocks + b``,
+    and its samples' ids are the key's cells of that block,
+    ``key_off[k] + g * n_blocks + b`` for each group g (or the drop
+    segment).  ``table`` (int32, on the stream's device) holds the
+    ``n_keys * n_blocks + 1`` run starts, the ``n_keys + 1`` key offsets
+    (``tagged_run_table``), then a count of the runs and samples the fold
+    found out of place.  ``deferred``: the fold does not read the count;
+    the caller raises on it (``check_run_count``) after its own readback.
+    """
+    table: torch.Tensor
+    n_keys: int
+    n_blocks: int
+    deferred: bool = False
+
+    @property
+    def count(self) -> torch.Tensor:
+        """The (1,) count of runs and samples out of place."""
+        return self.table[-1:]
+
+
+def tagged_run_table(lengths, key_offsets) -> np.ndarray:
+    """The host int32 table of ``TaggedRuns``: ``lengths`` (n_keys,
+    n_blocks) are the runs' sample counts, ``key_offsets`` (n_keys + 1,)
+    each key's first cell and the cell count; the count slot is 0."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    key_offsets = np.asarray(key_offsets, dtype=np.int64).reshape(-1)
+    if lengths.ndim != 2 or key_offsets.shape != (lengths.shape[0] + 1,):
+        raise ValueError("lengths must be (n_keys, n_blocks) and key_offsets "
+                         "(n_keys + 1,)")
+    starts = np.concatenate([[0], np.cumsum(lengths.reshape(-1))])
+    if starts[-1] >= 2 ** 31 or key_offsets[-1] >= 2 ** 31:
+        raise ValueError("a run table holds int32 starts and cells")
+    return np.concatenate([starts, key_offsets, [0]]).astype(np.int32)
+
+
+check_run_count = ref.check_run_count
+
+
+def _check_runs(runs: TaggedRuns, values: torch.Tensor) -> None:
+    n = runs.n_keys * runs.n_blocks + runs.n_keys + 3
+    t = runs.table
+    if runs.n_keys < 1 or runs.n_blocks < 1 or t.dtype != torch.int32 \
+            or t.shape != (n,) or not t.is_contiguous():
+        raise ValueError(f"a run table of {runs.n_keys} keys x "
+                         f"{runs.n_blocks} blocks is a contiguous ({n},) "
+                         f"int32 tensor")
+    _same_device(values, runs=t)
+
+
 def isla_tagged_fold(values: torch.Tensor, seg: torch.Tensor,
                      bounds: torch.Tensor, out_s: torch.Tensor,
-                     out_l: torch.Tensor, out_t: torch.Tensor) -> None:
+                     out_l: torch.Tensor, out_t: torch.Tensor,
+                     runs: Optional[TaggedRuns] = None) -> None:
     """Fold a tagged sample stream onto resident moment rows, in place, in
     stream order: the tagged tick's Phase 1 (the reference's carry-prepend
     ``_segment_carry_sum`` in ``_tick_core``).
@@ -823,11 +882,18 @@ def isla_tagged_fold(values: torch.Tensor, seg: torch.Tensor,
         and in L; ``out_t`` (N, 3) ``(count, s1, s2)`` of every sample; of
         the stream's type, unit column stride.
 
+    runs : optional ``TaggedRuns`` of a block-major stream.
+
     Every cell becomes ``((0 + row) + a1) + a2 ...`` over its samples in
     stream order, each add and multiply rounded once — the host
-    ``np.bincount`` carry fold's bits.  On the card a stable ``torch.sort``
-    of the ids, then one ``isla_tagged_fold_kernel`` launch (counted in
-    ``isla_tagged_fold.launches``); on the CPU its plain version."""
+    ``np.bincount`` carry fold's bits.  On the card, with ``runs``, one
+    ``isla_tagged_runs_kernel`` launch (a block a run, no sort); a table
+    that does not describe the stream raises (at once, or through
+    ``check_run_count`` when ``runs.deferred``).  Without, a stable
+    ``torch.sort`` of the ids, then one ``isla_tagged_fold_kernel``
+    launch.  Either is counted in ``isla_tagged_fold.launches``.  On the
+    CPU its plain version, which raises on a wrong table before it
+    folds."""
     if values.dim() != 1 or values.dtype not in (torch.float64,
                                                  torch.float32) \
             or not values.is_contiguous():
@@ -848,13 +914,30 @@ def isla_tagged_fold(values: torch.Tensor, seg: torch.Tensor,
                          f"({n + 1}, 4) {values.dtype} table")
     _same_device(values, seg=seg, bounds=bounds, out_s=out_s, out_l=out_l,
                  out_t=out_t)
+    if runs is not None:
+        _check_runs(runs, values)
     if not on_gpu(values):
-        ref.isla_tagged_fold_ref(values, seg, bounds, out_s, out_l, out_t)
+        ref.isla_tagged_fold_ref(values, seg, bounds, out_s, out_l, out_t,
+                                 runs=runs)
         return
     if n == 0:
         return
     if m >= 2 ** 31:
         raise ValueError(f"{m} samples exceed one tagged fold")
+    if runs is not None:
+        with torch.cuda.device(values.device):
+            err = library().isla_tagged_fold_runs(
+                _ptr(values), int(values.dtype == torch.float64), _ptr(seg),
+                m, _ptr(bounds), int(bounds.shape[0] > 1), _ptr(out_s),
+                out_s.stride(0), _ptr(out_l), out_l.stride(0), _ptr(out_t),
+                out_t.stride(0), n, _ptr(runs.table), runs.n_keys,
+                runs.n_blocks, TAGGED_TILE,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "isla_tagged_fold")
+        isla_tagged_fold.launches += 1
+        if not runs.deferred:
+            check_run_count(int(runs.count))
+        return
     sorted_seg, perm = torch.sort(seg, stable=True)
     with torch.cuda.device(values.device):
         err = library().isla_tagged_fold(

@@ -197,14 +197,55 @@ def segment_carry_sum(prior: torch.Tensor, rows: torch.Tensor,
                                               torch.cat([prior, rows]))
 
 
+def check_run_count(count: int) -> None:
+    """Raise when a run-table fold found runs or samples out of place."""
+    if count:
+        raise ValueError(f"the run table does not describe the tagged "
+                         f"stream: {count} runs or samples out of place")
+
+
+def tagged_run_count(seg: torch.Tensor, runs, n_cells: int) -> int:
+    """What the run-table kernel counts out of place: each run whose
+    entries are inconsistent (a start after its end or outside the
+    stream, a key span that is not a positive multiple of ``n_blocks``,
+    the first run not at 0, the last not ending the stream and the cells),
+    else each sample whose id lies in ``[0, n_cells)`` but not among its
+    run's cells (``runs``: a ``TaggedRuns``)."""
+    n_b, n_k = runs.n_blocks, runs.n_keys
+    n_runs = n_k * n_b
+    m = seg.shape[0]
+    t = runs.table.to(torch.int64)
+    starts, key_off = t[:n_runs + 1], t[n_runs + 1:n_runs + n_k + 2]
+    s, e = starts[:-1], starts[1:]
+    r = torch.arange(n_runs, device=t.device)
+    off, span = key_off[r // n_b], key_off[r // n_b + 1] - key_off[r // n_b]
+    ok = (span > 0) & (span % n_b == 0) & (off >= 0) \
+        & (off + span <= n_cells) & (s >= 0) & (s <= e) & (e <= m)
+    ok &= (r != 0) | ((s == 0) & (off == 0))
+    ok &= (r != n_runs - 1) | ((e == m) & (off + span == n_cells))
+    if not bool(ok.all()):
+        return int((~ok).sum())
+    run = torch.repeat_interleave(r, e - s)
+    ids = seg.to(torch.int64)
+    rel = ids - off[run]
+    placed = (rel >= 0) & (rel < span[run]) & (rel % n_b == run % n_b)
+    return int(((ids >= 0) & (ids < n_cells) & ~placed).sum())
+
+
 def isla_tagged_fold_ref(values: torch.Tensor, seg: torch.Tensor,
                          bounds: torch.Tensor, out_s: torch.Tensor,
-                         out_l: torch.Tensor, out_t: torch.Tensor) -> None:
+                         out_l: torch.Tensor, out_t: torch.Tensor,
+                         runs=None) -> None:
     """Plain version of the ``isla_tagged_fold`` kernel: for each of S, L
     and the totals, the samples it admits — in S (or L) by the cuts of
     their cell, or any sample of a cell in ``[0, N)`` — folded in stream
-    order onto the rows by ``segment_carry_sum``, in place."""
+    order onto the rows by ``segment_carry_sum``, in place.  With a run
+    table it first checks the table against the stream
+    (``tagged_run_count``) and raises, folding nothing, on a mismatch;
+    the fold is the same either way."""
     n = out_s.shape[0]
+    if runs is not None:
+        check_run_count(tagged_run_count(seg, runs, n))
     ids = seg.to(torch.int64)
     keep = (ids >= 0) & (ids < n)
     b = bounds.reshape(-1, 4)

@@ -8,6 +8,19 @@ must match bit for bit in float64.
 * ``drop`` — a tenth of the samples carry the drop segment ``n_cells``;
 * ``per_cell`` — two anchors: a (n_cells + 1, 4) cut table, +inf pad row;
 * ``on_cut`` — a twentieth of the samples lie exactly on a cut.
+
+Block-major cases (``run_case``), the executor's streams: stacked key
+slices in key order, each block by block, with the (key, block) run
+lengths that ``TaggedRuns`` takes:
+
+* ``stacked`` — four keys (plain, WHERE, GROUP BY 16, both), some blocks
+  missing from the chunk (quota 0);
+* ``per_cell`` — the same with a (n_cells + 1, 4) cut table;
+* ``empty`` — a WHERE that keeps nothing in some blocks (empty runs);
+* ``drop`` — drop-segment samples inside the runs;
+* ``long`` — one run of more than 100,000 samples (many staged tiles);
+* ``wide`` — a GROUP BY key of 300 groups (more cells than a run
+  block's threads).
 """
 import numpy as np
 
@@ -66,3 +79,77 @@ def host_fold(values, seg, bounds, prior):
             carry=(rows_s, rows_l))
     totals = sample_moments_batch(v, s, n, carry=prior[:, 8:11])
     return np.concatenate([rows_s, rows_l, totals], axis=1)
+
+
+RUN_CASES = ("stacked", "per_cell", "empty", "drop", "long", "wide")
+# Keys of the block-major cases: (groups, WHERE).
+RUN_KEYS = ((1, False), (1, True), (16, False), (16, True))
+
+
+def run_case(case: str, rng: np.random.Generator):
+    """A block-major tagged stream: ``(values, seg, bounds, prior,
+    lengths, key_offsets)`` — the stream and its int32 cell ids, the cut
+    table, (n_cells, 11) resident rows, the (n_keys, n_blocks) run lengths
+    and the (n_keys + 1,) key offsets (``tagged_run_table``'s
+    arguments)."""
+    keys = ((300, False), (1, True)) if case == "wide" else RUN_KEYS
+    n_b = 3 if case == "long" else 12
+    quotas = rng.integers(50, 400, n_b)
+    quotas[rng.random(n_b) < 0.25] = 0  # blocks missing from the chunk
+    if case == "long":
+        quotas[:] = (0, 100_500, 700)
+    rows = int(quotas.sum())
+    x = rng.normal(100.0, 20.0, rows)
+    block = np.repeat(np.arange(n_b), quotas)
+    flag = rng.random(rows) < 0.5
+    if case == "empty":
+        flag[np.isin(block, (1, 4, 7))] = False
+    g_max = max(g for g, _ in keys)
+    grp = rng.integers(0, g_max, rows)
+    offsets = np.concatenate([[0], np.cumsum([g * n_b for g, _ in keys])])
+    n_cells = int(offsets[-1])
+    vals, segs, lengths = [], [], []
+    for (g, where), off in zip(keys, offsets):
+        keep = flag if where else np.ones(rows, dtype=bool)
+        seg = off + (grp % g) * n_b + block
+        v, s = x[keep], seg[keep]
+        if case == "drop":
+            at = rng.random(v.size) < 0.1
+            s = np.where(at, n_cells, s)
+        vals.append(v)
+        segs.append(s)
+        lengths.append(np.bincount(block[keep], minlength=n_b))
+    bounds = np.asarray([CUTS[0]])
+    if case == "per_cell":
+        cut = np.where(np.arange(n_cells)[:, None] % 3 == 0, CUTS[0], CUTS[1])
+        bounds = np.concatenate([cut, np.full((1, 4), np.inf)])
+    prior = tagged_case("shuffled", rng, n_cells=n_cells, m=n_cells)[3]
+    return (np.concatenate(vals), np.concatenate(segs).astype(np.int32),
+            bounds, prior, np.stack(lengths), offsets)
+
+
+# Ways a run table can fail to describe its stream.
+WRONG_TABLES = ("boundary", "foreign_id", "other_key", "short", "offsets",
+                "negative")
+
+
+def wrong_table(kind, seg, lengths, offsets):
+    """A ``run_case`` stream's ids, run lengths and key offsets spoiled
+    the ``kind`` way (one of ``WRONG_TABLES``)."""
+    lengths, offsets, seg = lengths.copy(), offsets.copy(), seg.copy()
+    if kind == "boundary":  # a run boundary one sample late
+        r = np.flatnonzero(lengths.reshape(-1))[2]
+        lengths.reshape(-1)[r] += 1
+        nxt = r + 1 + np.flatnonzero(lengths.reshape(-1)[r + 1:])[0]
+        lengths.reshape(-1)[nxt] -= 1
+    elif kind == "foreign_id":  # a sample tagged with another block
+        seg[5] = seg[5] + 1
+    elif kind == "other_key":  # a sample tagged with another key's cell
+        seg[-1] = 0
+    elif kind == "short":  # the runs end before the stream
+        lengths[-1, np.flatnonzero(lengths[-1])[-1]] -= 1
+    elif kind == "offsets":  # key offsets that do not tile the cells
+        offsets[2] += 1
+    elif kind == "negative":  # a run that ends before it starts
+        lengths[0, np.flatnonzero(lengths[0])[0]] *= -1
+    return seg, lengths, offsets

@@ -19,7 +19,8 @@ from _torch_pilot_cases import SIZES as PILOT_SIZES
 from _torch_pilot_cases import run as pilot_run
 from _torch_sketch_cases import SKETCH_CASES, sketch_case
 from _torch_tagged_cases import CASES as TAGGED_CASES
-from _torch_tagged_cases import host_fold, tagged_case
+from _torch_tagged_cases import (RUN_CASES, WRONG_TABLES, host_fold,
+                                 run_case, tagged_case, wrong_table)
 
 pytestmark = pytest.mark.cuda
 
@@ -631,6 +632,93 @@ def test_tagged_fold_kernel_matches_plain_version(cuda, case, dtype):
                               host_fold(values, seg, bounds, prior))
 
 
+def _runs(lengths, offsets, dev):
+    table = torch.as_tensor(K.tagged_run_table(lengths, offsets), device=dev)
+    return K.TaggedRuns(table, lengths.shape[0], lengths.shape[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", RUN_CASES)
+def test_tagged_run_kernel_matches_plain_version(cuda, case, dtype,
+                                                 monkeypatch):
+    """The run-table instantiation on the block-major cases against the
+    plain version run on CPU copies: bit for bit (tolerance 0) in both
+    types, the host carry fold's bits in float64; two launches give
+    identical bits, count two, and sort nothing."""
+    values, seg, bounds, prior, lengths, offsets = run_case(
+        case, np.random.default_rng(16))
+    args = [torch.as_tensor(values, dtype=dtype), torch.as_tensor(seg),
+            torch.as_tensor(bounds, dtype=dtype)]
+    K.reset_launch_counts()
+    outs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        rows = torch.tensor(prior, dtype=dtype, device=dev)  # a copy
+        with monkeypatch.context() as mp:
+            mp.setattr(torch, "sort", None)  # the run path sorts nothing
+            K.isla_tagged_fold(*(a.to(dev) for a in args), rows[:, 0:4],
+                               rows[:, 4:8], rows[:, 8:11],
+                               runs=_runs(lengths, offsets, dev))
+        outs.append(rows.cpu())
+    assert K.isla_tagged_fold.launches == 2
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[2])
+    if dtype == torch.float64:
+        assert np.array_equal(outs[0].numpy(),
+                              host_fold(values, seg, bounds, prior))
+
+
+@pytest.mark.parametrize("kind", WRONG_TABLES)
+def test_wrong_run_table_raises_on_card(cuda, kind):
+    """A run table that does not describe its stream raises on the card
+    (the kernel counts what is out of place; the wrapper reads the count);
+    a deferred table leaves the count for the caller to raise on."""
+    values, seg, bounds, prior, lengths, offsets = run_case(
+        "stacked", np.random.default_rng(13))
+    bad_seg, bad_len, bad_off = wrong_table(kind, seg, lengths, offsets)
+    rows = torch.tensor(prior, device="cuda")
+    args = (torch.as_tensor(values, device="cuda"),
+            torch.as_tensor(bad_seg, device="cuda"),
+            torch.as_tensor(bounds, device="cuda"), rows[:, 0:4],
+            rows[:, 4:8], rows[:, 8:11])
+    with pytest.raises(ValueError, match="run table"):
+        K.isla_tagged_fold(*args, runs=_runs(bad_len, bad_off, "cuda"))
+    runs = _runs(bad_len, bad_off, "cuda")._replace(deferred=True)
+    K.isla_tagged_fold(*args, runs=runs)
+    assert int(runs.count) > 0
+    with pytest.raises(ValueError, match="run table"):
+        K.check_run_count(int(runs.count))
+
+
+@pytest.mark.parametrize("thr", ["scalar", "per_cell"])
+@pytest.mark.parametrize("mode", ["calibrated", "empirical", "faithful"])
+def test_phase2_on_card_matches_cpu_bit_for_bit(cuda, mode, thr):
+    """float64 Phase 2 on the card over a seeded 34,000-cell state is
+    Phase 2 on the CPU bit for bit in every mode: its divisions by
+    constants divide by a device scalar (torch would multiply a CUDA
+    tensor by a host scalar's reciprocal)."""
+    rng = np.random.default_rng(17)
+    params = TC.IslaParams()
+    b = TC.make_boundaries(100.0, 20.0, params).as_tuple()
+    x = rng.normal(100.0, 20.0, (34_000, 40))
+    mom = []
+    for lo, hi in ((b[0], b[1]), (b[2], b[3])):
+        w = ((x > lo) & (x < hi)).astype(np.float64)
+        mom.append(np.stack([w.sum(1), (w * x).sum(1), (w * x * x).sum(1),
+                             (w * x ** 3).sum(1)], axis=1))
+    sketch0 = 100.0 + rng.normal(0.0, 2.0, 34_000)
+    inv_scale = rng.uniform(0.5, 2.0, 34_000)
+    geometry = (0.7, 0.3) if mode == "empirical" else None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = [torch.as_tensor(a, device=dev) for a in (*mom, sketch0)]
+        kw = {} if thr == "scalar" else dict(
+            thr=params.thr * torch.as_tensor(inv_scale, device=dev))
+        out[dev] = TD.phase2(*t, params, mode=mode, geometry=geometry,
+                             **kw).cpu()
+    assert torch.isfinite(out["cpu"]).all()
+    assert torch.equal(out["cuda"], out["cpu"])
+
+
 def test_tagged_sketch_kernel_matches_plain_version(cuda):
     """``isla_sketch_tagged`` on the card against its plain version on CPU
     copies: registers bit for bit from a warm plane, out-of-range and
@@ -660,9 +748,8 @@ def test_float64_executor_on_cuda_matches_cpu(cuda):
     (the pilot kernel runs fp32 and sits within rel 1.1e-7 of its float64
     plain version, and sketch0 moves every partial): every key's moment
     state, totals and register plane bit for bit, tagged folds and merges
-    and no dense launch; partials within one ulp (torch's CUDA division
-    by a host scalar multiplies by its reciprocal) and answers within rel
-    1e-12."""
+    and no dense launch; partials bit for bit (Phase 2 divides by device
+    scalars) and answers within rel 1e-12."""
     import functools
 
     from repro_torch.core import multiquery as TMQ
@@ -708,8 +795,44 @@ def test_float64_executor_on_cuda_matches_cpu(cuda):
             assert np.array_equal(getattr(g, f), getattr(c, f)), (k, f)
         if c.has_sketch:
             assert np.array_equal(g.regs, c.regs)
-        pc, pg = partials["cpu"][k], partials["cuda"][k]
-        assert np.all(np.abs(pg - pc) <= np.spacing(np.abs(pc))), k
+        assert np.array_equal(partials["cuda"][k], partials["cpu"][k]), k
     for c, g in zip(answers["cpu"], answers["cuda"]):
         assert g.new_samples == c.new_samples
         assert g.value == pytest.approx(c.value, rel=1e-12)
+
+
+def test_float64_executor_tick_sorts_nothing(cuda):
+    """The executor's float64 tick on the card folds each stream by its run
+    table: the profiler's device events of a drawing run hold the run
+    kernel, no ``isla_tagged_fold_kernel`` and no sort kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(4)
+    tables = [{"value": rng.normal(90.0, 15.0, 2000),
+               "region": rng.integers(0, 3, 2000).astype(np.float64),
+               "flag": rng.integers(0, 2, 2000).astype(np.float64)}
+              for _ in range(6)]
+    flag = TC.Predicate(column="flag", eq=1.0)
+    qs = [TC.IslaQuery(e=0.5, agg="AVG"),
+          TC.IslaQuery(e=0.5, agg="AVG", group_by="region", where=flag)]
+    was = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        ex = TC.MultiQueryExecutor(
+            [TC.table_sampler(t) for t in tables], [10 ** 6] * 6,
+            params=TC.IslaParams(e=0.5), group_domains={"region": 3},
+            device="cuda")
+        K.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ex.run(qs, np.random.default_rng(5), incremental=True,
+                   route="device")
+            torch.cuda.synchronize()
+    finally:
+        torch.set_default_dtype(was)
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    assert K.isla_tagged_fold.launches > 0
+    assert sum("isla_tagged_runs_kernel" in n for n in names) \
+        == K.isla_tagged_fold.launches
+    assert not any("isla_tagged_fold_kernel" in n for n in names)
+    assert not any("sort" in n.lower() for n in names), names

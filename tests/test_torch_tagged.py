@@ -31,7 +31,9 @@ from repro_torch.core import sketch as TSK
 from repro_torch.core.moment_store import DeviceMomentStore as TDev
 from repro_torch.core.moment_store import DeviceStack as TStack
 from repro_torch.kernels import isla_moments as K
-from _torch_tagged_cases import CASES, host_fold, tagged_case
+from _torch_tagged_cases import (CASES, RUN_CASES, WRONG_TABLES,
+                                 host_fold, run_case, tagged_case,
+                                 wrong_table)
 from test_torch_executor import _executor, _queries, _tables
 
 MU, SIGMA = 100.0, 20.0
@@ -69,6 +71,103 @@ def test_plain_fold_matches_host_carry_fold(case):
                            rows[:, 4:8], rows[:, 8:11])
     assert np.array_equal(rows.numpy(), want)
     assert K.isla_tagged_fold.launches == 0
+
+
+def _runs(lengths, offsets, deferred=False):
+    """A CPU ``TaggedRuns`` of a case's run lengths and key offsets."""
+    table = torch.as_tensor(K.tagged_run_table(lengths, offsets))
+    return K.TaggedRuns(table, lengths.shape[0], lengths.shape[1], deferred)
+
+
+@pytest.mark.parametrize("table", [True, False])
+@pytest.mark.parametrize("case", RUN_CASES)
+def test_block_major_fold_matches_host_carry_fold(case, table):
+    """The executor's block-major streams (stacked key slices, GROUP BY,
+    WHERE, per-cell cuts, empty runs, missing blocks, a run of more than
+    100,000 samples, a key of 300 groups) folded by the plain version,
+    with the stream's run table and without, over two passes: the host
+    bincount carry fold bit for bit."""
+    rng = np.random.default_rng(11)
+    want, rows = None, None
+    for _ in range(2):
+        values, seg, bounds, prior, lengths, offsets = run_case(case, rng)
+        if rows is None:
+            want, rows = prior.copy(), torch.as_tensor(prior).clone()
+        want = host_fold(values, seg, bounds, want)
+        K.isla_tagged_fold(torch.as_tensor(values), torch.as_tensor(seg),
+                           torch.as_tensor(bounds), rows[:, 0:4],
+                           rows[:, 4:8], rows[:, 8:11],
+                           runs=_runs(lengths, offsets) if table else None)
+    assert np.array_equal(rows.numpy(), want)
+    assert K.isla_tagged_fold.launches == 0
+
+
+@pytest.mark.parametrize("kind", WRONG_TABLES)
+def test_wrong_run_table_raises(kind):
+    """A table that does not describe its stream raises before the plain
+    version folds anything; the right table does not."""
+    values, seg, bounds, prior, lengths, offsets = run_case(
+        "stacked", np.random.default_rng(13))
+    bad_seg, bad_len, bad_off = wrong_table(kind, seg, lengths, offsets)
+    rows = torch.as_tensor(prior).clone()
+    args = (torch.as_tensor(values), torch.as_tensor(bad_seg),
+            torch.as_tensor(bounds), rows[:, 0:4], rows[:, 4:8],
+            rows[:, 8:11])
+    with pytest.raises(ValueError, match="run table"):
+        K.isla_tagged_fold(*args, runs=_runs(bad_len, bad_off))
+    assert np.array_equal(rows.numpy(), prior)
+    K.isla_tagged_fold(*args[:1], torch.as_tensor(seg), *args[2:],
+                       runs=_runs(lengths, offsets))
+
+
+def test_run_table_layout():
+    """``tagged_run_table``: the run starts, the key offsets, a zero
+    count; ``TaggedRuns.count`` is its last entry."""
+    lengths = np.array([[3, 0, 2], [1, 1, 0]])
+    table = K.tagged_run_table(lengths, [0, 3, 9])
+    assert table.dtype == np.int32
+    assert table.tolist() == [0, 3, 3, 5, 6, 7, 7, 0, 3, 9, 0]
+    runs = K.TaggedRuns(torch.as_tensor(table), 2, 3)
+    assert runs.count.tolist() == [0]
+    with pytest.raises(ValueError, match="contiguous"):
+        K.isla_tagged_fold(torch.zeros(7, dtype=torch.float64),
+                           torch.zeros(7, dtype=torch.int32),
+                           torch.zeros((1, 4), dtype=torch.float64),
+                           *(torch.zeros((9, w), dtype=torch.float64)
+                             for w in (4, 4, 3)),
+                           runs=K.TaggedRuns(runs.table, 2, 4))
+
+
+def test_key_runs_counts_each_blocks_samples():
+    """``DeviceStack.key_runs``: a key's run lengths in a block-major draw
+    are the quotas, or its WHERE mask's per-block counts; blocks with no
+    draw hold 0."""
+    rng = np.random.default_rng(14)
+    b = TC.make_boundaries(MU, SIGMA, TC.IslaParams())
+    stack = TStack([TDev.fresh_device(N_BLOCKS, b, MU, SIZES, device="cpu")])
+    quotas = rng.integers(0, 30, N_BLOCKS)
+    quotas[::4] = 0
+    block = np.repeat(np.arange(N_BLOCKS), quotas)
+    mask = rng.random(block.size) < 0.3
+    assert np.array_equal(stack.key_runs(quotas), quotas)
+    assert np.array_equal(stack.key_runs(quotas, mask),
+                          np.bincount(block[mask], minlength=N_BLOCKS))
+
+
+def test_stack_tick_raises_on_a_wrong_run_table(float64_default):
+    """``DeviceStack.tick(runs=...)`` uploads the table with the stream and
+    raises when it does not describe it (a run one sample short)."""
+    b = TC.make_boundaries(MU, SIGMA, TC.IslaParams())
+    stack = TStack([TDev.fresh_device(N_BLOCKS, b, MU, SIZES, device="cpu")])
+    vals, bids, _, _, quotas = _tagged_pass(np.random.default_rng(15),
+                                            shuffle=False)
+    seg = stack.key_seg(0, stack.stores[0], bids)
+    runs = stack.key_runs(quotas)[None]
+    runs[0, 0] -= 1
+    runs[0, 1] += 1
+    with pytest.raises(ValueError, match="run table"):
+        stack.tick(TC.IslaParams(), values=vals, seg=seg, quotas=quotas,
+                   runs=runs)
 
 
 def _tagged_pass(rng, quota=400, shuffle=True):
@@ -210,6 +309,34 @@ def test_executor_float64_device_route_matches_host_route(float64_default):
             assert np.array_equal(getattr(got, f), getattr(want, f)), f
         if want.has_sketch:
             assert np.array_equal(got.regs, want.regs)
+
+
+@pytest.mark.parametrize("zone", [False, True])
+def test_executor_float64_ticks_fold_by_run_tables(zone, float64_default,
+                                                   monkeypatch):
+    """Every tagged fold of the executor's float64 device route carries
+    its stream's run table, and the table describes the stream (the plain
+    version checks it); with a zone map too, whose WHERE masks skip whole
+    blocks."""
+    from repro_torch.core import distributed as TDist
+
+    seen = []
+    real = TDist._segment_carry_sum
+
+    def spy(*args, runs=None):
+        seen.append((args[4].shape[0], runs))
+        return real(*args, runs=runs)
+
+    monkeypatch.setattr(TDist, "_segment_carry_sum", spy)
+    ex = _executor(TC, _tables(), zone=zone, device="cpu")
+    ex.run(_queries(TC, 1.0), np.random.default_rng(5), incremental=True,
+           route="device")
+    assert seen
+    for m, runs in seen:
+        assert runs is not None and runs.deferred
+        assert runs.n_keys == len(_queries(TC)) - 1  # AVG and VAR share
+        assert int(runs.table[runs.n_keys * runs.n_blocks]) == m
+        assert int(runs.count) == 0
 
 
 def test_store_from_continues_a_reference_float64_store():

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Time the dense serving tick's fold and register merge on the card: one
 ``distributed.fold_panes`` and one ``distributed.sketch_panes`` call each,
-at the serving loop's panes; or, with ``--mode pilot``, the device pilot.
+at the serving loop's panes; or, with ``--mode pilot``, the device pilot;
+or, with ``--mode tagged``, the float64 tick's tagged fold.
 
     python3 tools/isla_stack_bench.py [--src PATH] [--label NAME]
-                                      [--mode stack|pilot]
+                                      [--mode stack|pilot|tagged]
 
 ``--src`` is the ``src`` directory of the port to time (default: this
 checkout's), so two trees of the port can be timed on one card in one
@@ -36,6 +37,21 @@ every kernel of the call (the pilot kernels and any torch op the tree
 runs after them) and ``copy_ms``, of its upload and readback; and
 ``launches``, the kernel launches a call by the profiler and by the
 tree's ``pilot_stats.launches``.
+
+``--mode tagged`` times ``distributed._segment_carry_sum`` (the tagged
+tick's fold; its positional signature is every tree's) on block-major
+float64 streams made as the loop makes them: the four keys' slices one
+after another, each block by block, 1000 blocks of 318 (the cold tick)
+and 954 rows (the top-up), GROUP BY ids of 16 groups, a WHERE that keeps
+half, per-cell cuts of two anchors, a 34,000-row resident state.  On a
+tree whose fold takes a run table (``runs=``) it times both paths, the
+run table and the stable sort.  One JSON line a stream and path:
+``kernel_ms``, every device event of a call from the profiler (the sort
+and the fold), ``events``, their count a call, ``event_ms`` by CUDA
+events, and ``bound_ms`` (12 B a sample, the rows read and written once,
+over 3.35 TB/s).  Then one run alone (``solo``): 954 samples of one
+block, ungrouped and over 16 groups, the device time of a single run with
+the card otherwise idle.
 """
 from __future__ import annotations
 
@@ -75,7 +91,10 @@ def event_ms(fn, reps=REPS, warm=3):
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, name, setup=None, reps=REPS, warm=3):
+def kernel_ms(fn, name, setup=None, reps=REPS, warm=3, count=False):
+    """Device ms a call in the kernels whose names contain ``name``, from
+    the profiler (a short device spin opens the window, not counted);
+    with ``count``, also their events a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -84,15 +103,19 @@ def kernel_ms(fn, name, setup=None, reps=REPS, warm=3):
             setup()
         fn()
     torch.cuda.synchronize()
+    time.sleep(0.005)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(200_000)
         for _ in range(reps):
             if setup is not None:
                 setup()
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if str(e.device_type).endswith("CUDA") and name in e.name]
-    return sum(us) / reps * 1e-3 if us else None
+          if str(e.device_type).endswith("CUDA") and name in e.name
+          and "spin_kernel" not in e.name]
+    ms = sum(us) / reps * 1e-3 if us else None
+    return (ms, len(us) / reps) if count else ms
 
 
 def panes(quota, fill, seed=0):
@@ -115,6 +138,86 @@ def panes(quota, fill, seed=0):
         bounds=t([[0.5, 0.875, 1.125, 1.5]]),
         bits=t(raw.view(np.int64), torch.int64),
         n_real=int(live.sum()))
+
+
+def tagged_stream(rows, seed=0):
+    """A block-major tagged float64 stream of the loop's four keys over
+    ``N_BLOCKS`` blocks of ``rows`` rows: ``(values, seg, bounds, lengths,
+    offsets)`` as numpy (ids, a per-cell cut table, the (4, N_BLOCKS) run
+    lengths and the key offsets)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    block = np.repeat(np.arange(N_BLOCKS), rows)
+    x = rng.normal(100.0, 20.0, block.size)
+    grp = rng.integers(0, 16, block.size)
+    flag = rng.random(block.size) < 0.5
+    offsets = np.concatenate([[0], np.cumsum([k[0] * N_BLOCKS
+                                              for k in KEYS])])
+    vals, segs, lengths = [], [], []
+    for (g, _, valid), off in zip(KEYS, offsets):
+        keep = flag if valid >= 0 else np.ones(block.size, dtype=bool)
+        vals.append(x[keep])
+        segs.append((off + (grp % g) * N_BLOCKS + block)[keep])
+        lengths.append(np.bincount(block[keep], minlength=N_BLOCKS))
+    n = int(offsets[-1])
+    cuts = np.where(np.arange(n)[:, None] % 2 == 0,
+                    (60.0, 80.0, 120.0, 140.0), (62.0, 81.0, 119.0, 138.0))
+    bounds = np.concatenate([cuts, np.full((1, 4), np.inf)])
+    return (np.concatenate(vals), np.concatenate(segs).astype(np.int32),
+            bounds, np.stack(lengths), offsets)
+
+
+def tagged_rows(card, label):
+    """One JSON line a stream and path: the tagged fold's device time (see
+    the module docstring)."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import isla_moments as K
+
+    has_runs = "runs" in inspect.signature(D._segment_carry_sum).parameters
+    dev = torch.device("cuda")
+    streams = [(f"loop {rows} rows a block",) + tagged_stream(rows)
+               for rows in (318, 954)]
+    for groups in (1, 16):
+        rng = np.random.default_rng(groups)
+        seg = rng.integers(0, groups, 954).astype(np.int32)
+        bounds = np.concatenate([np.tile([[60.0, 80.0, 120.0, 140.0]],
+                                         (groups, 1)), np.full((1, 4),
+                                                               np.inf)])
+        streams.append((f"solo run, {groups} groups",
+                        rng.normal(100.0, 20.0, 954), seg, bounds,
+                        np.array([[954]]), np.array([0, groups])))
+    for name, values, seg, bounds, lengths, offsets in streams:
+        n = int(offsets[-1])
+        state = torch.zeros((n, 11), dtype=torch.float64, device=dev)
+        v = torch.as_tensor(values, device=dev)
+        sg = torch.as_tensor(seg, device=dev)
+        b = torch.as_tensor(bounds, device=dev)
+        paths = [("sorted", None)]
+        if has_runs:
+            table = torch.as_tensor(K.tagged_run_table(lengths, offsets),
+                                    device=dev)
+            paths.insert(0, ("runs", K.TaggedRuns(
+                table, lengths.shape[0], lengths.shape[1], deferred=True)))
+        for path, runs in paths:
+            kw = {} if runs is None else dict(runs=runs)
+
+            def fold():
+                D._segment_carry_sum(state[:, 0:4], state[:, 4:8],
+                                     state[:, 8:11], v, sg, b, **kw)
+
+            ms, events = kernel_ms(fold, "", count=True)
+            print(json.dumps(dict(
+                card=card, tree=label, mode="tagged", stream=name, path=path,
+                tile=getattr(K, "TAGGED_TILE", None) if runs else None,
+                samples=int(v.numel()), cells=n, kernel_ms=ms,
+                events=events, event_ms=event_ms(fold),
+                bound_ms=(12 * v.numel() + 32 * b.shape[0] + 2 * 88 * n)
+                / 3.35e12 * 1e3)), flush=True)
 
 
 def pilot_rows(card, label):
@@ -170,7 +273,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
-    ap.add_argument("--mode", choices=("stack", "pilot"), default="stack")
+    ap.add_argument("--mode", choices=("stack", "pilot", "tagged"),
+                    default="stack")
     args = ap.parse_args()
     import torch
 
@@ -187,6 +291,9 @@ def main() -> int:
     K.build()
     if args.mode == "pilot":
         pilot_rows(card, args.label)
+        return 0
+    if args.mode == "tagged":
+        tagged_rows(card, args.label)
         return 0
     kw = dict(n_groups_list=tuple(k[0] for k in KEYS),
               gid_slots=tuple(k[1] for k in KEYS),
