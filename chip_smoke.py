@@ -976,6 +976,49 @@ def device_kernel_counts(prof) -> "dict | None":
     return out
 
 
+def trace_whole(r: dict) -> bool:
+    """Whether a profiled tick's trace holds every ISLA kernel that the
+    wrappers' launch counts say the tick ran."""
+    ev = r["kernel_events"]
+    want = {"isla_fold_kernel": r["fold_launches"],
+            "pilot_moments_kernel": r["pilot_launches"],
+            "isla_sketch_kernel": r["sketch_launches"]
+            + r["tagged_sketch_launches"]}
+    if not any(want.values()) and not r["tagged_launches"]:
+        return True
+    return ev is not None and all(ev[k] >= n for k, n in want.items()) \
+        and ev["isla_tagged_fold_kernel"] + ev["isla_tagged_runs_kernel"] \
+        >= r["tagged_launches"]
+
+
+def profiled_serve(name: str, n_blocks, n_groups, rows, ticks, distinct,
+                   profile_at, forbidden=()) -> "tuple[list, int]":
+    """A re-run of the main path's loop (same seed, same draws) with the
+    ticks in ``profile_at`` under the profiler.  The profiler can lose a
+    window's kernel records on the card (seen once: a traced tick that
+    held none of the ISLA kernels it launched), and a trace that lost
+    kernels cannot show that one did not run.  So every traced tick must
+    be ``trace_whole``; the run is taken again when one is not, up to
+    ``PROFILE_TRIES`` runs, and fails after that.  A kernel of
+    ``forbidden`` (``device_kernel_counts``' keys) in any trace fails at
+    once.  Returns the last run's records and the runs it took."""
+    for run in range(1, PROFILE_TRIES + 1):
+        _, _, recs = run_serve("cuda", "device", n_blocks, n_groups, rows,
+                               ticks, distinct, profile_at=profile_at)
+        for k in profile_at:
+            ev = recs[k]["kernel_events"] or {}
+            check(not any(ev.get(f) for f in forbidden),
+                  f"the {name} run's profiled tick {k + 1} ran {ev}")
+        if all(trace_whole(recs[k]) for k in profile_at):
+            return recs, run
+        print(f"the {name} run's profiled re-run {run}: the trace lost "
+              f"kernels the launch counts name: "
+              + "; ".join(f"tick {k + 1} {recs[k]['kernel_events']}"
+                          for k in profile_at))
+    check(False, f"the {name} run's profiled ticks lost kernels in "
+                 f"{PROFILE_TRIES} runs")
+
+
 def host_op_seconds(prof, top: int = 12) -> dict:
     """The ``top`` operators by host (self CPU) seconds in a profiled
     window, with their call counts."""
@@ -1080,21 +1123,22 @@ def main_path(name: str, distinct: bool, n_blocks=1000, n_groups=16,
     # The profiler inflates the host stages of the tick it traces, so the
     # device's busy time comes from a second, profiled run of the same
     # loop (same seed, same draws) after the counts were read.
-    _, _, profiled = run_serve("cuda", "device", n_blocks, n_groups, rows,
-                               ticks, distinct, profile_at=(1,))
+    profiled, traced_runs = profiled_serve(
+        name, n_blocks, n_groups, rows, ticks, distinct, (1,),
+        forbidden=("isla_fold_combine_kernel",))
     # The profiler's own count of the traced tick's ISLA kernels: one fold
     # kernel per fold_panes call (its combine only when a row is sliced,
     # which the loop's panes never are) and one merge per sketch_panes.
     ev, r = profiled[1]["kernel_events"], profiled[1]
-    if ev is not None:
-        check(ev["isla_fold_kernel"] == r["fold_calls"]
-              and ev["isla_fold_combine_kernel"] == 0
-              and ev["isla_sketch_kernel"] == r["sketch_calls"],
-              f"the {name} run's profiled tick ran {ev} for "
-              f"{r['fold_calls']} fold_panes and {r['sketch_calls']} "
-              f"sketch_panes calls")
+    check(ev["isla_fold_kernel"] == r["fold_calls"]
+          and ev["isla_fold_combine_kernel"] == 0
+          and ev["isla_sketch_kernel"] == r["sketch_calls"],
+          f"the {name} run's profiled tick ran {ev} for "
+          f"{r['fold_calls']} fold_panes and {r['sketch_calls']} "
+          f"sketch_panes calls")
     return dict(name=name, launches=launches, wall_s=wall, ticks=records,
-                profiled_ticks=profiled, pilot_size=pilot_n,
+                profiled_ticks=profiled, traced_runs=traced_runs,
+                pilot_size=pilot_n,
                 agreement=agree, phase2=repair, fold_calls=folds.calls,
                 sketch_calls=sketches.calls,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
@@ -1272,9 +1316,9 @@ def main_path_f64(name: str, distinct: bool, n_blocks=1000, n_groups=16,
         # The profiler's view of both drawing ticks, in a re-run of the
         # same loop: the run kernel once a tagged fold, the sorted path's
         # kernel never, no sort kernel at all.
-        _, _, profiled = run_serve("cuda", "device", n_blocks, n_groups,
-                                   rows, ticks, distinct,
-                                   profile_at=(0, 1))
+        profiled, traced_runs = profiled_serve(
+            name, n_blocks, n_groups, rows, ticks, distinct, (0, 1),
+            forbidden=("isla_tagged_fold_kernel", "sort"))
         for k in (0, 1):
             ev, r = profiled[k]["kernel_events"], profiled[k]
             check(ev is not None and r["tagged_calls"] > 0
@@ -1285,7 +1329,7 @@ def main_path_f64(name: str, distinct: bool, n_blocks=1000, n_groups=16,
     finally:
         torch.set_default_dtype(was)
     return dict(name=name, launches=launches, wall_s=wall, ticks=records,
-                profiled_ticks=profiled,
+                profiled_ticks=profiled, traced_runs=traced_runs,
                 agreement=dict(agree, answers_equal=exact), state=state,
                 tagged_calls=folds.calls, sketch_calls=merges.calls,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
@@ -2108,7 +2152,8 @@ def main() -> int:
               f"{rp['differ_from_cpu']} of {rp['cells']} differ from Phase 2 "
               f"on the CPU over the card's state (max "
               f"{rp['max_ulps_from_cpu']:g} fp32 ulp), the division repair "
-              f"moved {rp['moved_by_repair']}")
+              f"moved {rp['moved_by_repair']}; profiled re-runs taken "
+              f"{path['traced_runs']}")
         for k, (r, q) in enumerate(zip(path["ticks"],
                                        path["profiled_ticks"])):
             stages = ", ".join(f"{n} {t:.4f}"
@@ -2172,7 +2217,8 @@ def main() -> int:
               f"host solve (max {st['max_ulps_from_host_solve']:g} ulp), "
               f"{st['phase2']['differ_from_cpu']} from Phase 2 on the CPU "
               f"over the card's state; the division repair moved "
-              f"{st['phase2']['moved_by_repair']} of {st['cells']}")
+              f"{st['phase2']['moved_by_repair']} of {st['cells']}; "
+              f"profiled re-runs taken {path['traced_runs']}")
         for k, (r, q) in enumerate(zip(path["ticks"], fp32["ticks"])):
             stages = ", ".join(f"{n} {t:.4f}"
                                for n, t in r["stages_s"].items())
