@@ -43,6 +43,18 @@ against its plain version run on the CPU over the same tensors, bit for
 bit, and timed beside its bound (and the same stream folded at fp32);
 each merge likewise.
 
+Then the same four loops (moments and distinct, fp32 and float64) on
+``route="mesh"``: the cell axis split by block runs over four shards,
+all on ``cuda:0``, each shard launching the tick kernels on its own rows.
+It checks one launch of each tick kernel a shard a drawing tick and one
+pilot launch a run, and each tick's cross-device steps: one sum of the
+O(groups) stat rows (and with COUNT DISTINCT one max of the folded
+register rows) a drawing tick, nothing of O(cells).  The fp32 answers
+must agree with the host route's as the device route's do; a float64 run
+is held to a device-route run of the same loop made beside it: every
+key's moment rows, totals, draw ledgers, register plane and partials bit
+for bit.  Each mesh tick's stage times print beside the device route's.
+
 Then it drives the LM serving path: olmo-1b at full width and depth
 (16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
 generator, six seeded prompts of 384-2048 tokens through a
@@ -827,14 +839,17 @@ def serve_queries(C, e: float, distinct: bool):
 
 def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
               rows: int, ticks, distinct: bool, seed: int = 0,
-              profile_at=(), pilot_device: "str | None" = None):
+              profile_at=(), pilot_device: "str | None" = None,
+              mesh=None):
     """Drive the admission loop: one batch of ``serve_queries`` per entry
     of ``ticks`` (its precision e), the ticks in ``profile_at`` (their
     indices) under the torch profiler.  ``pilot_device`` gives the executor the device pilot on
     that device whatever its route (a host-route run that shares the
-    device route's anchor).  Returns the finished tickets, the executor
-    and per-tick records (with the host seconds the tick spent on its
-    run tables: ``DeviceStack.key_runs`` and ``tagged_run_table``)."""
+    device route's anchor); ``mesh`` is the executor's cell mesh of
+    ``route="mesh"`` (its shards' devices).  Returns the finished tickets,
+    the executor and per-tick records (with the host seconds the tick
+    spent on its run tables: ``DeviceStack.key_runs`` and
+    ``tagged_run_table``, and the tick's cross-device reduces)."""
     import functools
 
     import numpy as np
@@ -849,7 +864,7 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
     ex = C.MultiQueryExecutor(samplers, [10 ** 7] * n_blocks,
                               params=C.IslaParams(e=ticks[0]),
                               group_domains={"region": n_groups},
-                              device=device)
+                              device=device, mesh=mesh)
     if pilot_device is not None:
         ex._pilot_stats_fn = lambda route: functools.partial(
             MQ.pilot_stats_device, device=pilot_device)
@@ -884,6 +899,8 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
 def serve_ticks(loop, ex, C, K, ticks, distinct, device, profile_at, folds,
                 merges, tagged, table_s, done, records) -> None:
     """``run_serve``'s ticks, each recorded (see there)."""
+    from repro_torch.core import distributed as D
+
     for k, e in enumerate(ticks):
         for q in serve_queries(C, e, distinct):
             loop.submit(q)
@@ -895,7 +912,7 @@ def serve_ticks(loop, ex, C, K, ticks, distinct, device, profile_at, folds,
         rt0 = table_s[0]
         prof = profile_tick(device, k in profile_at)
         t0 = time.perf_counter()
-        with prof:
+        with prof, D.collective_footprint() as reduces:
             out = loop.tick()
             if device == "cuda":
                 import torch
@@ -916,6 +933,7 @@ def serve_ticks(loop, ex, C, K, ticks, distinct, device, profile_at, folds,
             tagged_launches=K.isla_tagged_fold.launches - tt0,
             tagged_sketch_launches=K.isla_sketch_tagged.launches - ts0,
             run_table_host_s=table_s[0] - rt0,
+            collectives=list(reduces),
             stages_s=dict(ex.last_stage_times)))
         done.extend(out)
 
@@ -1332,6 +1350,166 @@ def main_path_f64(name: str, distinct: bool, n_blocks=1000, n_groups=16,
                 profiled_ticks=profiled, traced_runs=traced_runs,
                 agreement=dict(agree, answers_equal=exact), state=state,
                 tagged_calls=folds.calls, sketch_calls=merges.calls,
+                shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
+
+
+# ---------------------------------------------------------------------------
+# The mesh route: the same loop on route="mesh", its cell axis split by
+# block runs over four shards on the one card, each shard launching the
+# tick kernels on its own rows.
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_DEVICES = ("cuda:0",) * MESH_SHARDS
+# (name, COUNT DISTINCT, float64, the device-route run of the same loop)
+MESH_RUNS = (("moments mesh", False, False, "moments"),
+             ("distinct mesh", True, False, "distinct"),
+             ("moments f64 mesh", False, True, "moments f64"),
+             ("distinct f64 mesh", True, True, "distinct f64"))
+N_REGS = 4096  # HLL registers a cell: bytes a folded register row
+
+
+def mesh_tick_launches(distinct: bool, f64: bool, n_shards: int,
+                       drawing: bool, first: bool) -> dict:
+    """What one tick of a mesh run launches: a drawing tick one launch of
+    each of its tick kernels a shard (fp32: a ``fold_panes`` and, with
+    COUNT DISTINCT, a ``sketch_panes`` call a shard; float64: a
+    ``_segment_carry_sum`` a shard and its tagged merge), a warm tick
+    nothing, and the run's cold plan one pilot launch."""
+    s = n_shards if drawing else 0
+    out = dict(fold_calls=0, fold_launches=0, sketch_calls=0,
+               sketch_launches=0, tagged_calls=0, tagged_launches=0,
+               tagged_sketch_launches=0, pilot_launches=int(first))
+    if f64:
+        out.update(tagged_calls=s, tagged_launches=s,
+                   tagged_sketch_launches=s if distinct else 0)
+    else:
+        out.update(fold_calls=s, fold_launches=s,
+                   sketch_calls=s if distinct else 0,
+                   sketch_launches=s if distinct else 0)
+    return out
+
+
+def check_mesh_ticks(name: str, records, n_shards: int, distinct: bool,
+                     f64: bool, n_rows: int) -> None:
+    """Each tick of a mesh run against ``mesh_tick_launches``, and its
+    cross-device steps: a drawing tick reduces once, the sum of its
+    stack's stat rows, 9 columns a row (a sketch stack adds the max of
+    its folded register rows, 4096 bytes a row), at most ``n_rows`` rows
+    (the loop's keys': nothing of O(cells)); a warm tick reduces nothing
+    when its stats are cached, else as a drawing tick."""
+    for k, r in enumerate(records):
+        drawing = r["new_samples"] > 0
+        want = mesh_tick_launches(distinct, f64, n_shards, drawing, k == 0)
+        got = {key: r[key] for key in want}
+        check(got == want, f"the {name} run's tick {k + 1} launched {got}, "
+                           f"not {want}")
+        ops = r["collectives"]
+        rows = ops[0][1] // 9 if ops and ops[0][0] == "sum" else 0
+        reduce = [("sum", 9 * rows)] + ([("max", N_REGS * rows)]
+                                        if distinct else [])
+        check((0 < rows <= n_rows and ops == reduce)
+              or (not drawing and ops == []),
+              f"the {name} run's tick {k + 1} reduced {ops}: not one sum of "
+              f"at most {n_rows} stat rows"
+              + (" and one max of as many register rows" if distinct
+                 else ""))
+
+
+def check_mesh_state(mesh_ex, dev_ex) -> dict:
+    """Every key's float64 state on the mesh route against the device
+    route's after the same draws: moment rows, totals, both draw ledgers,
+    register plane and partials bit for bit."""
+    import numpy as np
+
+    n_keys, cells = 0, 0
+    check(set(mesh_ex._device_stores) == set(dev_ex._device_stores),
+          "the mesh and device runs kept different keys")
+    for skey, dst in dev_ex._device_stores.items():
+        mst = mesh_ex._device_stores[skey]
+        got, want = mst.to_host(), dst.to_host()
+        for f in ("mom_s", "mom_l", "totals", "n_sampled"):
+            check(np.array_equal(getattr(got, f), getattr(want, f)),
+                  f"the mesh store {skey} differs from the device route's "
+                  f"in {f}")
+        check(np.array_equal(mst._n_sampled_dev.cpu().numpy(),
+                             dst._n_sampled_dev.cpu().numpy()),
+              f"the mesh store {skey}'s device ledger differs")
+        if want.has_sketch:
+            check(np.array_equal(got.regs, want.regs),
+                  f"the mesh store {skey}'s register plane differs")
+        check(np.array_equal(mst.partials_host(), dst.partials_host()),
+              f"the mesh store {skey}'s partials differ")
+        n_keys += 1
+        cells += dst.n_cells
+    check(n_keys > 0, "the float64 mesh run kept no device store")
+    return dict(keys=n_keys, cells=cells, state_bit_identical=True,
+                partials_bit_identical=True)
+
+
+def main_path_mesh(name: str, distinct: bool, f64: bool, n_blocks=1000,
+                   n_groups=16, rows=20000, ticks=(0.5, 0.25, 0.25)
+                   ) -> dict:
+    """One run of the main path on ``route="mesh"`` over ``MESH_SHARDS``
+    shards on the card (the torch default dtype float64 for a float64
+    run, restored after it): the launch counts and the reduce's counters
+    are read around the loop and every tick is held to
+    ``check_mesh_ticks``.  A float64 run is then held to a device-route
+    run of the same loop, made here (``check_mesh_state``; its tick
+    records are kept beside); an fp32 run's answers to the float64 host
+    route, as the device route's are."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core.moment_store import MeshDeviceStack
+    from repro_torch.kernels import isla_moments as K
+
+    was = torch.get_default_dtype()
+    if f64:
+        torch.set_default_dtype(torch.float64)
+    try:
+        K.reset_launch_counts()
+        calls0 = D.mesh_all_reduce.calls
+        elems0 = D.mesh_all_reduce.elements
+        t0 = time.perf_counter()
+        done, ex, records = run_serve("cuda", "mesh", n_blocks, n_groups,
+                                      rows, ticks, distinct,
+                                      mesh=MESH_DEVICES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(K, k).launches
+                    for k in ("isla_fold", "isla_sketch", "isla_tagged_fold",
+                              "isla_sketch_tagged", "pilot_stats")}
+        reduces = dict(calls=D.mesh_all_reduce.calls - calls0,
+                       elements=D.mesh_all_reduce.elements - elems0)
+        stacks = list(ex._device_stacks.values())
+        check(stacks and all(isinstance(st, MeshDeviceStack)
+                             and st.n_shards == MESH_SHARDS
+                             for st in stacks),
+              f"the {name} run served from {stacks}")
+        # The loop's four keys: plain, WHERE, GROUP BY, WHERE + GROUP BY.
+        check_mesh_ticks(name, records, MESH_SHARDS, distinct, f64,
+                         2 + 2 * n_groups)
+        device_ticks, state = None, None
+        if f64:
+            dev_done, dev_ex, device_ticks = run_serve(
+                "cuda", "device", n_blocks, n_groups, rows, ticks, distinct)
+            state = check_mesh_state(ex, dev_ex)
+            agree = check_answers(done, dev_done, distinct)
+            agree["answers_equal"] = sum(
+                a.answer.value == b.answer.value
+                for a, b in zip(done, dev_done))
+            del dev_ex
+        else:
+            host_done, _, _ = run_serve("cpu", "host", n_blocks, n_groups,
+                                        rows, ticks, distinct)
+            agree = check_answers(done, host_done, distinct)
+        del ex
+    finally:
+        torch.set_default_dtype(was)
+    return dict(name=name, shards=MESH_SHARDS, devices=list(MESH_DEVICES),
+                launches=launches, reduces=reduces, wall_s=wall,
+                ticks=records, device_ticks=device_ticks, agreement=agree,
+                state=state,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
 
 
@@ -2318,6 +2496,35 @@ def main() -> int:
           f"pilot_stats launch")
 
     lap("isla synthetic checks")
+    mesh_runs = [main_path_mesh(name, distinct, f64)
+                 for name, distinct, f64, _ in MESH_RUNS]
+    lap("isla mesh runs")
+    device_runs = {p["name"]: p for p in runs + f64_runs}
+    for path, (_, _, _, dev_name) in zip(mesh_runs, MESH_RUNS):
+        st = path["state"]
+        print(f"mesh path, {path['name']} run ({path['shards']} shards on "
+              f"{path['devices'][0]}): {json.dumps(path['launches'])} "
+              f"launches, {path['reduces']['calls']} reduces of "
+              f"{path['reduces']['elements']} elements in all, "
+              f"{path['agreement']}, {path['wall_s']:.2f} s"
+              + ("" if st is None else
+                 f"; {st['keys']} keys, {st['cells']} cells: state, ledgers"
+                 f", register planes and partials bit-identical to the "
+                 f"device route's"))
+        dev_ticks = path["device_ticks"] or device_runs[dev_name]["ticks"]
+        for k, (r, q) in enumerate(zip(path["ticks"], dev_ticks)):
+            stages = ", ".join(f"{n} {t:.4f}"
+                               for n, t in r["stages_s"].items())
+            dev_stages = ", ".join(f"{n} {t:.4f}"
+                                   for n, t in q["stages_s"].items())
+            print(f"  tick {k + 1} (e={r['e']}): {r['new_samples']} new "
+                  f"samples, reduces {r['collectives']}, "
+                  f"{r['fold_launches']} isla_fold / {r['sketch_launches']} "
+                  f"isla_sketch / {r['tagged_launches']} isla_tagged_fold / "
+                  f"{r['tagged_sketch_launches']} isla_sketch_tagged "
+                  f"launches; wall {r['wall_s']:.4f} s, stages s: {stages}; "
+                  f"device route ({dev_name} run) wall {q['wall_s']:.4f} s, "
+                  f"stages s: {dev_stages}")
     lm = lm_path()
     lap("lm path runs")
     print(f"LM path, {lm['arch']} at full width and depth "
@@ -2403,9 +2610,10 @@ def main() -> int:
     # Each kernel's entry sums the main path's own calls (every drawing
     # tick's launches in both ISLA runs, replayed on their panes; every
     # prefill layer's attention in the olmo-1b and paligemma-3b runs,
-    # replayed on its q, k, v); its launches are the runs' counts added.
+    # replayed on its q, k, v); its launches are the runs' counts added,
+    # the mesh runs' included.
     def launched(kernel):
-        return sum(path["launches"][kernel] for path in runs)
+        return sum(path["launches"][kernel] for path in runs + mesh_runs)
 
     f_bytes = sum(f["bytes_ms"] for f in served)
     f_ops = sum(f["ops_ms"] for f in served)
@@ -2446,7 +2654,7 @@ def main() -> int:
         dict(name="isla_tagged_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/core/distributed.py:269",
              launches=sum(p["launches"]["isla_tagged_fold"]
-                          for p in f64_runs),
+                          for p in f64_runs + mesh_runs),
              max_abs_err=max(f["max_abs_err"] for f in tagged),
              ms=sum(f["ms"] for f in tagged),
              plain_ms=sum(f["plain_ms"] for f in tagged),
@@ -2456,7 +2664,7 @@ def main() -> int:
         dict(name="isla_sketch_tagged", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:362",
              launches=sum(p["launches"]["isla_sketch_tagged"]
-                          for p in f64_runs),
+                          for p in f64_runs + mesh_runs),
              max_abs_err=max(f["max_abs_err"] for f in tagged_merges),
              ms=sum(f["ms"] for f in tagged_merges),
              plain_ms=sum(f["plain_ms"] for f in tagged_merges),
@@ -2480,6 +2688,7 @@ def main() -> int:
         card=card, build_s=build_s, build_logs=logs, main_path=runs,
         main_path_folds=served, main_path_sketches=merged,
         main_path_f64=f64_runs, main_path_tagged=tagged,
+        main_path_mesh=mesh_runs,
         main_path_tagged_sketches=tagged_merges, fold=folds,
         batched=batched, wrappers=wrappers, pilot=pilots, tight_plan=tight,
         lm_path=lm,

@@ -4,7 +4,8 @@ Host path (float64, numpy): engine.aggregate / run_block, MomentStore and
 the multi-query executor's ``route="host"`` — copies of the reference's
 host code.  Device path (fp32, torch, ``cuda`` unless ``device="cpu"``):
 DeviceMomentStore / DeviceStack and ``route="device"``, whose serving tick
-folds samples through the hand-written CUDA kernels.
+folds samples through the hand-written CUDA kernels; MeshDeviceStack and
+``route="mesh"`` run that tick on every shard of a cell mesh.
 """
 from .types import (AggregateResult, Anchor, BlockResult, BlockResultsBatch,
                     Boundaries, IslaParams, Predicate, RegionMoments,
@@ -31,8 +32,8 @@ from .engine import (IslaQuery, aggregate, aggregate_array, baseline_sample,
                      sample_moments_batch)
 from .summarize import summarize
 from .baselines import mv_avg, mvb_avg, uniform_avg
-from .moment_store import (DeviceMomentStore, DeviceStack, MomentStore,
-                           iter_chunked_draws, split_budget)
+from .moment_store import (DeviceMomentStore, DeviceStack, MeshDeviceStack,
+                           MomentStore, iter_chunked_draws, split_budget)
 from .multiquery import (GroupAnswer, MultiQueryExecutor, QueryAnswer,
                          QueryPlan, multi_aggregate, table_sampler)
 from . import distributed
@@ -58,7 +59,7 @@ __all__ = [
     "run_block", "run_blocks_batched", "sample_blocks_batched",
     "sample_moments_batch", "summarize",
     "mv_avg", "mvb_avg", "uniform_avg", "MomentStore", "DeviceMomentStore",
-    "DeviceStack", "iter_chunked_draws", "split_budget", "StoreKey",
+    "DeviceStack", "MeshDeviceStack", "iter_chunked_draws", "split_budget", "StoreKey",
     "GroupAnswer", "MultiQueryExecutor", "QueryAnswer", "QueryPlan",
     "multi_aggregate", "table_sampler", "distributed",
 ]

@@ -19,13 +19,18 @@ Where the JAX reference donates the resident state to a jitted launch and
 gets successors back, these functions update the resident tensors IN
 PLACE and return the same objects.
 
-Not ported yet (ROADMAP Queue A): the pipelined launch pool, the mesh
-launches with their sketch variants, and the telemetry helpers
-(``isla_mean`` and friends).
+The mesh launches (``mesh_tick``, ``mesh_tick_dense``, ``mesh_solve`` and
+their sketch forms) run the same single-device programs on each shard of
+a cell mesh (``launch.mesh.CellMesh``: a tuple of devices driven by one
+host program), and ``mesh_all_reduce`` is their one cross-device step.
+
+Not ported yet (ROADMAP Queue A): the pipelined launch pool and the
+telemetry helpers (``isla_mean`` and friends).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -418,7 +423,6 @@ def fused_tick_dense(mom_s: torch.Tensor, mom_l: torch.Tensor,
 # (the messages of the NotImplementedErrors that refuse it).
 DENSE64_ITEM = "ROADMAP Queue A item 1b, 'The float64 dense tick'"
 PIPELINE_ITEM = "ROADMAP Queue A item 3, 'Pipelined tick'"
-MESH_ITEM = "ROADMAP Queue A item 4, 'Mesh route'"
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +652,231 @@ def fused_solve_sketch(mom_s: torch.Tensor, mom_l: torch.Tensor,
         params=params, mode=mode, geometry=geometry,
         n_groups_list=n_groups_list)
     return partials, rows, _sketch_fold(regs, n_groups_list)
+
+
+# ---------------------------------------------------------------------------
+# The mesh launches: the fused tick on every shard of the cell axis.
+# ---------------------------------------------------------------------------
+#
+# Each shard of a ``MeshDeviceStack`` owns a contiguous run of blocks for
+# EVERY (store, group), keeps those rows resident on its own device and
+# runs the single-device program (``_tick_core`` / ``_dense_core`` /
+# ``fused_solve`` and their sketch forms) on them, launching the same
+# kernels there.  One host program drives every shard in turn (the
+# reference's single-controller ``shard_map``), and the only cross-device
+# step is ``mesh_all_reduce`` of the O(groups) stat rows: a sum, and on a
+# sketch stack a max of the folded register rows.  ``group_row_stats``
+# columns are plain sums over the block axis, so the shards' rows sum to
+# the full table's rows up to float association; the float64 contract of
+# the mesh covers the resident state and the per-cell partials.
+
+
+def cell_axis(mesh) -> str:
+    """Name of the (single) mesh axis the cell dimension shards over."""
+    return mesh.axis_names[0]
+
+
+def mesh_h2d(mesh, x, spec, dtype=None) -> "list[torch.Tensor]":
+    """``h2d`` for the mesh: the sanctioned host->mesh upload, one ``h2d``
+    a shard (counted where ``h2d`` is).  Returns a tensor a shard, on that
+    shard's device.
+
+    ``spec`` is the operand's placement (``sharding.specs.isla_cell_specs``):
+    a split operand is cut on dim 0 into equal parts, one a shard, in
+    shard order; a whole one is copied to every shard.  ``x`` may instead
+    be a sequence of host arrays, one a shard: each shard's own part of a
+    ragged operand (a tagged stream cut by shard)."""
+    devs = mesh.devices
+    if isinstance(x, (list, tuple)):
+        if len(x) != len(devs):
+            raise ValueError(f"{len(x)} parts for {len(devs)} shards")
+        return [h2d(p, dtype, d) for p, d in zip(x, devs)]
+    x = np.asarray(x)
+    if not spec.split:
+        return [h2d(x, dtype, d) for d in devs]
+    n_s = len(devs)
+    if x.shape[0] % n_s:
+        raise ValueError(f"dim 0 of {x.shape} does not split into {n_s} "
+                         f"shards")
+    n = x.shape[0] // n_s
+    return [h2d(x[s * n:(s + 1) * n], dtype, d) for s, d in enumerate(devs)]
+
+
+# Open ``collective_footprint`` windows: each records every reduce.
+_FOOTPRINTS: list = []
+
+
+def mesh_all_reduce(mesh, parts: Sequence[torch.Tensor],
+                    op: str = "sum") -> torch.Tensor:
+    """The mesh tick's one cross-device step: the shards' row tensors
+    (one a shard, each of one shape) reduced in shard order on the mesh's
+    first device, ``op`` ``"sum"`` (stat rows) or ``"max"`` (folded
+    register rows).  Counted in ``mesh_all_reduce.calls`` and
+    ``.elements`` (the elements of one shard's rows, the size of the
+    reference's ``psum`` operand), and recorded as ``(op, elements)`` in
+    every open ``collective_footprint`` window."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"unknown reduce {op!r}: use 'sum' or 'max'")
+    if len(parts) != len(mesh.devices):
+        raise ValueError(f"{len(parts)} parts for {len(mesh.devices)} "
+                         f"shards")
+    dev0 = mesh.devices[0]
+    out = parts[0].to(dev0)
+    for p in parts[1:]:
+        p = p.to(dev0)
+        out = out + p if op == "sum" else torch.maximum(out, p)
+    n = int(out.numel())
+    mesh_all_reduce.calls += 1
+    mesh_all_reduce.elements += n
+    for rec in _FOOTPRINTS:
+        rec.append((op, n))
+    return out
+
+
+mesh_all_reduce.calls = 0
+mesh_all_reduce.elements = 0
+
+
+@contextlib.contextmanager
+def collective_footprint():
+    """A window over the mesh's cross-device steps: yields a list that
+    gets one ``(op, elements)`` entry a ``mesh_all_reduce`` call made
+    inside it.  The reference parses the compiled HLO for its
+    collectives; here the reduce is the only cross-device step, so its
+    record is the footprint.  The contract: every entry is O(groups)
+    stat or register rows, never O(cells) state."""
+    rec = []
+    _FOOTPRINTS.append(rec)
+    try:
+        yield rec
+    finally:
+        for i, r in enumerate(_FOOTPRINTS):
+            if r is rec:
+                del _FOOTPRINTS[i]
+                break
+
+
+def _reduced(mesh, outs, sketch: bool):
+    """Per-shard ``(..., partials, rows[, group_regs])`` outputs as
+    ``(partials a shard, summed rows[, max of the folded register
+    rows])``."""
+    if sketch:
+        return ([o[-3] for o in outs],
+                mesh_all_reduce(mesh, [o[-2] for o in outs]),
+                mesh_all_reduce(mesh, [o[-1] for o in outs], op="max"))
+    return ([o[-2] for o in outs],
+            mesh_all_reduce(mesh, [o[-1] for o in outs]))
+
+
+def mesh_tick(mesh, state, values, seg, quotas, bounds, sketch0, sizes,
+              inv_scale, *, params: IslaParams, mode: str = "calibrated",
+              geometry=None, n_groups_list=(1,), runs=None):
+    """The tagged tick on every shard: shard ``s`` runs ``fused_tick`` on
+    its own rows.  ``state`` holds a ``(mom_s, mom_l, totals,
+    n_sampled)`` tuple a shard, updated in place; every other operand is
+    a list by shard (``seg``: each shard's LOCAL cell ids, its row count
+    the drop segment; ``runs``: a ``TaggedRuns`` a shard, or None).
+    Returns ``(partials a shard, rows)``, the rows summed across shards
+    on the mesh's first device."""
+    outs = [fused_tick(*state[s], values[s], seg[s], quotas[s], bounds[s],
+                       sketch0[s], sizes[s], inv_scale[s], params=params,
+                       mode=mode, geometry=geometry,
+                       n_groups_list=n_groups_list,
+                       runs=None if runs is None else runs[s])
+            for s in range(len(mesh.devices))]
+    return _reduced(mesh, outs, False)
+
+
+def mesh_tick_sketch(mesh, state, regs, values, seg, bits, quotas, bounds,
+                     sketch0, sizes, inv_scale, *, params: IslaParams,
+                     mode: str = "calibrated", geometry=None,
+                     n_groups_list=(1,), runs=None):
+    """``mesh_tick`` with each shard's register plane (``regs``, a list by
+    shard) merged in place by ``fused_tick_sketch``: per-cell registers
+    never leave their shard; the folded O(groups) rows are max-reduced.
+    Returns ``(partials a shard, rows, group_regs)``."""
+    outs = [fused_tick_sketch(*state[s], regs[s], values[s], seg[s],
+                              bits[s], quotas[s], bounds[s], sketch0[s],
+                              sizes[s], inv_scale[s], params=params,
+                              mode=mode, geometry=geometry,
+                              n_groups_list=n_groups_list,
+                              runs=None if runs is None else runs[s])
+            for s in range(len(mesh.devices))]
+    return _reduced(mesh, outs, True)
+
+
+def mesh_tick_dense(mesh, state, values2d, pad_valid, quotas, gid_panes,
+                    valid_panes, bounds, sketch0, sizes, inv_scale,
+                    active_cells=None, *, params: IslaParams,
+                    mode: str = "calibrated", geometry=None,
+                    n_groups_list=(1,), gid_slots=(-1,), valid_slots=(-1,),
+                    key_affine=None, bound_slots=None):
+    """The dense tick on every shard: the block axis is the split axis,
+    so shard ``s`` runs ``fused_tick_dense`` verbatim on its own rows of
+    the panes (``gid_panes`` / ``valid_panes``: a tuple of panes a shard;
+    ``active_cells``: a ``(cell_idx, ns_idx)`` pair a shard, each
+    shard's LOCAL targets, or None).  Returns ``(partials a shard,
+    rows)``."""
+    outs = [fused_tick_dense(*state[s], values2d[s], pad_valid[s],
+                             quotas[s], gid_panes[s], valid_panes[s],
+                             bounds[s], sketch0[s], sizes[s], inv_scale[s],
+                             None if active_cells is None
+                             else active_cells[s], params=params,
+                             mode=mode, geometry=geometry,
+                             n_groups_list=n_groups_list,
+                             gid_slots=gid_slots, valid_slots=valid_slots,
+                             key_affine=key_affine, bound_slots=bound_slots)
+            for s in range(len(mesh.devices))]
+    return _reduced(mesh, outs, False)
+
+
+def mesh_tick_dense_sketch(mesh, state, regs, values2d, pad_valid, bits2d,
+                           quotas, gid_panes, valid_panes, bounds, sketch0,
+                           sizes, inv_scale, active_cells=None, *,
+                           params: IslaParams, mode: str = "calibrated",
+                           geometry=None, n_groups_list=(1,),
+                           gid_slots=(-1,), valid_slots=(-1,),
+                           key_affine=None, bound_slots=None):
+    """``mesh_tick_dense`` with each shard's register plane merged by
+    ``fused_tick_dense_sketch`` from its rows of the hash pane.  Returns
+    ``(partials a shard, rows, group_regs)``."""
+    outs = [fused_tick_dense_sketch(
+        *state[s], regs[s], values2d[s], pad_valid[s], bits2d[s],
+        quotas[s], gid_panes[s], valid_panes[s], bounds[s], sketch0[s],
+        sizes[s], inv_scale[s],
+        None if active_cells is None else active_cells[s], params=params,
+        mode=mode, geometry=geometry, n_groups_list=n_groups_list,
+        gid_slots=gid_slots, valid_slots=valid_slots,
+        key_affine=key_affine, bound_slots=bound_slots)
+        for s in range(len(mesh.devices))]
+    return _reduced(mesh, outs, True)
+
+
+def mesh_solve(mesh, state, sketch0, sizes, inv_scale, *,
+               params: IslaParams, mode: str = "calibrated", geometry=None,
+               n_groups_list=(1,)):
+    """The zero-draw re-solve on every shard (``fused_solve``); the
+    resident shards are read, never written.  Returns ``(partials a
+    shard, rows)``."""
+    outs = [fused_solve(*state[s], sketch0[s], sizes[s], inv_scale[s],
+                        params=params, mode=mode, geometry=geometry,
+                        n_groups_list=n_groups_list)
+            for s in range(len(mesh.devices))]
+    return _reduced(mesh, outs, False)
+
+
+def mesh_solve_sketch(mesh, state, regs, sketch0, sizes, inv_scale, *,
+                      params: IslaParams, mode: str = "calibrated",
+                      geometry=None, n_groups_list=(1,)):
+    """``mesh_solve`` for sketch stacks: each shard also re-folds its
+    resident registers (``fused_solve_sketch``).  Returns ``(partials a
+    shard, rows, group_regs)``."""
+    outs = [fused_solve_sketch(*state[s], regs[s], sketch0[s], sizes[s],
+                               inv_scale[s], params=params, mode=mode,
+                               geometry=geometry,
+                               n_groups_list=n_groups_list)
+            for s in range(len(mesh.devices))]
+    return _reduced(mesh, outs, True)
 
 
 # ---------------------------------------------------------------------------

@@ -54,8 +54,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.isla_moments import (TaggedRuns, check_run_count,
-                                     tagged_run_table)
+from ..kernels.isla_moments import (RunTableError, TaggedRuns,
+                                     check_run_count, tagged_run_table)
 from . import sketch as _sketch
 from .engine import (Sampler, block_quotas, flat_segments,
                      phase1_sampling_batch, phase2_iteration_batch,
@@ -960,6 +960,7 @@ class DeviceStack:
                     device=self.device)
                 for st in self.stores])
         self._released = False
+        self._fault = None  # why a run-table fault left the stack unusable
         for st in self.stores:
             st._mom_s = st._mom_l = st._totals = st._ns_dev = None
             st._regs = None
@@ -1045,6 +1046,7 @@ class DeviceStack:
         run table (``runs``, deferred) reads the fold's count of runs and
         samples out of place in the same copy and raises on it."""
         t0 = time.perf_counter()
+        count = 0
         if runs is None:
             rows_np = rows.to("cpu", torch.float64).numpy()  # d2h: stats
         else:
@@ -1052,12 +1054,13 @@ class DeviceStack:
                               runs.count.to(torch.float64)])
             flat = flat.to("cpu").numpy()  # d2h: stats and the run count
             rows_np = flat[:-1].reshape(rows.shape)
-            check_run_count(int(flat[-1]))
+            count = int(flat[-1])
         regs_np = (None if group_regs is None
                    else group_regs.to("cpu").numpy())   # d2h: folded regs
         if timings is not None:
             timings["readback"] = (timings.get("readback", 0.0)
                                    + time.perf_counter() - t0)
+        check_run_count(count)
         out = []
         for k, st in enumerate(self.stores):
             r0, r1 = int(self.row_offsets[k]), int(self.row_offsets[k + 1])
@@ -1070,6 +1073,20 @@ class DeviceStack:
             st._stats_cfg = cfg
             out.append((st._partials, st._rows))
         return out
+
+    def _run_table_fault(self, err: RunTableError) -> None:
+        """A run table did not describe its tagged stream.  The card's fold
+        skips what is out of place and folds the rest in place, and the
+        ledgers may have advanced, so no store's cached stats stand for
+        its state: clear them all and release the stack (each store gets
+        back its state as folded), so the stack stays unusable and its
+        next tick raises, zero-draw ticks included."""
+        for st in self.stores:
+            st._stats_valid = False
+            st._partials = st._rows = st._group_regs = None
+        self.release()
+        self._fault = (f"stack was left unusable by a fault ({err}); build "
+                       f"a fresh stack")
 
     # fp32 accumulators lose integer exactness at 2^24; warn with margin
     # so an eternal serving loop cannot silently stop accumulating.
@@ -1179,7 +1196,9 @@ class DeviceStack:
            with ``runs``, its (n_stores, n_blocks) run lengths
            (``key_runs``): the table crosses with the stream and the fold
            takes a block a run with no sort; a table that does not
-           describe the stream raises after the tick's readback.
+           describe the stream raises after the tick's readback, clears
+           every store's stats and leaves the stack unusable (released:
+           its next tick raises).
          * dense (fp32 stacks) — ``values`` is the FULL block-major chunk
            stream of RAW (unshifted) measure values and ``dense=(key_gids,
            key_valids)`` carries per-store (m,) GROUP BY codes / predicate
@@ -1215,28 +1234,18 @@ class DeviceStack:
             # tick rescales it per cell via the inv_scale vector.
             geometry = (float(geometry[0]), float(geometry[1]))
         if self._released:
-            raise ValueError("stack was released (a store joined another "
-                             "stack); build a fresh DeviceStack")
+            raise ValueError(self._fault or (
+                "stack was released (a store joined another stack); build "
+                "a fresh stack"))
         cfg = (params, mode, geometry)
         n_draw = 0 if quotas is None else int(np.sum(quotas))
-        mom_s, mom_l, totals, ns = self._state
         if values is None or n_draw == 0:
             if all(st._stats_valid and st._stats_cfg == cfg
                    for st in self.stores):
                 return [(st._partials, st._rows) for st in self.stores]
             t0 = time.perf_counter()
-            group_regs = None
-            if self.has_sketch:
-                partials, rows, group_regs = D.fused_solve_sketch(
-                    mom_s, mom_l, totals, ns, self._regs_state,
-                    self._sketch0_cells(), self._sizes, self._inv_scale,
-                    params=params, mode=mode, geometry=geometry,
-                    n_groups_list=self.n_groups_list)
-            else:
-                partials, rows = D.fused_solve(
-                    mom_s, mom_l, totals, ns, self._sketch0_cells(),
-                    self._sizes, self._inv_scale, params=params, mode=mode,
-                    geometry=geometry, n_groups_list=self.n_groups_list)
+            partials, rows, group_regs = self._solve(
+                params=params, mode=mode, geometry=geometry)
             if timings is not None:
                 timings["launch"] = (timings.get("launch", 0.0)
                                      + time.perf_counter() - t0)
@@ -1259,22 +1268,68 @@ class DeviceStack:
         self._check_fp32_headroom(quotas)
         tick_kw = dict(params=params, mode=mode, geometry=geometry,
                        timings=timings)
-        runs_dev = None
         if seg is None and runs is not None:
             raise ValueError("runs= describes a tagged stream (seg=)")
         if seg is None:
             partials, rows, group_regs = self._dense_tick(
                 values, quotas, dense, **tick_kw)
-        else:
+            self._advance(quotas, count_round)
+            return self._install_stats(partials, rows, cfg, timings,
+                                       group_regs)
+        try:
             partials, rows, group_regs, runs_dev = self._tagged_tick(
                 values, seg, quotas, hash_limbs, runs, **tick_kw)
+            self._advance(quotas, count_round)
+            kw = {} if runs_dev is None else dict(runs=runs_dev)
+            return self._install_stats(partials, rows, cfg, timings,
+                                       group_regs, **kw)
+        except RunTableError as err:
+            self._run_table_fault(err)
+            raise
+
+    def _advance(self, quotas: np.ndarray, count_round: bool) -> None:
+        """Every store's host draw ledger (and round count) after a
+        drawing tick."""
         for st in self.stores:
             st.n_sampled = st.n_sampled + quotas
             if count_round:
                 st.rounds += 1
-        kw = {} if runs_dev is None else dict(runs=runs_dev)
-        return self._install_stats(partials, rows, cfg, timings, group_regs,
-                                   **kw)
+
+    def _solve(self, *, params: IslaParams, mode: str, geometry):
+        """The zero-draw re-solve of the resident state (see ``tick``):
+        ``(partials, rows, group_regs)``, the last None without a sketch
+        plane."""
+        from . import distributed as D
+
+        mom_s, mom_l, totals, ns = self._state
+        kw = dict(params=params, mode=mode, geometry=geometry,
+                  n_groups_list=self.n_groups_list)
+        if self.has_sketch:
+            return D.fused_solve_sketch(
+                mom_s, mom_l, totals, ns, self._regs_state,
+                self._sketch0_cells(), self._sizes, self._inv_scale, **kw)
+        partials, rows = D.fused_solve(mom_s, mom_l, totals, ns,
+                                       self._sketch0_cells(), self._sizes,
+                                       self._inv_scale, **kw)
+        return partials, rows, None
+
+    def _tagged_host(self, values: np.ndarray, seg, hash_limbs):
+        """The tagged payload checked on the host: ``(seg, bits)``, the
+        int32 ids and, on a sketch stack, the raw 64-bit patterns the
+        register merge hashes (one int64 lane a sample), else None."""
+        seg = np.asarray(seg, dtype=np.int32).reshape(-1)
+        if values.shape != seg.shape:
+            raise ValueError("values and seg must align")
+        if not self.has_sketch:
+            return seg, None
+        if hash_limbs is None:
+            raise ValueError("a sketch stack's tagged tick needs hash_limbs "
+                             "(sketch.value_limbs of the raw values)")
+        hi, lo = (np.asarray(h, dtype=np.uint64).reshape(-1)
+                  for h in hash_limbs)
+        if hi.shape != values.shape or lo.shape != values.shape:
+            raise ValueError("hash_limbs must align with values")
+        return seg, ((hi << np.uint64(32)) | lo).view(np.int64)
 
     def _tagged_tick(self, values: np.ndarray, seg, quotas: np.ndarray,
                      hash_limbs, runs, *, params: IslaParams, mode: str,
@@ -1284,18 +1339,7 @@ class DeviceStack:
         uploaded ``TaggedRuns`` (None without ``runs``)."""
         from . import distributed as D
 
-        seg = np.asarray(seg, dtype=np.int32).reshape(-1)
-        if values.shape != seg.shape:
-            raise ValueError("values and seg must align")
-        if self.has_sketch:
-            if hash_limbs is None:
-                raise ValueError("a sketch stack's tagged tick needs "
-                                 "hash_limbs (sketch.value_limbs of the raw "
-                                 "values)")
-            hi, lo = (np.asarray(h, dtype=np.uint64).reshape(-1)
-                      for h in hash_limbs)
-            if hi.shape != values.shape or lo.shape != values.shape:
-                raise ValueError("hash_limbs must align with values")
+        seg, bits = self._tagged_host(values, seg, hash_limbs)
         mom_s, mom_l, totals, ns = self._state
         dev = self.device
         t_h = time.perf_counter()
@@ -1303,9 +1347,7 @@ class DeviceStack:
         v_dev = D.h2d(values, self.dtype, dev)
         s_dev = D.h2d(seg, torch.int32, dev)
         if self.has_sketch:
-            # The limbs cross as the raw 64-bit pattern the kernel hashes.
-            bits_dev = D.h2d(((hi << np.uint64(32)) | lo).view(np.int64),
-                             torch.int64, dev)
+            bits_dev = D.h2d(bits, torch.int64, dev)
         if runs is not None:
             table = tagged_run_table(runs, self.offsets)
             runs = TaggedRuns(D.h2d(table, torch.int32, dev),
@@ -1333,6 +1375,17 @@ class DeviceStack:
                                  + time.perf_counter() - t_l)
         return partials, rows, group_regs, runs
 
+    def _dense_frame(self, values: np.ndarray):
+        """The dense pane's values and the keys' affines: one shared
+        anchor prepares the pane in its frame on the host (float64) and
+        takes the identity affine; per-key anchors read ``raw / ref`` each
+        through its own affine."""
+        if self._uniform:
+            st0 = self.stores[0]
+            return ((values + st0.shift) / st0.scale,
+                    ((1.0, 0.0),) * len(self.stores))
+        return values / self._ref_scale, self._key_affine
+
     def _dense_tick(self, values: np.ndarray, quotas: np.ndarray, dense, *,
                     params: IslaParams, mode: str, geometry, timings):
         """The dense payload's panes, uploads and fused tick (see
@@ -1340,16 +1393,7 @@ class DeviceStack:
         from . import distributed as D
 
         mom_s, mom_l, totals, ns = self._state
-        key_gids, key_valids = dense
-        if self._uniform:
-            # One shared anchor: prepare the pane in its frame on the host
-            # (float64) and let the identity affine pass it through.
-            st0 = self.stores[0]
-            pane_vals = (values + st0.shift) / st0.scale
-            key_affine = ((1.0, 0.0),) * len(self.stores)
-        else:
-            pane_vals = values / self._ref_scale
-            key_affine = self._key_affine
+        pane_vals, key_affine = self._dense_frame(values)
         # Zone-pruned plans zero whole blocks' quotas; the draw stream
         # already skips those blocks, so the pane compacts to the active
         # rows and the fold maps them back through the cached index pair.
@@ -1361,68 +1405,533 @@ class DeviceStack:
         t_h = time.perf_counter()
         dev = self.device
         q_dev = D.h2d(pane_quotas.astype(np.float64), self.dtype, dev)
-        v2d, pad, vmask = _dense_panes(pane_vals, pane_quotas)
-        # Dedupe shared panes by host-array identity into slot tuples:
-        # one upload per distinct pane.
-        gid_panes, valid_panes = [], []
-        gid_slots, valid_slots = [], []
-        seen_g, seen_v = {}, {}
-        for gids, valid in zip(key_gids, key_valids):
-            if gids is None:
-                gid_slots.append(-1)
-            elif id(gids) in seen_g:
-                gid_slots.append(seen_g[id(gids)])
-            else:
-                g2d = np.zeros(v2d.shape, dtype=np.int32)
-                g2d[vmask] = np.asarray(gids).reshape(-1)
-                seen_g[id(gids)] = len(gid_panes)
-                gid_slots.append(len(gid_panes))
-                gid_panes.append(D.h2d(g2d, torch.int32, dev))
-            if valid is None:
-                valid_slots.append(-1)
-            elif id(valid) in seen_v:
-                valid_slots.append(seen_v[id(valid)])
-            else:
-                m2d = np.zeros(v2d.shape, dtype=np.float64)
-                m2d[vmask] = np.asarray(valid, dtype=np.float64).reshape(-1)
-                seen_v[id(valid)] = len(valid_panes)
-                valid_slots.append(len(valid_panes))
-                valid_panes.append(D.h2d(m2d, self.dtype, dev))
-        v_dev = D.h2d(v2d, self.dtype, dev)
-        pad_dev = D.h2d(pad, self.dtype, dev)
+        panes = _DensePanes(pane_vals, pane_quotas, dense,
+                            values if self.has_sketch else None)
+        gid_panes = tuple(D.h2d(g, torch.int32, dev) for g in panes.gids)
+        valid_panes = tuple(D.h2d(m, self.dtype, dev) for m in panes.valids)
+        v_dev = D.h2d(panes.v2d, self.dtype, dev)
+        pad_dev = D.h2d(panes.pad, self.dtype, dev)
         if self.has_sketch:
-            # The hash pane carries the RAW stream's float64 bits (the
-            # value pane is anchor-scaled; registers key on the raw bits).
-            b2d = np.zeros(v2d.shape, dtype=np.int64)
-            b2d[vmask] = _sketch.value_bits(values).view(np.int64)
-            bits_dev = D.h2d(b2d, torch.int64, dev)
+            bits_dev = D.h2d(panes.bits2d, torch.int64, dev)
         if timings is not None:
             timings["h2d"] = (timings.get("h2d", 0.0)
                               + time.perf_counter() - t_h)
         t_l = time.perf_counter()
         tick_kw = dict(params=params, mode=mode, geometry=geometry,
                        n_groups_list=self.n_groups_list,
-                       gid_slots=tuple(gid_slots),
-                       valid_slots=tuple(valid_slots),
+                       gid_slots=panes.gid_slots,
+                       valid_slots=panes.valid_slots,
                        key_affine=key_affine, bound_slots=self._bound_slots)
         group_regs = None
         if self.has_sketch:
             out = D.fused_tick_dense_sketch(
                 mom_s, mom_l, totals, ns, self._regs_state, v_dev, pad_dev,
-                bits_dev, q_dev, tuple(gid_panes), tuple(valid_panes),
-                self._bound_rows, self._sketch0_cells(), self._sizes,
-                self._inv_scale, active_cells, **tick_kw)
+                bits_dev, q_dev, gid_panes, valid_panes, self._bound_rows,
+                self._sketch0_cells(), self._sizes, self._inv_scale,
+                active_cells, **tick_kw)
             partials, rows, group_regs = out[5:]
         else:
             partials, rows = D.fused_tick_dense(
-                mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev,
-                tuple(gid_panes), tuple(valid_panes), self._bound_rows,
-                self._sketch0_cells(), self._sizes, self._inv_scale,
-                active_cells, **tick_kw)[4:]
+                mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev, gid_panes,
+                valid_panes, self._bound_rows, self._sketch0_cells(),
+                self._sizes, self._inv_scale, active_cells, **tick_kw)[4:]
         if timings is not None:
             timings["launch"] = (timings.get("launch", 0.0)
                                  + time.perf_counter() - t_l)
         return partials, rows, group_regs
+
+
+class _DensePanes:
+    """The dense payload's host panes (see ``DeviceStack.tick``): the
+    stream packed into the (rows, quota_bucket) value pane ``v2d`` by
+    ``pane_quotas`` with its pad mask ``pad``; each key's GROUP BY codes
+    and predicate mask packed alike, deduped by host-array identity into
+    ``gids`` / ``valids`` (one upload a distinct pane) with a slot a key
+    (-1: none); and, given the RAW stream ``raw``, the int64 pane of its
+    float64 bits the register merge hashes (``bits2d``; the value pane is
+    anchor-scaled, registers key on the raw bits)."""
+
+    def __init__(self, pane_vals: np.ndarray, pane_quotas: np.ndarray,
+                 dense, raw: Optional[np.ndarray] = None) -> None:
+        self.v2d, self.pad, vmask = _dense_panes(pane_vals, pane_quotas)
+        self.gids, self.valids = [], []
+        gid_slots, valid_slots = [], []
+        seen_g, seen_v = {}, {}
+        for gids, valid in zip(*dense):
+            if gids is None:
+                gid_slots.append(-1)
+            elif id(gids) in seen_g:
+                gid_slots.append(seen_g[id(gids)])
+            else:
+                g2d = np.zeros(self.v2d.shape, dtype=np.int32)
+                g2d[vmask] = np.asarray(gids).reshape(-1)
+                seen_g[id(gids)] = len(self.gids)
+                gid_slots.append(len(self.gids))
+                self.gids.append(g2d)
+            if valid is None:
+                valid_slots.append(-1)
+            elif id(valid) in seen_v:
+                valid_slots.append(seen_v[id(valid)])
+            else:
+                m2d = np.zeros(self.v2d.shape, dtype=np.float64)
+                m2d[vmask] = np.asarray(valid, dtype=np.float64).reshape(-1)
+                seen_v[id(valid)] = len(self.valids)
+                valid_slots.append(len(self.valids))
+                self.valids.append(m2d)
+        self.gid_slots, self.valid_slots = tuple(gid_slots), tuple(valid_slots)
+        self.bits2d = None
+        if raw is not None:
+            self.bits2d = np.zeros(self.v2d.shape, dtype=np.int64)
+            self.bits2d[vmask] = _sketch.value_bits(raw).view(np.int64)
+
+
+class _MeshPartialsView:
+    """One store's per-cell partials on a mesh stack, left on the shards:
+    the tick moves no per-cell bytes between devices, and a reader
+    (``to``, ``cpu``, ``numpy.asarray``) gathers them from every shard
+    into the store's own (group, block) layout, on the first shard's
+    device first."""
+
+    def __init__(self, stack: "MeshDeviceStack", parts, k: int) -> None:
+        self._stack, self._parts, self._k = stack, parts, k
+        self.device = parts[0].device
+
+    def to(self, *args, **kwargs) -> torch.Tensor:
+        return self._stack._gather(self._parts, self._k,
+                                   self.device).to(*args, **kwargs)
+
+    def cpu(self) -> torch.Tensor:
+        return self.to("cpu")
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.to("cpu").numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+class MeshDeviceStack(DeviceStack):
+    """``DeviceStack`` sharded over a cell mesh (``launch.mesh.CellMesh``,
+    one device a shard): the stacked (store, group, block) cell axis
+    splits by BLOCK RUNS, so every shard owns a contiguous run of blocks
+    for each (store, group) and keeps those moment, total, ledger and
+    register rows resident on its own device, a tensor a shard.
+
+    Layout: with S shards and B blocks, each shard owns ``B_local =
+    ceil(B / S)`` blocks and ``L = sum_k G_k * B_local`` cells; the mesh
+    cell id of store k's (g, b) cell is ::
+
+        s * L + off_k + g * B_local + (b - s * B_local),
+        s = b // B_local,  off_k = sum_{j<k} G_j * B_local
+
+    — each shard's slice is the single-device stack's store-major /
+    group-major / block-minor layout over its OWN blocks, so each shard
+    runs the single-device tick verbatim (``distributed.mesh_tick`` and
+    its forms) and launches the same kernels on its device.  Trailing pad
+    blocks (S not dividing B) carry zero sizes, zero quotas, +inf cuts and
+    empty runs, inert in every reduction.  With S = 1 the layout is the
+    single-device stack's.
+
+    Placement follows ``sharding.specs.isla_cell_specs``; uploads go
+    through ``distributed.mesh_h2d``.  The tagged payload takes MESH cell
+    ids (``key_seg``; ``n_cells_mesh`` and ids past it drop).  Each shard
+    gets only its own samples, in stream order: with the stream's run
+    table its part is one contiguous slice a key (the stream is
+    block-major per key), with its own run table; without, a stable
+    partition by shard.  So every cell folds in the single-device order
+    and float64 state and partials are bit-identical to ``DeviceStack``'s.
+    The one cross-device step of a tick is ``distributed.mesh_all_reduce``
+    of the O(groups) stat rows (a sketch stack adds the max of its folded
+    register rows).  Per-store partials come back as views that gather
+    from every shard when read."""
+
+    def __init__(self, stores: Sequence[DeviceMomentStore], mesh) -> None:
+        from . import distributed as D
+        from ..sharding.specs import isla_cell_specs
+
+        # Adopt and stack on the stores' device first (anchor tables, cell
+        # bookkeeping); the state then moves into mesh placement by one
+        # host round trip (float64 on the host keeps every bit).
+        super().__init__(stores)
+        self.mesh = mesh
+        self._specs = spec = isla_cell_specs(mesh)
+        S = len(mesh.devices)
+        B, K = self.n_blocks, len(self.stores)
+        self.n_shards = S
+        self.blocks_local = bl = -(-B // S)
+        self._shard_blocks = [min(max(B - s * bl, 0), bl) for s in range(S)]
+        self.local_offsets = np.concatenate(
+            [[0], np.cumsum([g * bl for g in self.n_groups_list])]
+        ).astype(np.int64)
+        self.cells_local = L = int(self.local_offsets[-1])
+        self.n_cells_mesh = S * L
+        # Store layout -> mesh layout.
+        b = np.arange(B)
+        s_of_b, lb = b // bl, b % bl
+        self._cell_maps = [
+            (s_of_b[None, :] * L + self.local_offsets[k]
+             + np.arange(g)[:, None] * bl + lb[None, :]).reshape(-1)
+            for k, g in enumerate(self.n_groups_list)]
+        self._ns_map = (s_of_b[None, :] * (K * bl)
+                        + np.arange(K)[:, None] * bl + lb[None, :]
+                        ).reshape(-1)
+        cmap_all = np.concatenate(self._cell_maps)
+
+        def host(t, dtype=torch.float64):
+            return t.detach().to("cpu", dtype).numpy()
+
+        def cells(a, fill=0.0, dtype=np.float64):
+            out = np.full((S * L,) + a.shape[1:], fill, dtype=dtype)
+            out[cmap_all] = a
+            return out
+
+        def ledger(a):
+            out = np.zeros(S * K * bl, dtype=np.float64)
+            out[self._ns_map] = a
+            return out
+
+        rows, vec, rep = spec["cell_rows"], spec["cells"], spec["replicated"]
+        mom_s, mom_l, totals, ns = self._state
+        parts = [D.mesh_h2d(mesh, cells(host(t)), rows, self.dtype)
+                 for t in (mom_s, mom_l, totals)]
+        parts.append(D.mesh_h2d(mesh, ledger(host(ns)), vec, self.dtype))
+        self._state = list(zip(*parts))
+        if self.has_sketch:
+            # Pad cells keep all-zero registers: inert under max.
+            self._regs_state = D.mesh_h2d(
+                mesh, cells(host(self._regs_state, torch.uint8), 0, np.uint8),
+                rows, torch.uint8)
+        self._sizes = D.mesh_h2d(mesh, ledger(host(self._sizes)), vec,
+                                 self.dtype)
+        self._sk_cells = D.mesh_h2d(mesh, cells(host(self._sketch0_cells())),
+                                    vec, self.dtype)
+        self._inv_scale = D.mesh_h2d(mesh, cells(host(self._inv_scale), 1.0),
+                                     vec, self.dtype)
+        if self._uniform:
+            self._bounds = D.mesh_h2d(mesh, host(self._bounds), rep,
+                                      self.dtype)
+        else:
+            # Each shard's cuts, then its local drop segment's +inf row.
+            cuts = np.full((S, L + 1, 4), np.inf)
+            cuts[:, :L] = cells(host(self._bounds[:-1]), np.inf
+                                ).reshape(S, L, 4)
+            self._bounds = D.mesh_h2d(mesh, cuts.reshape(-1, 4), rows,
+                                      self.dtype)
+        self._bound_rows = D.mesh_h2d(mesh, host(self._bound_rows), rep,
+                                      self.dtype)
+
+    # -- state plumbing (mesh placement) -----------------------------------
+
+    def _gather(self, parts, k: int, device, ledger: bool = False):
+        """Store ``k``'s rows in its own (group, block) layout — its
+        cells, or with ``ledger`` its (n_blocks,) draw ledger — from every
+        shard's part (``parts``, a tensor a shard), on ``device``."""
+        bl = self.blocks_local
+        o, g = ((k * bl, 1) if ledger
+                else (int(self.local_offsets[k]), self.n_groups_list[k]))
+        pieces = []
+        for p, nb in zip(parts, self._shard_blocks):
+            if nb:
+                rows = p[o:o + g * bl]
+                pieces.append(rows.reshape(g, bl, *rows.shape[1:])[:, :nb]
+                              .to(device))
+        out = torch.cat(pieces, dim=1)
+        return out.reshape(g * self.n_blocks, *out.shape[2:])
+
+    def state_slice(self, store: DeviceMomentStore, idx: int):
+        """One adopted store's state gathered from every shard (idx as
+        ``DeviceStack.state_slice``), on the stores' device — diagnostics,
+        downloads and ``release``, never the tick path."""
+        k = next(i for i, st in enumerate(self.stores) if st is store)
+        parts = (self._regs_state if idx == 4
+                 else [shard[idx] for shard in self._state])
+        return self._gather(parts, k, self.device, ledger=idx == 3)
+
+    def key_seg(self, k: int, store: DeviceMomentStore,
+                block_ids: np.ndarray,
+                group_ids: Optional[np.ndarray] = None,
+                mask: Optional[np.ndarray] = None) -> np.ndarray:
+        """Mesh cell ids for store ``k``'s tagged draw."""
+        seg = store.build_seg(block_ids, group_ids, mask)
+        return self._cell_maps[k][seg].astype(np.int32)
+
+    def release(self) -> None:
+        """Dissolve the mesh stack: every store gets its rows back
+        gathered from EVERY shard (the shard-aware reset: a per-key drift
+        reset releases through here, never reading shard 0 alone)."""
+        if self._released:
+            return
+        for st in self.stores:
+            st._mom_s, st._mom_l, st._totals, st._ns_dev = (
+                self.state_slice(st, i) for i in range(4))
+            if st.has_sketch:
+                st._regs = self.state_slice(st, 4)
+        for st in self.stores:
+            st._owner = None
+        self._state = None
+        self._regs_state = None
+        self._sk_cells = None
+        self._released = True
+
+    def _install_stats(self, partials, rows, cfg, timings=None,
+                       group_regs=None, runs=None):
+        """``DeviceStack._install_stats`` on the mesh: ``partials`` is a
+        tensor a shard, ``rows`` (and ``group_regs``) the reduced rows on
+        the mesh's first device, ``runs`` a ``TaggedRuns`` a shard.  One
+        readback of the rows and of every shard's run count; a non-zero
+        count on any shard raises (``tick`` then clears every store's
+        stats and leaves the stack unusable)."""
+        t0 = time.perf_counter()
+        flat = [rows.reshape(-1).to(torch.float64)]
+        if runs is not None:
+            flat += [r.count.to(rows.device, torch.float64) for r in runs]
+        flat = torch.cat(flat).to("cpu").numpy()  # d2h: stats and counts
+        n = rows.numel()
+        rows_np = flat[:n].reshape(rows.shape)
+        count = int(flat[n:].sum())
+        regs_np = (None if group_regs is None
+                   else group_regs.to("cpu").numpy())   # d2h: folded regs
+        if timings is not None:
+            timings["readback"] = (timings.get("readback", 0.0)
+                                   + time.perf_counter() - t0)
+        check_run_count(count)
+        out = []
+        for k, st in enumerate(self.stores):
+            r0, r1 = int(self.row_offsets[k]), int(self.row_offsets[k + 1])
+            st._partials = _MeshPartialsView(self, partials, k)
+            st._rows = rows_np[r0:r1]
+            if regs_np is not None and st.has_sketch:
+                st._group_regs = regs_np[r0:r1]
+            st._stats_valid = True
+            st._stats_cfg = cfg
+            out.append((st._partials, st._rows))
+        return out
+
+    # -- the tick ----------------------------------------------------------
+
+    def _solve(self, *, params: IslaParams, mode: str, geometry):
+        from . import distributed as D
+
+        kw = dict(params=params, mode=mode, geometry=geometry,
+                  n_groups_list=self.n_groups_list)
+        if self.has_sketch:
+            return D.mesh_solve_sketch(self.mesh, self._state,
+                                       self._regs_state, self._sk_cells,
+                                       self._sizes, self._inv_scale, **kw)
+        partials, rows = D.mesh_solve(self.mesh, self._state, self._sk_cells,
+                                      self._sizes, self._inv_scale, **kw)
+        return partials, rows, None
+
+    def _compact_plan(self, quotas: np.ndarray):
+        """The shard-aware zone-pruned launch plan: each shard compacts its
+        own run of active blocks and all shards pad to one shared bucketed
+        count ``amax``, so the compact pane stays shard-major (ascending
+        (shard, local block) order is ascending block order: the stream
+        fills it unchanged).  The index pair, a pair a shard, holds each
+        shard's LOCAL targets (its cell rows, its ``K * B_local`` ledger
+        rows; pads out of range drop).  Returns ``(compact_quotas, active,
+        pairs)`` or None."""
+        if not self.block_compaction:
+            return None
+        S, bl, K = self.n_shards, self.blocks_local, len(self.stores)
+        active = np.flatnonzero(quotas > 0)
+        s_of = active // bl
+        counts = np.bincount(s_of, minlength=S)
+        # A shard's run is B / S blocks, so the bucket floor drops to 2.
+        amax = _bucket(max(int(counts.max()), 1), floor=2)
+        if amax >= bl:
+            return None
+        from . import distributed as D
+
+        ext = np.full((S, amax), -1, dtype=np.int64)
+        q_c = np.zeros(S * amax, dtype=np.int64)
+        for s in range(S):
+            la = active[s_of == s]
+            ext[s, :la.size] = la - s * bl
+            q_c[s * amax:s * amax + la.size] = quotas[la]
+        ck = active.tobytes()
+        pairs = self._active_cache.get(ck)
+        if pairs is None:
+            base = np.concatenate([self.local_offsets[k] + np.arange(g) * bl
+                                   for k, g in enumerate(self.n_groups_list)])
+            lb = ext[:, None, :]
+            cell_idx = np.where(lb < 0, self.cells_local,
+                                base[None, :, None] + lb).reshape(-1)
+            ns_idx = np.where(lb < 0, K * bl,
+                              (np.arange(K) * bl)[None, :, None] + lb
+                              ).reshape(-1)
+            if len(self._active_cache) >= 32:
+                self._active_cache.clear()
+            spec = self._specs["active_cells"]
+            pairs = list(zip(
+                D.mesh_h2d(self.mesh, cell_idx.astype(np.int32), spec,
+                           torch.int32),
+                D.mesh_h2d(self.mesh, ns_idx.astype(np.int32), spec,
+                           torch.int32)))
+            self._active_cache[ck] = pairs
+        return q_c, active, pairs
+
+    def _dense_tick(self, values: np.ndarray, quotas: np.ndarray, dense, *,
+                    params: IslaParams, mode: str, geometry, timings):
+        """The dense payload on the mesh: the block-major panes split by
+        block run (``cell_rows``), each shard folding its own rows."""
+        from . import distributed as D
+
+        S, bl = self.n_shards, self.blocks_local
+        pane_vals, key_affine = self._dense_frame(values)
+        cp = self._compact_plan(quotas)
+        if cp is not None:
+            pane_quotas, _, active_cells = cp
+        else:
+            # The pad blocks trail the block axis: the stream is unchanged.
+            pane_quotas = np.zeros(S * bl, dtype=np.int64)
+            pane_quotas[:self.n_blocks] = quotas
+            active_cells = None
+        t_h = time.perf_counter()
+        mesh, spec = self.mesh, self._specs
+        rows = spec["cell_rows"]
+        q_dev = D.mesh_h2d(mesh, pane_quotas.astype(np.float64),
+                           spec["cells"], self.dtype)
+        panes = _DensePanes(pane_vals, pane_quotas, dense,
+                            values if self.has_sketch else None)
+        gids = [D.mesh_h2d(mesh, g, rows, torch.int32) for g in panes.gids]
+        valids = [D.mesh_h2d(mesh, m, rows, self.dtype)
+                  for m in panes.valids]
+        gid_panes = [tuple(p[s] for p in gids) for s in range(S)]
+        valid_panes = [tuple(p[s] for p in valids) for s in range(S)]
+        v_dev = D.mesh_h2d(mesh, panes.v2d, rows, self.dtype)
+        pad_dev = D.mesh_h2d(mesh, panes.pad, rows, self.dtype)
+        if self.has_sketch:
+            bits_dev = D.mesh_h2d(mesh, panes.bits2d, rows, torch.int64)
+        if timings is not None:
+            timings["h2d"] = (timings.get("h2d", 0.0)
+                              + time.perf_counter() - t_h)
+        t_l = time.perf_counter()
+        tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                       n_groups_list=self.n_groups_list,
+                       gid_slots=panes.gid_slots,
+                       valid_slots=panes.valid_slots,
+                       key_affine=key_affine, bound_slots=self._bound_slots)
+        group_regs = None
+        if self.has_sketch:
+            partials, rows_out, group_regs = D.mesh_tick_dense_sketch(
+                mesh, self._state, self._regs_state, v_dev, pad_dev,
+                bits_dev, q_dev, gid_panes, valid_panes, self._bound_rows,
+                self._sk_cells, self._sizes, self._inv_scale, active_cells,
+                **tick_kw)
+        else:
+            partials, rows_out = D.mesh_tick_dense(
+                mesh, self._state, v_dev, pad_dev, q_dev, gid_panes,
+                valid_panes, self._bound_rows, self._sk_cells, self._sizes,
+                self._inv_scale, active_cells, **tick_kw)
+        if timings is not None:
+            timings["launch"] = (timings.get("launch", 0.0)
+                                 + time.perf_counter() - t_l)
+        return partials, rows_out, group_regs
+
+    def _shard_parts(self, seg: np.ndarray, runs):
+        """Which samples each shard takes, in stream order: a list of
+        slices a shard (one a key, from the run table ``runs``) or, with
+        no table, an index array a shard (a stable partition by the
+        shard that owns each id; ids outside the mesh drop)."""
+        S, L, bl, B = (self.n_shards, self.cells_local, self.blocks_local,
+                       self.n_blocks)
+        if runs is None:
+            inside = (seg >= 0) & (seg < S * L)
+            shard = np.where(inside, seg // L, S).astype(
+                np.min_scalar_type(S))
+            order = np.argsort(shard, kind="stable")
+            cuts = np.concatenate([[0], np.cumsum(np.bincount(
+                shard, minlength=S + 1))])
+            return [order[cuts[s]:cuts[s + 1]] for s in range(S)]
+        starts = np.concatenate([[0], np.cumsum(runs.reshape(-1))])
+        out = []
+        for s, nb in enumerate(self._shard_blocks):
+            r0 = np.arange(len(self.stores)) * B + s * bl
+            out.append([slice(int(starts[r]), int(starts[r + nb]))
+                        for r in r0] if nb else [])
+        return out
+
+    def _tagged_tick(self, values: np.ndarray, seg, quotas: np.ndarray,
+                     hash_limbs, runs, *, params: IslaParams, mode: str,
+                     geometry, timings):
+        """The tagged payload on the mesh: each shard gets its own samples
+        and ids (local, its row count the drop segment) and, with the
+        stream's run table, its own table over its ``B_local`` blocks.  A
+        table the host can already see is wrong (a negative run, runs not
+        covering the stream, an id in another shard's run) is a run-table
+        fault before any fold; the rest the shards' folds count."""
+        from . import distributed as D
+
+        seg, bits = self._tagged_host(values, seg, hash_limbs)
+        S, L, bl, B = (self.n_shards, self.cells_local, self.blocks_local,
+                       self.n_blocks)
+        K, m = len(self.stores), values.size
+        if runs is not None:
+            runs = np.asarray(runs, dtype=np.int64)
+            if runs.shape != (K, B):
+                raise ValueError(f"runs must be ({K}, {B}), got "
+                                 f"{runs.shape}")
+            check_run_count(int((runs < 0).sum())
+                            + abs(int(runs.clip(0).sum()) - m))
+        parts = self._shard_parts(seg, runs)
+
+        def take(a, part):
+            if isinstance(part, list):
+                return (np.concatenate([a[sl] for sl in part]) if part
+                        else a[:0])
+            return a[part]
+
+        vals, segs, bit_parts, tables = [], [], [], []
+        misplaced = 0
+        for s, part in enumerate(parts):
+            ids = take(seg, part).astype(np.int64)
+            local = ids - s * L
+            out = (local < 0) | (local >= L)
+            if runs is not None:
+                misplaced += int((out & (ids >= 0) & (ids < S * L)).sum())
+            local[out] = L
+            vals.append(take(values, part))
+            segs.append(local.astype(np.int32))
+            if bits is not None:
+                bit_parts.append(take(bits, part))
+            if runs is not None:
+                nb = self._shard_blocks[s]
+                own = np.zeros((K, bl), dtype=np.int64)
+                own[:, :nb] = runs[:, s * bl:s * bl + nb]
+                tables.append(tagged_run_table(own, self.local_offsets))
+        check_run_count(misplaced)
+        mesh, spec = self.mesh, self._specs
+        t_h = time.perf_counter()
+        q_pad = np.zeros(S * bl, dtype=np.float64)
+        q_pad[:B] = quotas
+        q_dev = D.mesh_h2d(mesh, q_pad, spec["cells"], self.dtype)
+        v_dev = D.mesh_h2d(mesh, vals, spec["cells"], self.dtype)
+        s_dev = D.mesh_h2d(mesh, segs, spec["cells"], torch.int32)
+        if bits is not None:
+            bits_dev = D.mesh_h2d(mesh, bit_parts, spec["cells"],
+                                  torch.int64)
+        if runs is not None:
+            runs = [TaggedRuns(t, K, bl, deferred=True) for t in
+                    D.mesh_h2d(mesh, tables, spec["cells"], torch.int32)]
+        if timings is not None:
+            timings["h2d"] = (timings.get("h2d", 0.0)
+                              + time.perf_counter() - t_h)
+        t_l = time.perf_counter()
+        tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                       n_groups_list=self.n_groups_list, runs=runs)
+        group_regs = None
+        if self.has_sketch:
+            partials, rows, group_regs = D.mesh_tick_sketch(
+                mesh, self._state, self._regs_state, v_dev, s_dev, bits_dev,
+                q_dev, self._bounds, self._sk_cells, self._sizes,
+                self._inv_scale, **tick_kw)
+        else:
+            partials, rows = D.mesh_tick(
+                mesh, self._state, v_dev, s_dev, q_dev, self._bounds,
+                self._sk_cells, self._sizes, self._inv_scale, **tick_kw)
+        if timings is not None:
+            timings["launch"] = (timings.get("launch", 0.0)
+                                 + time.perf_counter() - t_l)
+        return partials, rows, group_regs, runs
 
 
 def proportional_allocate(amounts: np.ndarray, budget: int) -> np.ndarray:

@@ -71,8 +71,9 @@ This is the PyTorch port of ``repro.core.multiquery``: the planner,
 composer, admission tier, zone pruning and drift guard are the
 reference's host code; ``route="device"`` binds to the torch device
 stores, whose tick runs the hand-written CUDA fold (and, for COUNT
-DISTINCT keys, the CUDA HLL register merge) on the card.  The mesh route
-and the pipelined tick are not ported yet.
+DISTINCT keys, the CUDA HLL register merge) on the card; ``route="mesh"``
+runs that tick on every shard of a cell mesh (``MeshDeviceStack``).  The
+pipelined tick is not ported yet.
 """
 from __future__ import annotations
 
@@ -92,11 +93,11 @@ from . import sketch as _sketch
 from .engine import (AUTO_SKEW_THRESHOLD, MODES, IslaQuery, block_quotas,
                      phase2_iteration_batch, resolve_mode_and_geometry)
 from .modulation import empirical_geometry
-from .distributed import (MESH_ITEM, PIPELINE_ITEM, phase2,
-                          pilot_stats_device, resolve_device)
-from .moment_store import (DeviceMomentStore, DeviceStack, MomentStore,
-                           iter_chunked_draws, proportional_allocate,
-                           split_budget)
+from .distributed import (PIPELINE_ITEM, phase2, pilot_stats_device,
+                          resolve_device)
+from .moment_store import (DeviceMomentStore, DeviceStack, MeshDeviceStack,
+                           MomentStore, iter_chunked_draws,
+                           proportional_allocate, split_budget)
 from .preestimation import (required_sample_size, run_pilot, sampling_rate,
                             z_score)
 from .summarize import summarize
@@ -400,8 +401,12 @@ class MultiQueryExecutor:
     ``device`` is where ``route="device"`` (the default route) keeps its
     stores and runs its tick: ``"cuda"`` (the default; a device-route run
     raises without a card) or ``"cpu"`` (the kernels' plain PyTorch
-    versions).  ``route="host"`` is the float64 numpy route on the CPU,
-    taken only when asked for.
+    versions).  ``mesh`` is the cell mesh ``route="mesh"`` shards the
+    stacked cell axis over (a ``launch.mesh.CellMesh``, or a sequence of
+    devices, one a shard); None builds ``make_cell_mesh()`` on first use —
+    one shard a visible card, or with ``device="cpu"`` one shard on the
+    CPU.  ``route="host"`` is the float64 numpy route on the CPU, taken
+    only when asked for.
     """
 
     def __init__(self, block_samplers: Sequence[RowSampler],
@@ -413,7 +418,7 @@ class MultiQueryExecutor:
                  anchor_min_support: int = 64,
                  zone_map: Optional[ZoneMap] = None,
                  plan_cache_size: int = 256,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if len(block_samplers) != len(block_sizes):
             raise ValueError("one sampler per block required")
         # Resolved on the device route's first use: the host route never
@@ -456,11 +461,15 @@ class MultiQueryExecutor:
         #                         valid only against the frozen anchor pilot
         self._key_anchors = {}  # where -> refined Anchor, frozen with the
         #                         pilot; per-key drift may re-derive an entry
-        # Device-resident serving state (route="device", incremental):
-        # per-StoreKey device mirrors holding the authoritative moments,
-        # and the stacked launch sets built over them per mode-group.
+        # Device-resident serving state (route="device"/"mesh",
+        # incremental): per-StoreKey device mirrors holding the
+        # authoritative moments, and the stacked launch sets built over
+        # them per mode-group.
         self._device_stores: "dict[StoreKey, DeviceMomentStore]" = {}
         self._device_stacks: dict = {}
+        # route="mesh": the cell mesh the stacked cell axis shards over
+        # (built on first use when None).
+        self.mesh = mesh
         # Admission tier (warm incremental serving only).  PlanCache:
         # compiled QueryPlans keyed on the priority-stripped batch +
         # (mode, route, overrides); valid only against the frozen pilot,
@@ -494,6 +503,20 @@ class MultiQueryExecutor:
         if self._device is None:
             self._device = resolve_device(self._device_req)
         return self._device
+
+    def _active_mesh(self):
+        """The mesh ``route="mesh"`` shards over: the one handed to the
+        constructor (a sequence of devices becomes a ``CellMesh``), or,
+        built here on first use, one shard a visible card (one shard on
+        the CPU for an executor on the CPU)."""
+        from ..launch.mesh import CellMesh, make_cell_mesh
+
+        if self.mesh is None:
+            self.mesh = (make_cell_mesh(devices=[self.device])
+                         if self.device.type == "cpu" else make_cell_mesh())
+        elif not isinstance(self.mesh, CellMesh):
+            self.mesh = make_cell_mesh(devices=self.mesh)
+        return self.mesh
     def reset_stores(self) -> None:
         """Drop all warm stores (host and device-resident) and the pilot
         anchor (e.g. after the underlying table changed enough that frozen
@@ -1111,10 +1134,10 @@ class MultiQueryExecutor:
         return pilot, columns
 
     def _pilot_stats_fn(self, route: str):
-        """Device-route pilot: the ``pilot_stats`` kernel on the
-        executor's device.  There is no host fallback — on the device
-        route the pilot runs on the device, or the run fails."""
-        if route != "device":
+        """Device-route pilot (the mesh route's too): the ``pilot_stats``
+        kernel on the executor's device.  There is no host fallback — on
+        these routes the pilot runs on the device, or the run fails."""
+        if route not in ("device", "mesh"):
             return None
         return functools.partial(pilot_stats_device, device=self.device)
 
@@ -1135,9 +1158,6 @@ class MultiQueryExecutor:
         if route not in ROUTES:
             raise ValueError(f"unknown route {route!r}; expected one of "
                              f"{ROUTES}")
-        if route == "mesh":
-            raise NotImplementedError(
-                f"the mesh route is not ported yet ({MESH_ITEM})")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; expected one of "
                              f"{MODES}")
@@ -1415,7 +1435,7 @@ class MultiQueryExecutor:
                   sketch0: float, sigma: float, params: IslaParams,
                   mode: str, geometry, route: str) -> np.ndarray:
         """Phase 2 over stacked (n, 4) cells on the chosen route."""
-        if route == "device":
+        if route in ("device", "mesh"):
             return self._device_partials(mom_s, mom_l, sketch0, sigma,
                                          params, mode, geometry)
         return phase2_iteration_batch(mom_s, mom_l, sketch0, params,
@@ -1457,7 +1477,7 @@ class MultiQueryExecutor:
         n = len(self.block_sizes)
         mom_s, mom_l = store.mom_s, store.mom_l
         quotas = store.n_sampled
-        if route == "device":
+        if route in ("device", "mesh"):
             partials = self._device_partials(
                 mom_s, mom_l, store.sketch0, pilot.sigma, params,
                 mg.mode, mg.geometry)
@@ -1653,11 +1673,13 @@ class MultiQueryExecutor:
             self._device_stores[skey] = dst
         return dst
 
-    def _device_group(self, mg: ModeGroup, group_stores: Mapping
+    def _device_group(self, mg: ModeGroup, group_stores: Mapping,
+                      route: str = "device"
                       ) -> Tuple[list, dict, DeviceStack]:
         """One mode-group's stacked launch set: every key's device store
-        concatenated onto one cell axis (``DeviceStack``), cached across
-        ticks so steady state re-uploads nothing."""
+        concatenated onto one cell axis (``DeviceStack``; the mesh-sharded
+        ``MeshDeviceStack`` on route="mesh"), cached across ticks so
+        steady state re-uploads nothing."""
         keys = list(group_stores)
         dstores = {k: self._ensure_device_store(mg, k, group_stores[k])
                    for k in keys}
@@ -1665,10 +1687,14 @@ class MultiQueryExecutor:
               tuple(StoreKey(where=k[0], group_by=k[1], mode=mg.mode)
                     for k in keys))
         stack = self._device_stacks.get(ck)
+        mesh = route == "mesh"
         if (stack is None or stack._released
+                or isinstance(stack, MeshDeviceStack) != mesh
                 or [id(s) for s in stack.stores]
                 != [id(dstores[k]) for k in keys]):
-            stack = DeviceStack([dstores[k] for k in keys])
+            members = [dstores[k] for k in keys]
+            stack = (MeshDeviceStack(members, self._active_mesh()) if mesh
+                     else DeviceStack(members))
             # Evict entries the adoption released (a key-set change must
             # not pin dead stacked-state copies in device memory).
             self._device_stacks = {
@@ -2076,13 +2102,15 @@ class MultiQueryExecutor:
         target = self._target_quotas(mg, deadline_samples)
         group_stores, key_aggs = prebuilt
         # Device-resident serving: persistent stores on route="device"
+        # (one device) or "mesh" (the cell axis sharded over a cell mesh)
         # keep their moments as torch tensors on the device between
         # ticks; the whole tick is one fused tick per mode-group and the
         # host reads only scalar answers / group stats.
-        device_resident = bool(persistent and route == "device")
+        device_resident = bool(persistent and route in ("device", "mesh"))
         keys = dstores = stack = None
         if device_resident:
-            keys, dstores, stack = self._device_group(mg, group_stores)
+            keys, dstores, stack = self._device_group(mg, group_stores,
+                                                      route)
         covered = persistent
         if persistent:
             union = np.zeros(len(self.block_sizes), dtype=np.int64)
@@ -2300,8 +2328,10 @@ class MultiQueryExecutor:
             ``device``, fp32 with anchor-scale normalization; the
             incremental stores run float64, bit-exact against the host
             fold, when the torch default dtype is float64) or
-            ``"host"`` (float64 numpy on the CPU, when asked for).
-            ``"mesh"`` is not ported yet and raises.
+            ``"host"`` (float64 numpy on the CPU, when asked for), or
+            ``"mesh"`` (the device tick with its cell axis sharded over
+            the executor's cell mesh — see its ``mesh`` argument; state
+            stays per shard, and only O(groups) rows cross devices).
         rate_override : float, optional
             Bypass Eq. 1 and sample at exactly this rate (experiments).
         sigma_guess : float, optional
@@ -2369,6 +2399,14 @@ class MultiQueryExecutor:
         consistent for a given warm state — call ``reset_stores()``
         before switching an executor between warm host and device
         serving.
+
+        ``route="mesh"`` is the same device-resident tick with the
+        stacked cell axis SHARDED over a cell mesh (``MeshDeviceStack``):
+        each shard keeps its block run's state resident on its device and
+        runs the tick kernels on it, and the only cross-device step is
+        the reduce of the O(groups) stat rows.  Per-key drift resets
+        release state from every shard.  On a one-shard mesh the layout is
+        exactly the ``"device"`` path's.
         """
         if pipeline:
             raise NotImplementedError(

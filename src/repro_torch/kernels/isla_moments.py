@@ -851,6 +851,7 @@ def tagged_run_table(lengths, key_offsets) -> np.ndarray:
 
 
 check_run_count = ref.check_run_count
+RunTableError = ref.RunTableError
 
 
 def _check_runs(runs: TaggedRuns, values: torch.Tensor) -> None:

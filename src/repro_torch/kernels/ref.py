@@ -197,11 +197,15 @@ def segment_carry_sum(prior: torch.Tensor, rows: torch.Tensor,
                                               torch.cat([prior, rows]))
 
 
+class RunTableError(ValueError):
+    """A run table that does not describe its tagged stream."""
+
+
 def check_run_count(count: int) -> None:
     """Raise when a run-table fold found runs or samples out of place."""
     if count:
-        raise ValueError(f"the run table does not describe the tagged "
-                         f"stream: {count} runs or samples out of place")
+        raise RunTableError(f"the run table does not describe the tagged "
+                            f"stream: {count} runs or samples out of place")
 
 
 def tagged_run_count(seg: torch.Tensor, runs, n_cells: int) -> int:

@@ -32,8 +32,10 @@ scalar answers and O(groups) rows crossing back:
 
 The admission pipeline (plan cache, subsumption, same-tick dedupe,
 priority order) is on by default with ``--incremental``;
-``--no-admission`` restores the plain FIFO loop.  The mesh route and the
-pipelined tick are not ported yet.
+``--no-admission`` restores the plain FIFO loop.  ``--route mesh`` runs the
+resident tick with its cell axis split by block runs over a cell mesh:
+one shard a visible card, or with ``--device cpu`` one shard on the CPU
+(``launch/mesh.py``).  The pipelined tick is not ported yet.
 
 ``--workload lm``, the default as in the reference, serves an LM through
 the slot scheduler (``serve/``):
@@ -103,10 +105,12 @@ class IslaAdmissionLoop:
     mode : str, optional
         Default Phase 2 mode handed to ``run`` (queries may override).
     route : str, optional
-        ``"device"`` (the default) or ``"host"`` (float64 numpy on the
-        CPU); with ``incremental=True`` the device route keeps every
-        store's moments resident between ticks and runs each tick as one
-        fused tick per mode-group on the executor's device.
+        ``"device"`` (the default), ``"host"`` (float64 numpy on the
+        CPU) or ``"mesh"``; with ``incremental=True`` the device route
+        keeps every store's moments resident between ticks and runs each
+        tick as one fused tick per mode-group on the executor's device,
+        and the mesh route shards that state and tick over the
+        executor's cell mesh.
     max_batch : int, optional
         Most queries admitted per tick; overflow waits for the next tick.
     incremental : bool, optional
@@ -597,10 +601,13 @@ def main():
     ap.add_argument("--ticks", type=int, default=4)
     ap.add_argument("--queries-per-tick", type=int, default=6)
     ap.add_argument("--precision", type=float, default=0.5)
-    ap.add_argument("--route", choices=["device", "host"], default="device",
+    ap.add_argument("--route", choices=["host", "device", "mesh"],
+                    default="device",
                     help="device (default): the pilot, Phase 2 and, with "
                          "--incremental, the resident tick run on "
-                         "--device; host: float64 numpy on the CPU")
+                         "--device; mesh: that tick sharded over every "
+                         "visible card (one CPU shard with --device cpu); "
+                         "host: float64 numpy on the CPU")
     ap.add_argument("--device", default="cuda",
                     help="where the device route keeps its stores and "
                          "runs its tick, and where the lm workload runs: "

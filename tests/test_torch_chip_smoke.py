@@ -93,3 +93,77 @@ def test_profiled_serve_fails_at_once_on_a_forbidden_kernel(monkeypatch,
         S.profiled_serve("f64", 10, 2, 100, (0.5, 0.25), True, (0, 1),
                          forbidden=("isla_tagged_fold_kernel", "sort"))
     assert len(calls) == 1
+
+
+# The mesh phase's checks.
+
+N_ROWS = 34  # the loop's stack: 1 + 1 + 16 + 16 rows
+
+
+def mesh_tick(distinct, f64, drawing, first, collectives=None, **over):
+    r = S.mesh_tick_launches(distinct, f64, S.MESH_SHARDS, drawing, first)
+    reduce = [("sum", 9 * N_ROWS)] + ([("max", S.N_REGS * N_ROWS)]
+                                      if distinct else [])
+    r.update(new_samples=1000 if drawing else 0,
+             collectives=reduce if collectives is None else collectives)
+    r.update(over)
+    return r
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("f64", [False, True])
+def test_check_mesh_ticks_takes_a_launch_a_shard(distinct, f64):
+    recs = [mesh_tick(distinct, f64, True, True),
+            mesh_tick(distinct, f64, True, False),
+            mesh_tick(distinct, f64, False, False, collectives=[])]
+    S.check_mesh_ticks("mesh", recs, S.MESH_SHARDS, distinct, f64, N_ROWS)
+    want = S.MESH_SHARDS if f64 else 0
+    assert recs[0]["tagged_launches"] == want
+    assert recs[0]["fold_launches"] == S.MESH_SHARDS - want
+    assert recs[0]["pilot_launches"] == 1 and recs[1]["pilot_launches"] == 0
+
+
+@pytest.mark.parametrize("bad", [
+    dict(fold_launches=1),                      # one launch, not one a shard
+    dict(fold_calls=4, fold_launches=5),        # a launch outside the calls
+    dict(pilot_launches=2),                     # a second pilot
+    dict(collectives=[("sum", 9 * N_ROWS)] * 2),   # two reduces a tick
+    dict(collectives=[("sum", 4 * 34_000)]),    # O(cells) crosses
+    dict(collectives=[("max", 9 * N_ROWS)]),    # not the stat rows' sum
+    dict(collectives=[]),                       # a drawing tick unreduced
+], ids=["one-launch", "extra-launch", "two-pilots", "two-reduces",
+        "cells-cross", "max-only", "no-reduce"])
+def test_check_mesh_ticks_fails(bad):
+    recs = [mesh_tick(False, False, True, True, **bad)]
+    with pytest.raises(S.SmokeFailure, match="tick 1"):
+        S.check_mesh_ticks("mesh", recs, S.MESH_SHARDS, False, False, N_ROWS)
+
+
+@pytest.fixture
+def float64_default():
+    import torch
+
+    was = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(was)
+
+
+def test_check_mesh_state_on_the_cpu(float64_default):
+    """The float64 loop on a four-shard CPU mesh and on the device route,
+    at a small size: ``check_mesh_state`` holds them bit for bit, and
+    each drawing tick records one sum and one max of O(groups) rows; a
+    changed cell fails it."""
+    args = (12, 3, 400, (0.5, 0.25, 0.25), True)
+    _, mesh_ex, recs = S.run_serve("cpu", "mesh", *args,
+                                   mesh=["cpu"] * S.MESH_SHARDS)
+    _, dev_ex, _ = S.run_serve("cpu", "device", *args)
+    st = S.check_mesh_state(mesh_ex, dev_ex)
+    assert st["keys"] == 4 and st["cells"] == (1 + 1 + 3 + 3) * 12
+    rows = 1 + 1 + 3 + 3  # the four keys' stat rows
+    assert [r["collectives"] for r in recs[:2]] == [
+        [("sum", 9 * rows), ("max", S.N_REGS * rows)]] * 2
+    dst = next(iter(dev_ex._device_stores.values()))
+    dst.mom_s = dst.mom_s + 1.0
+    with pytest.raises(S.SmokeFailure, match="mom_s"):
+        S.check_mesh_state(mesh_ex, dev_ex)

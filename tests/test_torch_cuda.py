@@ -21,6 +21,7 @@ from _torch_sketch_cases import SKETCH_CASES, sketch_case
 from _torch_tagged_cases import CASES as TAGGED_CASES
 from _torch_tagged_cases import (RUN_CASES, WRONG_TABLES, host_fold,
                                  run_case, tagged_case, wrong_table)
+import _torch_mesh_cases as MC
 
 pytestmark = pytest.mark.cuda
 
@@ -836,3 +837,99 @@ def test_float64_executor_tick_sorts_nothing(cuda):
         == K.isla_tagged_fold.launches
     assert not any("isla_tagged_fold_kernel" in n for n in names)
     assert not any("sort" in n.lower() for n in names), names
+
+
+def _mesh_pair(payload, kind_a, kind_b):
+    """Two equal sketch stacks of the mesh cases (hetero anchors; COUNT
+    DISTINCT on the last key), of ``payload``'s type, each a
+    ``MeshDeviceStack`` over the devices ``kind_*`` or, for
+    ``"device"``, a ``DeviceStack`` on the card."""
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    dtype = torch.float64 if payload == "tagged" else torch.float32
+    out = []
+    for devices in (kind_a, kind_b):
+        dev = "cuda" if devices == "device" else devices[0]
+        stores = MC.make_stores(TC.DeviceMomentStore.fresh_device,
+                                TC.Boundaries, hetero=True, sketch=(2,),
+                                dtype=dtype, device=dev)
+        stack = (TC.DeviceStack(stores) if devices == "device" else
+                 TC.MeshDeviceStack(stores, make_cell_mesh(devices=devices)))
+        out.append((stack, stores))
+    return out
+
+
+def _mesh_payload(payload, stack, stores, d):
+    from repro_torch.core import sketch as TSK
+
+    if payload == "dense":
+        return MC.dense_payload(d)
+    return MC.tagged_payload(stack, stores, d, limbs=TSK.value_limbs)
+
+
+@pytest.mark.parametrize("payload", ["tagged", "dense"])
+def test_mesh_tick_on_card_matches_plain_versions(cuda, payload):
+    """The mesh tick at S = 4 on ``cuda:0`` (float64 tagged by the run
+    tables, or fp32 dense; a sketch stack) against the same mesh on the
+    CPU, where every shard runs the kernels' plain versions: one launch of
+    each tick kernel a shard, a drawing tick; float64 state, partials and
+    register planes bit for bit (rows within 1e-12), fp32 within 1e-5;
+    one sum and one max of O(groups) rows a tick."""
+    (card, c_st), (cpu, p_st) = _mesh_pair(payload, ["cuda:0"] * 4,
+                                           ["cpu"] * 4)
+    rng = np.random.default_rng(21)
+    kernels = ((K.isla_tagged_fold, K.isla_sketch_tagged)
+               if payload == "tagged" else (K.isla_fold, K.isla_sketch))
+    for _ in range(2):
+        d = MC.draw(rng)
+        K.reset_launch_counts()
+        with TD.collective_footprint() as rec:
+            got = card.tick(TC.IslaParams(),
+                            **_mesh_payload(payload, card, c_st, d))
+        assert [k.launches for k in kernels] == [4, 4]
+        assert [op for op, _ in rec] == ["sum", "max"]
+        want = cpu.tick(TC.IslaParams(),
+                        **_mesh_payload(payload, cpu, p_st, d))
+        for a, b in zip(c_st, p_st):
+            for f in ("mom_s", "mom_l", "totals", "_n_sampled_dev"):
+                x, y = getattr(a, f).cpu(), getattr(b, f)
+                if payload == "tagged":
+                    assert torch.equal(x, y), f
+                else:
+                    torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+            if a.has_sketch:
+                assert torch.equal(a.regs.cpu(), b.regs)
+                assert np.array_equal(a.group_registers(),
+                                      b.group_registers())
+        for (pg, rg), (pc, rc) in zip(got, want):
+            if payload == "tagged":
+                assert torch.equal(pg.cpu(), pc.cpu())
+                np.testing.assert_allclose(rg, rc, rtol=1e-12, atol=0)
+            else:
+                torch.testing.assert_close(pg.cpu(), pc.cpu(), rtol=1e-5,
+                                           atol=1e-6)
+                np.testing.assert_allclose(rg, rc, rtol=1e-5)
+
+
+@pytest.mark.parametrize("stack_kind", ["device", "mesh"])
+@pytest.mark.parametrize("kind", MC.WRONG_TABLES)
+def test_wrong_run_table_leaves_stack_unusable_on_card(cuda, stack_kind,
+                                                       kind):
+    """On the card the run kernel skips what is out of place and folds the
+    rest in place (the mesh checks what the host can see first): the tick
+    raises, no store keeps valid stats, and every next tick raises,
+    zero-draw ticks included — on ``DeviceStack`` and on a three-shard
+    ``MeshDeviceStack`` on ``cuda:0``."""
+    kind_a = "device" if stack_kind == "device" else ["cuda:0"] * 3
+    (stack, stores), _ = _mesh_pair("tagged", kind_a, ["cpu"])
+    rng = np.random.default_rng(22)
+    stack.tick(TC.IslaParams(),
+               **_mesh_payload("tagged", stack, stores, MC.draw(rng)))
+    assert all(st._stats_valid for st in stores)
+    kw = MC.spoil(kind, _mesh_payload("tagged", stack, stores, MC.draw(rng)))
+    with pytest.raises(ValueError, match="run table"):
+        stack.tick(TC.IslaParams(), **kw)
+    assert not any(st._stats_valid for st in stores) and stack._released
+    for again in (dict(), dict(mode="faithful"), kw):
+        with pytest.raises(ValueError, match="unusable"):
+            stack.tick(TC.IslaParams(), **again)

@@ -275,16 +275,20 @@ def test_device_pilot_matches_host_reduction():
 
 
 def test_unported_routes_raise():
+    """The pipelined tick still raises; the mesh route runs, one-shot and
+    incremental, moments and COUNT DISTINCT, on a one-shard CPU mesh."""
     tables = _tables()
     ex = _executor(TC, tables, device="cpu")
     with pytest.raises(NotImplementedError, match="pipelined"):
         ex.run(_queries(TC), np.random.default_rng(0), incremental=True,
                route="device", pipeline=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ex.run(_queries(TC), np.random.default_rng(0), route="mesh")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ex.run([TC.IslaQuery(e=1.0, agg="count_distinct")],
-               np.random.default_rng(0), incremental=True, route="mesh")
+    for queries, incremental in (
+            (_queries(TC), False),
+            ([TC.IslaQuery(e=1.0, agg="count_distinct")], True)):
+        answers = ex.run(queries, np.random.default_rng(0), route="mesh",
+                         incremental=incremental)
+        assert all(np.isfinite(a.value) for a in answers)
+    assert ex.mesh.devices == (torch.device("cpu"),)
 
 
 def test_entry_points_default_to_the_device_route(monkeypatch, capsys):

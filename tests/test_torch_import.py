@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.flash_attention", "repro_torch.configs",
               "repro_torch.models.attention", "repro_torch.models.model",
               "repro_torch.models.frontends",
-              "repro_torch.serve.engine", "repro_torch.launch.serve"):
+              "repro_torch.serve.engine", "repro_torch.launch.serve",
+              "repro_torch.launch.mesh", "repro_torch.sharding.specs"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
