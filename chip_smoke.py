@@ -55,6 +55,21 @@ is held to a device-route run of the same loop made beside it: every
 key's moment rows, totals, draw ledgers, register plane and partials bit
 for bit.  Each mesh tick's stage times print beside the device route's.
 
+Then the pipelined tick: the loop's batch under two modes (two mode
+groups, two stacks) through ``MultiQueryExecutor.run(pipeline=True)``
+with ``chunk_blocks=250`` (four chunks a group, their ticks on the
+launch worker thread, the stat rows read back through pinned buffers and
+CUDA events), five runs: moments and distinct, fp32 and float64, on the
+device route, and distinct float64 on the four-shard mesh.  Each is held
+to a serial run of the same seeds made beside it: the same launches
+tick by tick, and every answer, draw ledger, moment row, total,
+register plane and partial bit for bit (fp32: wherever a second serial
+run repeats the first; the gaps are printed).  Each tick's stage
+seconds and wall time print beside the serial run's.  One pipelined
+top-up tick is profiled with every thread traced: its ``isla:launch``
+ranges must lie on the launch worker, some under a main-thread
+``isla:draw``, and its trace must hold every ISLA kernel it launched.
+
 Then it drives the LM serving path: olmo-1b at full width and depth
 (16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
 generator, six seeded prompts of 384-2048 tokens through a
@@ -87,6 +102,7 @@ kernel, and the result object; details go to
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -818,22 +834,23 @@ def check_pilot(device, loop_n: int) -> "list[dict]":
 MAIN_RUNS = (("moments", False), ("distinct", True))
 
 
-def serve_queries(C, e: float, distinct: bool):
+def serve_queries(C, e: float, distinct: bool, mode=None):
     """One tick's batch: the four serving keys (plain, WHERE, GROUP BY,
     WHERE + GROUP BY) under the four moment aggregates, and with
-    ``distinct`` COUNT DISTINCT on each of the four keys."""
+    ``distinct`` COUNT DISTINCT on each of the four keys; ``mode`` is each
+    query's Phase 2 mode (None: the run's)."""
     flag = C.Predicate(column="flag", eq=1.0)
-    qs = [C.IslaQuery(e=e, agg="AVG"),
-          C.IslaQuery(e=e, agg="SUM", where=flag),
-          C.IslaQuery(e=e, agg="AVG", group_by="region"),
-          C.IslaQuery(e=e, agg="COUNT", group_by="region", where=flag),
-          C.IslaQuery(e=e, agg="VAR")]
+    q = functools.partial(C.IslaQuery, e=e, mode=mode)
+    qs = [q(agg="AVG"),
+          q(agg="SUM", where=flag),
+          q(agg="AVG", group_by="region"),
+          q(agg="COUNT", group_by="region", where=flag),
+          q(agg="VAR")]
     if distinct:
-        qs += [C.IslaQuery(e=e, agg="count_distinct"),
-               C.IslaQuery(e=e, agg="count_distinct", where=flag),
-               C.IslaQuery(e=e, agg="count_distinct", group_by="region"),
-               C.IslaQuery(e=e, agg="count_distinct", group_by="region",
-                           where=flag)]
+        qs += [q(agg="count_distinct"),
+               q(agg="count_distinct", where=flag),
+               q(agg="count_distinct", group_by="region"),
+               q(agg="count_distinct", group_by="region", where=flag)]
     return qs
 
 
@@ -850,8 +867,6 @@ def run_serve(device: str, route: str, n_blocks: int, n_groups: int,
     the executor and per-tick records (with the host seconds the tick
     spent on its run tables: ``DeviceStack.key_runs`` and
     ``tagged_run_table``, and the tick's cross-device reduces)."""
-    import functools
-
     import numpy as np
     import repro_torch.core as C
     import repro_torch.core.moment_store as MS
@@ -1511,6 +1526,324 @@ def main_path_mesh(name: str, distinct: bool, f64: bool, n_blocks=1000,
                 ticks=records, device_ticks=device_ticks, agreement=agree,
                 state=state,
                 shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
+
+
+# ---------------------------------------------------------------------------
+# The pipelined tick: the loop's batch under two modes (two mode groups, two
+# stacks) through run(pipeline=True) with chunk_blocks=250 (four chunks a
+# group), each run held to serial runs made beside it with the same seeds.
+# ---------------------------------------------------------------------------
+
+PIPE_MODES = ("calibrated", "faithful_cf")
+PIPE_CHUNK_BLOCKS = 250
+# (name, COUNT DISTINCT, float64, the mesh's devices or None)
+PIPE_RUNS = (("moments pipelined", False, False, None),
+             ("distinct pipelined", True, False, None),
+             ("moments f64 pipelined", False, True, None),
+             ("distinct f64 pipelined", True, True, None),
+             ("distinct f64 mesh pipelined", True, True, MESH_DEVICES))
+PIPE_PROFILED_TICK = 1  # the top-up tick
+ISLA_LAUNCHES = ("isla_fold", "isla_sketch", "isla_tagged_fold",
+                 "isla_sketch_tagged", "pilot_stats")
+WORKER_MARK = "isla:worker-mark"  # a range the launch worker opens in a
+MAIN_MARK = "isla:main-mark"      # profiled window, and the main thread's
+STATE_FIELDS = ("mom_s", "mom_l", "totals", "n_sampled", "regs")
+
+
+def pipeline_queries(C, e: float, distinct: bool):
+    """One pipelined tick's batch: ``serve_queries`` under each mode of
+    ``PIPE_MODES``, so the run plans two mode groups."""
+    return [q for m in PIPE_MODES for q in serve_queries(C, e, distinct, m)]
+
+
+def answer_key(a) -> str:
+    """Every field of an answer, the draw ledger's included, as exact text
+    (repr round-trips a float, NaN included)."""
+    groups = None if a.groups is None else [
+        (g.group, g.value, g.mean, g.error_bound, g.n_samples, g.est_size)
+        for g in a.groups]
+    return repr((a.value, a.mean, a.error_bound, a.sampling_rate,
+                 a.sample_size, a.mode, a.pass_id, a.n_matched,
+                 a.est_population, a.new_samples, a.half_width, groups))
+
+
+def pipe_profile(device: str, on: bool):
+    """A profiler over one tick, every thread's ranges included (the
+    launch worker's too), when ``on``; else a no-op context."""
+    import contextlib
+
+    if not on:
+        return contextlib.nullcontext()
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if device == "cuda" else [])
+    return profile(activities=acts, experimental_config=_ExperimentalConfig(
+        profile_all_threads=True))
+
+
+def mark_threads(device: str) -> None:
+    """Open ``WORKER_MARK`` on the launch worker and ``MAIN_MARK`` here,
+    so a profiled window can tell the two threads' ranges apart.  On the
+    card each mark is a short device spin (never counted): the first
+    kernel inside a window can be left out of its trace
+    (``kernel_events``), and here it is a spin, on each thread."""
+    import torch
+    from torch.profiler import record_function
+    from repro_torch.core import distributed as D
+
+    def mark(name):
+        with record_function(name):
+            if device == "cuda":
+                torch.cuda._sleep(int(PROFILE_LEAD_S * SLEEP_CYCLES_PER_S))
+
+    D.launch_pool().submit(mark, WORKER_MARK).result()
+    mark(MAIN_MARK)
+
+
+def stage_ranges(events) -> dict:
+    """The pipelined tick's stage ranges in a profiled window, by thread:
+    ``(start_us, end_us)`` of each ``isla:launch`` on the launch worker and
+    on the main thread, and of each ``isla:draw`` on the main thread.  The
+    threads are known by the marks (``mark_threads``).  Only the host's
+    ranges are read: on the card the trace also holds each range's
+    device-side span, on a stream, not a thread."""
+    evs = [e for e in events if e.name.startswith("isla:")
+           and str(e.device_type).endswith("CPU")]
+    worker = {e.thread for e in evs if e.name == WORKER_MARK}
+    main = {e.thread for e in evs if e.name == MAIN_MARK}
+    check(len(worker) == 1 and len(main) == 1 and worker != main,
+          f"the profiled window does not tell the launch worker "
+          f"({worker}) from the main thread ({main})")
+
+    def spans(name, threads):
+        return sorted((e.time_range.start, e.time_range.end) for e in evs
+                      if e.name == name and e.thread in threads)
+
+    return dict(worker_launch=spans("isla:launch", worker),
+                main_launch=spans("isla:launch", main),
+                main_draw=spans("isla:draw", main))
+
+
+def overlap_us(a, b) -> float:
+    """Microseconds during which a range of ``a`` and one of ``b`` (lists of
+    ``(start, end)``) are both open."""
+    return sum(max(0.0, min(e1, e2) - max(s1, s2))
+               for s1, e1 in a for s2, e2 in b)
+
+
+def pipe_serve(device: str, route: str, n_blocks: int, n_groups: int,
+               rows: int, ticks, distinct: bool, pipeline: bool,
+               seed: int = 0, mesh=None, profile_at=(),
+               chunk_blocks: int = PIPE_CHUNK_BLOCKS):
+    """Drive ``MultiQueryExecutor.run(incremental=True, chunk_blocks=...,
+    pipeline=...)`` one ``pipeline_queries`` batch a tick (its precision
+    e from ``ticks``) on ``_synthetic_grouped_blocks`` tables.  Returns
+    the answers by tick, the executor and a record a tick: wall and stage
+    seconds, new samples, each ISLA kernel's launches, and for a tick of
+    ``profile_at`` its ISLA kernel events and its stage ranges by thread
+    (``stage_ranges``)."""
+    import numpy as np
+    import torch
+    import repro_torch.core as C
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.launch.serve import _synthetic_grouped_blocks
+
+    samplers = _synthetic_grouped_blocks(n_blocks, n_groups, rows, seed)
+    ex = C.MultiQueryExecutor(samplers, [10 ** 7] * n_blocks,
+                              params=C.IslaParams(e=ticks[0]),
+                              group_domains={"region": n_groups},
+                              device=device, mesh=mesh)
+    rng = np.random.default_rng(seed + 1)
+    answers, records = [], []
+    for k, e in enumerate(ticks):
+        qs = pipeline_queries(C, e, distinct)
+        before = {n: getattr(K, n).launches for n in ISLA_LAUNCHES}
+        prof = pipe_profile(device, k in profile_at)
+        if k in profile_at:
+            time.sleep(PROFILE_GAP_S)
+        t0 = time.perf_counter()
+        with prof:
+            if k in profile_at:
+                mark_threads(device)
+            out = ex.run(qs, rng, route=route, incremental=True,
+                         chunk_blocks=chunk_blocks, pipeline=pipeline)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: getattr(K, n).launches - before[n] for n in ISLA_LAUNCHES}
+        rec = dict(e=e, wall_s=wall, stages_s=dict(ex.last_stage_times),
+                   new_samples=sum({a.pass_id: a.new_samples
+                                    for a in out}.values()),
+                   launches=got, fold_launches=got["isla_fold"],
+                   sketch_launches=got["isla_sketch"],
+                   tagged_launches=got["isla_tagged_fold"],
+                   tagged_sketch_launches=got["isla_sketch_tagged"],
+                   pilot_launches=got["pilot_stats"], kernel_events=None)
+        if k in profile_at:
+            rec.update(kernel_events=device_kernel_counts(prof),
+                       ranges=stage_ranges(prof.events()))
+        answers.append(out)
+        records.append(rec)
+    return answers, ex, records
+
+
+def store_arrays(ex) -> dict:
+    """Every device store's state as host arrays, keyed by (store key,
+    field): moment rows, totals, both draw ledgers, register plane and
+    partials."""
+    out = {}
+    for skey, dst in ex._device_stores.items():
+        host = dst.to_host()
+        for f in STATE_FIELDS:
+            v = getattr(host, f, None)
+            if v is not None:
+                out[(skey, f)] = v
+        out[(skey, "n_sampled_dev")] = dst._n_sampled_dev.cpu().numpy()
+        out[(skey, "partials")] = dst.partials_host()
+    return out
+
+
+def check_twin(name: str, piped, serial, serial2=None) -> dict:
+    """A pipelined run against its serial twin, each ``(answers by tick,
+    store_arrays)``: every answer (value, bound, groups, draw ledger) and
+    every state array bit for bit.  With ``serial2``, a second serial run
+    of the same seeds (fp32), only what the two serial runs agree on is
+    held, and the gaps are counted: answers and arrays where the two
+    serial runs part (``serial_gap``) and where the pipelined run parts
+    from the first (``pipe_gap``, which must stay inside the first)."""
+    import numpy as np
+
+    def keys(run):
+        return [answer_key(a) for tick in run[0] for a in tick]
+
+    def same(x, y):
+        return x.shape == y.shape and np.array_equal(x, y, equal_nan=True)
+
+    p, s = keys(piped), keys(serial)
+    check(len(p) == len(s) > 0, f"the {name} run answered {len(p)} "
+                                f"queries, its serial twin {len(s)}")
+    check(set(piped[1]) == set(serial[1]),
+          f"the {name} run kept other stores than its serial twin")
+    s2 = keys(serial2) if serial2 is not None else s
+    arrays2 = serial2[1] if serial2 is not None else serial[1]
+    gaps = dict(answers=len(p), arrays=len(serial[1]), serial_gap=0,
+                pipe_gap=0, serial_gap_arrays=[], pipe_gap_arrays=[])
+    for i, (a, b, c) in enumerate(zip(p, s, s2)):
+        gaps["serial_gap"] += b != c
+        gaps["pipe_gap"] += a != b
+        check(a == b or b != c, f"the {name} run's answer {i} differs from "
+                                f"its serial twin's, which a second serial "
+                                f"run repeats: {a} against {b}")
+    for k, want in serial[1].items():
+        rep = same(want, arrays2[k])
+        if not rep:
+            gaps["serial_gap_arrays"].append(str(k))
+        if not same(piped[1][k], want):
+            gaps["pipe_gap_arrays"].append(str(k))
+            check(not rep, f"the {name} run's {k} differs from its serial "
+                           f"twin's, which a second serial run repeats")
+    return gaps
+
+
+def pipe_path(name: str, distinct: bool, f64: bool, mesh, n_blocks=1000,
+              n_groups=16, rows=20000, ticks=(0.5, 0.25, 0.25),
+              device: str = "cuda") -> dict:
+    """One pipelined run of the main path (the torch default dtype float64
+    for a float64 run, restored after it), on ``route="mesh"`` over
+    ``mesh`` or on the device route: the launch counts are set to 0 just
+    before it and read just after, and every kernel of its tick must have
+    launched.  A serial run of the same seeds is made beside it: its
+    launches tick by tick must be the pipelined run's, and its answers
+    and state the pipelined run's bit for bit (``check_twin``; fp32 with
+    a second serial run beside it).  ``device`` is the card; the CPU
+    rehearses the phase at a small size."""
+    import torch
+    from repro_torch.kernels import isla_moments as K
+
+    route = "device" if mesh is None else "mesh"
+    args = (device, route, n_blocks, n_groups, rows, ticks, distinct)
+    was = torch.get_default_dtype()
+    if f64:
+        torch.set_default_dtype(torch.float64)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers, ex, records = pipe_serve(*args, True, mesh=mesh)
+        wall = time.perf_counter() - t0
+        launches = {n: getattr(K, n).launches for n in ISLA_LAUNCHES}
+        tick_kernels = (("isla_tagged_fold", "isla_sketch_tagged") if f64
+                        else ("isla_fold", "isla_sketch"))
+        other = (("isla_fold", "isla_sketch") if f64
+                 else ("isla_tagged_fold", "isla_sketch_tagged"))
+        check(device != "cuda" or (
+            launches[tick_kernels[0]] > 0 and launches["pilot_stats"] == 1
+            and (launches[tick_kernels[1]] > 0) == distinct
+            and not any(launches[n] for n in other)),
+              f"the {name} run launched {launches}")
+        piped = (answers, store_arrays(ex))
+        del ex
+        s_answers, s_ex, s_records = pipe_serve(*args, False, mesh=mesh)
+        serial = (s_answers, store_arrays(s_ex))
+        del s_ex
+        for k, (r, q) in enumerate(zip(records, s_records)):
+            check(r["launches"] == q["launches"],
+                  f"the {name} run's tick {k + 1} launched {r['launches']}, "
+                  f"its serial twin's {q['launches']}")
+        serial2 = None
+        if not f64:
+            s2_answers, s2_ex, _ = pipe_serve(*args, False, mesh=mesh)
+            serial2 = (s2_answers, store_arrays(s2_ex))
+            del s2_ex
+        twin = check_twin(name, piped, serial, serial2)
+    finally:
+        torch.set_default_dtype(was)
+    return dict(name=name, route=route, shards=len(mesh or ("cuda",)),
+                launches=launches, wall_s=wall, ticks=records,
+                serial_ticks=s_records, twin=twin,
+                chunk_blocks=PIPE_CHUNK_BLOCKS, modes=list(PIPE_MODES),
+                shape=dict(blocks=n_blocks, groups=n_groups, rows=rows))
+
+
+def check_pipe_profile(r: dict, n_chunk_ticks: int) -> dict:
+    """A profiled pipelined top-up tick: ``n_chunk_ticks`` ``isla:launch``
+    ranges on the launch worker and none on the main thread, at least one
+    overlapping a main-thread ``isla:draw`` range, and every ISLA kernel
+    the launch counts name inside the window (``trace_whole``)."""
+    rg = r["ranges"]
+    ov = overlap_us(rg["worker_launch"], rg["main_draw"])
+    check(len(rg["worker_launch"]) == n_chunk_ticks
+          and not rg["main_launch"] and ov > 0,
+          f"the profiled pipelined tick: {len(rg['worker_launch'])} "
+          f"isla:launch ranges on the launch worker (want "
+          f"{n_chunk_ticks}), {len(rg['main_launch'])} on the main thread, "
+          f"{ov:.0f} us of them under a main-thread draw")
+    return dict(worker_launches=len(rg["worker_launch"]),
+                main_draws=len(rg["main_draw"]), overlap_us=ov,
+                launch_us=sum(e - s for s, e in rg["worker_launch"]),
+                draw_us=sum(e - s for s, e in rg["main_draw"]))
+
+
+def profiled_pipe(n_blocks=1000, n_groups=16, rows=20000,
+                  ticks=(0.5, 0.25, 0.25)) -> "tuple[dict, int]":
+    """The fp32 moments run pipelined again with its top-up tick under the
+    profiler (every thread's ranges): held to ``check_pipe_profile`` once
+    its trace is whole, taken again up to ``PROFILE_TRIES`` runs when the
+    profiler lost kernels.  Returns the tick's record and the runs taken."""
+    n_chunk_ticks = len(PIPE_MODES) * -(-n_blocks // PIPE_CHUNK_BLOCKS)
+    for run in range(1, PROFILE_TRIES + 1):
+        _, _, recs = pipe_serve("cuda", "device", n_blocks, n_groups, rows,
+                                ticks, False, True,
+                                profile_at=(PIPE_PROFILED_TICK,))
+        r = recs[PIPE_PROFILED_TICK]
+        if trace_whole(r):
+            r["profile"] = check_pipe_profile(r, n_chunk_ticks)
+            return r, run
+        print(f"the profiled pipelined re-run {run}: the trace lost "
+              f"kernels the launch counts name: {r['kernel_events']}")
+    check(False, f"the profiled pipelined tick lost kernels in "
+                 f"{PROFILE_TRIES} runs")
 
 
 def tagged_bound_ms(values, seg, bounds, n_cells: int
@@ -2525,6 +2858,44 @@ def main() -> int:
                   f"launches; wall {r['wall_s']:.4f} s, stages s: {stages}; "
                   f"device route ({dev_name} run) wall {q['wall_s']:.4f} s, "
                   f"stages s: {dev_stages}")
+    pipe_runs = [pipe_path(name, distinct, f64, mesh)
+                 for name, distinct, f64, mesh in PIPE_RUNS]
+    lap("isla pipelined runs")
+    for path in pipe_runs:
+        tw = path["twin"]
+        print(f"pipelined path, {path['name']} run ({path['route']} route"
+              + (f", {path['shards']} shards on {MESH_DEVICES[0]}"
+                 if path["route"] == "mesh" else "")
+              + f"; modes {'/'.join(PIPE_MODES)}, chunk_blocks "
+              f"{PIPE_CHUNK_BLOCKS}): {json.dumps(path['launches'])} "
+              f"launches, {path['wall_s']:.2f} s; against its serial twin: "
+              f"{tw['answers']} answers and {tw['arrays']} state arrays, "
+              f"{tw['pipe_gap']} answers and {len(tw['pipe_gap_arrays'])} "
+              f"arrays differ"
+              + ("" if "f64" in path["name"] else
+                 f" (two serial runs: {tw['serial_gap']} answers and "
+                 f"{len(tw['serial_gap_arrays'])} arrays differ)")
+              + "; launches tick by tick equal")
+        for k, (r, q) in enumerate(zip(path["ticks"], path["serial_ticks"])):
+            stages = ", ".join(f"{n} {t:.4f}"
+                               for n, t in r["stages_s"].items())
+            s_stages = ", ".join(f"{n} {t:.4f}"
+                                 for n, t in q["stages_s"].items())
+            print(f"  tick {k + 1} (e={r['e']}): {r['new_samples']} new "
+                  f"samples, launches {json.dumps(r['launches'])}; "
+                  f"pipelined wall {r['wall_s']:.4f} s, stages s: {stages}; "
+                  f"serial wall {q['wall_s']:.4f} s, stages s: {s_stages}")
+    pipe_prof, pipe_prof_runs = profiled_pipe()
+    lap("isla pipelined profile")
+    pp = pipe_prof["profile"]
+    print(f"profiled pipelined tick {PIPE_PROFILED_TICK + 1} (moments, "
+          f"device route): {pp['worker_launches']} isla:launch ranges on "
+          f"the isla-launch thread ({pp['launch_us'] / 1e3:.3f} ms), "
+          f"{pp['main_draws']} isla:draw ranges on the main thread "
+          f"({pp['draw_us'] / 1e3:.3f} ms), overlapping "
+          f"{pp['overlap_us'] / 1e3:.3f} ms; ISLA kernels "
+          f"{json.dumps(pipe_prof['kernel_events'])}; profiled runs taken "
+          f"{pipe_prof_runs}")
     lm = lm_path()
     lap("lm path runs")
     print(f"LM path, {lm['arch']} at full width and depth "
@@ -2611,9 +2982,10 @@ def main() -> int:
     # tick's launches in both ISLA runs, replayed on their panes; every
     # prefill layer's attention in the olmo-1b and paligemma-3b runs,
     # replayed on its q, k, v); its launches are the runs' counts added,
-    # the mesh runs' included.
+    # the mesh and pipelined runs' included.
     def launched(kernel):
-        return sum(path["launches"][kernel] for path in runs + mesh_runs)
+        return sum(path["launches"][kernel]
+                   for path in runs + mesh_runs + pipe_runs)
 
     f_bytes = sum(f["bytes_ms"] for f in served)
     f_ops = sum(f["ops_ms"] for f in served)
@@ -2654,7 +3026,7 @@ def main() -> int:
         dict(name="isla_tagged_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/core/distributed.py:269",
              launches=sum(p["launches"]["isla_tagged_fold"]
-                          for p in f64_runs + mesh_runs),
+                          for p in f64_runs + mesh_runs + pipe_runs),
              max_abs_err=max(f["max_abs_err"] for f in tagged),
              ms=sum(f["ms"] for f in tagged),
              plain_ms=sum(f["plain_ms"] for f in tagged),
@@ -2664,7 +3036,7 @@ def main() -> int:
         dict(name="isla_sketch_tagged", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:362",
              launches=sum(p["launches"]["isla_sketch_tagged"]
-                          for p in f64_runs + mesh_runs),
+                          for p in f64_runs + mesh_runs + pipe_runs),
              max_abs_err=max(f["max_abs_err"] for f in tagged_merges),
              ms=sum(f["ms"] for f in tagged_merges),
              plain_ms=sum(f["plain_ms"] for f in tagged_merges),
@@ -2688,7 +3060,8 @@ def main() -> int:
         card=card, build_s=build_s, build_logs=logs, main_path=runs,
         main_path_folds=served, main_path_sketches=merged,
         main_path_f64=f64_runs, main_path_tagged=tagged,
-        main_path_mesh=mesh_runs,
+        main_path_mesh=mesh_runs, main_path_pipelined=pipe_runs,
+        pipelined_profile=pipe_prof,
         main_path_tagged_sketches=tagged_merges, fold=folds,
         batched=batched, wrappers=wrappers, pilot=pilots, tight_plan=tight,
         lm_path=lm,

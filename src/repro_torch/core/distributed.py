@@ -24,12 +24,20 @@ their sketch forms) run the same single-device programs on each shard of
 a cell mesh (``launch.mesh.CellMesh``: a tuple of devices driven by one
 host program), and ``mesh_all_reduce`` is their one cross-device step.
 
-Not ported yet (ROADMAP Queue A): the pipelined launch pool and the
-telemetry helpers (``isla_mean`` and friends).
+The pipelined tick's plumbing lives here too: ``launch_pool``, the one
+worker thread every pipelined chunk's uploads, launches and stat copy
+run on; ``d2h_async``, a stat copy into a pinned host buffer behind a
+CUDA event; ``stage_trace``, the profiler ranges of the tick's stages;
+and ``book``, their wall clocks.
+
+Not ported yet (ROADMAP Queue A): the telemetry helpers (``isla_mean``
+and friends).
 """
 from __future__ import annotations
 
 import contextlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -232,6 +240,87 @@ def h2d(x, dtype=None, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+class D2HCopy:
+    """A device->host copy in flight (``d2h_async``): ``wait`` returns the
+    host tensor once the copy has landed."""
+
+    __slots__ = ("_host", "_done")
+
+    def __init__(self, host: torch.Tensor, done) -> None:
+        self._host, self._done = host, done
+
+    def wait(self) -> torch.Tensor:
+        if self._done is not None:
+            self._done.synchronize()
+            self._done = None
+        return self._host
+
+
+def d2h_async(x: torch.Tensor) -> D2HCopy:
+    """Start the device->host copy of ``x`` (a tick's O(groups) stat rows)
+    without blocking, and return its handle.
+
+    A CUDA tensor is copied into a fresh PINNED host buffer (a copy into
+    pageable memory would be synchronous) with ``non_blocking=True`` on
+    its device's current stream, the stream of the tick that wrote it,
+    and an event is recorded after the copy: ``wait`` waits on that event
+    alone, never on the whole device, so the work queued behind the copy
+    keeps running.  The buffer belongs to the handle, and PyTorch's pinned
+    memory cache hands a block out again only once the copies recorded
+    on it have completed, so no buffer is reused before its event.  A CPU
+    tensor is held as it is: the caller asked for the CPU, and there is
+    nothing to overlap."""
+    if x.device.type == "cpu":
+        return D2HCopy(x, None)
+    if x.device.type != "cuda":
+        raise ValueError(f"d2h_async copies CUDA or CPU tensors, not "
+                         f"{x.device}")
+    stream = torch.cuda.current_stream(x.device)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(stream)
+    return D2HCopy(host, done)
+
+
+_launch_pool: Optional[ThreadPoolExecutor] = None
+_launch_pool_lock = threading.Lock()
+
+
+def launch_pool() -> ThreadPoolExecutor:
+    """The pipelined tick's one launch worker (built at first use, shared
+    by the process).  It runs every chunk's pane build, uploads, launches
+    and stat copy in submission order, the serial order, on its thread's
+    current stream (the default stream, as the main thread's), while the
+    main thread draws the next chunk's rows.  One worker for the process
+    also keeps two ticks of one stack from running at once."""
+    global _launch_pool
+    with _launch_pool_lock:
+        if _launch_pool is None:
+            _launch_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="isla-launch")
+    return _launch_pool
+
+
+def stage_trace(name: str):
+    """The profiler range of one tick stage, by the reference's names
+    (``isla:h2d``, ``isla:launch``, ``isla:readback``; the pipelined
+    draw's ``isla:draw``), on the thread that runs it."""
+    return torch.profiler.record_function(name)
+
+
+_clock_lock = threading.Lock()
+
+
+def book(timings, stage: str, seconds: float) -> None:
+    """Add ``seconds`` to ``timings[stage]`` (no-op without a dict).  The
+    pipelined tick's worker and the main thread book into one dict, so
+    each add holds a lock."""
+    if timings is not None:
+        with _clock_lock:
+            timings[stage] = timings.get(stage, 0.0) + seconds
+
+
 def group_row_stats(mom_s: torch.Tensor, mom_l: torch.Tensor,
                     totals: torch.Tensor, partials: torch.Tensor,
                     n_sampled: torch.Tensor, sizes: torch.Tensor,
@@ -419,10 +508,9 @@ def fused_tick_dense(mom_s: torch.Tensor, mom_l: torch.Tensor,
                        active_cells=active_cells)
 
 
-# Where each part still to port stands in ROADMAP.md, by number and name
-# (the messages of the NotImplementedErrors that refuse it).
+# Where the part still to port stands in ROADMAP.md, by number and name
+# (the message of the NotImplementedError that refuses it).
 DENSE64_ITEM = "ROADMAP Queue A item 1b, 'The float64 dense tick'"
-PIPELINE_ITEM = "ROADMAP Queue A item 3, 'Pipelined tick'"
 
 
 # ---------------------------------------------------------------------------

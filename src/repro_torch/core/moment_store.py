@@ -45,6 +45,7 @@ quota-padding / round-count contract).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -455,6 +456,92 @@ def _dense_panes(values: np.ndarray, quotas: np.ndarray):
     return v2d, pad, vmask
 
 
+class _LazyRows:
+    """One tick's stats on their way to the host, shared by every store of
+    its stack: the stat rows as float64 with the tick's run counts after
+    them in the same copy, and on a sketch stack the folded register rows,
+    each copy started by ``distributed.d2h_async``.  A serial tick lands
+    them at once; a pipelined one (``tick(defer_stats=True)``) hands each
+    store ``_RowsView`` slices and leaves the landing to the first reader.
+    Either way the stack lands its ticks' copies in tick order and checks
+    each tick's run count before any of its rows is served
+    (``DeviceStack._land_copies``)."""
+
+    __slots__ = ("_stack", "_copy", "_regs_copy", "_shape", "_timings",
+                 "out")
+
+    def __init__(self, stack: "DeviceStack", rows: torch.Tensor,
+                 group_regs, counts, timings) -> None:
+        from . import distributed as D
+
+        flat = torch.cat([rows.reshape(-1).to(torch.float64)]
+                         + [c.to(rows.device, torch.float64)
+                            for c in counts])
+        self._stack = stack
+        self._copy = D.d2h_async(flat)
+        self._regs_copy = (None if group_regs is None
+                           else D.d2h_async(group_regs))
+        self._shape = tuple(rows.shape)
+        self._timings = timings
+        self.out = None  # (rows, register rows or None), landed and checked
+
+    def land(self) -> "tuple[np.ndarray, Optional[np.ndarray], int]":
+        """Wait for this tick's copies (on their own events): ``(rows,
+        register rows or None, run count)``."""
+        from . import distributed as D
+
+        t0 = time.perf_counter()
+        with D.stage_trace("isla:readback"):
+            flat = self._copy.wait().numpy()
+            regs = (None if self._regs_copy is None
+                    else self._regs_copy.wait().numpy())
+        D.book(self._timings, "readback", time.perf_counter() - t0)
+        self._copy = self._regs_copy = None
+        n = math.prod(self._shape)
+        return flat[:n].reshape(self._shape), regs, int(flat[n:].sum())
+
+    def resolve(self) -> "tuple[np.ndarray, Optional[np.ndarray]]":
+        """The landed ``(rows, register rows or None)``; the first call
+        lands the stack's copies up to this one (and raises on a run-table
+        fault)."""
+        if self.out is None:
+            self._stack._land_copies(self)
+        return self.out
+
+
+class _RowsView:
+    """One store's slice of a ``_LazyRows`` holder: its stat rows, or with
+    ``regs`` its folded register rows.  Enough numpy for a direct
+    ``tick`` caller (indexing, ``numpy.asarray``, ``shape``); the store
+    swaps it for the landed slice at its first read."""
+
+    __slots__ = ("_holder", "_r0", "_r1", "_part")
+
+    def __init__(self, holder: _LazyRows, r0: int, r1: int,
+                 regs: bool = False) -> None:
+        self._holder, self._r0, self._r1 = holder, int(r0), int(r1)
+        self._part = int(regs)
+
+    def materialize(self) -> np.ndarray:
+        return self._holder.resolve()[self._part][self._r0:self._r1]
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.materialize()
+        return out if dtype is None else out.astype(dtype)
+
+    def __getitem__(self, idx):
+        return self.materialize()[idx]
+
+    @property
+    def shape(self):
+        return self.materialize().shape
+
+
+def _landed(src):
+    """``src`` itself, or the landed slice of a ``_RowsView``."""
+    return src.materialize() if isinstance(src, _RowsView) else src
+
+
 class DeviceMomentStore:
     """Device-resident mirror of ``MomentStore``: the stacked (group,
     block) moment rows, totals and per-block draw ledger live as torch
@@ -532,7 +619,8 @@ class DeviceMomentStore:
         # Per-tick stats cache (invalidated by any state change; keyed by
         # the solve configuration so a different mode re-solves).
         self._partials = None   # (n_cells,) device, scaled shifted units
-        self._rows = None       # (n_groups, 9) float64 numpy
+        self._rows = None       # (n_groups, 9) float64 numpy, or a lazy
+                                # _RowsView after a pipelined tick
         self._stats_valid = False
         self._stats_cfg = None  # (params, mode, geometry) of the cache
         self._stack = None      # cached single-store DeviceStack
@@ -555,6 +643,19 @@ class DeviceMomentStore:
         setattr(self, name, torch.as_tensor(v, dtype=self.dtype,
                                             device=self.device))
         self._stats_valid = False
+
+    @property
+    def _rows(self):
+        """The cached (n_groups, 9) group-stat rows, float64 numpy.  After
+        a pipelined tick the cache holds a lazy ``_RowsView`` (the rows
+        still on their way back); the first read lands it and keeps the
+        numpy slice.  ``_rows_src`` is the cache as it stands."""
+        src = self._rows_src = _landed(self._rows_src)
+        return src
+
+    @_rows.setter
+    def _rows(self, v):
+        self._rows_src = v
 
     @property
     def mom_s(self):
@@ -696,6 +797,7 @@ class DeviceMomentStore:
             raise ValueError("store was built without a sketch plane "
                              "(has_sketch=False)")
         if self._stats_valid and self._group_regs is not None:
+            self._group_regs = _landed(self._group_regs)
             return self._group_regs
         return _sketch.fold_groups(self.regs.to("cpu").numpy(),
                                    self.n_groups)
@@ -961,6 +1063,8 @@ class DeviceStack:
                 for st in self.stores])
         self._released = False
         self._fault = None  # why a run-table fault left the stack unusable
+        # Ticks whose stat copies have not landed yet, in tick order.
+        self._unlanded = collections.deque()
         for st in self.stores:
             st._mom_s = st._mom_l = st._totals = st._ns_dev = None
             st._regs = None
@@ -1016,9 +1120,11 @@ class DeviceStack:
     def release(self) -> None:
         """Dissolve the stack: hand every store a copy of its slices so
         each owns its state again (e.g. before a store joins a new stack
-        when the warm key set changes)."""
+        when the warm key set changes).  Every tick's stat copy lands
+        first, its run count checked."""
         if self._released:
             return
+        self._land_copies()
         mom_s, mom_l, totals, ns = self._state
         b = self.n_blocks
         for k, st in enumerate(self.stores):
@@ -1038,41 +1144,62 @@ class DeviceStack:
         self._released = True
 
     def _install_stats(self, partials, rows, cfg, timings=None,
-                       group_regs=None, runs=None):
-        """Hand each store its slice of the tick's stats: one blocking
-        device->host copy of the O(groups) rows (and, on a sketch stack,
-        of the (n_rows, 4096) folded register rows ``group_regs``);
-        per-cell partials stay on the device as views.  A tick folded by a
-        run table (``runs``, deferred) reads the fold's count of runs and
-        samples out of place in the same copy and raises on it."""
-        t0 = time.perf_counter()
-        count = 0
-        if runs is None:
-            rows_np = rows.to("cpu", torch.float64).numpy()  # d2h: stats
-        else:
-            flat = torch.cat([rows.reshape(-1).to(torch.float64),
-                              runs.count.to(torch.float64)])
-            flat = flat.to("cpu").numpy()  # d2h: stats and the run count
-            rows_np = flat[:-1].reshape(rows.shape)
-            count = int(flat[-1])
-        regs_np = (None if group_regs is None
-                   else group_regs.to("cpu").numpy())   # d2h: folded regs
-        if timings is not None:
-            timings["readback"] = (timings.get("readback", 0.0)
-                                   + time.perf_counter() - t0)
-        check_run_count(count)
+                       group_regs=None, runs=None, defer=False):
+        """Hand each store its slice of the tick's stats: per-cell partials
+        stay on the device as views (``_store_partials``), and one copy
+        brings the O(groups) rows back with the tick's run counts
+        (``_counts``: a tick folded by a run table, ``runs``, deferred,
+        reads the fold's count of runs and samples out of place), a second
+        on a sketch stack the (n_rows, 4096) folded register rows
+        ``group_regs``.  Serial (``defer=False``): the copies land now, and
+        a count that is not 0 raises.  Pipelined (``defer=True``): each
+        store gets lazy ``_RowsView`` slices and the copies land, counts
+        checked, when a reader first needs them (``_land_copies``)."""
+        holder = _LazyRows(self, rows, group_regs, self._counts(runs),
+                           timings)
+        self._unlanded.append(holder)
+        if not defer:
+            holder.resolve()
         out = []
         for k, st in enumerate(self.stores):
             r0, r1 = int(self.row_offsets[k]), int(self.row_offsets[k + 1])
-            o0, o1 = int(self.offsets[k]), int(self.offsets[k + 1])
-            st._partials = partials[o0:o1]
-            st._rows = rows_np[r0:r1]
-            if regs_np is not None and st.has_sketch:
-                st._group_regs = regs_np[r0:r1]
+            st._partials = self._store_partials(partials, k)
+            view = _RowsView(holder, r0, r1)
+            st._rows = view if defer else _landed(view)
+            if group_regs is not None and st.has_sketch:
+                view = _RowsView(holder, r0, r1, regs=True)
+                st._group_regs = view if defer else _landed(view)
             st._stats_valid = True
             st._stats_cfg = cfg
-            out.append((st._partials, st._rows))
+            out.append((st._partials, st._rows_src))
         return out
+
+    def _counts(self, runs) -> "list[torch.Tensor]":
+        """The tick's run counts that ride its stat copy: the (1,) count of
+        its run table, none without one."""
+        return [] if runs is None else [runs.count]
+
+    def _store_partials(self, partials, k: int):
+        """Store ``k``'s per-cell partials: a view of the stacked ones."""
+        return partials[int(self.offsets[k]):int(self.offsets[k + 1])]
+
+    def _land_copies(self, upto: Optional[_LazyRows] = None) -> None:
+        """Land this stack's stat copies in tick order, up to the holder
+        ``upto`` (all of them by default), checking each tick's run count
+        before any of its rows is served: a count that is not 0 is a
+        run-table fault (``_run_table_fault``) and raises, and so does
+        every later reader of this stack's deferred stats."""
+        while self._unlanded and (upto is None or upto.out is None):
+            holder = self._unlanded.popleft()
+            rows, regs, count = holder.land()
+            try:
+                check_run_count(count)
+            except RunTableError as err:
+                self._run_table_fault(err)
+                raise
+            holder.out = (rows, regs)
+        if upto is not None and upto.out is None:
+            raise ValueError(self._fault)
 
     def _run_table_fault(self, err: RunTableError) -> None:
         """A run table did not describe its tagged stream.  The card's fold
@@ -1080,7 +1207,9 @@ class DeviceStack:
         ledgers may have advanced, so no store's cached stats stand for
         its state: clear them all and release the stack (each store gets
         back its state as folded), so the stack stays unusable and its
-        next tick raises, zero-draw ticks included."""
+        next tick raises, zero-draw ticks included.  Stat copies not landed
+        yet are dropped unread: no row of theirs may be served."""
+        self._unlanded.clear()
         for st in self.stores:
             st._stats_valid = False
             st._partials = st._rows = st._group_regs = None
@@ -1196,9 +1325,9 @@ class DeviceStack:
            with ``runs``, its (n_stores, n_blocks) run lengths
            (``key_runs``): the table crosses with the stream and the fold
            takes a block a run with no sort; a table that does not
-           describe the stream raises after the tick's readback, clears
-           every store's stats and leaves the stack unusable (released:
-           its next tick raises).
+           describe the stream raises at the tick's readback (or, on the
+           host's checks, before the fold), clears every store's stats and
+           leaves the stack unusable (released: its next tick raises).
          * dense (fp32 stacks) — ``values`` is the FULL block-major chunk
            stream of RAW (unshifted) measure values and ``dense=(key_gids,
            key_valids)`` carries per-store (m,) GROUP BY codes / predicate
@@ -1220,15 +1349,19 @@ class DeviceStack:
         shifted units.  ``timings`` (optional dict) accumulates wall
         seconds under ``"h2d"``/``"launch"``/``"readback"``.
 
-        Deferred stats (``defer_stats=True``, the pipelined tick) and the
-        dense payload on a float64 stack are not ported yet.
+        ``defer_stats=True`` is the pipelined tick: the stat copy is only
+        started (``distributed.d2h_async``, a pinned buffer behind a CUDA
+        event) and the returned rows are lazy views that land on first
+        read, so the host can draw the next chunk meanwhile.  The ledgers
+        advance at dispatch, as in the serial tick; the run count rides
+        the deferred copy, and a bad one raises at the first read of any
+        of the stack's deferred stats, after the stack has been left
+        unusable as above.
+
+        The dense payload on a float64 stack is not ported yet.
         """
         from . import distributed as D
 
-        if defer_stats:
-            raise NotImplementedError(
-                "deferred stats (the pipelined tick) are not ported yet "
-                f"({D.PIPELINE_ITEM})")
         if geometry is not None:
             # kappa is dimensionless; b0 lives on the value axis — the
             # tick rescales it per cell via the inv_scale vector.
@@ -1242,15 +1375,15 @@ class DeviceStack:
         if values is None or n_draw == 0:
             if all(st._stats_valid and st._stats_cfg == cfg
                    for st in self.stores):
-                return [(st._partials, st._rows) for st in self.stores]
+                # _rows_src keeps a pipelined tick's lazy views lazy.
+                return [(st._partials, st._rows_src) for st in self.stores]
             t0 = time.perf_counter()
-            partials, rows, group_regs = self._solve(
-                params=params, mode=mode, geometry=geometry)
-            if timings is not None:
-                timings["launch"] = (timings.get("launch", 0.0)
-                                     + time.perf_counter() - t0)
+            with D.stage_trace("isla:launch"):
+                partials, rows, group_regs = self._solve(
+                    params=params, mode=mode, geometry=geometry)
+            D.book(timings, "launch", time.perf_counter() - t0)
             return self._install_stats(partials, rows, cfg, timings,
-                                       group_regs)
+                                       group_regs, defer=defer_stats)
         if seg is None and dense is None:
             raise ValueError("a drawing tick needs seg= (tagged) or "
                              "dense=(key_gids, key_valids)")
@@ -1275,14 +1408,14 @@ class DeviceStack:
                 values, quotas, dense, **tick_kw)
             self._advance(quotas, count_round)
             return self._install_stats(partials, rows, cfg, timings,
-                                       group_regs)
+                                       group_regs, defer=defer_stats)
         try:
             partials, rows, group_regs, runs_dev = self._tagged_tick(
                 values, seg, quotas, hash_limbs, runs, **tick_kw)
             self._advance(quotas, count_round)
-            kw = {} if runs_dev is None else dict(runs=runs_dev)
             return self._install_stats(partials, rows, cfg, timings,
-                                       group_regs, **kw)
+                                       group_regs, runs=runs_dev,
+                                       defer=defer_stats)
         except RunTableError as err:
             self._run_table_fault(err)
             raise
@@ -1343,36 +1476,35 @@ class DeviceStack:
         mom_s, mom_l, totals, ns = self._state
         dev = self.device
         t_h = time.perf_counter()
-        q_dev = D.h2d(quotas.astype(np.float64), self.dtype, dev)
-        v_dev = D.h2d(values, self.dtype, dev)
-        s_dev = D.h2d(seg, torch.int32, dev)
-        if self.has_sketch:
-            bits_dev = D.h2d(bits, torch.int64, dev)
-        if runs is not None:
-            table = tagged_run_table(runs, self.offsets)
-            runs = TaggedRuns(D.h2d(table, torch.int32, dev),
-                              len(self.stores), self.n_blocks, deferred=True)
-        if timings is not None:
-            timings["h2d"] = (timings.get("h2d", 0.0)
-                              + time.perf_counter() - t_h)
+        with D.stage_trace("isla:h2d"):
+            q_dev = D.h2d(quotas.astype(np.float64), self.dtype, dev)
+            v_dev = D.h2d(values, self.dtype, dev)
+            s_dev = D.h2d(seg, torch.int32, dev)
+            if self.has_sketch:
+                bits_dev = D.h2d(bits, torch.int64, dev)
+            if runs is not None:
+                table = tagged_run_table(runs, self.offsets)
+                runs = TaggedRuns(D.h2d(table, torch.int32, dev),
+                                  len(self.stores), self.n_blocks,
+                                  deferred=True)
+        D.book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        tick_kw = dict(params=params, mode=mode, geometry=geometry,
-                       n_groups_list=self.n_groups_list)
-        group_regs = None
-        if self.has_sketch:
-            out = D.fused_tick_sketch(
-                mom_s, mom_l, totals, ns, self._regs_state, v_dev, s_dev,
-                bits_dev, q_dev, self._bounds, self._sketch0_cells(),
-                self._sizes, self._inv_scale, runs=runs, **tick_kw)
-            partials, rows, group_regs = out[5:]
-        else:
-            partials, rows = D.fused_tick(
-                mom_s, mom_l, totals, ns, v_dev, s_dev, q_dev, self._bounds,
-                self._sketch0_cells(), self._sizes, self._inv_scale,
-                runs=runs, **tick_kw)[4:]
-        if timings is not None:
-            timings["launch"] = (timings.get("launch", 0.0)
-                                 + time.perf_counter() - t_l)
+        with D.stage_trace("isla:launch"):
+            tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                           n_groups_list=self.n_groups_list)
+            group_regs = None
+            if self.has_sketch:
+                out = D.fused_tick_sketch(
+                    mom_s, mom_l, totals, ns, self._regs_state, v_dev, s_dev,
+                    bits_dev, q_dev, self._bounds, self._sketch0_cells(),
+                    self._sizes, self._inv_scale, runs=runs, **tick_kw)
+                partials, rows, group_regs = out[5:]
+            else:
+                partials, rows = D.fused_tick(
+                    mom_s, mom_l, totals, ns, v_dev, s_dev, q_dev,
+                    self._bounds, self._sketch0_cells(), self._sizes,
+                    self._inv_scale, runs=runs, **tick_kw)[4:]
+        D.book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows, group_regs, runs
 
     def _dense_frame(self, values: np.ndarray):
@@ -1403,41 +1535,41 @@ class DeviceStack:
         else:
             pane_quotas, active_cells = quotas, None
         t_h = time.perf_counter()
-        dev = self.device
-        q_dev = D.h2d(pane_quotas.astype(np.float64), self.dtype, dev)
-        panes = _DensePanes(pane_vals, pane_quotas, dense,
-                            values if self.has_sketch else None)
-        gid_panes = tuple(D.h2d(g, torch.int32, dev) for g in panes.gids)
-        valid_panes = tuple(D.h2d(m, self.dtype, dev) for m in panes.valids)
-        v_dev = D.h2d(panes.v2d, self.dtype, dev)
-        pad_dev = D.h2d(panes.pad, self.dtype, dev)
-        if self.has_sketch:
-            bits_dev = D.h2d(panes.bits2d, torch.int64, dev)
-        if timings is not None:
-            timings["h2d"] = (timings.get("h2d", 0.0)
-                              + time.perf_counter() - t_h)
+        with D.stage_trace("isla:h2d"):
+            dev = self.device
+            q_dev = D.h2d(pane_quotas.astype(np.float64), self.dtype, dev)
+            panes = _DensePanes(pane_vals, pane_quotas, dense,
+                                values if self.has_sketch else None)
+            gid_panes = tuple(D.h2d(g, torch.int32, dev) for g in panes.gids)
+            valid_panes = tuple(D.h2d(m, self.dtype, dev)
+                                for m in panes.valids)
+            v_dev = D.h2d(panes.v2d, self.dtype, dev)
+            pad_dev = D.h2d(panes.pad, self.dtype, dev)
+            if self.has_sketch:
+                bits_dev = D.h2d(panes.bits2d, torch.int64, dev)
+        D.book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        tick_kw = dict(params=params, mode=mode, geometry=geometry,
-                       n_groups_list=self.n_groups_list,
-                       gid_slots=panes.gid_slots,
-                       valid_slots=panes.valid_slots,
-                       key_affine=key_affine, bound_slots=self._bound_slots)
-        group_regs = None
-        if self.has_sketch:
-            out = D.fused_tick_dense_sketch(
-                mom_s, mom_l, totals, ns, self._regs_state, v_dev, pad_dev,
-                bits_dev, q_dev, gid_panes, valid_panes, self._bound_rows,
-                self._sketch0_cells(), self._sizes, self._inv_scale,
-                active_cells, **tick_kw)
-            partials, rows, group_regs = out[5:]
-        else:
-            partials, rows = D.fused_tick_dense(
-                mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev, gid_panes,
-                valid_panes, self._bound_rows, self._sketch0_cells(),
-                self._sizes, self._inv_scale, active_cells, **tick_kw)[4:]
-        if timings is not None:
-            timings["launch"] = (timings.get("launch", 0.0)
-                                 + time.perf_counter() - t_l)
+        with D.stage_trace("isla:launch"):
+            tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                           n_groups_list=self.n_groups_list,
+                           gid_slots=panes.gid_slots,
+                           valid_slots=panes.valid_slots,
+                           key_affine=key_affine,
+                           bound_slots=self._bound_slots)
+            group_regs = None
+            if self.has_sketch:
+                out = D.fused_tick_dense_sketch(
+                    mom_s, mom_l, totals, ns, self._regs_state, v_dev, pad_dev,
+                    bits_dev, q_dev, gid_panes, valid_panes, self._bound_rows,
+                    self._sketch0_cells(), self._sizes, self._inv_scale,
+                    active_cells, **tick_kw)
+                partials, rows, group_regs = out[5:]
+            else:
+                partials, rows = D.fused_tick_dense(
+                    mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev, gid_panes,
+                    valid_panes, self._bound_rows, self._sketch0_cells(),
+                    self._sizes, self._inv_scale, active_cells, **tick_kw)[4:]
+        D.book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows, group_regs
 
 
@@ -1656,9 +1788,11 @@ class MeshDeviceStack(DeviceStack):
     def release(self) -> None:
         """Dissolve the mesh stack: every store gets its rows back
         gathered from EVERY shard (the shard-aware reset: a per-key drift
-        reset releases through here, never reading shard 0 alone)."""
+        reset releases through here, never reading shard 0 alone), after
+        every tick's stat copy has landed."""
         if self._released:
             return
+        self._land_copies()
         for st in self.stores:
             st._mom_s, st._mom_l, st._totals, st._ns_dev = (
                 self.state_slice(st, i) for i in range(4))
@@ -1671,39 +1805,16 @@ class MeshDeviceStack(DeviceStack):
         self._sk_cells = None
         self._released = True
 
-    def _install_stats(self, partials, rows, cfg, timings=None,
-                       group_regs=None, runs=None):
-        """``DeviceStack._install_stats`` on the mesh: ``partials`` is a
-        tensor a shard, ``rows`` (and ``group_regs``) the reduced rows on
-        the mesh's first device, ``runs`` a ``TaggedRuns`` a shard.  One
-        readback of the rows and of every shard's run count; a non-zero
-        count on any shard raises (``tick`` then clears every store's
-        stats and leaves the stack unusable)."""
-        t0 = time.perf_counter()
-        flat = [rows.reshape(-1).to(torch.float64)]
-        if runs is not None:
-            flat += [r.count.to(rows.device, torch.float64) for r in runs]
-        flat = torch.cat(flat).to("cpu").numpy()  # d2h: stats and counts
-        n = rows.numel()
-        rows_np = flat[:n].reshape(rows.shape)
-        count = int(flat[n:].sum())
-        regs_np = (None if group_regs is None
-                   else group_regs.to("cpu").numpy())   # d2h: folded regs
-        if timings is not None:
-            timings["readback"] = (timings.get("readback", 0.0)
-                                   + time.perf_counter() - t0)
-        check_run_count(count)
-        out = []
-        for k, st in enumerate(self.stores):
-            r0, r1 = int(self.row_offsets[k]), int(self.row_offsets[k + 1])
-            st._partials = _MeshPartialsView(self, partials, k)
-            st._rows = rows_np[r0:r1]
-            if regs_np is not None and st.has_sketch:
-                st._group_regs = regs_np[r0:r1]
-            st._stats_valid = True
-            st._stats_cfg = cfg
-            out.append((st._partials, st._rows))
-        return out
+    def _counts(self, runs) -> "list[torch.Tensor]":
+        """Every shard's run count (``runs``: a ``TaggedRuns`` a shard),
+        copied to the first shard's device, where the reduced rows are;
+        a count that is not 0 on any shard raises at the readback."""
+        return [] if runs is None else [r.count for r in runs]
+
+    def _store_partials(self, partials, k: int):
+        """Store ``k``'s partials (``partials``: a tensor a shard) left on
+        the shards, gathered when read."""
+        return _MeshPartialsView(self, partials, k)
 
     # -- the tick ----------------------------------------------------------
 
@@ -1786,45 +1897,44 @@ class MeshDeviceStack(DeviceStack):
             pane_quotas[:self.n_blocks] = quotas
             active_cells = None
         t_h = time.perf_counter()
-        mesh, spec = self.mesh, self._specs
-        rows = spec["cell_rows"]
-        q_dev = D.mesh_h2d(mesh, pane_quotas.astype(np.float64),
-                           spec["cells"], self.dtype)
-        panes = _DensePanes(pane_vals, pane_quotas, dense,
-                            values if self.has_sketch else None)
-        gids = [D.mesh_h2d(mesh, g, rows, torch.int32) for g in panes.gids]
-        valids = [D.mesh_h2d(mesh, m, rows, self.dtype)
-                  for m in panes.valids]
-        gid_panes = [tuple(p[s] for p in gids) for s in range(S)]
-        valid_panes = [tuple(p[s] for p in valids) for s in range(S)]
-        v_dev = D.mesh_h2d(mesh, panes.v2d, rows, self.dtype)
-        pad_dev = D.mesh_h2d(mesh, panes.pad, rows, self.dtype)
-        if self.has_sketch:
-            bits_dev = D.mesh_h2d(mesh, panes.bits2d, rows, torch.int64)
-        if timings is not None:
-            timings["h2d"] = (timings.get("h2d", 0.0)
-                              + time.perf_counter() - t_h)
+        with D.stage_trace("isla:h2d"):
+            mesh, spec = self.mesh, self._specs
+            rows = spec["cell_rows"]
+            q_dev = D.mesh_h2d(mesh, pane_quotas.astype(np.float64),
+                               spec["cells"], self.dtype)
+            panes = _DensePanes(pane_vals, pane_quotas, dense,
+                                values if self.has_sketch else None)
+            gids = [D.mesh_h2d(mesh, g, rows, torch.int32) for g in panes.gids]
+            valids = [D.mesh_h2d(mesh, m, rows, self.dtype)
+                      for m in panes.valids]
+            gid_panes = [tuple(p[s] for p in gids) for s in range(S)]
+            valid_panes = [tuple(p[s] for p in valids) for s in range(S)]
+            v_dev = D.mesh_h2d(mesh, panes.v2d, rows, self.dtype)
+            pad_dev = D.mesh_h2d(mesh, panes.pad, rows, self.dtype)
+            if self.has_sketch:
+                bits_dev = D.mesh_h2d(mesh, panes.bits2d, rows, torch.int64)
+        D.book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        tick_kw = dict(params=params, mode=mode, geometry=geometry,
-                       n_groups_list=self.n_groups_list,
-                       gid_slots=panes.gid_slots,
-                       valid_slots=panes.valid_slots,
-                       key_affine=key_affine, bound_slots=self._bound_slots)
-        group_regs = None
-        if self.has_sketch:
-            partials, rows_out, group_regs = D.mesh_tick_dense_sketch(
-                mesh, self._state, self._regs_state, v_dev, pad_dev,
-                bits_dev, q_dev, gid_panes, valid_panes, self._bound_rows,
-                self._sk_cells, self._sizes, self._inv_scale, active_cells,
-                **tick_kw)
-        else:
-            partials, rows_out = D.mesh_tick_dense(
-                mesh, self._state, v_dev, pad_dev, q_dev, gid_panes,
-                valid_panes, self._bound_rows, self._sk_cells, self._sizes,
-                self._inv_scale, active_cells, **tick_kw)
-        if timings is not None:
-            timings["launch"] = (timings.get("launch", 0.0)
-                                 + time.perf_counter() - t_l)
+        with D.stage_trace("isla:launch"):
+            tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                           n_groups_list=self.n_groups_list,
+                           gid_slots=panes.gid_slots,
+                           valid_slots=panes.valid_slots,
+                           key_affine=key_affine,
+                           bound_slots=self._bound_slots)
+            group_regs = None
+            if self.has_sketch:
+                partials, rows_out, group_regs = D.mesh_tick_dense_sketch(
+                    mesh, self._state, self._regs_state, v_dev, pad_dev,
+                    bits_dev, q_dev, gid_panes, valid_panes, self._bound_rows,
+                    self._sk_cells, self._sizes, self._inv_scale, active_cells,
+                    **tick_kw)
+            else:
+                partials, rows_out = D.mesh_tick_dense(
+                    mesh, self._state, v_dev, pad_dev, q_dev, gid_panes,
+                    valid_panes, self._bound_rows, self._sk_cells, self._sizes,
+                    self._inv_scale, active_cells, **tick_kw)
+        D.book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows_out, group_regs
 
     def _shard_parts(self, seg: np.ndarray, runs):
@@ -1901,36 +2011,34 @@ class MeshDeviceStack(DeviceStack):
         check_run_count(misplaced)
         mesh, spec = self.mesh, self._specs
         t_h = time.perf_counter()
-        q_pad = np.zeros(S * bl, dtype=np.float64)
-        q_pad[:B] = quotas
-        q_dev = D.mesh_h2d(mesh, q_pad, spec["cells"], self.dtype)
-        v_dev = D.mesh_h2d(mesh, vals, spec["cells"], self.dtype)
-        s_dev = D.mesh_h2d(mesh, segs, spec["cells"], torch.int32)
-        if bits is not None:
-            bits_dev = D.mesh_h2d(mesh, bit_parts, spec["cells"],
-                                  torch.int64)
-        if runs is not None:
-            runs = [TaggedRuns(t, K, bl, deferred=True) for t in
-                    D.mesh_h2d(mesh, tables, spec["cells"], torch.int32)]
-        if timings is not None:
-            timings["h2d"] = (timings.get("h2d", 0.0)
-                              + time.perf_counter() - t_h)
+        with D.stage_trace("isla:h2d"):
+            q_pad = np.zeros(S * bl, dtype=np.float64)
+            q_pad[:B] = quotas
+            q_dev = D.mesh_h2d(mesh, q_pad, spec["cells"], self.dtype)
+            v_dev = D.mesh_h2d(mesh, vals, spec["cells"], self.dtype)
+            s_dev = D.mesh_h2d(mesh, segs, spec["cells"], torch.int32)
+            if bits is not None:
+                bits_dev = D.mesh_h2d(mesh, bit_parts, spec["cells"],
+                                      torch.int64)
+            if runs is not None:
+                runs = [TaggedRuns(t, K, bl, deferred=True) for t in
+                        D.mesh_h2d(mesh, tables, spec["cells"], torch.int32)]
+        D.book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        tick_kw = dict(params=params, mode=mode, geometry=geometry,
-                       n_groups_list=self.n_groups_list, runs=runs)
-        group_regs = None
-        if self.has_sketch:
-            partials, rows, group_regs = D.mesh_tick_sketch(
-                mesh, self._state, self._regs_state, v_dev, s_dev, bits_dev,
-                q_dev, self._bounds, self._sk_cells, self._sizes,
-                self._inv_scale, **tick_kw)
-        else:
-            partials, rows = D.mesh_tick(
-                mesh, self._state, v_dev, s_dev, q_dev, self._bounds,
-                self._sk_cells, self._sizes, self._inv_scale, **tick_kw)
-        if timings is not None:
-            timings["launch"] = (timings.get("launch", 0.0)
-                                 + time.perf_counter() - t_l)
+        with D.stage_trace("isla:launch"):
+            tick_kw = dict(params=params, mode=mode, geometry=geometry,
+                           n_groups_list=self.n_groups_list, runs=runs)
+            group_regs = None
+            if self.has_sketch:
+                partials, rows, group_regs = D.mesh_tick_sketch(
+                    mesh, self._state, self._regs_state, v_dev, s_dev,
+                    bits_dev, q_dev, self._bounds, self._sk_cells,
+                    self._sizes, self._inv_scale, **tick_kw)
+            else:
+                partials, rows = D.mesh_tick(
+                    mesh, self._state, v_dev, s_dev, q_dev, self._bounds,
+                    self._sk_cells, self._sizes, self._inv_scale, **tick_kw)
+        D.book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows, group_regs, runs
 
 

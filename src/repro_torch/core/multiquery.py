@@ -72,8 +72,13 @@ composer, admission tier, zone pruning and drift guard are the
 reference's host code; ``route="device"`` binds to the torch device
 stores, whose tick runs the hand-written CUDA fold (and, for COUNT
 DISTINCT keys, the CUDA HLL register merge) on the card; ``route="mesh"``
-runs that tick on every shard of a cell mesh (``MeshDeviceStack``).  The
-pipelined tick is not ported yet.
+runs that tick on every shard of a cell mesh (``MeshDeviceStack``).
+``run(pipeline=True)`` pipelines the mode-groups' ticks on every route:
+each chunk's uploads, launches and stat copy run on one worker thread
+(``distributed.launch_pool``) while the main thread draws the next
+chunk, and a group composes one group later from stat rows read back
+through pinned buffers and CUDA events, its answers the serial
+schedule's bit for bit.
 """
 from __future__ import annotations
 
@@ -93,8 +98,8 @@ from . import sketch as _sketch
 from .engine import (AUTO_SKEW_THRESHOLD, MODES, IslaQuery, block_quotas,
                      phase2_iteration_batch, resolve_mode_and_geometry)
 from .modulation import empirical_geometry
-from .distributed import (PIPELINE_ITEM, phase2, pilot_stats_device,
-                          resolve_device)
+from .distributed import (book, launch_pool, phase2, pilot_stats_device,
+                          resolve_device, stage_trace)
 from .moment_store import (DeviceMomentStore, DeviceStack, MeshDeviceStack,
                            MomentStore, iter_chunked_draws,
                            proportional_allocate, split_budget)
@@ -372,13 +377,36 @@ _STAGES = ("plan", "draw", "h2d", "launch", "readback", "compose")
 
 
 class _StagedGroup:
-    """One mode-group between its launch and its compose:
-    ``_launch_group`` draws and runs the fused tick and parks everything
-    the compose half needs here; ``_compose_group`` picks it up."""
+    """One mode-group between its launch and its compose.
 
-    __slots__ = ("plan", "mg", "pass_id", "route", "default_mode",
-                 "group_stores", "key_aggs", "dstores", "device_resident",
-                 "covered", "new_samples", "timings")
+    ``_launch_group`` draws and dispatches the group's ticks and parks
+    everything the compose half needs here; ``_compose_group`` picks it
+    up — at once on the serial route, one mode-group later on the
+    pipelined one (``run(pipeline=True)``), when ``pending`` holds the
+    futures of its chunks' ticks still queued on the launch worker."""
+
+    __slots__ = ("plan", "mg", "pass_id", "rng", "route",
+                 "deadline_samples", "persistent", "budget_alloc",
+                 "chunk_blocks", "default_mode", "group_stores",
+                 "key_aggs", "keys", "dstores", "stack",
+                 "device_resident", "covered", "new_samples", "timings",
+                 "pending")
+
+
+def _wait_all(futures) -> Optional[BaseException]:
+    """Wait for every future of ``futures`` in order and return the first
+    one's error (None if none failed).  Once one has failed, those not yet
+    started are cancelled: they would meet the stack the first error left
+    unusable, and their errors must not replace it.  Nothing submitted is
+    left running, so the caller's next step cannot race the worker."""
+    first = None
+    for f in futures:
+        if first is not None and f.cancel():
+            continue
+        err = f.exception()
+        if first is None:
+            first = err
+    return first
 
 
 class MultiQueryExecutor:
@@ -1708,7 +1736,9 @@ class MultiQueryExecutor:
                               rng: np.random.Generator,
                               mg: ModeGroup,
                               chunk_blocks: Optional[int],
-                              timings=None) -> None:
+                              timings=None,
+                              defer_stats: bool = False,
+                              launch_async: bool = False) -> list:
         """The device-resident pass: the SAME chunked row draw as the
         host path (shared ``iter_chunked_draws`` contract — identical RNG
         stream), but each chunk is folded into every key's store by ONE
@@ -1722,11 +1752,24 @@ class MultiQueryExecutor:
         scaled) on the host, placed by ``key_seg``, and the stack folds the
         concatenated stream in order by its (key, block) run table
         (``key_runs``; a sketch stack's registers key on the raw values'
-        limbs)."""
+        limbs).
+
+        ``launch_async=True`` (the pipelined route) submits each chunk's
+        payload build and tick (``run_chunk``) to the one launch worker
+        (``distributed.launch_pool``) and returns the futures: the main
+        thread goes on to draw the next chunk's rows (the RNG stays on the
+        main thread, in serial order) while the worker builds and
+        launches this one.  The worker runs the chunks in submission
+        order, the serial order, so every cell folds in the serial order
+        and the bits are the serial route's; at most three drawn chunks
+        wait in its queue.  A chunk's error is raised here or at compose
+        (``_wait_all``), the first chunk's first."""
         dev_mode = self._device_mode(mg.mode)
         dense = stack.dtype != torch.float64
-        for chunk, columns, block_ids in self._iter_row_chunks(
-                draw, rng, chunk_blocks):
+        tick_kw = dict(mode=dev_mode, geometry=mg.geometry,
+                       timings=timings, defer_stats=defer_stats)
+
+        def run_chunk(chunk, columns, block_ids):
             raw = self._measure_of(columns)
             if dense:
                 key_gids, key_valids = [], []
@@ -1746,11 +1789,11 @@ class MultiQueryExecutor:
                             gid_cache[group_by] = self._group_ids(
                                 group_by, columns)[0]
                         key_gids.append(gid_cache[group_by])
-                stack.tick(self.params, mode=dev_mode, geometry=mg.geometry,
-                           values=raw, quotas=chunk.chunk_quotas,
+                stack.tick(self.params, values=raw,
+                           quotas=chunk.chunk_quotas,
                            dense=(key_gids, key_valids),
-                           count_round=chunk.first, timings=timings)
-                continue
+                           count_round=chunk.first, **tick_kw)
+                return
             segs, vals, his, los, runs = [], [], [], [], []
             if stack.has_sketch:
                 # Register hashes key on the RAW (unshifted) float64 bits
@@ -1779,12 +1822,34 @@ class MultiQueryExecutor:
                 if stack.has_sketch:
                     his.append(hhi if mask is None else hhi[mask])
                     los.append(hlo if mask is None else hlo[mask])
-            stack.tick(self.params, mode=dev_mode, geometry=mg.geometry,
-                       values=np.concatenate(vals), seg=np.concatenate(segs),
-                       quotas=chunk.chunk_quotas, count_round=chunk.first,
-                       timings=timings, runs=np.stack(runs),
+            stack.tick(self.params, values=np.concatenate(vals),
+                       seg=np.concatenate(segs), quotas=chunk.chunk_quotas,
+                       count_round=chunk.first, runs=np.stack(runs),
                        hash_limbs=((np.concatenate(his), np.concatenate(los))
-                                   if stack.has_sketch else None))
+                                   if stack.has_sketch else None),
+                       **tick_kw)
+
+        if not launch_async:
+            for chunk, columns, block_ids in self._iter_row_chunks(
+                    draw, rng, chunk_blocks):
+                run_chunk(chunk, columns, block_ids)
+            return []
+        pending = []
+        chunks = self._iter_row_chunks(draw, rng, chunk_blocks)
+        try:
+            while True:
+                with stage_trace("isla:draw"):
+                    item = next(chunks, None)
+                if item is None:
+                    return pending
+                pending.append(launch_pool().submit(run_chunk, *item))
+                if len(pending) > 2:
+                    pending[-3].result()  # bound the queued drawn rows
+        except BaseException:
+            err = _wait_all(pending)
+            if err is not None:
+                raise err
+            raise
 
     def _keyed_stats_device(self, dst: DeviceMomentStore,
                             need_distinct: bool = False) -> KeyedPass:
@@ -2086,6 +2151,7 @@ class MultiQueryExecutor:
                       budget_alloc: Optional[int] = None,
                       chunk_blocks: Optional[int] = None,
                       default_mode: str = "calibrated",
+                      defer_stats: bool = False,
                       timings=None) -> _StagedGroup:
         """The draw-and-launch half of one mode-group's shared pass.
 
@@ -2095,7 +2161,12 @@ class MultiQueryExecutor:
         Incremental: persistent stores, and the draw covers only the union
         per-block sample DEFICIT the batch still owes (zero draws when
         every store is already ahead of every quota), optionally scaled
-        down to ``budget_alloc`` new samples."""
+        down to ``budget_alloc`` new samples.
+
+        With ``defer_stats=True`` (the pipelined route) a device-resident
+        group's chunk ticks run on the launch worker with their stats
+        deferred: this returns once the rows are drawn and the ticks
+        queued, and the :class:`_StagedGroup` composes later."""
         t0 = time.perf_counter()
         h0 = timings.get("h2d", 0.0) if timings is not None else 0.0
         l0 = timings.get("launch", 0.0) if timings is not None else 0.0
@@ -2128,45 +2199,104 @@ class MultiQueryExecutor:
         else:
             draw = target
         new_samples = int(draw.sum())
+        pending = []
         if device_resident:
             if new_samples:
-                self._draw_and_tick_device(stack, keys, dstores, draw,
-                                           rng, mg, chunk_blocks,
-                                           timings=timings)
+                pending = self._draw_and_tick_device(
+                    stack, keys, dstores, draw, rng, mg, chunk_blocks,
+                    timings=timings, defer_stats=defer_stats,
+                    launch_async=defer_stats)
             else:
                 # Warm repeat: re-solve resident moments (served from the
                 # stats cache when nothing changed — zero transfers).
                 stack.tick(self.params, mode=self._device_mode(mg.mode),
-                           geometry=mg.geometry, timings=timings)
+                           geometry=mg.geometry, timings=timings,
+                           defer_stats=defer_stats)
         elif new_samples:
             self._draw_and_ingest(group_stores, draw, rng,
                                   chunk_blocks=chunk_blocks)
         if timings is not None:
             # "draw" is the host-side remainder of this stage: everything
             # that is not a pane upload or a fused dispatch (RNG draws,
-            # pane building, deficit math).
-            spent = (time.perf_counter() - t0
-                     - (timings.get("h2d", 0.0) - h0)
-                     - (timings.get("launch", 0.0) - l0))
-            timings["draw"] = timings.get("draw", 0.0) + max(spent, 0.0)
+            # pane building, deficit math).  With the launches on the
+            # worker its h2d and launch clocks run alongside this thread's
+            # draws and are not taken off: the stage sum past the wall
+            # clock is the overlap.
+            spent = time.perf_counter() - t0
+            if not pending:
+                spent -= ((timings.get("h2d", 0.0) - h0)
+                          + (timings.get("launch", 0.0) - l0))
+            book(timings, "draw", max(spent, 0.0))
         sg = _StagedGroup()
-        sg.plan, sg.mg, sg.pass_id = plan, mg, pass_id
-        sg.route, sg.default_mode = route, default_mode
+        sg.plan, sg.mg, sg.pass_id, sg.rng = plan, mg, pass_id, rng
+        sg.route, sg.deadline_samples = route, deadline_samples
+        sg.persistent, sg.budget_alloc = persistent, budget_alloc
+        sg.chunk_blocks, sg.default_mode = chunk_blocks, default_mode
         sg.group_stores, sg.key_aggs = group_stores, key_aggs
-        sg.dstores, sg.device_resident = dstores, device_resident
-        sg.covered, sg.new_samples, sg.timings = covered, new_samples, timings
+        sg.keys, sg.dstores, sg.stack = keys, dstores, stack
+        sg.device_resident, sg.covered = device_resident, covered
+        sg.new_samples, sg.timings = new_samples, timings
+        sg.pending = pending
         return sg
+
+    def _group_stale(self, sg: _StagedGroup) -> bool:
+        """True when a per-key reset (drift) landed between ``sg``'s
+        launch and its compose: the staged stores are no longer the
+        executor's live stores for their keys, so composing from them
+        would serve pre-reset stats."""
+        if not sg.persistent:
+            return False
+        if sg.device_resident and sg.stack._released:
+            return True
+        for key in sg.group_stores:
+            skey = StoreKey(where=key[0], group_by=key[1],
+                            mode=sg.mg.mode)
+            if sg.device_resident:
+                if self._device_stores.get(skey) is not sg.dstores[key]:
+                    return True
+            elif self._stores.get(skey) is not sg.group_stores[key]:
+                return True
+        return False
 
     def _compose_group(self, sg: _StagedGroup) -> "list":
         """The compose half: every query of the mode-group composes from
         the staged pass (per distinct (where, group_by) key, one
-        re-segmentation).  The stat rows were read back at the tick."""
+        re-segmentation).  A pipelined group's queued ticks are waited for
+        first (the first chunk's error raises here) and its deferred stat
+        copies landed, each tick's run count checked; both waits are
+        booked as "readback", not "compose"."""
+        if sg.pending:
+            # Drain the group's worker ticks before anything reads (or
+            # stales) its stores: the wait is the pipeline's exposed
+            # device time, booked where the serial route exposed it.
+            t_w = time.perf_counter()
+            err = _wait_all(sg.pending)
+            sg.pending = []
+            book(sg.timings, "readback", time.perf_counter() - t_w)
+            if err is not None:
+                raise err
+        if sg.stack is not None:
+            sg.stack._land_copies()  # a run-table fault raises here
+        if self._group_stale(sg):
+            # A drift reset dropped one of this group's keys after its
+            # launch was staged.  The reset key's store went cold, so the
+            # staged stats must not be served: rebuild the prebuilt pair
+            # against the live store dict and re-run the group's launch
+            # (the fresh draw legitimately advances the RNG — the reset
+            # key NEEDS post-reset samples).
+            prebuilt = self._group_stores(sg.plan, sg.mg, self._stores)
+            sg = self._launch_group(
+                sg.plan, sg.mg, sg.pass_id, sg.rng, sg.route,
+                sg.deadline_samples, prebuilt, sg.persistent,
+                sg.budget_alloc, sg.chunk_blocks, sg.default_mode,
+                timings=sg.timings)
         plan, mg, pass_id, route = sg.plan, sg.mg, sg.pass_id, sg.route
         group_stores, key_aggs = sg.group_stores, sg.key_aggs
         device_resident, dstores = sg.device_resident, sg.dstores
         covered, new_samples = sg.covered, sg.new_samples
         default_mode, timings = sg.default_mode, sg.timings
         t0 = time.perf_counter()
+        r0 = timings.get("readback", 0.0) if timings is not None else 0.0
         sp = None  # the plain pass is composed lazily: an all-relational
         keyed = {}  # batch never pays for it
         out = []
@@ -2210,8 +2340,9 @@ class MultiQueryExecutor:
                                      mode=mg.mode), stamp, default_mode)
             out.append((i, ans))
         if timings is not None:
-            timings["compose"] = (timings.get("compose", 0.0)
-                                  + time.perf_counter() - t0)
+            # A lazy row landed during compose is booked as "readback".
+            rb = timings.get("readback", 0.0) - r0
+            book(timings, "compose", time.perf_counter() - t0 - rb)
         return out
 
     def _execute_group(self, plan: QueryPlan, mg: ModeGroup, pass_id: int,
@@ -2372,9 +2503,20 @@ class MultiQueryExecutor:
             predicates cannot starve a nearly-converged store's small
             top-up (admission-loop QoS).
         pipeline : bool, optional
-            The pipelined tick is not ported yet: ``True`` raises.
-            Per-stage wall times land in ``last_stage_times`` either
-            way.
+            Software-pipeline the mode-group passes: while group *k*'s
+            chunk ticks run on the launch worker (``distributed.
+            launch_pool``; uploads, launches and the stat copy on that
+            thread's stream), the main thread draws group *k*'s next
+            chunk and then group *k+1*'s rows, and group *k* composes one
+            group later from stat rows whose copy into pinned host memory
+            was started behind a CUDA event (``defer_stats``).  The RNG
+            draw order and the per-cell merge order are the serial
+            route's exactly (only *when* each stage runs moves; compose
+            consumes no RNG), so answers, bounds, draw ledgers and
+            float64 state are the serial route's bit for bit.  A chunk's
+            error, or a run-table fault found at the readback, raises to
+            the caller after every queued tick has ended.  Per-stage wall
+            times land in ``last_stage_times`` either way.
 
         Returns
         -------
@@ -2408,10 +2550,6 @@ class MultiQueryExecutor:
         release state from every shard.  On a one-shard mesh the layout is
         exactly the ``"device"`` path's.
         """
-        if pipeline:
-            raise NotImplementedError(
-                "the pipelined tick (pipeline=True) is not ported yet "
-                f"({PIPELINE_ITEM})")
         self._run_epoch += 1  # store ledgers may move: lookups re-validate
         times = self.last_stage_times = dict.fromkeys(_STAGES, 0.0)
         t_plan = time.perf_counter()
@@ -2469,13 +2607,39 @@ class MultiQueryExecutor:
                 ans.query = queries[i]
                 answers[i] = ans
 
-        for pass_id, mg in enumerate(plan.mode_groups):
-            _collect(self._execute_group(
-                plan, mg, pass_id, rng, route, deadline_samples,
-                prebuilt=mg_stores[pass_id], persistent=incremental,
-                budget_alloc=alloc.get(pass_id),
-                chunk_blocks=chunk_blocks, default_mode=mode,
-                timings=times))
+        if not pipeline:
+            for pass_id, mg in enumerate(plan.mode_groups):
+                _collect(self._execute_group(
+                    plan, mg, pass_id, rng, route, deadline_samples,
+                    prebuilt=mg_stores[pass_id], persistent=incremental,
+                    budget_alloc=alloc.get(pass_id),
+                    chunk_blocks=chunk_blocks, default_mode=mode,
+                    timings=times))
+            return answers
+        # Three-stage software pipeline over the mode-groups: group k's
+        # ticks are queued with deferred stats, THEN group k-1 composes
+        # (its worker ticks done or finishing, its stat copies landing
+        # under group k's draw).  Draw and merge order are the serial
+        # route's; only the compose moves, one group later.
+        staged = []
+        try:
+            for pass_id, mg in enumerate(plan.mode_groups):
+                staged.append(self._launch_group(
+                    plan, mg, pass_id, rng, route, deadline_samples,
+                    prebuilt=mg_stores[pass_id], persistent=incremental,
+                    budget_alloc=alloc.get(pass_id),
+                    chunk_blocks=chunk_blocks, default_mode=mode,
+                    defer_stats=True, timings=times))
+                if len(staged) == 2:
+                    _collect(self._compose_group(staged.pop(0)))
+            if staged:
+                _collect(self._compose_group(staged.pop()))
+        except BaseException:
+            # Leave no tick of this run on the worker: the caller's next
+            # step must not race it.  The error raised is the first one.
+            for sg in staged:
+                _wait_all(sg.pending)
+            raise
         return answers
 
 

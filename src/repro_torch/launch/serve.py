@@ -35,7 +35,18 @@ priority order) is on by default with ``--incremental``;
 ``--no-admission`` restores the plain FIFO loop.  ``--route mesh`` runs the
 resident tick with its cell axis split by block runs over a cell mesh:
 one shard a visible card, or with ``--device cpu`` one shard on the CPU
-(``launch/mesh.py``).  The pipelined tick is not ported yet.
+(``launch/mesh.py``).
+
+``--pipeline`` pipelines each tick: while one mode-group's chunk ticks run
+on the launch worker, the host draws the next chunk and the next group's
+rows, and the previous group composes from stat rows read back through
+pinned buffers and CUDA events (answers are the serial tick's bit for
+bit: only WHEN stages run moves); between ticks the loop prefetches the
+queued batch's plan.  The per-tick log gains a stages[ms] segment (plan
+draw h2d launch readback compose):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload isla \
+      --smoke --incremental --pipeline --device cpu
 
 ``--workload lm``, the default as in the reference, serves an LM through
 the slot scheduler (``serve/``):
@@ -153,6 +164,13 @@ class IslaAdmissionLoop:
         snapshot to ``ticket.progress`` — and completes only when the
         bound is met.  Off (default), every ticket completes the tick it
         runs, degraded bounds reported honestly.
+    pipeline : bool, optional
+        Pipelined ticks: each ``run`` overlaps a mode-group's chunk ticks
+        with the next group's host draw and the previous group's compose
+        (``MultiQueryExecutor.run(pipeline=True)`` — answers stay the
+        serial tick's bit for bit), and between ticks the loop PREFETCHES
+        the plan-cache entry of the queued next batch.  Per-stage wall
+        times accumulate in ``stage_seconds`` either way.
 
     Examples
     --------
@@ -168,7 +186,8 @@ class IslaAdmissionLoop:
                  drift_check: Optional[float] = None,
                  budget_floor: Optional[int] = None,
                  admission: Optional[bool] = None,
-                 progressive: bool = False):
+                 progressive: bool = False,
+                 pipeline: bool = False):
         self.executor = executor
         self.rng = rng
         self.mode = mode
@@ -199,6 +218,7 @@ class IslaAdmissionLoop:
         self.admission = (self.incremental if admission is None
                           else bool(admission))
         self.progressive = bool(progressive)
+        self.pipeline = bool(pipeline)
         self._pending = collections.deque()
         self._inflight: "list[IslaTicket]" = []
         self._next_tid = 0
@@ -339,7 +359,8 @@ class IslaAdmissionLoop:
                 route=self.route, incremental=self.incremental,
                 budget=self.deadline_samples if self.incremental else None,
                 drift_check=self.drift_check,
-                budget_floor=self.budget_floor)
+                budget_floor=self.budget_floor,
+                pipeline=self.pipeline)
             for k, v in getattr(self.executor, "last_stage_times",
                                 {}).items():
                 self.stage_seconds[k] = self.stage_seconds.get(k, 0.0) + v
@@ -393,7 +414,36 @@ class IslaAdmissionLoop:
         # anything submitted after this tick started.
         self._pending.extendleft(reversed(overflow))
         done.sort(key=lambda t: t.tid)
+        self._prefetch_pending()
         return done
+
+    def _prefetch_pending(self) -> None:
+        """Cross-tick plan prefetch (pipelined loops only): with the next
+        tick's queries already queued, touch or compile their PlanCache
+        entry now — planning is host-only Python that would otherwise
+        serialize with the next tick's draws.  Best effort: the predicted
+        batch mimics admission order and dedupe (subsumption serves are
+        not predicted); a mispredicted batch is a plan-cache miss, exactly
+        as if no prefetch ran, and warm planning consumes no RNG, so the
+        draw stream is unchanged either way."""
+        if not (self.pipeline and self.incremental and self._pending):
+            return
+        cand = list(self._pending)
+        if self.admission:
+            cand.sort(key=lambda t: -t.query.priority)
+            seen, batch = set(), []
+            for t in cand:
+                dk = self._dedupe_key(t.query)
+                if dk in seen:
+                    continue
+                seen.add(dk)
+                batch.append(t.query)
+                if len(batch) >= self.max_batch:
+                    break
+        else:
+            batch = [t.query for t in cand[:self.max_batch]]
+        self.executor.prefetch_plan(batch, mode=self.mode,
+                                    route=self.route)
 
     def run_until_drained(self, max_ticks: int = 1000
                           ) -> "list[IslaTicket]":
@@ -503,7 +553,8 @@ def serve_isla(args) -> None:
                              budget_floor=args.budget_floor,
                              admission=(False if args.no_admission
                                         else None),
-                             progressive=args.progressive)
+                             progressive=args.progressive,
+                             pipeline=args.pipeline)
     n_days = max(n_blocks // 2, 1)
     qrng = np.random.default_rng(args.seed + 2)
     t0 = time.perf_counter()
@@ -528,6 +579,11 @@ def serve_isla(args) -> None:
                      f"{s['plan_cache_misses'] - before['plan_cache_misses']}"
                      f"m, {s['subsumed'] - before['subsumed']} subsumed, "
                      f"{s['deduped'] - before['deduped']} deduped")
+        if args.pipeline:
+            b_st = before["stage_seconds"]
+            extra += ", stages[ms] " + " ".join(
+                f"{k}={1e3 * (v - b_st.get(k, 0.0)):.1f}"
+                for k, v in s["stage_seconds"].items())
         flight = (f", {loop.in_flight} in flight" if loop.in_flight else "")
         print(f"tick {loop._tick}: answered {len(done)} queries, "
               f"{loop.pending} pending{flight}{extra}")
@@ -640,6 +696,12 @@ def main():
                     help="OLA streaming (incremental): unearned answers "
                          "stay in flight, refine each tick, and complete "
                          "when their (e, beta) bound is met")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="pipelined ticks: overlap each mode-group's "
+                         "chunk ticks with the next group's host draw "
+                         "and the previous group's compose (answers are "
+                         "bit-identical), prefetch next tick's plan "
+                         "between ticks, and log per-stage wall times")
     ap.add_argument("--no-admission", action="store_true",
                     help="disable the admission pipeline (plan cache "
                          "serving, dedupe, subsumption, priority order): "

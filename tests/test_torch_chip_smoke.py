@@ -167,3 +167,136 @@ def test_check_mesh_state_on_the_cpu(float64_default):
     dst.mom_s = dst.mom_s + 1.0
     with pytest.raises(S.SmokeFailure, match="mom_s"):
         S.check_mesh_state(mesh_ex, dev_ex)
+
+
+# The pipelined phase's runs, batch and checks.
+
+
+def test_pipelined_runs_cover_the_main_path():
+    """Four pipelined runs on the device route (moments and COUNT
+    DISTINCT, fp32 and float64) and one float64 COUNT DISTINCT run on a
+    four-shard mesh on the card; four chunks a group at 1000 blocks."""
+    got = {(distinct, f64, mesh is not None)
+           for _, distinct, f64, mesh in S.PIPE_RUNS}
+    assert got == {(d, f, False) for d in (False, True)
+                   for f in (False, True)} | {(True, True, True)}
+    (mesh,) = [m for *_, m in S.PIPE_RUNS if m is not None]
+    assert list(mesh) == ["cuda:0"] * 4
+    assert -(-1000 // S.PIPE_CHUNK_BLOCKS) == 4
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+def test_pipeline_queries_plan_two_mode_groups(distinct):
+    """The pipelined batch is ``serve_queries`` under both modes: the
+    executor plans it as two mode groups over the same four keys."""
+    import numpy as np
+    import repro_torch.core as C
+    from repro_torch.launch.serve import _synthetic_grouped_blocks
+
+    ex = C.MultiQueryExecutor(_synthetic_grouped_blocks(8, 3, 200, 0),
+                              [10 ** 7] * 8, group_domains={"region": 3},
+                              device="cpu")
+    qs = S.pipeline_queries(C, 0.5, distinct)
+    assert len(qs) == 2 * len(S.serve_queries(C, 0.5, distinct))
+    plan = ex.plan(qs, np.random.default_rng(0), route="device")
+    assert len(plan.mode_groups) == 2
+    assert {q.mode for q in qs} == set(S.PIPE_MODES)
+
+
+@pytest.mark.parametrize("run", S.PIPE_RUNS, ids=[r[0] for r in S.PIPE_RUNS])
+def test_pipe_path_on_the_cpu(run):
+    """Each pipelined run of the phase, rehearsed on the CPU at a small
+    size (the mesh on four CPU shards): its serial twin holds it bit for
+    bit, and the fp32 runs' two serial runs agree."""
+    name, distinct, f64, mesh = run
+    path = S.pipe_path(name, distinct, f64,
+                       None if mesh is None else ["cpu"] * len(mesh),
+                       n_blocks=40, n_groups=3, rows=400, device="cpu")
+    tw = path["twin"]
+    assert tw["pipe_gap"] == tw["serial_gap"] == 0
+    assert not tw["pipe_gap_arrays"] and not tw["serial_gap_arrays"]
+    assert [r["new_samples"] > 0 for r in path["ticks"]] == [True, True,
+                                                             False]
+
+
+def answer(value, **kw):
+    from types import SimpleNamespace
+
+    fields = dict(value=value, mean=value, error_bound=None,
+                  sampling_rate=0.1, sample_size=10, mode="calibrated",
+                  pass_id=0, n_matched=5, est_population=50.0,
+                  new_samples=10, half_width=1.0, groups=None)
+    fields.update(kw)
+    return SimpleNamespace(**fields)
+
+
+def run_of(values, cell=0.0):
+    import numpy as np
+
+    return ([[answer(v) for v in values]],
+            {("k", "mom_s"): np.array([1.0, cell])})
+
+
+@pytest.mark.parametrize("piped, serial2, gaps", [
+    (run_of([1.0, 2.0]), None, (0, 0, 0, 0)),
+    (run_of([1.0, 2.5]), None, None),            # a float64 answer moved
+    (run_of([1.0, 2.0], cell=1.0), None, None),  # a state array moved
+    (run_of([1.0, 2.5]), run_of([1.0, 2.0]), None),  # serial repeats
+    (run_of([1.0, 2.5]), run_of([1.0, 2.25]), (1, 0, 1, 0)),
+    (run_of([1.0, 2.0], cell=1.0), run_of([1.0, 2.0], cell=2.0),
+     (0, 1, 0, 1)),
+], ids=["equal", "f64-answer", "f64-array", "fp32-reproducible",
+        "fp32-serial-gap", "fp32-serial-array-gap"])
+def test_check_twin(piped, serial2, gaps):
+    """A pipelined run must equal its serial twin wherever a second serial
+    run repeats the first (float64: everywhere); the gaps are counted."""
+    serial = run_of([1.0, 2.0])
+    if gaps is None:
+        with pytest.raises(S.SmokeFailure, match="serial twin"):
+            S.check_twin("x", piped, serial, serial2)
+        return
+    got = S.check_twin("x", piped, serial, serial2)
+    assert (got["pipe_gap"], len(got["pipe_gap_arrays"]), got["serial_gap"],
+            len(got["serial_gap_arrays"])) == gaps
+
+
+def event(name, thread, start, end, device_type="DeviceType.CPU"):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(name=name, thread=thread, device_type=device_type,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+def test_stage_ranges_tell_the_threads_apart():
+    evs = [event(S.WORKER_MARK, 7, 0, 1), event(S.MAIN_MARK, 1, 0, 1),
+           event("isla:launch", 7, 10, 30), event("isla:launch", 7, 50, 60),
+           event("isla:draw", 1, 20, 55), event("isla:draw", 1, 70, 80),
+           event("isla:h2d", 7, 5, 10), event("aten::add", 7, 12, 13),
+           # a range's device-side span, on a stream whose id is a thread's
+           event("isla:launch", 1, 11, 29, device_type="DeviceType.CUDA")]
+    rg = S.stage_ranges(evs)
+    assert rg == dict(worker_launch=[(10, 30), (50, 60)], main_launch=[],
+                      main_draw=[(20, 55), (70, 80)])
+    assert S.overlap_us(rg["worker_launch"], rg["main_draw"]) == 10 + 5
+    r = dict(ranges=rg)
+    assert S.check_pipe_profile(r, 2)["overlap_us"] == 15
+    with pytest.raises(S.SmokeFailure, match="isla:launch ranges"):
+        S.check_pipe_profile(r, 3)
+    late = dict(ranges=dict(rg, main_draw=[(70, 80)]))
+    with pytest.raises(S.SmokeFailure, match="under a main-thread draw"):
+        S.check_pipe_profile(late, 2)
+    with pytest.raises(S.SmokeFailure, match="launch worker"):
+        S.stage_ranges(evs[1:])
+
+
+def test_profiled_pipelined_tick_on_the_cpu():
+    """A profiled pipelined top-up tick on the CPU at a small size, every
+    thread's ranges in the window: eight chunk ticks' ``isla:launch`` on
+    the launch worker (two groups of four chunks), none on the main
+    thread, which holds the draws."""
+    _, _, recs = S.pipe_serve("cpu", "device", 40, 3, 400,
+                              (0.5, 0.25, 0.25), False, True,
+                              profile_at=(1,), chunk_blocks=10)
+    rg = recs[1]["ranges"]
+    assert len(rg["worker_launch"]) == 8 and not rg["main_launch"]
+    assert len(rg["main_draw"]) >= 8

@@ -933,3 +933,148 @@ def test_wrong_run_table_leaves_stack_unusable_on_card(cuda, stack_kind,
     for again in (dict(), dict(mode="faithful"), kw):
         with pytest.raises(ValueError, match="unusable"):
             stack.tick(TC.IslaParams(), **again)
+
+
+# ---------------------------------------------------------------------------
+# The pipelined tick on the card: deferred readback, the run-table fault
+# under it, and pipelined against serial.
+# ---------------------------------------------------------------------------
+
+
+def _f64_sketch_stack(kind="device"):
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    stores = MC.make_stores(TC.DeviceMomentStore.fresh_device, TC.Boundaries,
+                            hetero=True, sketch=(2,), dtype=torch.float64,
+                            device="cuda")
+    stack = (TC.DeviceStack(stores) if kind == "device" else
+             TC.MeshDeviceStack(stores, make_cell_mesh(devices=kind)))
+    return stack, stores
+
+
+def test_deferred_readback_through_pinned_buffer(cuda, monkeypatch):
+    """``d2h_async`` copies a card tensor into a pinned host buffer behind
+    an event, and lands the bytes a blocking readback gives.  A deferred
+    tick's rows and register rows, landed on their events with every
+    device-wide sync refused, equal a serial tick's bit for bit."""
+    from repro_torch.core import sketch as TSK
+
+    x = torch.randn(34, 9, dtype=torch.float64, device=cuda)
+    copy = TD.d2h_async(x)
+    host = copy.wait()
+    assert host.is_pinned() and torch.equal(host, x.cpu())
+    rng = np.random.default_rng(24)
+    draws = [MC.draw(rng) for _ in range(2)]
+    outs = []
+    for defer in (False, True):
+        stack, stores = _f64_sketch_stack()
+        for d in draws:
+            out = stack.tick(TC.IslaParams(), defer_stats=defer,
+                             **MC.tagged_payload(stack, stores, d,
+                                                 limbs=TSK.value_limbs))
+
+        def refused():
+            raise AssertionError("a device-wide sync")
+
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", refused)
+            outs.append(([np.asarray(r) for _, r in out],
+                         [st.group_registers() for st in stores
+                          if st.has_sketch]))
+    for a, b in zip(*outs):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("stack_kind", ["device", "mesh"])
+@pytest.mark.parametrize("kind", MC.WRONG_TABLES)
+def test_run_table_fault_under_deferred_stats_on_card(cuda, stack_kind,
+                                                      kind):
+    """A wrong table under deferred stats on the card: the kernel counts
+    what is out of place into the table the deferred copy carries (the
+    mesh's host checks raise at the tick), and the first read of the
+    tick's rows raises, after every store's stats were cleared and the
+    stack released; every next tick raises, zero-draw ticks included."""
+    from repro_torch.core import sketch as TSK
+
+    stack, stores = _f64_sketch_stack(
+        "device" if stack_kind == "device" else ["cuda:0"] * 2)
+    rng = np.random.default_rng(25)
+
+    def payload():
+        return MC.tagged_payload(stack, stores, MC.draw(rng),
+                                 limbs=TSK.value_limbs)
+
+    stack.tick(TC.IslaParams(), defer_stats=True, **payload())
+    with pytest.raises(ValueError, match="run table"):
+        out = stack.tick(TC.IslaParams(), defer_stats=True,
+                         **MC.spoil(kind, payload()))
+        [np.asarray(r) for _, r in out]
+    assert not any(st._stats_valid for st in stores) and stack._released
+    for again in (dict(), dict(mode="faithful"), payload()):
+        with pytest.raises(ValueError, match="unusable"):
+            stack.tick(TC.IslaParams(), defer_stats=True, **again)
+
+
+@pytest.mark.parametrize("route", ["device", "mesh"])
+def test_pipelined_executor_on_cuda_matches_serial(cuda, route):
+    """``run(pipeline=True)`` on the card in float64, on the device route
+    and on a two-shard mesh on ``cuda:0``, two mode groups of three chunks:
+    every answer, draw ledger and store's state the serial run's bit for
+    bit, with the same kernel launches tick by tick."""
+    rng = np.random.default_rng(26)
+    tables = []
+    for _ in range(12):
+        g = rng.integers(0, 4, size=500)
+        tables.append({"value": rng.normal(100.0 + 3.0 * g, 12.0),
+                       "region": g.astype(np.float64),
+                       "flag": rng.integers(0, 2, 500).astype(np.float64)})
+    flag = TC.Predicate(column="flag", eq=1.0)
+    qs = [q for m in ("calibrated", "faithful_cf") for q in (
+        TC.IslaQuery(e=0.05, agg="AVG", mode=m),
+        TC.IslaQuery(e=0.05, agg="AVG", where=flag, mode=m),
+        TC.IslaQuery(e=0.05, agg="count_distinct", group_by="region",
+                     mode=m))]
+    runs = []
+    was = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for pipeline in (False, True):
+            ex = TC.MultiQueryExecutor(
+                [TC.table_sampler(t) for t in tables], [10 ** 5] * 12,
+                group_domains={"region": 4}, device="cuda",
+                mesh=["cuda:0"] * 2 if route == "mesh" else None)
+            draw_rng = np.random.default_rng(7)
+            answers, launches = [], []
+            for i in range(3):
+                K.reset_launch_counts()
+                out = ex.run(qs, draw_rng, route=route, incremental=True,
+                             deadline_samples=30 * (i + 1), chunk_blocks=4,
+                             pipeline=pipeline)
+                torch.cuda.synchronize()
+                launches.append((K.isla_tagged_fold.launches,
+                                 K.isla_sketch_tagged.launches,
+                                 K.isla_fold.launches))
+                answers.append([repr((a.value, a.error_bound, a.new_samples,
+                                      a.sample_size,
+                                      None if a.groups is None else
+                                      [g.value for g in a.groups]))
+                                for a in out])
+            state = {}
+            for k, dst in ex._device_stores.items():
+                host = dst.to_host()
+                for f in ("mom_s", "mom_l", "totals", "n_sampled"):
+                    state[(k, f)] = getattr(host, f)
+                if host.has_sketch:
+                    state[(k, "regs")] = host.regs
+                state[(k, "partials")] = dst.partials_host()
+            runs.append((answers, launches, state))
+    finally:
+        torch.set_default_dtype(was)
+    (s_ans, s_launch, s_state), (p_ans, p_launch, p_state) = runs
+    assert p_ans == s_ans
+    assert p_launch == s_launch and s_launch[0][0] > 0
+    assert s_launch[0][2] == 0
+    assert set(p_state) == set(s_state)
+    for k, v in s_state.items():
+        assert np.array_equal(p_state[k], v), k

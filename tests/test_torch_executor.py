@@ -275,13 +275,19 @@ def test_device_pilot_matches_host_reduction():
 
 
 def test_unported_routes_raise():
-    """The pipelined tick still raises; the mesh route runs, one-shot and
+    """Every route of the reference runs in the port now: the pipelined
+    tick (``pipeline=True``, once refused here) gives the serial tick's
+    answers bit for bit, and the mesh route runs, one-shot and
     incremental, moments and COUNT DISTINCT, on a one-shard CPU mesh."""
     tables = _tables()
     ex = _executor(TC, tables, device="cpu")
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        ex.run(_queries(TC), np.random.default_rng(0), incremental=True,
-               route="device", pipeline=True)
+    keys = []
+    for pipeline in (False, True):
+        run = _executor(TC, tables, device="cpu").run(
+            _queries(TC), np.random.default_rng(0), incremental=True,
+            route="device", pipeline=pipeline)
+        keys.append([repr(_answer_tuple(a)) for a in run])
+    assert keys[1] == keys[0]
     for queries, incremental in (
             (_queries(TC), False),
             ([TC.IslaQuery(e=1.0, agg="count_distinct")], True)):

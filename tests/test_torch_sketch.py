@@ -378,10 +378,12 @@ def test_warm_repeat_reads_back_only_folded_rows(rng, monkeypatch):
         uploads.append(np.asarray(args[0]).nbytes)
         return real_h2d(*args, **kwargs)
 
-    def install(self, partials, rows, cfg, timings=None, group_regs=None):
+    def install(self, partials, rows, cfg, timings=None, group_regs=None,
+                **kw):
         readbacks.append(None if group_regs is None
                          else tuple(group_regs.shape))
-        return real_install(self, partials, rows, cfg, timings, group_regs)
+        return real_install(self, partials, rows, cfg, timings, group_regs,
+                            **kw)
 
     def no_plane(self, store, idx):
         raise AssertionError("the resident plane was read")
@@ -562,11 +564,13 @@ def test_convert_carries_the_register_plane(rng):
 
 
 def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
-    """The dense payload on a float64 sketch stack, the pipelined tick and
-    LM serving of an MoE config still raise, each naming its ROADMAP
-    Queue A item by number and name, and ROADMAP.md lists that item.  The
-    mesh route (item 4, its sketch families with it) runs: on a one-shard
-    CPU mesh it answers COUNT DISTINCT as the device route does."""
+    """The dense payload on a float64 sketch stack and LM serving of an
+    MoE config still raise, each naming its ROADMAP Queue A item by
+    number and name, and ROADMAP.md lists that item.  The mesh route
+    (item 4, its sketch families with it) and the pipelined tick (item 3,
+    once refused here) run, and ROADMAP.md still lists both items: on a
+    one-shard CPU mesh COUNT DISTINCT answers as on the device route, and
+    pipelined as serially, register plane and all."""
     monkeypatch.setattr(sys, "argv", [
         "serve", "--workload", "lm", "--arch", "arctic-480b", "--reduced",
         "--device", "cpu"])
@@ -577,7 +581,6 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
             [TC.table_sampler(t) for t in _distinct_tables(n_blocks=2)],
             [10 ** 6] * 2, device="cpu")
 
-    ex = executor()
     q = [TC.IslaQuery(e=1.0, agg="count_distinct")]
     b = TC.make_boundaries(100.0, 20.0, TC.IslaParams())
     dev64 = TDev.fresh_device(
@@ -587,8 +590,6 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
             (lambda: TStack([dev64]).tick(
                 TC.IslaParams(), values=np.ones(2), quotas=np.ones(2),
                 dense=([None], [None])), ("1b", "The float64 dense tick")),
-            (lambda: ex.run(q, np.random.default_rng(0), incremental=True,
-                            pipeline=True), (3, "Pipelined tick")),
             (TS.main, (8, "MoE channel"))):
         with pytest.raises(NotImplementedError) as err:
             call()
@@ -596,7 +597,17 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
         assert re.search(rf"^{item[0]}\. \*\*{re.escape(item[1])}", roadmap,
                          re.M)
     assert re.search(r"^4\. \*\*Mesh route", roadmap, re.M)
+    assert re.search(r"^3\. \*\*Pipelined tick", roadmap, re.M)
     answers = {route: executor().run(q, np.random.default_rng(0),
                                      route=route, incremental=True)[0]
                for route in ("device", "mesh")}
     assert answers["mesh"].value == answers["device"].value > 0
+    regs = []
+    for pipeline in (False, True):
+        ex = executor()
+        (a,) = ex.run(q, np.random.default_rng(0), incremental=True,
+                      pipeline=pipeline)
+        assert a.value == answers["device"].value
+        (dst,) = ex._device_stores.values()
+        regs.append(dst.regs.numpy())
+    assert np.array_equal(regs[1], regs[0])

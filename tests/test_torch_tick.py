@@ -227,13 +227,23 @@ def test_steady_tick_upload_count_matches_reference(case, expected, rng,
     assert sum(t_calls) == sum(r_calls)  # sample-sized bytes only
 
 
-def test_unported_paths_raise():
-    """Deferred stats (the pipelined tick) and the dense payload on a
-    float64 stack still raise, each naming its ROADMAP item."""
+def test_unported_paths_raise(rng):
+    """Deferred stats (the pipelined tick, once refused here) return lazy
+    rows that land equal to a serial tick's; the dense payload on a
+    float64 stack still raises, naming its ROADMAP item."""
     b = TC.make_boundaries(MU, SIGMA, TC.IslaParams())
-    dev = TDev.fresh_device(2, b, MU, [10, 10], device="cpu")
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        TStack([dev]).tick(TC.IslaParams(), defer_stats=True)
+    vals, quotas, dense = _pass(rng, 20)
+    outs = []
+    for defer in (False, True):
+        stack = TStack(_stores(TC, TDev, False, device="cpu"))
+        out = stack.tick(TC.IslaParams(), values=vals, quotas=quotas,
+                         dense=dense, defer_stats=defer)
+        out += stack.tick(TC.IslaParams(), mode="faithful",
+                          defer_stats=defer)
+        outs.append([(p.clone(), np.asarray(r)) for p, r in out])
+        assert all(st._rows is not None for st in stack.stores)
+    for (p0, r0), (p1, r1) in zip(*outs):
+        assert torch.equal(p1, p0) and np.array_equal(r1, r0)
     dev64 = TDev.fresh_device(2, b, MU, [10, 10], dtype=torch.float64,
                               device="cpu")
     with pytest.raises(NotImplementedError, match="item 1b"):
