@@ -70,6 +70,23 @@ top-up tick is profiled with every thread traced: its ``isla:launch``
 ranges must lie on the launch worker, some under a main-thread
 ``isla:draw``, and its trace must hold every ISLA kernel it launched.
 
+Then the float64 dense tick ("isla float64 dense"): ``isla_fold``'s
+float64 form on the four keys at (1000, 512) and (1000, 1024), held
+within rel 1e-12 of its plain version run on the CPU, two launches bit
+for bit, and timed beside the fp32 form on the same panes; then
+``DeviceStack.tick(dense=...)`` on float64 stores at the main path's
+stack shape (4 keys x 16 groups x 1000 blocks, 34,000 cells, on the
+loop's tables), three zone-pruned ticks of 954 samples a drawn block
+(the even blocks, the odd ones, the even ones again), moments alone and
+with a register plane.  Each drawing tick must make one float64 fold
+launch (and one ``isla_sketch``) and no fp32 fold; a
+``block_compaction=False`` twin and a four-shard mesh on ``cuda:0``
+must give the same bits (state, ledgers, register planes, partials),
+and a float64 tagged run of the same samples must lie within rel 1e-12
+(ledgers and registers bit for bit).  A profiled re-run of the second
+tick must hold the fold's kernel and no sort kernel, and each tick's
+fold is replayed against its plain version on the CPU and timed.
+
 Then it drives the LM serving path: olmo-1b at full width and depth
 (16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
 generator, six seeded prompts of 384-2048 tokens through a
@@ -226,27 +243,31 @@ def max_abs_err(a, b) -> float:
 FOLD_KEYS = ((1, False), (1, True), (16, False), (16, True))
 
 
-def fold_case(device, n_blocks: int, quota: int, seed: int = 0):
+def fold_case(device, n_blocks: int, quota: int, seed: int = 0,
+              dtype=None):
     """The panes and resident rows one tick folds: value, pad, GROUP BY
-    and predicate panes (n_blocks, quota), one bounds row, prior rows."""
+    and predicate panes (n_blocks, quota), one bounds row, prior rows;
+    values, bounds and rows of ``dtype`` (fp32 by default), the masks
+    fp32.  One seed gives the same numbers at either dtype."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     n_groups = max(g for g, _ in FOLD_KEYS)
+    dtype = dtype or torch.float32
 
     def dev(a, dt=torch.float32):
         return torch.as_tensor(a, dtype=dt, device=device).contiguous()
 
     shape = (n_blocks, quota)
     case = dict(
-        values=dev(rng.normal(1.0, 0.25, shape)),
+        values=dev(rng.normal(1.0, 0.25, shape), dtype),
         pad=torch.ones(shape, dtype=torch.float32, device=device),
         gid=dev(rng.integers(0, n_groups, shape), torch.int32),
         valid=dev(rng.random(shape) < 0.5),
-        bounds=dev([0.5, 0.875, 1.125, 1.5]),
+        bounds=dev([0.5, 0.875, 1.125, 1.5], dtype),
         n_cells=sum(g * n_blocks for g, _ in FOLD_KEYS))
-    case["prior"] = dev(rng.uniform(0, 50, (case["n_cells"], 11)))
+    case["prior"] = dev(rng.uniform(0, 50, (case["n_cells"], 11)), dtype)
     return case
 
 
@@ -280,19 +301,22 @@ def panes_bound_ms(values2d, pad_valid, gid_panes, valid_panes, bounds,
                    n_cells: int, n_keys: int, cell_idx=None
                    ) -> "tuple[float, float]":
     """Least time for one ``fold_panes`` call on this run's data: every
-    real (unpadded) sample's value, pad, GROUP BY and predicate entries
-    read once, the cuts and the cell map read once, the addressed
-    resident rows read and written once; against the fp32 work of every
-    key on every real sample (4 compares, 2 muls, 11 adds).  Returns
-    the milliseconds the bytes take and those the operations take."""
+    real (unpadded) sample's value (4 B, 8 at float64), pad, GROUP BY and
+    predicate entries (4 B each) read once, the cuts and the cell map read
+    once, the addressed resident rows (of the values' type) read and
+    written once; against the work of every key on every real sample (4
+    compares, 2 muls, 11 adds) at the fp32 or float64 peak.  Returns the
+    milliseconds the bytes take and those the operations take."""
+    wide = values2d.element_size() if values2d.element_size() == 8 else 4
     n_real = int(pad_valid.count_nonzero())
-    n_panes = 2 + len(gid_panes) + len(valid_panes)
-    in_bytes = 4 * n_panes * n_real + 4 * bounds.numel()
+    n_panes = 1 + len(gid_panes) + len(valid_panes)
+    in_bytes = (wide + 4 * n_panes) * n_real + wide * bounds.numel()
     if cell_idx is not None:
         in_bytes += 4 * cell_idx.numel()
-    row_bytes = 2 * 4 * 11 * n_cells
+    row_bytes = 2 * wide * 11 * n_cells
     t_bytes = (in_bytes + row_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = 17 * n_real * n_keys / FP32_FLOP_PER_S * 1e3
+    peak = FP64_FLOP_PER_S if wide == 8 else FP32_FLOP_PER_S
+    t_ops = 17 * n_real * n_keys / peak * 1e3
     return t_bytes, t_ops
 
 
@@ -404,7 +428,10 @@ class PlainVersions:
 def check_main_path_folds(calls) -> "list[dict]":
     """Replay each fold of the main path on a copy of its rows: the kernel
     (twice: identical bits) against its plain version on the very panes
-    the serving tick folded, then both timed, with the call's bound."""
+    the serving tick folded, then both timed, with the call's bound.  A
+    float64 pane's plain version runs on the CPU (timed by the host
+    clock) and is held within rel ``DENSE64_TOL``; an fp32 pane's on the
+    card, within rel 1e-5."""
     import torch
     from repro_torch.core import distributed as D
     from repro_torch.kernels import isla_moments as K
@@ -413,37 +440,51 @@ def check_main_path_folds(calls) -> "list[dict]":
     for c in calls:
         state, panes = c["args"][:3], c["args"][3:]
         kw = c["kw"]
+        values2d = panes[0]
+        f64 = values2d.dtype == torch.float64
+        tol = DENSE64_TOL if f64 else 1e-5
 
-        def fold_into(rows):
+        def fold_into(rows, panes=panes, kw=kw):
             D.fold_panes(*rows, *panes, **kw)
 
-        def run():
+        def run(state=state, fold_into=fold_into):
             rows = [t.clone() for t in state]
             fold_into(rows)
             return torch.cat(rows, dim=1)
 
         got, again = run(), run()
-        with PlainVersions():
-            want = run()
+        if f64:
+            host_state, host_panes, host_kw = to_cpu((state, panes, kw))
+            t0 = time.perf_counter()
+            want = run(host_state, functools.partial(
+                fold_into, panes=host_panes, kw=host_kw))
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            with PlainVersions():
+                want = run()
         torch.cuda.synchronize()
         check(torch.equal(got, again),
               "isla_fold is not deterministic on the main path's panes")
+        got = got.to(want.device)
         rel = float(((got.double() - want.double()).abs()
                      / want.double().abs().clamp_min(1.0)).max())
-        values2d = panes[0]
-        check(rel <= 1e-5, f"isla_fold disagrees with its plain version on "
-                           f"the main path's {tuple(values2d.shape)} pane: "
-                           f"max rel err {rel:.3g} > 1e-5")
+        check(rel <= tol, f"isla_fold disagrees with its plain version on "
+                          f"the main path's {tuple(values2d.shape)} "
+                          f"{values2d.dtype} pane: max rel err {rel:.3g} > "
+                          f"{tol}")
         scratch = [t.clone() for t in state]
         event_ms = time_ms(lambda: fold_into(scratch))
         dev_ms = kernel_ms(lambda: fold_into(scratch), ("isla_fold",))
-        with PlainVersions():
-            plain_ms = time_ms(lambda: fold_into(scratch), reps=5, warm=1)
+        if not f64:
+            with PlainVersions():
+                plain_ms = time_ms(lambda: fold_into(scratch), reps=5,
+                                   warm=1)
         g_list = kw["n_groups_list"]
         n_b = values2d.shape[0]
         active = kw.get("active_cells")
         _, _, stage = K.fold_stage(values2d.shape[1], D.stack_keys(
-            n_b, g_list, kw["gid_slots"], kw["valid_slots"]))
+            n_b, g_list, kw["gid_slots"], kw["valid_slots"]),
+            values2d.element_size() if f64 else 4)
         t_bytes, t_ops = panes_bound_ms(
             *panes, n_cells=sum(g * n_b for g in g_list),
             n_keys=len(g_list),
@@ -454,7 +495,7 @@ def check_main_path_folds(calls) -> "list[dict]":
                         compacted=active is not None,
                         dynamic_smem_bytes=stage,
                         max_abs_err=max_abs_err(got, want), max_rel_err=rel,
-                        tolerance="rel 1e-5",
+                        tolerance=f"rel {tol}",
                         ms=event_ms if dev_ms is None else dev_ms,
                         kernel_ms=dev_ms, event_ms=event_ms,
                         plain_ms=plain_ms, bytes_ms=t_bytes, ops_ms=t_ops,
@@ -1689,12 +1730,12 @@ def pipe_serve(device: str, route: str, n_blocks: int, n_groups: int,
     return answers, ex, records
 
 
-def store_arrays(ex) -> dict:
+def store_arrays(stores) -> dict:
     """Every device store's state as host arrays, keyed by (store key,
     field): moment rows, totals, both draw ledgers, register plane and
-    partials."""
+    partials (``stores``: the stores by key)."""
     out = {}
-    for skey, dst in ex._device_stores.items():
+    for skey, dst in stores.items():
         host = dst.to_host()
         for f in STATE_FIELDS:
             v = getattr(host, f, None)
@@ -1782,10 +1823,10 @@ def pipe_path(name: str, distinct: bool, f64: bool, mesh, n_blocks=1000,
             and (launches[tick_kernels[1]] > 0) == distinct
             and not any(launches[n] for n in other)),
               f"the {name} run launched {launches}")
-        piped = (answers, store_arrays(ex))
+        piped = (answers, store_arrays(ex._device_stores))
         del ex
         s_answers, s_ex, s_records = pipe_serve(*args, False, mesh=mesh)
-        serial = (s_answers, store_arrays(s_ex))
+        serial = (s_answers, store_arrays(s_ex._device_stores))
         del s_ex
         for k, (r, q) in enumerate(zip(records, s_records)):
             check(r["launches"] == q["launches"],
@@ -1794,7 +1835,7 @@ def pipe_path(name: str, distinct: bool, f64: bool, mesh, n_blocks=1000,
         serial2 = None
         if not f64:
             s2_answers, s2_ex, _ = pipe_serve(*args, False, mesh=mesh)
-            serial2 = (s2_answers, store_arrays(s2_ex))
+            serial2 = (s2_answers, store_arrays(s2_ex._device_stores))
             del s2_ex
         twin = check_twin(name, piped, serial, serial2)
     finally:
@@ -2047,6 +2088,318 @@ def tight_plan(n_blocks=1000, n_groups=16, rows=20000, seed=0) -> dict:
     return dict(e=TIGHT_E, pilot_size=n, pilot_s=spent[0], plan_s=plan_s,
                 pilot_launches=K.pilot_stats.launches,
                 sketch0=plan.pilot.sketch0, sigma=plan.pilot.sigma)
+
+
+# ---------------------------------------------------------------------------
+# The float64 dense tick: DeviceStack.tick(dense=...) on float64 stacks at
+# the main path's stack shape, folded by isla_fold's float64 form.
+# ---------------------------------------------------------------------------
+
+# (name, COUNT DISTINCT)
+DENSE64_RUNS = (("moments f64 dense", False), ("distinct f64 dense", True))
+DENSE64_RATE = 954      # samples a drawn block: the top-up tick's rate
+DENSE64_PROFILED_TICK = 1
+DENSE64_TOL = 1e-12     # relative, against the plain fold and the tagged run
+DENSE64_SHAPES = ((1000, 512), (1000, 1024))  # row 1's fold_panes calls
+
+
+def rel_gap(got, want) -> float:
+    """The largest ``|got - want| / |want|`` over two float64 arrays (inf
+    where ``want`` is 0 and ``got`` is not)."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    if not diff.any():
+        return 0.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(np.max(np.where(diff > 0, diff / np.abs(want), 0.0)))
+
+
+def to_cpu(x):
+    """``x`` with every tensor in it (tuples, lists, dicts) on the CPU."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def check_fold64(device, n_blocks: int, quota: int) -> dict:
+    """The float64 fold on the smoke's four keys at one of row 1's
+    ``fold_panes`` shapes: against its plain version run on the CPU on
+    the same numbers (rel 1e-12), two launches bit for bit, then the
+    kernel's device time beside the fp32 fold's on the same panes."""
+    import torch
+
+    case = fold_case(device, n_blocks, quota, dtype=torch.float64)
+    host = fold_case("cpu", n_blocks, quota, dtype=torch.float64)
+    got, again = case["prior"].clone(), case["prior"].clone()
+    fold_stack_tick(case, got)
+    fold_stack_tick(case, again)
+    want = host["prior"].clone()
+    t0 = time.perf_counter()
+    fold_stack_tick(host, want)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "isla_fold's float64 form is not "
+                                   "deterministic")
+    rel = float(((got.cpu() - want).abs()
+                 / want.abs().clamp_min(1.0)).max())
+    check(rel <= DENSE64_TOL,
+          f"isla_fold's float64 form disagrees with its plain version at "
+          f"{(n_blocks, quota)}: max rel err {rel:.3g} > {DENSE64_TOL}")
+    scratch = case["prior"].clone()
+    ms = kernel_ms(lambda: fold_stack_tick(case, scratch), ("isla_fold",))
+    event_ms = time_ms(lambda: fold_stack_tick(case, scratch))
+    c32 = fold_case(device, n_blocks, quota)
+    s32 = c32["prior"].clone()
+    fp32_ms = kernel_ms(lambda: fold_stack_tick(c32, s32), ("isla_fold",))
+    t_bytes, t_ops = panes_bound_ms(
+        case["values"], case["pad"], (case["gid"],), (case["valid"],),
+        case["bounds"], n_cells=case["n_cells"], n_keys=len(FOLD_KEYS))
+    return dict(pane=[n_blocks, quota], cells=case["n_cells"],
+                max_abs_err=max_abs_err(got.cpu(), want), max_rel_err=rel,
+                tolerance=f"rel {DENSE64_TOL}", ms=ms, event_ms=event_ms,
+                fp32_ms=fp32_ms, plain_ms=plain_ms, bytes_ms=t_bytes,
+                ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def dense64_stores(C, anchor, n_blocks, distinct, device):
+    """The main path's four keys (plain, WHERE ``flag``, GROUP BY
+    ``region``, both) as float64 device stores under one anchor."""
+    import torch
+
+    b, sketch0, n_groups = anchor
+    return [C.DeviceMomentStore.fresh_device(
+        n_blocks, b, sketch0, [10 ** 7] * n_blocks, n_groups=g,
+        dtype=torch.float64, has_sketch=distinct, device=device)
+        for g, _ in dense64_keys(n_groups)]
+
+
+def dense64_keys(n_groups):
+    return tuple((g, where) for g in (1, n_groups) for where in (False,
+                                                                 True))
+
+
+def dense64_draws(n_blocks=1000, n_groups=16, rows=20000, seed=0):
+    """The phase's tables (the loop's ``_synthetic_grouped_blocks``), its
+    anchor (cuts from a seeded 1000-sample pilot) and three drawing
+    ticks: ``DENSE64_RATE`` rows of each active block, the even blocks
+    active on the first tick, the odd ones on the second, then the even
+    ones again (each mesh shard holds half its blocks active, so every
+    shard compacts too).  Each tick is ``(raw values, quotas, region
+    codes, flag mask)``, block-major."""
+    import numpy as np
+    import repro_torch.core as C
+    from repro_torch.launch.serve import _synthetic_grouped_blocks
+
+    _, tables = _synthetic_grouped_blocks(n_blocks, n_groups, rows, seed,
+                                          with_tables=True)
+    rng = np.random.default_rng(seed + 7)
+    pilot = np.concatenate([t["value"][rng.integers(0, rows, 1)]
+                            for t in tables])
+    sketch0, sigma = float(pilot.mean()), float(pilot.std(ddof=1))
+    anchor = (C.make_boundaries(sketch0, sigma, C.IslaParams()), sketch0,
+              n_groups)
+    halves = [np.arange(0, n_blocks, 2), np.arange(1, n_blocks, 2)]
+    ticks = []
+    for active in (halves[0], halves[1], halves[0]):
+        quotas = np.zeros(n_blocks, dtype=np.int64)
+        quotas[active] = DENSE64_RATE
+        idx = [rng.integers(0, rows, DENSE64_RATE) for _ in active]
+        vals = np.concatenate([tables[b]["value"][i]
+                               for b, i in zip(active, idx)])
+        gids = np.concatenate([tables[b]["region"][i]
+                               for b, i in zip(active, idx)]).astype(np.int64)
+        flag = np.concatenate([tables[b]["flag"][i]
+                               for b, i in zip(active, idx)]) == 1.0
+        ticks.append((vals, quotas, gids, flag))
+    return anchor, ticks
+
+
+def dense64_payload(tick, n_groups):
+    vals, quotas, gids, flag = tick
+    keys = dense64_keys(n_groups)
+    return dict(values=vals, quotas=quotas,
+                dense=([gids if g > 1 else None for g, _ in keys],
+                       [flag if w else None for _, w in keys]))
+
+
+def tagged64_payload(stack, stores, tick, n_groups, distinct):
+    """The same tick as the tagged payload: every key's matched samples
+    in its own frame, placed by ``key_seg``, with its run table."""
+    import numpy as np
+    from repro_torch.core import sketch as SK
+
+    vals, quotas, gids, flag = tick
+    bids = np.repeat(np.arange(quotas.size), quotas)
+    segs, vs, his, los, runs = [], [], [], [], []
+    hi, lo = SK.value_limbs(vals) if distinct else (None, None)
+    for k, (st, (g, where)) in enumerate(zip(stores,
+                                             dense64_keys(n_groups))):
+        mask = flag if where else None
+        keep = slice(None) if mask is None else mask
+        segs.append(stack.key_seg(k, st, bids, gids if g > 1 else None,
+                                  mask))
+        vs.append(((vals + st.shift) / st.scale)[keep])
+        runs.append(stack.key_runs(quotas, mask))
+        if distinct:
+            his.append(hi[keep])
+            los.append(lo[keep])
+    kw = dict(values=np.concatenate(vs), seg=np.concatenate(segs),
+              quotas=quotas, runs=np.stack(runs))
+    if distinct:
+        kw["hash_limbs"] = (np.concatenate(his), np.concatenate(los))
+    return kw
+
+
+def dense64_serve(kind, distinct, anchor, ticks, device="cuda",
+                  profile_at=(), compaction=True, keep=False) -> dict:
+    """The phase's ticks through one float64 stack on ``device``: ``kind``
+    "device" (a ``DeviceStack``), "mesh" (``MESH_SHARDS`` shards, all on
+    ``cuda:0`` on the card) or "tagged" (a ``DeviceStack`` fed the tagged
+    payload).  The launch counts are read around each tick; ``keep``
+    keeps the arguments of every ``fold_panes`` call for the replays."""
+    import torch
+    import repro_torch.core as C
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    n_blocks, n_groups = ticks[0][1].size, anchor[2]
+    stores = dense64_stores(C, anchor, n_blocks, distinct, device)
+    shards = MESH_DEVICES if device == "cuda" else (device,) * MESH_SHARDS
+    stack = (C.MeshDeviceStack(stores, make_cell_mesh(devices=list(shards)))
+             if kind == "mesh" else C.DeviceStack(stores))
+    stack.block_compaction = compaction
+    params = C.IslaParams()
+    records = []
+    with Recorder("fold_panes", keep=keep) as folds:
+        for k, tick in enumerate(ticks):
+            before = (K.isla_fold.launches_f64, K.isla_fold.launches,
+                      K.isla_sketch.launches)
+            timings = {}
+            prof = profile_tick(device, k in profile_at)
+            # The wall clock takes the payload's host build too: the
+            # tagged one cuts each key's slice and run table on the host.
+            t0 = time.perf_counter()
+            with prof:
+                kw = (tagged64_payload(stack, stores, tick, n_groups,
+                                       distinct) if kind == "tagged"
+                      else dense64_payload(tick, n_groups))
+                stack.tick(params, timings=timings, **kw)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = (K.isla_fold.launches_f64, K.isla_fold.launches,
+                     K.isla_sketch.launches)
+            f64, f32, sk = (a - b for a, b in zip(after, before))
+            records.append(dict(
+                new_samples=int(tick[1].sum()),
+                active_blocks=int((tick[1] > 0).sum()), wall_s=wall,
+                stages_s=timings, fold_f64_launches=f64,
+                fold_launches=f32, sketch_launches=sk,
+                device_busy_s=device_seconds(prof),
+                kernel_events=device_kernel_counts(prof)))
+    compacted = bool(stack._active_cache)
+    check(compacted is (compaction and kind != "tagged"),
+          f"the {kind} float64 dense run's compaction engaged: {compacted}")
+    return dict(kind=kind, ticks=records,
+                arrays=store_arrays(dict(enumerate(stores))),
+                fold_calls=folds.calls, compacted=compacted)
+
+
+def dense64_trace_whole(r: dict) -> bool:
+    """``trace_whole`` for a float64 dense tick: its trace holds the fold
+    launches that the float64 counter names."""
+    ev = r["kernel_events"]
+    return ev is not None and ev["isla_fold_kernel"] >= r[
+        "fold_f64_launches"] and ev["isla_sketch_kernel"] >= r[
+            "sketch_launches"]
+
+
+def dense64_path(name: str, distinct: bool, device="cuda", **shape) -> dict:
+    """One run of the float64 dense phase at the main path's stack shape
+    (4 keys x 16 groups x 1000 blocks, 34,000 cells): the launch counts are
+    set to 0 just before the device run's ticks and read just after;
+    every drawing tick must make one float64 ``isla_fold`` launch (and,
+    with COUNT DISTINCT, one ``isla_sketch``) and no fp32 fold.  A
+    ``block_compaction=False`` twin must give the same bits (state,
+    ledgers, register planes, partials), so must the four-shard mesh, and
+    a float64 tagged run of the same samples must lie within rel 1e-12
+    (moments and partials; ledgers and registers bit for bit).  A
+    profiled re-run of the top-up tick must show the fold's kernel, no
+    sort kernel and a whole trace.  ``shape`` cuts the tables
+    (``dense64_draws``' arguments)."""
+    import numpy as np
+    from repro_torch.kernels import isla_moments as K
+
+    anchor, ticks = dense64_draws(**shape)
+    serve = functools.partial(dense64_serve, distinct=distinct,
+                              anchor=anchor, ticks=ticks, device=device)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    dev = serve("device", keep=True)
+    wall = time.perf_counter() - t0
+    launches = {"isla_fold_f64": K.isla_fold.launches_f64,
+                "isla_fold": K.isla_fold.launches,
+                "isla_sketch": K.isla_sketch.launches}
+    for k, r in enumerate(dev["ticks"]):
+        check(r["fold_f64_launches"] == 1 and r["fold_launches"] == 0
+              and r["sketch_launches"] == int(distinct),
+              f"the {name} run's tick {k + 1} launched "
+              f"{r['fold_f64_launches']} float64 and {r['fold_launches']} "
+              f"fp32 folds, {r['sketch_launches']} merges")
+    full = serve("device", compaction=False)
+    K.reset_launch_counts()
+    mesh = serve("mesh")
+    mesh_launches = {"isla_fold_f64": K.isla_fold.launches_f64,
+                     "isla_fold": K.isla_fold.launches,
+                     "isla_sketch": K.isla_sketch.launches}
+    for k, r in enumerate(mesh["ticks"]):
+        check(r["fold_f64_launches"] == MESH_SHARDS
+              and r["fold_launches"] == 0
+              and r["sketch_launches"] == MESH_SHARDS * int(distinct),
+              f"the {name} mesh run's tick {k + 1} launched "
+              f"{r['fold_f64_launches']} float64 and {r['fold_launches']} "
+              f"fp32 folds, {r['sketch_launches']} merges")
+    tagged = serve("tagged")
+    for twin, what in ((full, "block_compaction=False twin"),
+                       (mesh, "four-shard mesh run")):
+        for key, want in dev["arrays"].items():
+            check(np.array_equal(twin["arrays"][key], want),
+                  f"the {name} run's {what} differs in {key}")
+    gaps = {}
+    for key, want in tagged["arrays"].items():
+        got = dev["arrays"][key]
+        if key[1] in ("mom_s", "mom_l", "totals", "partials"):
+            gaps[key[1]] = max(gaps.get(key[1], 0.0), rel_gap(got, want))
+        else:
+            check(np.array_equal(got, want), f"the {name} run's {key} "
+                                             f"differs from the tagged run's")
+    check(max(gaps.values()) <= DENSE64_TOL,
+          f"the {name} run parts from the float64 tagged run: {gaps}")
+    traced = None
+    for run in range(1, PROFILE_TRIES + 1):
+        rec = serve("device", profile_at=(DENSE64_PROFILED_TICK,))
+        traced = rec["ticks"][DENSE64_PROFILED_TICK]
+        ev = traced["kernel_events"] or {}
+        check(not ev.get("sort") and not ev.get("isla_tagged_fold_kernel")
+              and not ev.get("isla_tagged_runs_kernel"),
+              f"the {name} run's profiled tick ran {ev}")
+        if dense64_trace_whole(traced):
+            break
+        check(run < PROFILE_TRIES, f"the {name} run's profiled tick lost "
+                                   f"kernels in {PROFILE_TRIES} runs: {ev}")
+    return dict(name=name, launches=launches, mesh_launches=mesh_launches,
+                wall_s=wall, ticks=dev["ticks"], full_ticks=full["ticks"],
+                mesh_ticks=mesh["ticks"], tagged_ticks=tagged["ticks"],
+                tagged_gaps=gaps, profiled_tick=traced, traced_runs=run,
+                fold_calls=dev["fold_calls"], shape=dict(
+                    blocks=ticks[0][1].size, groups=anchor[2],
+                    cells=sum(g for g, _ in dense64_keys(anchor[2]))
+                    * ticks[0][1].size, rate=DENSE64_RATE))
 
 
 # ---------------------------------------------------------------------------
@@ -2495,14 +2848,15 @@ def ptxas_figures(log: str) -> dict:
 
 def isla_ptxas(log: str) -> dict:
     """The ISLA kernels' ``-Xptxas -v`` figures by readable name
-    (``isla_fold_kernel<float>``, ``isla_sketch_kernel``, ...)."""
+    (``isla_fold_kernel<float>``, ``isla_fold_kernel<double>``,
+    ``isla_sketch_kernel``, ...)."""
     out = {}
     for fn, fig in ptxas_figures(log).items():
         for k in ISLA_KERNELS:
             if k in fn:
                 t = ("<bf16>" if "bfloat16" in fn else
-                     "<float>" if k == "isla_fold_kernel" or "IfE" in fn
-                     else "<double>" if "IdE" in fn else
+                     "<double>" if "IdE" in fn else
+                     "<float>" if "IfE" in fn else
                      "<one_warp>" if "ILb1E" in fn else
                      "<grid>" if "ILb0E" in fn else "")
                 out[k + t] = fig
@@ -2624,7 +2978,7 @@ def main() -> int:
     islaptx = {}
     if K.SOURCES[0] in logs:
         islaptx = isla_ptxas(logs[K.SOURCES[0]])
-        check(len(islaptx) == 10 and all(
+        check(len(islaptx) == 12 and all(
             f.get("spill_bytes", 0) == 0 for n, f in islaptx.items()
             if n.startswith("isla_tagged_runs")),
               f"isla_kernels.cu: a kernel is missing from the ptxas log or "
@@ -2896,6 +3250,63 @@ def main() -> int:
           f"{pp['overlap_us'] / 1e3:.3f} ms; ISLA kernels "
           f"{json.dumps(pipe_prof['kernel_events'])}; profiled runs taken "
           f"{pipe_prof_runs}")
+    fold64 = [check_fold64(dev, n, q) for n, q in DENSE64_SHAPES]
+    dense64 = [dense64_path(name, distinct)
+               for name, distinct in DENSE64_RUNS]
+    lap("isla float64 dense runs")
+    regs64 = islaptx.get("isla_fold_kernel<double>")
+    print("isla_fold float64 form -Xptxas -v: " + (
+        "not printed (built before this run)" if regs64 is None else
+        f"{regs64['registers']} registers, {regs64['smem_bytes']} B static "
+        f"smem, {regs64.get('spill_bytes', 0)} B spilled (fp32 form: "
+        f"{islaptx['isla_fold_kernel<float>']['registers']} registers, "
+        f"{islaptx['isla_fold_kernel<float>'].get('spill_bytes', 0)} B "
+        f"spilled)"))
+    for f in fold64:
+        print(f"isla_fold float64 at {tuple(f['pane'])} (4 keys, "
+              f"{f['cells']} cells): {f['ms']:.4f} ms on the card "
+              f"(profiler; CUDA events {f['event_ms']:.4f} ms), the fp32 "
+              f"form on the same panes {f['fp32_ms']:.4f} ms, plain on the "
+              f"CPU {f['plain_ms']:.1f} ms, bound {f['bound_ms']:.4f} ms by "
+              f"{f['bound_by']}; max rel err {f['max_rel_err']:.3g} "
+              f"({f['tolerance']}), two launches identical")
+    for path in dense64:
+        tr = path["profiled_tick"]
+        print(f"float64 dense path, {path['name']} run "
+              f"({path['shape']['cells']} cells, {DENSE64_RATE} samples a "
+              f"drawn block, half the blocks a tick): device route "
+              f"{json.dumps(path['launches'])} launches, the four-shard mesh "
+              f"{json.dumps(path['mesh_launches'])}; compacted, full and "
+              f"mesh runs bit-identical (state, ledgers, register planes, "
+              f"partials); against the float64 tagged run: largest rel gaps "
+              f"{json.dumps(path['tagged_gaps'])}; profiled tick "
+              f"{DENSE64_PROFILED_TICK + 1}: {json.dumps(tr['kernel_events'])}"
+              f", device busy {(tr['device_busy_s'] or 0.0) * 1e3:.3f} ms of "
+              f"{tr['wall_s']:.4f} s wall ({path['traced_runs']} runs taken)")
+        for k, (r, q, m, t) in enumerate(zip(
+                path["ticks"], path["full_ticks"], path["mesh_ticks"],
+                path["tagged_ticks"])):
+            stages = ", ".join(f"{n} {v:.4f}"
+                               for n, v in r["stages_s"].items())
+            print(f"  tick {k + 1}: {r['new_samples']} new samples over "
+                  f"{r['active_blocks']} blocks; compacted wall "
+                  f"{r['wall_s']:.4f} s ({stages}), full {q['wall_s']:.4f} "
+                  f"s, mesh {m['wall_s']:.4f} s, tagged {t['wall_s']:.4f} s")
+    replays64 = []
+    for path in dense64:
+        for f in check_main_path_folds(path.pop("fold_calls")):
+            replays64.append(dict(f, run=path["name"]))
+    check(len(replays64) > 0, "the float64 dense runs folded no pane")
+    for f in replays64:
+        print(f"isla_fold float64 on the {f['run']} run's pane "
+              f"{tuple(f['pane'])} ({f['real_samples']} samples"
+              + (", compacted" if f["compacted"] else "") + "): "
+              f"{f['ms']:.4f} ms on the card (CUDA events "
+              f"{f['event_ms']:.4f} ms; plain on the CPU "
+              f"{f['plain_ms']:.1f} ms, bound {f['bound_ms']:.4f} ms by "
+              f"{f['bound_by']}), max rel err {f['max_rel_err']:.3g} "
+              f"({f['tolerance']}), two launches identical")
+    lap("isla float64 dense replays")
     lm = lm_path()
     lap("lm path runs")
     print(f"LM path, {lm['arch']} at full width and depth "
@@ -2995,6 +3406,13 @@ def main() -> int:
     t_ops = sum(f["ops_ms"] for f in tagged)
     g_bytes = sum(f["bytes_ms"] for f in tagged_merges)
     g_ops = sum(f["ops_ms"] for f in tagged_merges)
+    d_bytes = sum(f["bytes_ms"] for f in replays64)
+    d_ops = sum(f["ops_ms"] for f in replays64)
+
+    def launched64(kernel):
+        return sum(p["launches"][kernel] + p["mesh_launches"][kernel]
+                   for p in dense64)
+
     lm_flash = flash + vflash
     a_bytes = sum(f["bytes_ms"] for f in lm_flash)
     a_ops = sum(f["ops_ms"] for f in lm_flash)
@@ -3016,7 +3434,7 @@ def main() -> int:
              bound_by=pilot["bound_by"], library_ms=None),
         dict(name="isla_sketch", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:362",
-             launches=launched("isla_sketch"),
+             launches=launched("isla_sketch") + launched64("isla_sketch"),
              max_abs_err=max(f["max_abs_err"] for f in merged),
              ms=sum(f["ms"] for f in merged),
              plain_ms=sum(f["plain_ms"] for f in merged),
@@ -3043,6 +3461,15 @@ def main() -> int:
              bound_ms=max(g_bytes, g_ops),
              bound_by="bytes" if g_bytes >= g_ops else "operations",
              library_ms=None),
+        dict(name="isla_fold_f64", route="cuda", source=FOLD_SOURCE,
+             replaces="src/repro/kernels/isla_moments.py:162",
+             launches=launched64("isla_fold_f64"),
+             max_abs_err=max(f["max_abs_err"] for f in replays64 + fold64),
+             ms=sum(f["ms"] for f in replays64),
+             plain_ms=sum(f["plain_ms"] for f in replays64),
+             bound_ms=max(d_bytes, d_ops),
+             bound_by="bytes" if d_bytes >= d_ops else "operations",
+             library_ms=None),
         dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
              replaces="src/repro/kernels/flash_attention.py:65",
              launches=(lm["launches"]["flash_attention"]
@@ -3061,7 +3488,8 @@ def main() -> int:
         main_path_folds=served, main_path_sketches=merged,
         main_path_f64=f64_runs, main_path_tagged=tagged,
         main_path_mesh=mesh_runs, main_path_pipelined=pipe_runs,
-        pipelined_profile=pipe_prof,
+        pipelined_profile=pipe_prof, fold_f64=fold64,
+        dense_f64=dense64, dense_f64_folds=replays64,
         main_path_tagged_sketches=tagged_merges, fold=folds,
         batched=batched, wrappers=wrappers, pilot=pilots, tight_plan=tight,
         lm_path=lm,

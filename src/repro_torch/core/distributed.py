@@ -4,9 +4,11 @@ serving tick and the device pilot.
 This mirrors ``repro.core.distributed``.  Everything is branchless
 (``torch.where`` over the modulation cases) and fp32-safe (values are
 pre-scaled by a per-anchor normalizer; ISLA is exactly scale-equivariant).
-The fp32 serving tick (``fused_tick_dense``) folds its dense pane through
-the hand-written CUDA kernel ``isla_fold`` on the card (its plain PyTorch
-version on the CPU), one launch for every key of the stack
+The dense tick (``fused_tick_dense``: the fp32 serving form, and on a
+float64 stack ``DeviceStack.tick(dense=...)``) folds its dense pane
+through the hand-written CUDA kernel ``isla_fold`` on the card (its
+float64 form for a float64 pane; its plain PyTorch version on the CPU),
+one launch for every key of the stack
 (``kernels.isla_moments.isla_fold_stack``), and a sketch stack's HLL
 register merge through ``isla_sketch``, also one launch a tick
 (``isla_sketch_stack``).  The tagged tick (``fused_tick``, the float64
@@ -418,7 +420,9 @@ def fold_panes(mom_s: torch.Tensor, mom_l: torch.Tensor,
     """Phase 1 of the dense tick: one ``isla_fold_stack`` launch adds the
     (n_blocks, quota_max) sample pane into every stacked key's resident
     rows, in place, reading each sample once for all keys (a stack of more
-    than ``MAX_KEYS`` keys takes a launch per ``MAX_KEYS``).
+    than ``MAX_KEYS`` keys takes a launch per ``MAX_KEYS``).  The pane,
+    ``bounds`` and the rows share one dtype (fp32, or float64: the fold's
+    float64 form); the masks are fp32.
 
     Key k reads the shared pane through its affine ``key_affine[k] =
     (ratio, offset)`` (its own anchor frame), classifies against row
@@ -498,7 +502,11 @@ def fused_tick_dense(mom_s: torch.Tensor, mom_l: torch.Tensor,
     """One device-resident continuation round on the dense block-major
     layout (see ``_dense_core``).  The four state tensors are updated in
     place (the reference donates them); returns ``(mom_s, mom_l, totals,
-    n_sampled, partials, rows)`` with ``rows`` per ``group_row_stats``."""
+    n_sampled, partials, rows)`` with ``rows`` per ``group_row_stats``.
+    fp32 (the serving form) or float64; in float64 each cell's delta is
+    summed, then added onto its row, as the reference's contraction and
+    vector add are, so the state sits within 1e-12 of the host carry
+    fold, not on it (``fused_tick`` is the bit-exact form)."""
     return _dense_core(mom_s, mom_l, totals, n_sampled, values2d,
                        pad_valid, quotas, gid_panes, valid_panes, bounds,
                        sketch0, sizes, inv_scale, params=params, mode=mode,
@@ -506,11 +514,6 @@ def fused_tick_dense(mom_s: torch.Tensor, mom_l: torch.Tensor,
                        gid_slots=gid_slots, valid_slots=valid_slots,
                        key_affine=key_affine, bound_slots=bound_slots,
                        active_cells=active_cells)
-
-
-# Where the part still to port stands in ROADMAP.md, by number and name
-# (the message of the NotImplementedError that refuses it).
-DENSE64_ITEM = "ROADMAP Queue A item 1b, 'The float64 dense tick'"
 
 
 # ---------------------------------------------------------------------------

@@ -885,8 +885,9 @@ class DeviceMomentStore:
         ``layout="auto"`` picks the dense pane when the stream is
         block-major canonical and the store runs fp32; float64 stores and
         other streams take the tagged tick (the bit-exact merge contract
-        in float64).  Force with "dense" (canonical streams only) or
-        "tagged".
+        in float64).  Force with "dense" (canonical streams only; a
+        float64 store folds the pane in float64, within 1e-12 of the host
+        fold, not bit for bit) or "tagged".
         """
         values = np.asarray(values, dtype=np.float64).reshape(-1)
         quotas_arr = np.asarray(quotas, dtype=np.int64).reshape(-1)
@@ -906,7 +907,9 @@ class DeviceMomentStore:
         if layout == "dense":
             # The stack's dense pane takes RAW measure values; this API
             # takes shifted ones (the MomentStore contract), so un-shift
-            # first — a float64 round trip well inside the fp32 tolerance.
+            # first, as the reference does — a float64 round trip that
+            # may move a value by an ulp, well inside the dense layout's
+            # tolerance at either dtype.
             out = stack.tick(
                 params, mode=mode, geometry=geometry,
                 values=values - self.shift, quotas=quotas_arr,
@@ -1328,16 +1331,21 @@ class DeviceStack:
            describe the stream raises at the tick's readback (or, on the
            host's checks, before the fold), clears every store's stats and
            leaves the stack unusable (released: its next tick raises).
-         * dense (fp32 stacks) — ``values`` is the FULL block-major chunk
-           stream of RAW (unshifted) measure values and ``dense=(key_gids,
+         * dense — ``values`` is the FULL block-major chunk stream of RAW
+           (unshifted) measure values and ``dense=(key_gids,
            key_valids)`` carries per-store (m,) GROUP BY codes / predicate
            masks (None where absent).  The stream is packed into one
-           (n_blocks, quota_max) pane, uploaded once, and each key folds it
-           in its own anchor frame through its affine
-           (``distributed.fused_tick_dense``: one ``isla_fold`` launch for
-           every key, then Phase 2 and the group rows).  A sketch stack
-           also ships the stream's RAW float64 bits as an int64 pane laid
-           out like the value pane (one ``isla_sketch`` launch).
+           (n_blocks, quota_max) pane of the stack's dtype (its masks
+           fp32), uploaded once, and each key folds it in its own anchor
+           frame through its affine (``distributed.fused_tick_dense``: one
+           ``isla_fold`` launch for every key, then Phase 2 and the group
+           rows).  A sketch stack also ships the stream's RAW float64 bits
+           as an int64 pane laid out like the value pane (one
+           ``isla_sketch`` launch).  A float64 stack folds the pane in
+           float64 (the fold's float64 form): the delta is summed, then
+           added onto each row, so its state sits within 1e-12 of the
+           host carry fold, not on it; a zone-pruned (compacted) launch
+           and the full-axis launch give every cell the same bits.
 
         ``quotas`` is the pass's per-block draw count.  With no draw the
         resident moments are re-solved (served from the stats cache when
@@ -1357,8 +1365,6 @@ class DeviceStack:
         the deferred copy, and a bad one raises at the first read of any
         of the stack's deferred stats, after the stack has been left
         unusable as above.
-
-        The dense payload on a float64 stack is not ported yet.
         """
         from . import distributed as D
 
@@ -1387,11 +1393,6 @@ class DeviceStack:
         if seg is None and dense is None:
             raise ValueError("a drawing tick needs seg= (tagged) or "
                              "dense=(key_gids, key_valids)")
-        if seg is None and self.dtype == torch.float64:
-            raise NotImplementedError(
-                "the dense payload on a float64 stack (tick(dense=...)) is "
-                f"not ported yet ({D.DENSE64_ITEM}); float64 stacks take "
-                "the tagged payload (seg=)")
 
         values = np.asarray(values, dtype=np.float64).reshape(-1)
         quotas = np.asarray(quotas, dtype=np.int64).reshape(-1)
@@ -1541,10 +1542,12 @@ class DeviceStack:
             panes = _DensePanes(pane_vals, pane_quotas, dense,
                                 values if self.has_sketch else None)
             gid_panes = tuple(D.h2d(g, torch.int32, dev) for g in panes.gids)
-            valid_panes = tuple(D.h2d(m, self.dtype, dev)
+            # 0/1 masks cross as fp32 whatever the stack's dtype: the
+            # fold and the register merge read them so, exactly.
+            valid_panes = tuple(D.h2d(m, torch.float32, dev)
                                 for m in panes.valids)
             v_dev = D.h2d(panes.v2d, self.dtype, dev)
-            pad_dev = D.h2d(panes.pad, self.dtype, dev)
+            pad_dev = D.h2d(panes.pad, torch.float32, dev)
             if self.has_sketch:
                 bits_dev = D.h2d(panes.bits2d, torch.int64, dev)
         D.book(timings, "h2d", time.perf_counter() - t_h)
@@ -1905,12 +1908,12 @@ class MeshDeviceStack(DeviceStack):
             panes = _DensePanes(pane_vals, pane_quotas, dense,
                                 values if self.has_sketch else None)
             gids = [D.mesh_h2d(mesh, g, rows, torch.int32) for g in panes.gids]
-            valids = [D.mesh_h2d(mesh, m, rows, self.dtype)
+            valids = [D.mesh_h2d(mesh, m, rows, torch.float32)
                       for m in panes.valids]
             gid_panes = [tuple(p[s] for p in gids) for s in range(S)]
             valid_panes = [tuple(p[s] for p in valids) for s in range(S)]
             v_dev = D.mesh_h2d(mesh, panes.v2d, rows, self.dtype)
-            pad_dev = D.mesh_h2d(mesh, panes.pad, rows, self.dtype)
+            pad_dev = D.mesh_h2d(mesh, panes.pad, rows, torch.float32)
             if self.has_sketch:
                 bits_dev = D.mesh_h2d(mesh, panes.bits2d, rows, torch.int64)
         D.book(timings, "h2d", time.perf_counter() - t_h)

@@ -1748,11 +1748,13 @@ class MultiQueryExecutor:
         chunk stream crosses once as a block-major pane, plus each key's
         GROUP BY codes / predicate mask, and each key recovers its frame
         from the pane via the stack's per-key affine.  A float64 stack
-        takes the tagged payload: each key's matched slice is shifted (and
-        scaled) on the host, placed by ``key_seg``, and the stack folds the
-        concatenated stream in order by its (key, block) run table
-        (``key_runs``; a sketch stack's registers key on the raw values'
-        limbs).
+        takes the tagged payload, as the reference's executor does (the
+        bit-exact carry fold; ``DeviceStack.tick(dense=...)`` folds a
+        float64 stack too, within 1e-12 of it): each key's matched slice
+        is shifted (and scaled) on the host, placed by ``key_seg``, and
+        the stack folds the concatenated stream in order by its (key,
+        block) run table (``key_runs``; a sketch stack's registers key on
+        the raw values' limbs).
 
         ``launch_async=True`` (the pipelined route) submits each chunk's
         payload build and tick (``run_chunk``) to the one launch worker

@@ -64,6 +64,21 @@
 //   contract them into an FMA: the plain PyTorch version rounds twice, and
 //   a sample on a cut must land in the same region in both.
 //
+//   Float64 (the dense tick of a float64 stack): the same kernel
+//   instantiated for double panes.  Values, cuts, key affines, partial-row
+//   slots, slice scratch and resident rows are all double; masks and ids
+//   keep their types.  Every add and multiply is __dadd_rn / __dmul_rn
+//   (the add_rn / mul_rn overloads, as in isla_tagged_fold), region tests
+//   are exact comparisons against double cuts, and the slot order is the
+//   fp32 kernel's: a cell's sum depends only on its row's samples and the
+//   pane's width, never on the pane's row count, so a compacted launch
+//   (active blocks only), the full-axis launch and a mesh shard's launch
+//   give a cell the same bits.  Bound: bytes (8 B a value); a double
+//   add is 1/2 the fp32 rate on the H100's CUDA cores, still far below
+//   the byte time at the serving panes.  The staged tile shrinks to hold
+//   8-byte values, and a block holds 64 partial-row slots at once (128
+//   at fp32), so its static shared memory stays under 8 KB.
+//
 // pilot_stats — the pre-estimation pass (pilot_moments_kernel).
 //   Replaces src/repro/kernels/isla_moments.py::pilot_stats_pallas
 //   (_pilot_kernel), which sums (count, sum x, sum x^2, min x) tile by
@@ -197,10 +212,8 @@ namespace {
 constexpr int kMaxKeys = 16;   // keys a launch folds; the wrapper raises above
 constexpr int kFoldThreads = 128;
 constexpr int kFoldWarps = kFoldThreads / 32;
-constexpr int kFoldBlocksPerSM = 8;  // <= 64 registers: 1000 rows, one wave
 constexpr int kSortGroups = 256;  // a GROUP BY pane is bucketed up to this
 constexpr int kBucketLanes = 8;   // lanes a bucketed group's task gives it
-constexpr int kRowSlots = 128;    // partial rows a fold block holds at once
 static_assert(kFoldWarps == 4 && kBucketLanes == 8,
               "a key's split_shift and group_shift are log2 of these");
 constexpr int kCols = 11;
@@ -228,16 +241,57 @@ constexpr int kRunBlocksPerSM = 8;  // <= 64 registers: a run's time is
 constexpr unsigned kRunSkip = 0xffffffffu;  // a staged sample no cell takes
 constexpr int kColumnBatch = 8;   // samples a column chain loads at once
 
+// The fold's arithmetic type for a pane's value type: fp32 for fp32 and
+// bf16 panes (bf16 is staged as fp32), float64 for float64 panes.  Cuts,
+// key affines, partial-row slots, slice scratch and resident rows are of
+// this type; masks stay fp32 and ids int32.
+template <typename T>
+struct FoldAcc {
+  using type = float;
+};
+template <>
+struct FoldAcc<double> {
+  using type = double;
+};
+
+// Partial-row slots a fold block holds at once: 64 at float64, so the
+// block's static shared memory stays under 8 KB (the staged tile takes up
+// to STAGE_BYTES of the 48 KB a block gets without opting in).
+template <typename A>
+constexpr int kRowSlots = sizeof(A) == 4 ? 128 : 64;
+// Blocks a fold SM holds: <= 64 registers a thread, so a 1000-row pane
+// runs in one wave.  The float64 form spills 92 B a thread at this cap;
+// at 4 blocks an SM it takes 128 registers and spills nothing, but runs
+// 1.2-1.3x slower on the serving loop's panes (two waves).
+template <typename A>
+constexpr int kFoldBlocksPerSM = 8;
+
+// Round-to-nearest adds and multiplies that nvcc never contracts into an
+// FMA, one overload a type, so a fold is one template.
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+
 // One stacked key of a fold launch, with its share of a row's work: its
 // cells are cut into warp tasks of 32 / lanes groups (lanes a group), and
 // an ungrouped key's one cell into `splits` tasks over the samples.  Each
 // (group, split) sums into its own partial-row slot.
+template <typename A>
 struct FoldKey {
   int n_groups;
   int gid_slot;         // staged GROUP BY pane, -1: ungrouped
   unsigned need;        // mask bits a sample must carry: pad | predicate
   int affine;
-  float ratio, off;
+  A ratio, off;
   int bound_row;        // row of the cuts table, -1: per-row cuts (row r)
   int bucketed;         // groups walk their bucket, not the whole tile
   int lanes;            // lanes a group gets in a task (power of two)
@@ -253,36 +307,38 @@ struct FoldKey {
 
 // Everything a fold launch reads, passed by value (__grid_constant__): the
 // key table rides in the kernel's parameters, so a launch uploads nothing.
+template <typename A>
 struct FoldArgs {
   const void* x;
   long long n_rows, row_stride, n_chunks, chunk_len, chunk_stride;
-  const float* bounds;
+  const A* bounds;
   const float* pad;
   const float* valid[kMaxKeys];
   const int* gid[kMaxKeys];
-  float* s_out;
-  float* l_out;
-  float* t_out;
+  A* s_out;
+  A* l_out;
+  A* t_out;
   long long s_stride, l_stride, t_stride;
   const int* cell_idx;
   long long n_out_rows;
   long long slice_len;
-  float* slices;
+  A* slices;
   int n_slices, n_valid, n_gid, tile, vec, n_keys;
   int n_tasks, n_slots;       // a row's warp tasks and partial-row slots
   int sort_groups;            // the most groups a bucketed pane has
   int slot_groups[kMaxKeys];  // groups a staged id pane is bucketed by,
                               // 0: its keys scan the tile
-  FoldKey keys[kMaxKeys];
+  FoldKey<A> keys[kMaxKeys];
 };
 
-// A fold block's dynamic shared memory for `tile` samples: values, mask
-// words, each id pane's ids, then for the bucketed panes each pane's
-// bucket starts and order (sample indices, group by group) and per-warp
-// counters and peer masks to build them; the wrapper's fold_stage
-// computes the same size.
+// A fold block's dynamic shared memory for `tile` samples: values (of the
+// fold's type), mask words, each id pane's ids, then for the bucketed
+// panes each pane's bucket starts and order (sample indices, group by
+// group) and per-warp counters and peer masks to build them; the
+// wrapper's fold_stage computes the same size.
+template <typename A>
 struct FoldSmem {
-  float* val;
+  A* val;
   unsigned* mask;
   int* gid;
   int* start;
@@ -291,10 +347,11 @@ struct FoldSmem {
   unsigned short* order;
 };
 
-__device__ __forceinline__ FoldSmem fold_smem(unsigned char* base,
-                                              const FoldArgs& a) {
-  FoldSmem m;
-  m.val = reinterpret_cast<float*>(base);
+template <typename A>
+__device__ __forceinline__ FoldSmem<A> fold_smem(unsigned char* base,
+                                                 const FoldArgs<A>& a) {
+  FoldSmem<A> m;
+  m.val = reinterpret_cast<A*>(base);
   m.mask = reinterpret_cast<unsigned*>(m.val + a.tile);
   m.gid = reinterpret_cast<int*>(m.mask + a.tile);
   m.start = m.gid + a.n_gid * a.tile;
@@ -314,47 +371,82 @@ __device__ __forceinline__ float load_value(const __nv_bfloat16* p,
   return __bfloat162float(p[i]);
 }
 
-__device__ __forceinline__ float4 load_value4(const float* p, long long i) {
-  return *reinterpret_cast<const float4*>(p + i);
+__device__ __forceinline__ double load_value(const double* p, long long i) {
+  return p[i];
 }
 
-__device__ __forceinline__ float4 load_value4(const __nv_bfloat16* p,
-                                              long long i) {
+// Stages the four values at p[i..i + 4) (16-byte aligned, 32 at float64)
+// into dst, converted to the fold's type.
+__device__ __forceinline__ void stage_quad(const float* p, long long i,
+                                           float* dst) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(p + i);
+}
+
+__device__ __forceinline__ void stage_quad(const __nv_bfloat16* p,
+                                           long long i, float* dst) {
   const uint2 u = *reinterpret_cast<const uint2*>(p + i);
   const float2 a = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void stage_quad(const double* p, long long i,
+                                           double* dst) {
+  const double2* s = reinterpret_cast<const double2*>(p + i);
+  double2* d = reinterpret_cast<double2*>(dst);
+  d[0] = s[0];
+  d[1] = s[1];
+}
+
+// The staged quad at p (shared memory) as four values.
+__device__ __forceinline__ void staged_quad(const float* p, float (&x)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  x[0] = q.x;
+  x[1] = q.y;
+  x[2] = q.z;
+  x[3] = q.w;
+}
+
+__device__ __forceinline__ void staged_quad(const double* p,
+                                            double (&x)[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
 }
 
 __device__ __forceinline__ unsigned nz(float v) { return v != 0.0f; }
 
 // Adds one cell's 11 sums onto its resident rows.
-__device__ __forceinline__ void add_cell_row(const float* tot,
-                                             long long dest,
-                                             const FoldArgs& a) {
-  float* so = a.s_out + dest * a.s_stride;
-  float* lo = a.l_out + dest * a.l_stride;
+template <typename A>
+__device__ __forceinline__ void add_cell_row(const A* tot, long long dest,
+                                             const FoldArgs<A>& a) {
+  A* so = a.s_out + dest * a.s_stride;
+  A* lo = a.l_out + dest * a.l_stride;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    so[k] += tot[k];
-    lo[k] += tot[4 + k];
+    so[k] = add_rn(so[k], tot[k]);
+    lo[k] = add_rn(lo[k], tot[4 + k]);
   }
   if (a.t_out != nullptr) {
-    float* to = a.t_out + dest * a.t_stride;
+    A* to = a.t_out + dest * a.t_stride;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) to[k] += tot[8 + k];
+    for (int k = 0; k < 3; ++k) to[k] = add_rn(to[k], tot[8 + k]);
   }
 }
 
-// Stages samples [base, base + len) of row r in shared memory: fp32
-// values, one mask word a sample, each GROUP BY pane's ids.  Entries past
-// len up to the next multiple of 4 get mask 0, so they match no key.
+// Stages samples [base, base + len) of row r in shared memory: values of
+// the fold's type, one mask word a sample, each GROUP BY pane's ids.
+// Entries past len up to the next multiple of 4 get mask 0, so they match
+// no key.
 template <typename T>
-__device__ __forceinline__ void stage_tile(const FoldArgs& a, long long r,
-                                           long long base, int len,
-                                           const FoldSmem& m) {
+__device__ __forceinline__ void stage_tile(
+    const FoldArgs<typename FoldAcc<T>::type>& a, long long r,
+    long long base, int len, const FoldSmem<typename FoldAcc<T>::type>& m) {
   const T* x = static_cast<const T*>(a.x);
   const long long row = r * a.row_stride;
   const int nq = (len + 3) >> 2;
@@ -367,7 +459,7 @@ __device__ __forceinline__ void stage_tile(const FoldArgs& a, long long r,
           row + (a.n_chunks > 1
                      ? (s / a.chunk_len) * a.chunk_stride + s % a.chunk_len
                      : s);
-      *reinterpret_cast<float4*>(m.val + i) = load_value4(x, e);
+      stage_quad(x, e, m.val + i);
       uint4 w = make_uint4(1u, 1u, 1u, 1u);
       if (a.pad != nullptr) {
         const float4 p = *reinterpret_cast<const float4*>(a.pad + e);
@@ -390,7 +482,7 @@ __device__ __forceinline__ void stage_tile(const FoldArgs& a, long long r,
     for (int b = 0; b < 4; ++b) {
       const int ii = i + b;
       if (ii >= len) {
-        m.val[ii] = 0.0f;
+        m.val[ii] = 0;
         m.mask[ii] = 0u;
         for (int gs = 0; gs < a.n_gid; ++gs) m.gid[gs * a.tile + ii] = -1;
         continue;
@@ -419,8 +511,9 @@ __device__ __forceinline__ void stage_tile(const FoldArgs& a, long long r,
 // then a second pass writes each sample's index at its place:
 // start[g] .. start[g + 1] holds group g's samples in sample order.  Ids
 // outside [0, G) and dead samples are left out.
-__device__ __forceinline__ void bucket_slot(const FoldArgs& a,
-                                            const FoldSmem& m, int s,
+template <typename A>
+__device__ __forceinline__ void bucket_slot(const FoldArgs<A>& a,
+                                            const FoldSmem<A>& m, int s,
                                             int len) {
   const int G = a.slot_groups[s], gmax = a.sort_groups;
   const int* ids = m.gid + s * a.tile;
@@ -501,9 +594,9 @@ __device__ __forceinline__ void bucket_slot(const FoldArgs& a,
 // Stages a tile, then buckets each id pane that is bucketed.  Ends with
 // the block synchronised.
 template <typename T>
-__device__ __forceinline__ void prepare_tile(const FoldArgs& a, long long r,
-                                             long long base, int len,
-                                             const FoldSmem& m) {
+__device__ __forceinline__ void prepare_tile(
+    const FoldArgs<typename FoldAcc<T>::type>& a, long long r,
+    long long base, int len, const FoldSmem<typename FoldAcc<T>::type>& m) {
   stage_tile<T>(a, r, base, len, m);
   __syncthreads();
   bool bucketed = false;
@@ -520,33 +613,36 @@ __device__ __forceinline__ void prepare_tile(const FoldArgs& a, long long r,
 // it), else adds +0, which leaves every sum's bits as they are (a sum that
 // starts at +0 never becomes -0).  No branch: the lanes of a warp stay
 // together whatever their samples.
-__device__ __forceinline__ void accumulate(const FoldKey& key, float v,
-                                           bool ok, const float* b,
-                                           float* acc) {
-  if (key.affine) v = __fadd_rn(__fmul_rn(v, key.ratio), key.off);
-  const float v2 = __fmul_rn(v, v);
-  const float v3 = __fmul_rn(v2, v);
+template <typename A>
+__device__ __forceinline__ void accumulate(const FoldKey<A>& key, A v,
+                                           bool ok, const A* b, A* acc) {
+  if (key.affine) v = add_rn(mul_rn(v, key.ratio), key.off);
+  const A v2 = mul_rn(v, v);
+  const A v3 = mul_rn(v2, v);
   const bool in_s = ok && v > b[0] && v < b[1];
   const bool in_l = ok && v > b[2] && v < b[3];
-  acc[0] += in_s ? 1.0f : 0.0f;
-  acc[1] += in_s ? v : 0.0f;
-  acc[2] += in_s ? v2 : 0.0f;
-  acc[3] += in_s ? v3 : 0.0f;
-  acc[4] += in_l ? 1.0f : 0.0f;
-  acc[5] += in_l ? v : 0.0f;
-  acc[6] += in_l ? v2 : 0.0f;
-  acc[7] += in_l ? v3 : 0.0f;
-  acc[8] += ok ? 1.0f : 0.0f;
-  acc[9] += ok ? v : 0.0f;
-  acc[10] += ok ? v2 : 0.0f;
+  const A one = 1, zero = 0;
+  acc[0] = add_rn(acc[0], in_s ? one : zero);
+  acc[1] = add_rn(acc[1], in_s ? v : zero);
+  acc[2] = add_rn(acc[2], in_s ? v2 : zero);
+  acc[3] = add_rn(acc[3], in_s ? v3 : zero);
+  acc[4] = add_rn(acc[4], in_l ? one : zero);
+  acc[5] = add_rn(acc[5], in_l ? v : zero);
+  acc[6] = add_rn(acc[6], in_l ? v2 : zero);
+  acc[7] = add_rn(acc[7], in_l ? v3 : zero);
+  acc[8] = add_rn(acc[8], ok ? one : zero);
+  acc[9] = add_rn(acc[9], ok ? v : zero);
+  acc[10] = add_rn(acc[10], ok ? v2 : zero);
 }
 
 // Adds the staged samples of group g that the key admits, quads j, j + p,
 // ... in order, onto acc (an ungrouped key, or ids not bucketed).
-__device__ __forceinline__ void scan_tile(const FoldKey& key, int g, int j,
-                                          int p, int len, const FoldSmem& m,
-                                          const int* gids, const float* b,
-                                          float* acc) {
+template <typename A>
+__device__ __forceinline__ void scan_tile(const FoldKey<A>& key, int g,
+                                          int j, int p, int len,
+                                          const FoldSmem<A>& m,
+                                          const int* gids, const A* b,
+                                          A* acc) {
   const unsigned need = key.need;
   const int nq = (len + 3) >> 2;
   for (int qd = j; qd < nq; qd += p) {
@@ -560,20 +656,23 @@ __device__ __forceinline__ void scan_tile(const FoldKey& key, int g, int j,
       if (!(ok[0] || ok[1] || ok[2] || ok[3])) continue;
     }
     const uint4 w = *reinterpret_cast<const uint4*>(m.mask + 4 * qd);
-    const float4 x = *reinterpret_cast<const float4*>(m.val + 4 * qd);
-    accumulate(key, x.x, ok[0] && (w.x & need) == need, b, acc);
-    accumulate(key, x.y, ok[1] && (w.y & need) == need, b, acc);
-    accumulate(key, x.z, ok[2] && (w.z & need) == need, b, acc);
-    accumulate(key, x.w, ok[3] && (w.w & need) == need, b, acc);
+    A x[4];
+    staged_quad(m.val + 4 * qd, x);
+    accumulate(key, x[0], ok[0] && (w.x & need) == need, b, acc);
+    accumulate(key, x[1], ok[1] && (w.y & need) == need, b, acc);
+    accumulate(key, x[2], ok[2] && (w.z & need) == need, b, acc);
+    accumulate(key, x[3], ok[3] && (w.w & need) == need, b, acc);
   }
 }
 
 // Adds group g's bucketed samples that the key admits, entries j, j + p,
 // ... of its bucket (sample order), onto acc.
-__device__ __forceinline__ void walk_bucket(const FoldArgs& a,
-                                            const FoldKey& key, int g, int j,
-                                            int p, const FoldSmem& m,
-                                            const float* b, float* acc) {
+template <typename A>
+__device__ __forceinline__ void walk_bucket(const FoldArgs<A>& a,
+                                            const FoldKey<A>& key, int g,
+                                            int j, int p,
+                                            const FoldSmem<A>& m, const A* b,
+                                            A* acc) {
   const int* start = m.start + key.gid_slot * (a.sort_groups + 1);
   const unsigned short* order = m.order + key.gid_slot * a.tile;
   const unsigned need = key.need;
@@ -586,14 +685,14 @@ __device__ __forceinline__ void walk_bucket(const FoldArgs& a,
 // Writes cell (key, g) of row r: adds its sums onto its resident row (a
 // dropped map entry writes nothing), or stores them as the slice's partial
 // row when the row is sliced.
-__device__ __forceinline__ void emit_cell(const FoldArgs& a,
-                                          const FoldKey& key, int g,
+template <typename A>
+__device__ __forceinline__ void emit_cell(const FoldArgs<A>& a,
+                                          const FoldKey<A>& key, int g,
                                           long long r, int sl,
-                                          const float* tot) {
+                                          const A* tot) {
   const long long cell = static_cast<long long>(g) * a.n_rows + r;
   if (a.n_slices > 1) {  // a slice's partial row, combined next
-    float* dst =
-        a.slices + ((key.cell_base + cell) * a.n_slices + sl) * kCols;
+    A* dst = a.slices + ((key.cell_base + cell) * a.n_slices + sl) * kCols;
 #pragma unroll
     for (int q = 0; q < kCols; ++q) dst[q] = tot[q];
     return;
@@ -611,16 +710,21 @@ __device__ __forceinline__ void emit_cell(const FoldArgs& a,
 // summing a few groups' samples (or a quarter of an ungrouped cell's) with
 // a fixed shuffle tree into partial-row slots in shared memory; then the
 // block adds each cell's slots, in slot order, onto the cell's row.  Slots
-// beyond kRowSlots are taken in batches.
+// beyond kRowSlots are taken in batches.  T is the pane's value type
+// (float, __nv_bfloat16 or double), A the fold's type.
 template <typename T>
-__global__ void __launch_bounds__(kFoldThreads, kFoldBlocksPerSM)
-isla_fold_kernel(const __grid_constant__ FoldArgs a) {
+__global__ void __launch_bounds__(
+    kFoldThreads, kFoldBlocksPerSM<typename FoldAcc<T>::type>)
+isla_fold_kernel(
+    const __grid_constant__ FoldArgs<typename FoldAcc<T>::type> a) {
+  using A = typename FoldAcc<T>::type;
+  constexpr int kSlots = kRowSlots<A>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const FoldSmem m = fold_smem(smem, a);
-  __shared__ float cuts_of[kMaxKeys][4];
-  __shared__ float part[kRowSlots][kCols];
+  const FoldSmem<A> m = fold_smem(smem, a);
+  __shared__ A cuts_of[kMaxKeys][4];
+  __shared__ A part[kSlots][kCols];
   // The key table, read at every task: a copy in shared memory.
-  __shared__ FoldKey keys[kMaxKeys];
+  __shared__ FoldKey<A> keys[kMaxKeys];
 
   const long long r = blockIdx.x;
   const int sl = blockIdx.y;
@@ -631,18 +735,18 @@ isla_fold_kernel(const __grid_constant__ FoldArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid < 4 * a.n_keys) {
-    const FoldKey& key = a.keys[tid >> 2];
+    const FoldKey<A>& key = a.keys[tid >> 2];
     cuts_of[tid >> 2][tid & 3] =
         a.bounds[4 * (key.bound_row >= 0 ? key.bound_row : r) + (tid & 3)];
   }
-  static_assert(sizeof(FoldKey) % 4 == 0, "FoldKey copies word by word");
-  for (int q = tid; q < a.n_keys * static_cast<int>(sizeof(FoldKey)) / 4;
+  static_assert(sizeof(FoldKey<A>) % 4 == 0, "FoldKey copies word by word");
+  for (int q = tid; q < a.n_keys * static_cast<int>(sizeof(FoldKey<A>)) / 4;
        q += kFoldThreads)
     reinterpret_cast<int*>(keys)[q] = reinterpret_cast<const int*>(a.keys)[q];
   if (n_tiles == 1) prepare_tile<T>(a, r, i0, span, m);
-  for (int b0 = 0; b0 < a.n_slots; b0 += kRowSlots) {
-    for (int q = tid; q < kRowSlots * kCols; q += kFoldThreads)
-      part[q / kCols][q % kCols] = 0.0f;
+  for (int b0 = 0; b0 < a.n_slots; b0 += kSlots) {
+    for (int q = tid; q < kSlots * kCols; q += kFoldThreads)
+      part[q / kCols][q % kCols] = 0;
     __syncthreads();
     for (int t = 0; t < n_tiles; ++t) {
       const int len = min(a.tile, span - t * a.tile);
@@ -654,18 +758,18 @@ isla_fold_kernel(const __grid_constant__ FoldArgs a) {
       int k = 0;  // a warp's tasks ascend, so their keys do too
       for (int task = warp; task < a.n_tasks; task += kFoldWarps) {
         while (k + 1 < a.n_keys && task >= keys[k + 1].task_base) ++k;
-        const FoldKey& key = keys[k];
+        const FoldKey<A>& key = keys[k];
         const int u = task - key.task_base;
         const int split = u & (key.splits - 1);
         const int p = key.lanes;
         const int g0 = (u >> key.split_shift) << key.group_shift;
         const int slot0 = key.slot_base + g0 * key.splits + split;
-        if (slot0 < b0 || slot0 >= b0 + kRowSlots) continue;  // warp-uniform
+        if (slot0 < b0 || slot0 >= b0 + kSlots) continue;  // warp-uniform
         const int g = g0 + lane / p;
         const int j = lane & (p - 1);
-        float acc[kCols];
+        A acc[kCols];
 #pragma unroll
-        for (int q = 0; q < kCols; ++q) acc[q] = 0.0f;
+        for (int q = 0; q < kCols; ++q) acc[q] = 0;
         if (g < key.n_groups) {
           if (key.bucketed)
             walk_bucket(a, key, g, j, p, m, cuts_of[k], acc);
@@ -680,32 +784,34 @@ isla_fold_kernel(const __grid_constant__ FoldArgs a) {
         for (int o = p >> 1; o > 0; o >>= 1) {
 #pragma unroll
           for (int q = 0; q < kCols; ++q)
-            acc[q] += __shfl_down_sync(0xffffffffu, acc[q], o, p);
+            acc[q] = add_rn(acc[q],
+                            __shfl_down_sync(0xffffffffu, acc[q], o, p));
         }
         if (j == 0 && g < key.n_groups) {
-          float* dst = part[key.slot_base + g * key.splits + split - b0];
+          A* dst = part[key.slot_base + g * key.splits + split - b0];
 #pragma unroll
-          for (int q = 0; q < kCols; ++q) dst[q] += acc[q];
+          for (int q = 0; q < kCols; ++q) dst[q] = add_rn(dst[q], acc[q]);
         }
       }
     }
     __syncthreads();
     // Each cell's slots added in slot order, the cells written out together.
-    const int b1 = min(a.n_slots, b0 + kRowSlots);
+    const int b1 = min(a.n_slots, b0 + kSlots);
     for (int s = b0 + tid; s < b1; s += kFoldThreads) {
       int k = 0;
       while (k + 1 < a.n_keys && s >= keys[k + 1].slot_base) ++k;
-      const FoldKey& key = keys[k];
+      const FoldKey<A>& key = keys[k];
       const int rel = s - key.slot_base;
       if ((rel & (key.splits - 1)) != 0 ||
           (rel >> key.split_shift) >= key.n_groups)
         continue;  // a later split of a cell, or an alignment gap
-      float tot[kCols];
+      A tot[kCols];
 #pragma unroll
       for (int q = 0; q < kCols; ++q) tot[q] = part[s - b0][q];
       for (int x = 1; x < key.splits; ++x) {
 #pragma unroll
-        for (int q = 0; q < kCols; ++q) tot[q] += part[s - b0 + x][q];
+        for (int q = 0; q < kCols; ++q)
+          tot[q] = add_rn(tot[q], part[s - b0 + x][q]);
       }
       emit_cell(a, key, rel >> key.split_shift, r, sl, tot);
     }
@@ -715,8 +821,9 @@ isla_fold_kernel(const __grid_constant__ FoldArgs a) {
 
 // One thread per cell of every key: its slices' partial rows added in
 // slice order onto its row.
+template <typename A>
 __global__ void __launch_bounds__(kFoldThreads)
-isla_fold_combine_kernel(const __grid_constant__ FoldArgs a,
+isla_fold_combine_kernel(const __grid_constant__ FoldArgs<A> a,
                          long long n_cells) {
   const long long f =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -729,13 +836,13 @@ isla_fold_combine_kernel(const __grid_constant__ FoldArgs a,
     dest = a.cell_idx[c];
     if (dest < 0 || dest >= a.n_out_rows) return;
   }
-  const float* p = a.slices + f * a.n_slices * kCols;
-  float tot[kCols];
+  const A* p = a.slices + f * a.n_slices * kCols;
+  A tot[kCols];
 #pragma unroll
   for (int q = 0; q < kCols; ++q) tot[q] = p[q];
   for (int sl = 1; sl < a.n_slices; ++sl) {
 #pragma unroll
-    for (int q = 0; q < kCols; ++q) tot[q] += p[sl * kCols + q];
+    for (int q = 0; q < kCols; ++q) tot[q] = add_rn(tot[q], p[sl * kCols + q]);
   }
   add_cell_row(tot, dest, a);
 }
@@ -1085,21 +1192,6 @@ isla_sketch_kernel(const __grid_constant__ SketchArgs a) {
     for (int kk = 0; kk < 4; ++kk)
       if (word[kk] != nullptr) raise_rank(word[kk], old[kk], shift, rho);
   }
-}
-
-// Round-to-nearest adds and multiplies that nvcc never contracts into an
-// FMA, one overload a type, so the fold is one template.
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
 }
 
 // A sample's region bits under a cell's cuts (s_lo, s_hi, l_lo, l_hi): 1
@@ -1542,93 +1634,99 @@ int launch_tagged_runs(const void* values, const int* seg, long long m,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// The host side of a fold launch (isla_fold's arguments), then its
+// launch for pane values of type T.
+struct FoldLaunch {
+  const void* x;
+  long long n_rows, row_stride, n_chunks, chunk_len, chunk_stride;
+  const void* bounds;
+  const float* pad;
+  const void* const* valid;
+  int n_valid;
+  const void* const* gid;
+  int n_gid;
+  void* s_out;
+  long long s_stride;
+  void* l_out;
+  long long l_stride;
+  void* t_out;
+  long long t_stride;
+  const int* cell_idx;
+  long long n_out_rows;
+  int n_keys;
+  const int* kint;
+  const double* kflt;
+  const long long* koff;
+  const int* slot_groups;
+  long long slice_len;
+  int n_slices;
+  void* slices;
+  int tile, vec;
+  cudaStream_t stream;
+};
 
-extern "C" {
-
-// One fold launch over n_keys stacked keys.  Host arrays describe the
-// keys: kint (n_keys, 5) = (n_groups, gid_slot, valid_slot, affine,
-// bound_row), kflt (n_keys, 2) = (ratio, off), koff (n_keys,) = out_off;
-// valid / gid (n_valid / n_gid device pointers) are the panes the slots
-// name, and slot_groups (n_gid,) the groups each id pane is bucketed by
-// (0: scanned; at most kSortGroups).  slices: (cells of all keys *
-// n_slices, 11) fp32 scratch when n_slices > 1 (a second kernel then
-// combines them), else unused.  tile: samples a block stages at once (a
-// multiple of 32; the wrapper's fold_stage keeps FoldSmem under budget);
-// vec: every pane 16-byte aligned (bf16 values 8), row_stride, chunk_len
-// and chunk_stride multiples of 4.
-// Returns cudaGetLastError() after the launches (0 = launched).
-int isla_fold(const void* x, int x_bf16, long long n_rows,
-              long long row_stride, long long n_chunks, long long chunk_len,
-              long long chunk_stride, const float* bounds, const float* pad,
-              const void* const* valid, int n_valid, const void* const* gid,
-              int n_gid, float* s_out, long long s_stride, float* l_out,
-              long long l_stride, float* t_out, long long t_stride,
-              const int* cell_idx, long long n_out_rows, int n_keys,
-              const int* kint, const float* kflt, const long long* koff,
-              const int* slot_groups, long long slice_len, int n_slices,
-              float* slices, int tile, int vec, void* stream) {
-  if (n_rows <= 0 || n_keys <= 0) return 0;
-  if (n_keys > kMaxKeys || n_valid > kMaxKeys || n_gid > kMaxKeys)
-    return static_cast<int>(cudaErrorInvalidValue);
-  FoldArgs a = {};
-  a.x = x;
-  a.n_rows = n_rows;
-  a.row_stride = row_stride;
-  a.n_chunks = n_chunks;
-  a.chunk_len = chunk_len;
-  a.chunk_stride = chunk_stride;
-  a.bounds = bounds;
-  a.pad = pad;
-  for (int v = 0; v < n_valid; ++v)
-    a.valid[v] = static_cast<const float*>(valid[v]);
-  for (int gs = 0; gs < n_gid; ++gs)
-    a.gid[gs] = static_cast<const int*>(gid[gs]);
-  a.s_out = s_out;
-  a.l_out = l_out;
-  a.t_out = t_out;
-  a.s_stride = s_stride;
-  a.l_stride = l_stride;
-  a.t_stride = t_stride;
-  a.cell_idx = cell_idx;
-  a.n_out_rows = n_out_rows;
-  a.slice_len = slice_len;
-  a.slices = slices;
-  a.n_slices = n_slices;
-  a.n_valid = n_valid;
-  a.n_gid = n_gid;
-  a.tile = tile;
-  a.vec = vec;
-  a.n_keys = n_keys;
-  for (int gs = 0; gs < n_gid; ++gs) {
-    a.slot_groups[gs] = slot_groups[gs];
-    if (slot_groups[gs] > kSortGroups)
+template <typename T>
+int launch_fold(const FoldLaunch& f) {
+  using A = typename FoldAcc<T>::type;
+  FoldArgs<A> a = {};
+  a.x = f.x;
+  a.n_rows = f.n_rows;
+  a.row_stride = f.row_stride;
+  a.n_chunks = f.n_chunks;
+  a.chunk_len = f.chunk_len;
+  a.chunk_stride = f.chunk_stride;
+  a.bounds = static_cast<const A*>(f.bounds);
+  a.pad = f.pad;
+  for (int v = 0; v < f.n_valid; ++v)
+    a.valid[v] = static_cast<const float*>(f.valid[v]);
+  for (int gs = 0; gs < f.n_gid; ++gs)
+    a.gid[gs] = static_cast<const int*>(f.gid[gs]);
+  a.s_out = static_cast<A*>(f.s_out);
+  a.l_out = static_cast<A*>(f.l_out);
+  a.t_out = static_cast<A*>(f.t_out);
+  a.s_stride = f.s_stride;
+  a.l_stride = f.l_stride;
+  a.t_stride = f.t_stride;
+  a.cell_idx = f.cell_idx;
+  a.n_out_rows = f.n_out_rows;
+  a.slice_len = f.slice_len;
+  a.slices = static_cast<A*>(f.slices);
+  a.n_slices = f.n_slices;
+  a.n_valid = f.n_valid;
+  a.n_gid = f.n_gid;
+  a.tile = f.tile;
+  a.vec = f.vec;
+  a.n_keys = f.n_keys;
+  for (int gs = 0; gs < f.n_gid; ++gs) {
+    a.slot_groups[gs] = f.slot_groups[gs];
+    if (f.slot_groups[gs] > kSortGroups)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (slot_groups[gs] > a.sort_groups) a.sort_groups = slot_groups[gs];
+    if (f.slot_groups[gs] > a.sort_groups) a.sort_groups = f.slot_groups[gs];
   }
+  const int* kint = f.kint;
   // An ungrouped key's cell is shared by every warp only when the row has
   // fewer tasks than warps otherwise: a split costs a shuffle tree more.
   int lone_tasks = 0;
-  for (int k = 0; k < n_keys; ++k) {
+  for (int k = 0; k < f.n_keys; ++k) {
     const int G = kint[5 * k], gs = kint[5 * k + 1];
-    lone_tasks += G > 1 && gs >= 0 && slot_groups[gs] > 0
+    lone_tasks += G > 1 && gs >= 0 && f.slot_groups[gs] > 0
                       ? (G + 32 / kBucketLanes - 1) / (32 / kBucketLanes)
                       : G;
   }
   const bool split = lone_tasks < kFoldWarps;
   long long cells = 0;
-  for (int k = 0; k < n_keys; ++k) {
-    FoldKey& key = a.keys[k];
+  for (int k = 0; k < f.n_keys; ++k) {
+    FoldKey<A>& key = a.keys[k];
     key.n_groups = kint[5 * k];
     key.gid_slot = kint[5 * k + 1];
     key.need = kint[5 * k + 2] >= 0 ? 1u | (2u << kint[5 * k + 2]) : 1u;
     key.affine = kint[5 * k + 3];
     key.bound_row = kint[5 * k + 4];
-    key.ratio = kflt[2 * k];
-    key.off = kflt[2 * k + 1];
-    key.out_off = koff[k];
+    key.ratio = static_cast<A>(f.kflt[2 * k]);
+    key.off = static_cast<A>(f.kflt[2 * k + 1]);
+    key.out_off = f.koff[k];
     key.cell_base = cells;
-    cells += static_cast<long long>(key.n_groups) * n_rows;
+    cells += static_cast<long long>(key.n_groups) * f.n_rows;
     // A GROUP BY key's groups take kBucketLanes lanes each from their
     // bucket (32 lanes each when its ids are scanned); an ungrouped key's
     // one cell is shared by every warp of the block.
@@ -1644,24 +1742,73 @@ int isla_fold(const void* x, int x_bf16, long long n_rows,
     a.n_tasks += key.splits * ((key.n_groups + per_task - 1) / per_task);
     a.n_slots += (key.n_groups * key.splits + 3) / 4 * 4;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(n_rows),
-                  static_cast<unsigned>(n_slices));
-  const size_t smem = static_cast<size_t>(tile) * (8 + 6 * n_gid) +
-                      4 * static_cast<size_t>(n_gid) * (a.sort_groups + 1) +
-                      8 * kFoldWarps * static_cast<size_t>(a.sort_groups);
-  if (x_bf16)
-    isla_fold_kernel<__nv_bfloat16><<<grid, kFoldThreads, smem, st>>>(a);
-  else
-    isla_fold_kernel<float><<<grid, kFoldThreads, smem, st>>>(a);
-  if (n_slices > 1) {
+  const dim3 grid(static_cast<unsigned>(f.n_rows),
+                  static_cast<unsigned>(f.n_slices));
+  const size_t smem =
+      static_cast<size_t>(f.tile) * (sizeof(A) + 4 + 6 * f.n_gid) +
+      4 * static_cast<size_t>(f.n_gid) * (a.sort_groups + 1) +
+      8 * kFoldWarps * static_cast<size_t>(a.sort_groups);
+  isla_fold_kernel<T><<<grid, kFoldThreads, smem, f.stream>>>(a);
+  if (f.n_slices > 1) {
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     const unsigned cgrid =
         static_cast<unsigned>((cells + kFoldThreads - 1) / kFoldThreads);
-    isla_fold_combine_kernel<<<cgrid, kFoldThreads, 0, st>>>(a, cells);
+    isla_fold_combine_kernel<A><<<cgrid, kFoldThreads, 0, f.stream>>>(
+        a, cells);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// One fold launch over n_keys stacked keys.  x_type: the pane's values
+// are fp32 (0), bf16 (1) or float64 (2); bounds (n_b, 4), s_out / l_out
+// (N, 4), t_out (N, 3) and slices are of the fold's type (fp32, or
+// float64 for a float64 pane).  Host arrays describe the keys: kint
+// (n_keys, 5) = (n_groups, gid_slot, valid_slot, affine, bound_row), kflt
+// (n_keys, 2) = (ratio, off) as doubles (rounded to fp32 for an fp32
+// fold), koff (n_keys,) = out_off; valid / gid (n_valid / n_gid device
+// pointers, fp32 and int32) are the panes the slots name, and slot_groups
+// (n_gid,) the groups each id pane is bucketed by (0: scanned; at most
+// kSortGroups).  slices: (cells of all keys * n_slices, 11) scratch when
+// n_slices > 1 (a second kernel then combines them), else unused.  tile:
+// samples a block stages at once (a multiple of 32; the wrapper's
+// fold_stage keeps FoldSmem under budget); vec: every pane 16-byte aligned
+// (bf16 values 8, float64 values 32), row_stride, chunk_len and
+// chunk_stride multiples of 4.
+// Returns cudaGetLastError() after the launches (0 = launched).
+int isla_fold(const void* x, int x_type, long long n_rows,
+              long long row_stride, long long n_chunks, long long chunk_len,
+              long long chunk_stride, const void* bounds, const float* pad,
+              const void* const* valid, int n_valid, const void* const* gid,
+              int n_gid, void* s_out, long long s_stride, void* l_out,
+              long long l_stride, void* t_out, long long t_stride,
+              const int* cell_idx, long long n_out_rows, int n_keys,
+              const int* kint, const double* kflt, const long long* koff,
+              const int* slot_groups, long long slice_len, int n_slices,
+              void* slices, int tile, int vec, void* stream) {
+  if (n_rows <= 0 || n_keys <= 0) return 0;
+  if (n_keys > kMaxKeys || n_valid > kMaxKeys || n_gid > kMaxKeys)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FoldLaunch f = {x, n_rows, row_stride, n_chunks, chunk_len,
+                        chunk_stride, bounds, pad, valid, n_valid, gid,
+                        n_gid, s_out, s_stride, l_out, l_stride, t_out,
+                        t_stride, cell_idx, n_out_rows, n_keys, kint, kflt,
+                        koff, slot_groups, slice_len, n_slices, slices,
+                        tile, vec, static_cast<cudaStream_t>(stream)};
+  switch (x_type) {
+    case 0:
+      return launch_fold<float>(f);
+    case 1:
+      return launch_fold<__nv_bfloat16>(f);
+    case 2:
+      return launch_fold<double>(f);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // One pass over the fp32 run x (n > 0 samples; vec: x 16-byte aligned).

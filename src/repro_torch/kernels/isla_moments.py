@@ -6,10 +6,11 @@ design):
 
 * ``isla_fold`` — the Phase 1 fold: per output cell, the S/L region
   moments and the plain totals of its samples, added in place onto
-  resident fp32 rows (shared or per-row cuts, optional per-key affine,
-  0/1 masks, GROUP BY ids, an index map whose out-of-range entries drop);
-  one launch folds every key of a stack (``isla_fold_stack``), reading
-  each sample once for all of them;
+  resident fp32 rows, or float64 rows for a float64 pane (shared or
+  per-row cuts, optional per-key affine, 0/1 masks, GROUP BY ids, an
+  index map whose out-of-range entries drop); one launch folds every key
+  of a stack (``isla_fold_stack``), reading each sample once for all of
+  them;
 * ``pilot_stats`` — one pass over a flat fp32 run: its ``(count, mean,
   M2, min)``, returned as the device pilot's ``(count, mean, M2, min,
   sigma)`` (``pilot_moments``) or as the TPU kernel's ``(count, sum
@@ -41,7 +42,9 @@ version (``ref.py``); given CUDA tensors it launches the kernel, or
 raises — it never falls back.  Each kernel's
 ``launches`` counter (an attribute of its one-key wrapper) counts the
 calls of either entry that launched the kernel on the card, one a call,
-and nothing else (``isla_sketch_tagged`` keeps its own count).  An
+and nothing else (``isla_sketch_tagged`` keeps its own count, and the
+fold's float64 launches count in ``isla_fold.launches_f64``, not in
+``isla_fold.launches``).  An
 ``isla_sketch`` call is one ``__global__`` launch, an ``isla_tagged_fold``
 call one (with a run table; without, one after a stable ``torch.sort`` of
 its ids);
@@ -308,11 +311,24 @@ def _ptr_array(tensors):
 # ---------------------------------------------------------------------------
 
 
+# The fold's C entry names the pane's value type by a code.
+_FOLD_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_NAMES = {torch.float32: "fp32", torch.float64: "float64"}
+
+
+def fold_dtype(values: torch.Tensor) -> torch.dtype:
+    """The type the fold computes in for ``values``: float64 for a float64
+    pane, else fp32 (bf16 values are folded as fp32).  Its cuts and
+    resident rows are of this type."""
+    return torch.float64 if values.dtype == torch.float64 else torch.float32
+
+
 def _check_values(values: torch.Tensor) -> Tuple[int, int]:
     if values.dim() != 2:
         raise ValueError(f"values must be (R, Q), got {tuple(values.shape)}")
-    if values.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"values must be fp32 or bf16, got {values.dtype}")
+    if values.dtype not in _FOLD_TYPES:
+        raise ValueError(f"values must be fp32, bf16 or float64, got "
+                         f"{values.dtype}")
     n_rows, q = values.shape
     if q > 1 and values.stride(1) != 1:
         raise ValueError("values need unit stride along the sample axis")
@@ -331,21 +347,22 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
     """Fold a (R, Q) sample pane into resident moment rows, in place: the
     one-key case of ``isla_fold_stack``.
 
-    values : (R, Q) fp32 or bf16, unit stride along Q (rows may be a
-        strided view).  Row r's samples are its Q entries, or with
+    values : (R, Q) fp32, bf16 or float64, unit stride along Q (rows may
+        be a strided view).  Row r's samples are its Q entries, or with
         ``chunks=(chunk_len, chunk_stride, n_chunks)`` the ``n_chunks``
         runs of ``chunk_len`` entries starting every ``chunk_stride``.
-    bounds : fp32 (4,) shared cuts ``(s_lo, s_hi, l_lo, l_hi)`` or (R, 4)
-        per-row cuts, in the frame after the affine.
-    out_s, out_l : (N, 4) fp32 rows (unit column stride) receiving the S
-        and L ``(count, s1, s2, s3)`` sums; ``out_t`` (N, 3) the totals
-        ``(count, s1, s2)``, skipped when None.
+    bounds : (4,) shared cuts ``(s_lo, s_hi, l_lo, l_hi)`` or (R, 4)
+        per-row cuts, in the frame after the affine, of the fold's type
+        (``fold_dtype``: float64 for float64 values, else fp32).
+    out_s, out_l : (N, 4) rows of the fold's type (unit column stride)
+        receiving the S and L ``(count, s1, s2, s3)`` sums; ``out_t``
+        (N, 3) the totals ``(count, s1, s2)``, skipped when None.
     pad, valid : optional (R, Q) fp32 0/1 masks (same layout as values).
     gid : optional (R, Q) int32 GROUP BY ids in ``[0, n_groups)`` (others
         match no group).  Cell ``g * R + r`` receives row r's group-g
         samples.
     affine : optional ``(ratio, off)``; samples become ``x * ratio + off``
-        in fp32, rounded after the multiply and after the add.
+        in the fold's type, rounded after the multiply and after the add.
     cell_idx : optional (n_groups * R,) int32 map from cell to output
         row; entries outside ``[0, N)`` drop.  Without it N must equal
         ``n_groups * R`` (pass row-sliced views to fold at an offset).
@@ -356,8 +373,9 @@ def isla_fold(values: torch.Tensor, bounds: torch.Tensor,
         raise ValueError(f"n_groups must be >= 1, got {n_groups}")
     if gid is None and n_groups != 1:
         raise ValueError("n_groups > 1 needs a gid pane")
-    if bounds.dtype != torch.float32 or not bounds.is_contiguous():
-        raise ValueError("bounds must be contiguous fp32")
+    if bounds.dtype != fold_dtype(values) or not bounds.is_contiguous():
+        raise ValueError(f"bounds must be contiguous "
+                         f"{_NAMES[fold_dtype(values)]}")
     if bounds.shape == (4,):
         table, row = bounds.reshape(1, 4), 0
     elif bounds.shape == (n_rows, 4):
@@ -378,9 +396,11 @@ SORT_GROUPS = 256  # a GROUP BY pane of at most this many groups is bucketed
 FOLD_WARPS = 4     # warps of a fold block
 
 
-def fold_stage(n: int, keys: Sequence[StackKey]) -> Tuple[list, int, int]:
+def fold_stage(n: int, keys: Sequence[StackKey],
+               value_bytes: int = 4) -> Tuple[list, int, int]:
     """How a fold launch stages rows of ``n`` samples for ``keys``:
-    ``(slot_groups, tile, smem_bytes)``.
+    ``(slot_groups, tile, smem_bytes)``; values are staged in the fold's
+    type, ``value_bytes`` each (4, or 8 at float64).
 
     ``slot_groups`` lists, for each GROUP BY pane the keys read (in slot
     order), the groups the kernel buckets its ids by: the most its grouped
@@ -388,9 +408,9 @@ def fold_stage(n: int, keys: Sequence[StackKey]) -> Tuple[list, int, int]:
     one has more than ``SORT_GROUPS``.  ``tile`` is the samples a block
     stages at once: a slice (at most ``FOLD_SLICE``) rounded up to 32,
     capped so the block's dynamic shared memory, ``smem_bytes``, fits
-    ``STAGE_BYTES``: a value and a mask word a sample, each pane's ids
-    (4 B) and bucket order (2 B) a sample, each pane's bucket starts, and a
-    counter and a peer mask a group for each warp."""
+    ``STAGE_BYTES``: a value and a mask word (4 B) a sample, each pane's
+    ids (4 B) and bucket order (2 B) a sample, each pane's bucket starts,
+    and a counter and a peer mask a group for each warp."""
     used = sorted({k.gid_slot for k in keys} - {-1})
     groups = [0] * len(used)
     for k in keys:
@@ -400,7 +420,7 @@ def fold_stage(n: int, keys: Sequence[StackKey]) -> Tuple[list, int, int]:
     groups = [g if g <= SORT_GROUPS else 0 for g in groups]
     n_gid, top = len(used), max(groups, default=0)
     fixed = 4 * n_gid * (top + 1) + 8 * FOLD_WARPS * top
-    per_sample = 8 + 6 * n_gid
+    per_sample = value_bytes + 4 + 6 * n_gid
     tile = min(-(-min(n, FOLD_SLICE) // 32) * 32,
                (STAGE_BYTES - fixed) // per_sample // 32 * 32)
     return groups, tile, tile * per_sample + fixed
@@ -419,18 +439,23 @@ def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
     key, in place, in one launch that reads each sample once for all keys.
 
     Key k (a ``StackKey``) reads the pane through its ``affine``,
-    classifies against row ``bound_row`` of ``bounds`` ((n_b, 4) fp32; -1:
-    per-row cuts, ``bounds`` being (R, 4)), keeps the samples where
-    ``pad`` and its predicate pane ``valid_panes[valid_slot]`` are nonzero
-    and groups them by ``gid_panes[gid_slot]``; cell ``(g, r)`` adds onto
+    classifies against row ``bound_row`` of ``bounds`` ((n_b, 4) of the
+    fold's type; -1: per-row cuts, ``bounds`` being (R, 4)), keeps the
+    samples where ``pad`` and its predicate pane
+    ``valid_panes[valid_slot]`` are nonzero and groups them by
+    ``gid_panes[gid_slot]``; cell ``(g, r)`` adds onto
     output row ``offset + g * R + r``, or onto ``cell_idx[offset + g * R +
     r]`` (out-of-range entries drop).  ``values``, the panes, ``out_*``
     and ``chunks`` are as in ``isla_fold``.  At most ``MAX_KEYS`` keys.
+    A float64 pane launches the kernel's float64 form (counted in
+    ``isla_fold.launches_f64``); nothing is cast to fp32.
     """
     n_rows, q = _check_values(values)
-    if bounds.dtype != torch.float32 or bounds.dim() != 2 \
+    dt = fold_dtype(values)
+    if bounds.dtype != dt or bounds.dim() != 2 \
             or bounds.shape[1] != 4 or not bounds.is_contiguous():
-        raise ValueError("bounds must be a contiguous (n, 4) fp32 table")
+        raise ValueError(f"bounds must be a contiguous (n, 4) {_NAMES[dt]} "
+                         f"table")
     if chunks is not None:
         if pad is not None or gid_panes or valid_panes:
             raise ValueError("chunked reads take no mask or gid panes")
@@ -445,10 +470,10 @@ def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
                        ("out_t", out_t, 3)):
         if t is None:
             continue
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != w \
+        if t.dtype != dt or t.dim() != 2 or t.shape[1] != w \
                 or t.shape[0] != n_out or t.stride(1) != 1:
-            raise ValueError(f"{name} must be ({n_out}, {w}) fp32 with "
-                             f"unit column stride")
+            raise ValueError(f"{name} must be ({n_out}, {w}) {_NAMES[dt]} "
+                             f"with unit column stride")
     if cell_idx is not None and (cell_idx.dtype != torch.int32
                                  or cell_idx.dim() != 1
                                  or not cell_idx.is_contiguous()):
@@ -482,7 +507,7 @@ def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
     n_slices = -(-n // FOLD_SLICE)
     if n_slices >= 2 ** 16:
         raise ValueError(f"{n} samples a row exceed one launch's grid")
-    slot_groups, tile, _ = fold_stage(n, keys)
+    slot_groups, tile, _ = fold_stage(n, keys, dt.itemsize)
     vec = ((n_rows == 1 or values.stride(0) % 4 == 0)
            and (n_chunks == 1 or (chunk_len % 4 == 0
                                   and chunk_stride % 4 == 0))
@@ -491,20 +516,20 @@ def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
                    for t in [*gids, *valids] + ([pad] if pad is not None
                                                  else [])))
     n_cells = sum(k.n_groups for k in keys) * n_rows
-    slices = (torch.empty(n_cells * n_slices * 11, dtype=torch.float32,
+    slices = (torch.empty(n_cells * n_slices * 11, dtype=dt,
                           device=values.device) if n_slices > 1 else None)
     nk = len(keys)
     kint = (ctypes.c_int * (5 * nk))(*[
         v for k, gs, vs in zip(keys, g_slot, v_slot)
         for v in (k.n_groups, gs, vs, int(k.affine is not None),
                   k.bound_row)])
-    kflt = (ctypes.c_float * (2 * nk))(*[
+    kflt = (ctypes.c_double * (2 * nk))(*[
         float(v) for k in keys
         for v in ((1.0, 0.0) if k.affine is None else k.affine)])
     koff = (ctypes.c_longlong * nk)(*[k.offset for k in keys])
     with torch.cuda.device(values.device):
         err = library().isla_fold(
-            _ptr(values), int(values.dtype == torch.bfloat16), n_rows,
+            _ptr(values), _FOLD_TYPES[values.dtype], n_rows,
             values.stride(0), n_chunks, chunk_len, chunk_stride,
             _ptr(bounds), _ptr(pad), _ptr_array(valids), len(valids),
             _ptr_array(gids), len(gids), _ptr(out_s), out_s.stride(0),
@@ -515,10 +540,14 @@ def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
             FOLD_SLICE, n_slices, _ptr(slices), tile, int(vec),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "isla_fold")
-    isla_fold.launches += 1
+    if dt == torch.float64:
+        isla_fold.launches_f64 += 1
+    else:
+        isla_fold.launches += 1
 
 
 isla_fold.launches = 0
+isla_fold.launches_f64 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -960,6 +989,7 @@ def reset_launch_counts() -> None:
     from .flash_attention import flash_attention
 
     isla_fold.launches = 0
+    isla_fold.launches_f64 = 0
     pilot_stats.launches = 0
     isla_sketch.launches = 0
     isla_sketch_tagged.launches = 0

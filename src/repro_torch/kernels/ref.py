@@ -25,6 +25,23 @@ def chunk_columns(chunks: Tuple[int, int, int],
             + torch.arange(chunk_len, device=device)[None, :]).reshape(-1)
 
 
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` as a fixed pairwise tree: the axis is padded with
+    zeros to a power of two and halves are added until one is left.  The
+    order depends only on the axis' length, never on the other axes, so
+    the sums of a slice of rows are the whole's rows bit for bit."""
+    n = x.shape[dim]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        shape = list(x.shape)
+        shape[dim] = width - n
+        x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
 def fold_delta(values: torch.Tensor, bounds: torch.Tensor, *,
                pad: Optional[torch.Tensor] = None,
                valid: Optional[torch.Tensor] = None,
@@ -32,37 +49,42 @@ def fold_delta(values: torch.Tensor, bounds: torch.Tensor, *,
                affine: Optional[Tuple[float, float]] = None,
                chunks: Optional[Tuple[int, int, int]] = None
                ) -> torch.Tensor:
-    """The fold's per-cell sums, ``(n_groups * R, 11)`` fp32, cell
-    ``group * R + row`` — the weight columns of ``_dense_core`` (S and L
-    count/v/v^2/v^3, then count/v/v^2 of every sample) contracted over the
-    sample axis against the GROUP BY one-hot."""
+    """The fold's per-cell sums, ``(n_groups * R, 11)``, cell ``group * R
+    + row`` — the weight columns of ``_dense_core`` (S and L
+    count/v/v^2/v^3, then count/v/v^2 of every sample) summed over the
+    sample axis for each GROUP BY group.  Computed in the fold's type
+    (float64 for float64 values, else fp32), each row's sum a fixed
+    pairwise tree over the sample axis (``tree_sum``), so a cell's sums
+    depend only on its row's samples and the pane's width, not on how
+    many rows the pane has."""
     x = values if chunks is None else values[:, chunk_columns(
         chunks, values.device)]
-    v = x.to(F32)
+    dt = torch.float64 if values.dtype == torch.float64 else F32
+    v = x.to(dt)
     if affine is not None:
-        ratio = torch.tensor(affine[0], dtype=F32, device=v.device)
-        off = torch.tensor(affine[1], dtype=F32, device=v.device)
+        ratio = torch.tensor(affine[0], dtype=dt, device=v.device)
+        off = torch.tensor(affine[1], dtype=dt, device=v.device)
         v = v * ratio + off
-    b = bounds.to(F32).reshape(-1, 4)
+    b = bounds.to(dt).reshape(-1, 4)
     s_lo, s_hi, l_lo, l_hi = (b[:, k:k + 1] for k in range(4))
     m = torch.ones_like(v)
     if pad is not None:
-        m = m * pad
+        m = m * pad.to(dt)
     if valid is not None:
-        m = m * valid
-    ms = ((v > s_lo) & (v < s_hi)).to(F32) * m
-    ml = ((v > l_lo) & (v < l_hi)).to(F32) * m
+        m = m * valid.to(dt)
+    ms = ((v > s_lo) & (v < s_hi)).to(dt) * m
+    ml = ((v > l_lo) & (v < l_hi)).to(dt) * m
     v2 = v * v
     v3 = v2 * v
     w = torch.stack([ms, v * ms, v2 * ms, v3 * ms,
                      ml, v * ml, v2 * ml, v3 * ml,
                      m, v * m, v2 * m], dim=-1)          # (R, Q, 11)
     if gid is None:
-        return w.sum(dim=1)
+        return tree_sum(w, 1)
     oh = (gid.to(torch.int64)[..., None]
-          == torch.arange(n_groups, device=v.device)).to(F32)  # (R, Q, G)
-    blk = torch.einsum("rqk,rqg->grk", w, oh)           # (G, R, 11)
-    return blk.reshape(n_groups * v.shape[0], 11)
+          == torch.arange(n_groups, device=v.device)).to(dt)  # (R, Q, G)
+    blk = tree_sum(w[:, :, None, :] * oh[..., None], 1)  # (R, G, 11)
+    return blk.transpose(0, 1).reshape(n_groups * v.shape[0], 11)
 
 
 def isla_fold_ref(values: torch.Tensor, bounds: torch.Tensor,

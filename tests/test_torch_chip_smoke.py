@@ -5,6 +5,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as S  # noqa: E402
@@ -300,3 +301,66 @@ def test_profiled_pipelined_tick_on_the_cpu():
     rg = recs[1]["ranges"]
     assert len(rg["worker_launch"]) == 8 and not rg["main_launch"]
     assert len(rg["main_draw"]) >= 8
+
+
+@pytest.mark.parametrize("rec, whole", [
+    (dict(kernel_events=events(isla_fold_kernel=1), fold_f64_launches=1,
+          sketch_launches=0), True),
+    (dict(kernel_events=events(isla_fold_kernel=1, isla_sketch_kernel=1),
+          fold_f64_launches=1, sketch_launches=1), True),
+    (dict(kernel_events=events(isla_fold_kernel=1), fold_f64_launches=1,
+          sketch_launches=1), False),
+    (dict(kernel_events=events(), fold_f64_launches=1, sketch_launches=0),
+     False),
+    (dict(kernel_events=None, fold_f64_launches=1, sketch_launches=0),
+     False),
+], ids=["moments", "distinct", "lost-merge", "lost-fold", "no-trace"])
+def test_dense64_trace_whole(rec, whole):
+    assert S.dense64_trace_whole(rec) is whole
+
+
+def test_rel_gap():
+    import numpy as np
+
+    assert S.rel_gap(np.array([1.0, 2.0]), np.array([1.0, 2.0])) == 0.0
+    assert S.rel_gap(np.array([1.0, 2.0 + 2e-12]),
+                     np.array([1.0, 2.0])) == pytest.approx(1e-12)
+    assert S.rel_gap(np.array([1e-300]), np.array([0.0])) == float("inf")
+
+
+@pytest.mark.parametrize("run", S.DENSE64_RUNS,
+                         ids=[r[0] for r in S.DENSE64_RUNS])
+def test_dense64_path_on_the_cpu(run, monkeypatch):
+    """Each float64 dense run of the phase, rehearsed on the CPU at a small
+    size (the mesh on four CPU shards; the plain fold and merge stand in
+    for the kernels and count as their launches): the compacted, full and
+    mesh runs give the same bits, the tagged run lies within 1e-12, and
+    every drawing tick is one float64 fold (one a shard on the mesh)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import isla_moments as K
+
+    real_fold, real_sketch = D.isla_fold_stack, D.isla_sketch_stack
+
+    def fold(values, *args, **kw):
+        real_fold(values, *args, **kw)
+        if values.dtype == torch.float64:
+            K.isla_fold.launches_f64 += 1
+        else:
+            K.isla_fold.launches += 1
+
+    def sketch(*args, **kw):
+        real_sketch(*args, **kw)
+        K.isla_sketch.launches += 1
+
+    monkeypatch.setattr(D, "isla_fold_stack", fold)
+    monkeypatch.setattr(D, "isla_sketch_stack", sketch)
+    monkeypatch.setattr(S, "dense64_trace_whole", lambda r: True)
+    name, distinct = run
+    path = S.dense64_path(name, distinct, device="cpu", n_blocks=40,
+                          n_groups=4, rows=500)
+    assert path["launches"] == {"isla_fold_f64": 3, "isla_fold": 0,
+                                "isla_sketch": 3 * distinct}
+    assert path["mesh_launches"]["isla_fold_f64"] == 3 * S.MESH_SHARDS
+    assert max(path["tagged_gaps"].values()) <= S.DENSE64_TOL
+    assert len(path["fold_calls"]) == 3
+    assert [r["active_blocks"] for r in path["ticks"]] == [20, 20, 20]

@@ -211,7 +211,10 @@ def test_fold_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="out rows"):
         K.isla_fold(v, torch.zeros(4), torch.zeros((3, 4)),
                     torch.zeros((3, 4)))
-    with pytest.raises(ValueError, match="fp32 or bf16"):
+    with pytest.raises(ValueError, match="fp32, bf16 or float64"):
+        K.isla_fold(v.half(), torch.zeros(4), out, out)
+    # A float64 pane folds in float64: fp32 cuts are refused, never cast.
+    with pytest.raises(ValueError, match="bounds must be contiguous float64"):
         K.isla_fold(v.double(), torch.zeros(4), out, out)
 
 

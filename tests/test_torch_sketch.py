@@ -564,11 +564,12 @@ def test_convert_carries_the_register_plane(rng):
 
 
 def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
-    """The dense payload on a float64 sketch stack and LM serving of an
-    MoE config still raise, each naming its ROADMAP Queue A item by
-    number and name, and ROADMAP.md lists that item.  The mesh route
-    (item 4, its sketch families with it) and the pipelined tick (item 3,
-    once refused here) run, and ROADMAP.md still lists both items: on a
+    """LM serving of an MoE config still raises, naming its ROADMAP Queue
+    A item by number and name, and ROADMAP.md lists that item.  The dense
+    payload on a float64 sketch stack (item 1b, once refused here), the
+    mesh route (item 4, its sketch families with it) and the pipelined
+    tick (item 3) run, and ROADMAP.md still lists all three items: the
+    float64 dense sketch tick merges the host's registers, and on a
     one-shard CPU mesh COUNT DISTINCT answers as on the device route, and
     pipelined as serially, register plane and all."""
     monkeypatch.setattr(sys, "argv", [
@@ -586,14 +587,18 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
     dev64 = TDev.fresh_device(
         2, b, 100.0, [10, 10], dtype=torch.float64, has_sketch=True,
         device="cpu")
-    for call, item in (
-            (lambda: TStack([dev64]).tick(
-                TC.IslaParams(), values=np.ones(2), quotas=np.ones(2),
-                dense=([None], [None])), ("1b", "The float64 dense tick")),
-            (TS.main, (8, "MoE channel"))):
-        with pytest.raises(NotImplementedError) as err:
-            call()
-        assert f"Queue A item {item[0]}, '{item[1]}'" in str(err.value)
+    host64 = dev64.to_host()
+    vals64 = np.array([97.5, 101.25, 0.0, -3.0])
+    TStack([dev64]).tick(TC.IslaParams(), values=vals64,
+                         quotas=np.array([3, 1]), dense=([None], [None]))
+    host64.ingest(vals64 + host64.shift, np.array([0, 0, 0, 1]),
+                  np.array([3, 1]), raw_values=vals64)
+    assert np.array_equal(dev64.regs.numpy(), host64.regs)
+    assert np.array_equal(dev64.n_sampled, host64.n_sampled)
+    with pytest.raises(NotImplementedError) as err:
+        TS.main()
+    assert "Queue A item 8, 'MoE channel'" in str(err.value)
+    for item in (("1b", "The float64 dense tick"), (8, "MoE channel")):
         assert re.search(rf"^{item[0]}\. \*\*{re.escape(item[1])}", roadmap,
                          re.M)
     assert re.search(r"^4\. \*\*Mesh route", roadmap, re.M)

@@ -230,7 +230,8 @@ def test_steady_tick_upload_count_matches_reference(case, expected, rng,
 def test_unported_paths_raise(rng):
     """Deferred stats (the pipelined tick, once refused here) return lazy
     rows that land equal to a serial tick's; the dense payload on a
-    float64 stack still raises, naming its ROADMAP item."""
+    float64 store (once refused here, ROADMAP item 1b) runs: its float64
+    fold sits within 1e-12 of the tagged layout's carry fold."""
     b = TC.make_boundaries(MU, SIGMA, TC.IslaParams())
     vals, quotas, dense = _pass(rng, 20)
     outs = []
@@ -244,11 +245,19 @@ def test_unported_paths_raise(rng):
         assert all(st._rows is not None for st in stack.stores)
     for (p0, r0), (p1, r1) in zip(*outs):
         assert torch.equal(p1, p0) and np.array_equal(r1, r0)
-    dev64 = TDev.fresh_device(2, b, MU, [10, 10], dtype=torch.float64,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        dev64.ingest_tick(np.ones(4), np.array([0, 0, 1, 1]),
-                          np.array([2, 2]), TC.IslaParams(), layout="dense")
+    stores64 = {lay: TDev.fresh_device(2, b, MU, [10, 10],
+                                       dtype=torch.float64, device="cpu")
+                for lay in ("dense", "tagged")}
+    vals64 = rng.normal(MU, SIGMA, 4)
+    for lay, dev64 in stores64.items():
+        dev64.ingest_tick(vals64, np.array([0, 0, 1, 1]), np.array([2, 2]),
+                          TC.IslaParams(), layout=lay)
+    dense, tagged = (stores64[k].to_host() for k in ("dense", "tagged"))
+    assert np.array_equal(dense.n_sampled, [2, 2])
+    for name in ("mom_s", "mom_l", "totals"):
+        np.testing.assert_allclose(getattr(dense, name),
+                                   getattr(tagged, name), rtol=1e-12,
+                                   atol=0)
 
 
 def test_stack_release_keeps_state(rng):

@@ -2,10 +2,11 @@
 """Time the dense serving tick's fold and register merge on the card: one
 ``distributed.fold_panes`` and one ``distributed.sketch_panes`` call each,
 at the serving loop's panes; or, with ``--mode pilot``, the device pilot;
-or, with ``--mode tagged``, the float64 tick's tagged fold.
+or, with ``--mode tagged``, the float64 tick's tagged fold; or, with
+``--mode dense64``, the fold's float64 form.
 
     python3 tools/isla_stack_bench.py [--src PATH] [--label NAME]
-                                      [--mode stack|pilot|tagged]
+                                      [--mode stack|pilot|tagged|dense64]
 
 ``--src`` is the ``src`` directory of the port to time (default: this
 checkout's), so two trees of the port can be timed on one card in one
@@ -52,6 +53,16 @@ events, and ``bound_ms`` (12 B a sample, the rows read and written once,
 over 3.35 TB/s).  Then one run alone (``solo``): 954 samples of one
 block, ungrouped and over 16 groups, the device time of a single run with
 the card otherwise idle.
+
+``--mode dense64`` times one ``distributed.fold_panes`` call on the
+serving loop's panes (as above) with the values, cuts and resident rows
+in float64 (the fold's float64 form; the masks stay fp32), then on the
+same panes in fp32, one JSON line a pane: ``f64_kernel_ms`` and
+``f32_kernel_ms`` from the profiler, ``f64_event_ms`` by CUDA events,
+``launches_per_call`` (``isla_fold.launches_f64`` and
+``isla_fold.launches``) and ``bound_ms`` (8 B a real value and 4 B of
+each mask and id pane, the 34,000 x 11 rows of 8 B read and written, over
+3.35 TB/s).  It needs a tree whose fold has a float64 form.
 """
 from __future__ import annotations
 
@@ -269,12 +280,50 @@ def pilot_rows(card, label):
             bound_ms=4 * n / 3.35e12 * 1e3)), flush=True)
 
 
+def dense64_rows(card, label):
+    """``--mode dense64``: one float64 and one fp32 ``fold_panes`` call a
+    pane (see the module's note)."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import isla_moments as K
+
+    kw = dict(n_groups_list=tuple(k[0] for k in KEYS),
+              gid_slots=tuple(k[1] for k in KEYS),
+              valid_slots=tuple(k[2] for k in KEYS))
+    n_cells = sum(k[0] for k in KEYS) * N_BLOCKS
+    for quota, fill in PANES:
+        p = panes(quota, fill)
+        row = dict(card=card, tree=label, pane=[N_BLOCKS, quota],
+                   real_lanes=p["n_real"], keys=[k[0] for k in KEYS],
+                   bound_ms=((8 + 4 * 3) * p["n_real"]
+                             + 2 * 8 * 11 * n_cells) / 3.35e12 * 1e3)
+        for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+            values, bounds = p["values"].to(dt), p["bounds"].to(dt)
+            state = torch.zeros((n_cells, 11), dtype=dt, device="cuda")
+
+            def fold():
+                D.fold_panes(state[:, 0:4], state[:, 4:8], state[:, 8:11],
+                             values, p["pad"], (p["gid"],), (p["valid"],),
+                             bounds, **kw)
+
+            K.reset_launch_counts()
+            fold()
+            torch.cuda.synchronize()
+            if tag == "f64":
+                row["launches_per_call"] = dict(
+                    isla_fold_f64=K.isla_fold.launches_f64,
+                    isla_fold=K.isla_fold.launches)
+                row["f64_event_ms"] = event_ms(fold)
+            row[f"{tag}_kernel_ms"] = kernel_ms(fold, "isla_fold")
+        print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this tree")
-    ap.add_argument("--mode", choices=("stack", "pilot", "tagged"),
-                    default="stack")
+    ap.add_argument("--mode", choices=("stack", "pilot", "tagged",
+                                       "dense64"), default="stack")
     args = ap.parse_args()
     import torch
 
@@ -294,6 +343,9 @@ def main() -> int:
         return 0
     if args.mode == "tagged":
         tagged_rows(card, args.label)
+        return 0
+    if args.mode == "dense64":
+        dense64_rows(card, args.label)
         return 0
     kw = dict(n_groups_list=tuple(k[0] for k in KEYS),
               gid_slots=tuple(k[1] for k in KEYS),
