@@ -87,6 +87,24 @@ and a float64 tagged run of the same samples must lie within rel 1e-12
 tick must hold the fold's kernel and no sort kernel, and each tick's
 fold is replayed against its plain version on the CPU and timed.
 
+Then the telemetry estimator ("isla telemetry"): on seeded gamma(2, 2)
+per-token losses of (512, 2048) and (4096, 4096) tokens, ``loss_stats``
+(empirical, rate 0.05, with the exact mean), ``isla_mean`` in both
+semantics and both modes at rate 0.02, strided and drawn by a CUDA
+``torch.Generator``, ``exact_mean`` and ``loss_stats_trimmed_exact``, on
+the device route and on four shards on ``cuda:0`` (the tensor cut on dim
+0); then ``telemetry_bench.py``'s normal(5.5, 1.5) tensor and
+``router_load_stats`` on softmax probabilities over arctic-480b's
+experts.  Each call must launch ``isla_fold`` once a shard (an ISLA
+call) and no other kernel, upload nothing through ``h2d``, reduce 3, 6
+(empirical), then 8 (merged) or 2 (blocks) floats across shards (the
+same at both sizes), and agree within rel 1e-5 with the same call under
+the plain versions and with the port on the CPU (generator calls: the
+plain versions only).  The phase's fold panes are replayed against the
+plain fold and timed beside their bound; every call is timed (CUDA
+events).  After the LM phase, ``grad_abs_stats`` runs over its olmo-1b
+parameter tree, on the device route and on the mesh.
+
 Then it drives the LM serving path: olmo-1b at full width and depth
 (16 layers, d_model 2048, 16 heads of 128) in bf16 from a seeded
 generator, six seeded prompts of 384-2048 tokens through a
@@ -2403,6 +2421,405 @@ def dense64_path(name: str, distinct: bool, device="cuda", **shape) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The telemetry estimator: distributed.isla_mean / exact_mean and metrics on
+# per-token losses, router probabilities and the LM's parameter tree, on the
+# device route and on four shards; Phase 1 is one isla_fold a shard.
+# ---------------------------------------------------------------------------
+
+# (512, 2048): the 1M-token step of examples/approximate_telemetry.py;
+# (4096, 4096): a 16M-token step, the order of the largest published
+# pretraining batches.
+TELEMETRY_SHAPES = ((512, 2048), (4096, 4096))
+TELEMETRY_RATE = 0.02
+TELEMETRY_TOL = 1e-5        # relative: the port's fp32 contract
+TELEMETRY_SEED = 7          # generators' seeds (shard s: + s)
+ACCURACY_SHAPE = (256, 4096)  # telemetry_bench.py's normal(5.5, 1.5) tensor
+ROUTER_ARCH = "arctic-480b"
+ROUTER_TOKENS = (8, 2048)   # batch x tokens of router logits
+OTHER_KERNELS = ("pilot_stats", "isla_sketch", "isla_sketch_tagged",
+                 "isla_tagged_fold", "isla_fold_f64", "flash_attention")
+
+
+def telemetry_calls():
+    """``(name, kind, kw)`` of every call the phase makes on a loss
+    tensor."""
+    calls = [("loss_stats", "loss_stats", {})]
+    for sem in ("blocks", "merged"):
+        for mode in ("calibrated", "empirical"):
+            for sampling in ("strided", "generator"):
+                calls.append((f"isla_mean {sem} {mode} {sampling}",
+                              "isla_mean",
+                              dict(semantics=sem, mode=mode,
+                                   generator=sampling == "generator")))
+    calls.append(("exact_mean", "exact_mean", {}))
+    calls.append(("loss_stats_trimmed_exact", "trimmed", {}))
+    return calls
+
+
+def telemetry_expect(kind: str, kw: dict) -> "tuple[int, list]":
+    """A call's ``isla_fold`` launches a shard and the elements of each
+    cross-shard sum it makes on a mesh."""
+    if kind == "isla_mean":
+        return 1, [3] + ([6] if kw["mode"] == "empirical" else []) \
+            + [8 if kw["semantics"] == "merged" else 2]
+    return {"loss_stats": (1, [3, 6, 2, 2]), "exact_mean": (0, [2]),
+            "trimmed": (0, []), "router": (1, [3, 2]),
+            "grad": (1, [3, 8])}[kind]
+
+
+def telemetry_fn(kind: str, kw: dict, x, mesh):
+    """A zero-argument call of the phase on ``x`` (a tensor, or with
+    ``mesh`` a list with a tensor or tree a shard), returning a dict of
+    0-d tensors.  A generator call makes its generators anew each time,
+    from the same seeds: every run draws the same indices."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core import metrics as M
+
+    p = M.DEFAULT_PARAMS
+    if kind == "isla_mean":
+        kw = dict(kw)
+        drawn = kw.pop("generator")
+
+        def gens():
+            if not drawn:
+                return None
+            if mesh is None:
+                return torch.Generator(device=x.device).manual_seed(
+                    TELEMETRY_SEED)
+            return [torch.Generator(device=v.device).manual_seed(
+                TELEMETRY_SEED + s) for s, v in enumerate(x)]
+
+        return lambda: {"isla_mean": D.isla_mean(
+            x, p, mesh=mesh, rate=TELEMETRY_RATE, generator=gens(), **kw)}
+    return {"loss_stats": lambda: M.loss_stats(x, mesh=mesh,
+                                               include_exact=True),
+            "exact_mean": lambda: {"exact_mean": D.exact_mean(x, mesh)},
+            "trimmed": lambda: M.loss_stats_trimmed_exact(x),
+            "router": lambda: M.router_load_stats(x, mesh=mesh),
+            "grad": lambda: M.grad_abs_stats(x, mesh=mesh)}[kind]
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class FoldPanes:
+    """Keeps a copy of the first pane of each length that ``isla_mean``
+    folds through ``ops.isla_moments`` (with its cuts) while installed and
+    ``on``."""
+
+    def __init__(self):
+        self.panes, self.on = {}, False
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._real = real = ops.isla_moments
+
+        def spy(values, bounds, *a, **kw):
+            n = values.numel()
+            if self.on and n not in self.panes:
+                self.panes[n] = (values.clone(), bounds.clone())
+            return real(values, bounds, *a, **kw)
+
+        ops.isla_moments = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.isla_moments = self._real
+        return False
+
+
+def telemetry_call(name: str, kind: str, kw: dict, x, mesh, cpu_x,
+                   cpu_mesh, device) -> dict:
+    """One call of the phase, checked: the launch counts are set to 0 just
+    before it and read just after (``isla_fold`` once a shard for an ISLA
+    call, no other kernel), no ``h2d`` call, its cross-shard sums as
+    ``telemetry_expect`` says (none without a mesh); each answer a finite
+    fp32 0-d tensor on the values' (the mesh's first) device, within rel
+    ``TELEMETRY_TOL`` of the same call under ``PlainVersions`` and, unless
+    it draws with a generator, of the port on the CPU tensors made from
+    the same arrays (``cpu_x``; None: no CPU run)."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import isla_moments as K
+
+    fn = telemetry_fn(kind, kw, x, mesh)
+    n_shards = 1 if mesh is None else len(mesh.devices)
+    K.reset_launch_counts()
+    with Recorder("h2d", keep=False) as up, D.collective_footprint() as rec:
+        out = fn()
+    sync(device)
+    launches = dict(isla_fold=K.isla_fold.launches,
+                    isla_fold_f64=K.isla_fold.launches_f64,
+                    pilot_stats=K.pilot_stats.launches,
+                    isla_sketch=K.isla_sketch.launches,
+                    isla_sketch_tagged=K.isla_sketch_tagged.launches,
+                    isla_tagged_fold=K.isla_tagged_fold.launches,
+                    flash_attention=FA.flash_attention.launches)
+    per_shard, sums = telemetry_expect(kind, kw)
+    where = f"{name} ({'mesh' if mesh else 'device'} route)"
+    check(launches["isla_fold"] == per_shard * n_shards
+          and not any(launches[k] for k in OTHER_KERNELS),
+          f"{where} launched {launches}, not {per_shard} isla_fold a shard")
+    check(up.count == 0, f"{where} uploaded through h2d {up.count} times")
+    want_rec = [("sum", n) for n in sums] if mesh is not None else []
+    check(rec == want_rec, f"{where} reduced {rec}, not {want_rec}")
+    with PlainVersions():
+        plain = fn()
+    cpu = None
+    if cpu_x is not None and not kw.get("generator"):
+        cpu = telemetry_fn(kind, kw, cpu_x, cpu_mesh)()
+    home = mesh.devices[0] if mesh is not None else next(_leaves(x)).device
+    values, gaps = {}, {}
+    for k, v in out.items():
+        check(v.dtype == torch.float32 and v.dim() == 0 and v.device == home
+              and bool(torch.isfinite(v)),
+              f"{where} gave {k} = {v!r}, not a finite fp32 0-d tensor on "
+              f"{home}")
+        values[k] = float(v)
+        gaps[k] = dict(plain=rel_gap(values[k], float(plain[k])))
+        if cpu is not None:
+            gaps[k]["cpu"] = rel_gap(values[k], float(cpu[k]))
+        check(max(gaps[k].values()) <= TELEMETRY_TOL,
+              f"{where} {k} = {values[k]!r} parts from its plain or CPU run "
+              f"by {gaps[k]} > rel {TELEMETRY_TOL}")
+    return dict(name=name, kind=kind, route="mesh" if mesh else "device",
+                shards=n_shards, values=values, gaps=gaps,
+                fold_launches=launches["isla_fold"],
+                footprint=[n for _, n in rec], fn=fn)
+
+
+def telemetry_routes(t, mesh_devices, device):
+    """``(x, mesh)`` for the device route and the mesh (``t`` cut on dim
+    0 into a shard a mesh device)."""
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    mesh = make_cell_mesh(devices=list(mesh_devices))
+    dev = t.to(device)
+    shards = [p.to(d) for p, d in zip(dev.tensor_split(len(mesh.devices)),
+                                       mesh.devices)]
+    return (dev, None), (shards, mesh)
+
+
+def telemetry_path(device="cuda", shapes=TELEMETRY_SHAPES,
+                   mesh_devices=MESH_DEVICES,
+                   accuracy_shape=ACCURACY_SHAPE,
+                   router_tokens=ROUTER_TOKENS) -> dict:
+    """The telemetry phase (``telemetry_call`` checks every call): on
+    seeded gamma(2, 2) per-token losses of each of ``shapes``, every call
+    of ``telemetry_calls`` on the device route and on the mesh (the
+    trimmed mean on the device route: it has no mesh form, a mesh gathers
+    the whole tensor); each call's cross-shard sums must be the same at
+    every size.  Then the accuracy tensor (``telemetry_bench.py``'s
+    normal(5.5, 1.5)) and ``router_load_stats`` on softmax probabilities
+    of seeded logits over ``ROUTER_ARCH``'s experts.  Records each
+    ``|isla - exact|`` beside the rate's uniform-subsample error
+    ``sigma / sqrt(m)``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+
+    calls, panes = [], FoldPanes()
+    accuracy = []
+
+    def routes(arr, run):
+        t = torch.from_numpy(arr)
+        for (x, mesh), (cx, cmesh) in zip(
+                telemetry_routes(t, mesh_devices, device),
+                telemetry_routes(t, ["cpu"] * len(mesh_devices), "cpu")):
+            run(x, mesh, cx, cmesh)
+
+    with panes:
+        for shape in shapes:
+            losses = np.random.default_rng(0).gamma(
+                2.0, 2.0, size=shape).astype(np.float32)
+            sigma = float(losses.astype(np.float64).std())
+
+            def run(x, mesh, cx, cmesh, shape=shape, sigma=sigma):
+                for name, kind, kw in telemetry_calls():
+                    if kind == "trimmed" and mesh is not None:
+                        continue
+                    panes.on = kind in ("isla_mean", "loss_stats")
+                    r = telemetry_call(name, kind, kw, x, mesh, cx, cmesh,
+                                       device)
+                    panes.on = False
+                    r.update(shape=list(shape), sigma=sigma)
+                    calls.append(r)
+
+            routes(losses, run)
+        for shape in shapes[1:]:
+            for a, b in zip([c for c in calls if c["shape"] == list(shape)],
+                            [c for c in calls
+                             if c["shape"] == list(shapes[0])]):
+                check(a["footprint"] == b["footprint"],
+                      f"{a['name']} reduces {a['footprint']} at {shape}, "
+                      f"{b['footprint']} at {shapes[0]}")
+        for c in calls:
+            exact = [d["values"]["exact_mean"] for d in calls
+                     if d["kind"] == "exact_mean"
+                     and d["shape"] == c["shape"]
+                     and d["route"] == c["route"]][0]
+            isla = c["values"].get("isla_mean",
+                                   c["values"].get("loss_mean_isla"))
+            if isla is not None:
+                rate = 0.05 if c["kind"] == "loss_stats" else TELEMETRY_RATE
+                m = round(math.prod(c["shape"]) * rate)
+                c.update(exact=exact, abs_err=abs(isla - exact),
+                         uniform_err=c["sigma"] / math.sqrt(m))
+        normal = np.random.default_rng(0).normal(
+            5.5, 1.5, size=accuracy_shape).astype(np.float32)
+
+        def run_accuracy(x, mesh, cx, cmesh):
+            kw = dict(semantics="blocks", mode="calibrated", generator=False)
+            got = telemetry_call("isla_mean (accuracy)", "isla_mean", kw, x,
+                                 mesh, cx, cmesh, device)
+            ex = telemetry_call("exact_mean (accuracy)", "exact_mean", {},
+                                x, mesh, cx, cmesh, device)
+            m = round(normal.size * TELEMETRY_RATE)
+            accuracy.append(dict(
+                route=got["route"], shape=list(accuracy_shape),
+                launches=got["fold_launches"],
+                isla=got["values"]["isla_mean"],
+                exact=ex["values"]["exact_mean"],
+                abs_err=abs(got["values"]["isla_mean"]
+                            - ex["values"]["exact_mean"]),
+                uniform_err=float(normal.astype(np.float64).std())
+                / math.sqrt(m), e=0.01))
+
+        routes(normal, run_accuracy)
+        n_exp = get_config(ROUTER_ARCH).moe.n_experts
+        logits = np.random.default_rng(1).normal(
+            size=(*router_tokens, n_exp)).astype(np.float32)
+        probs = torch.softmax(torch.from_numpy(logits).to(device), -1)
+        router = []
+
+        def run_router(x, mesh, cx, cmesh):
+            router.append(telemetry_call("router_load_stats", "router", {},
+                                         x, mesh, cx, cmesh, device))
+
+        routes(probs.cpu().numpy(), run_router)
+    return dict(calls=calls, accuracy=accuracy, router=router,
+                router_experts=n_exp, panes=panes.panes)
+
+
+def grad_telemetry(params, device="cuda", mesh_devices=MESH_DEVICES
+                   ) -> "list[dict]":
+    """``grad_abs_stats`` over the LM phase's parameter tree (standing in
+    for a gradient tree of its shape), on the device route and on the
+    mesh (every leaf cut on dim 0 into a shard a mesh device), checked as
+    ``telemetry_call`` checks; the CPU run takes a host copy of the
+    tree."""
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    def split(tree, n, s):
+        if isinstance(tree, dict):
+            return {k: split(v, n, s) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(split(v, n, s) for v in tree)
+        return tree.tensor_split(n)[s] if hasattr(tree, "tensor_split") \
+            else tree
+
+    host = to_cpu(params)
+    n = len(mesh_devices)
+    mesh, cmesh = (make_cell_mesh(devices=list(mesh_devices)),
+                   make_cell_mesh(devices=["cpu"] * n))
+    out = [telemetry_call("grad_abs_stats", "grad", {}, params, None, host,
+                          None, device),
+           telemetry_call("grad_abs_stats", "grad", {},
+                          [split(params, n, s) for s in range(n)], mesh,
+                          [split(host, n, s) for s in range(n)], cmesh,
+                          device)]
+    del host
+    return out
+
+
+def wall_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean milliseconds a call by CUDA events around ``reps`` calls
+    issued back to back: the card waits on the host between launches, so
+    this is the call's wall time, host work included."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def telemetry_fold_bound_ms(m: int) -> "tuple[float, float]":
+    """Least time for the fold of an m-sample pane: each fp32 sample read
+    once (4 B), the cuts read and the two (count, s1, s2, s3) rows read
+    and written once; against 17 operations a sample at the fp32 peak."""
+    t_bytes = (4 * m + 16 + 2 * 2 * 16) / HBM_BYTES_PER_S * 1e3
+    return t_bytes, 17 * m / FP32_FLOP_PER_S * 1e3
+
+
+def check_telemetry_folds(panes) -> "list[dict]":
+    """Replays each kept pane's fold: the kernel twice (identical bits)
+    against its plain version on the card within rel 1e-5, then the
+    kernel timed by the profiler and by CUDA events, the plain version by
+    CUDA events, beside the bound."""
+    import torch
+    from repro_torch.kernels import ops
+
+    out = []
+    for m, (values, bounds) in sorted(panes.items()):
+        got, again = (ops.isla_moments(values, bounds) for _ in range(2))
+        with PlainVersions():
+            want = ops.isla_moments(values, bounds)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), "isla_fold is not deterministic on "
+                                       "a telemetry pane")
+        rel = float(((got.double() - want.double()).abs()
+                     / want.double().abs().clamp_min(1.0)).max())
+        check(rel <= TELEMETRY_TOL,
+              f"isla_fold parts from its plain version on the {m}-sample "
+              f"telemetry pane: max rel err {rel:.3g}")
+        fn = functools.partial(ops.isla_moments, values, bounds)
+        dev_ms, events = kernel_events(fn, ("isla_fold",))
+        event_ms = time_ms(fn)
+        with PlainVersions():
+            plain_ms = time_ms(fn)
+        t_bytes, t_ops = telemetry_fold_bound_ms(m)
+        out.append(dict(samples=m, kernel_ms=dev_ms,
+                        kernels_a_call=events, event_ms=event_ms,
+                        ms=event_ms if dev_ms is None else dev_ms,
+                        plain_ms=plain_ms, max_abs_err=max_abs_err(got,
+                                                                   want),
+                        max_rel_err=rel, bytes_ms=t_bytes, ops_ms=t_ops,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations"))
+    return out
+
+
+def time_telemetry(calls) -> None:
+    """Adds each call's times: ``wall_ms`` (CUDA events around calls
+    issued back to back), ``device_ms`` (``time_ms``: the card held busy
+    while the host enqueues) and, from the profiler, the device events a
+    call and their summed time (``busy_ms``: the card's work without the
+    gaps between launches)."""
+    for c in calls:
+        fn = c.pop("fn")
+        reps = 5 if c["kind"] == "trimmed" else 20
+        c["wall_ms"] = wall_ms(fn, reps=reps, warm=2)
+        c["device_ms"] = time_ms(fn, reps=reps, warm=1)
+        c["busy_ms"], c["events"] = kernel_events(fn, ("",), reps=5, warm=1)
+
+
+# ---------------------------------------------------------------------------
 # The LM serving path: olmo-1b at full width, every prefill's attention
 # through the hand-written flash kernel.
 # ---------------------------------------------------------------------------
@@ -2636,7 +3053,7 @@ def lm_path(seed: int = 0) -> dict:
     counts are set to 0 just before the scheduler runs and read just
     after: ``flash_attention`` must have launched once per layer of every
     prefill, and no ISLA kernel.  Every call's q, k, v are kept for the
-    replays."""
+    replays, and the parameter tree for ``grad_telemetry``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2718,7 +3135,7 @@ def lm_path(seed: int = 0) -> dict:
                 finish_order=[r.rid for r in done], rerun_tick_s=tick_s,
                 profiled_ticks=[dict(p, wall_s=tick_s[p["tick"]])
                                 for p in profiled],
-                calls=spy.calls)
+                calls=spy.calls, params=params)
 
 
 # ---------------------------------------------------------------------------
@@ -3307,8 +3724,55 @@ def main() -> int:
               f"{f['bound_by']}), max rel err {f['max_rel_err']:.3g} "
               f"({f['tolerance']}), two launches identical")
     lap("isla float64 dense replays")
+    tele = telemetry_path()
+    lap("isla telemetry runs")
+    tfolds = check_telemetry_folds(tele.pop("panes"))
+    time_telemetry(tele["calls"])
+    for r in tele["router"]:
+        r.pop("fn")
+    lap("isla telemetry replays")
+    for c in tele["calls"]:
+        vals = ", ".join(f"{k} {v:.6f}" for k, v in c["values"].items())
+        print(f"telemetry {tuple(c['shape'])} {c['route']} route, {c['name']}"
+              f": {vals}; wall {c['wall_ms']:.4f} ms, card "
+              f"{c['device_ms']:.4f} ms (CUDA events), {c['events']:g} "
+              f"device events a call, busy {c['busy_ms'] or 0.0:.4f} ms "
+              f"(profiler); {c['fold_launches']} "
+              f"isla_fold launches, reduces {c['footprint']}; rel gaps "
+              f"{json.dumps(c['gaps'])}"
+              + ("" if "abs_err" not in c else
+                 f"; |isla - exact| {c['abs_err']:.5f} beside the rate's "
+                 f"uniform-subsample error {c['uniform_err']:.5f}"))
+    for a in tele["accuracy"]:
+        print(f"telemetry accuracy, normal(5.5, 1.5) {tuple(a['shape'])} at "
+              f"rate {TELEMETRY_RATE}, {a['route']} route: isla "
+              f"{a['isla']:.5f}, exact {a['exact']:.5f}, |isla - exact| "
+              f"{a['abs_err']:.5f} (e {a['e']}; uniform-subsample error "
+              f"{a['uniform_err']:.5f})")
+    for r in tele["router"]:
+        print(f"router_load_stats ({ROUTER_ARCH}, {tele['router_experts']} "
+              f"experts, {ROUTER_TOKENS} tokens), {r['route']} route: "
+              f"{r['values']['router_top1_isla']:.6f}, "
+              f"{r['fold_launches']} isla_fold launches, reduces "
+              f"{r['footprint']}, rel gaps {json.dumps(r['gaps'])}")
+    for f in tfolds:
+        print(f"isla_fold on a {f['samples']}-sample telemetry pane: "
+              f"{f['ms']:.4f} ms on the card (profiler, "
+              f"{f['kernels_a_call']:g} kernels a call; CUDA events "
+              f"{f['event_ms']:.4f} ms; plain {f['plain_ms']:.4f} ms), bound "
+              f"{f['bound_ms']:.5f} ms by {f['bound_by']}, max rel err "
+              f"{f['max_rel_err']:.3g} (tol rel {TELEMETRY_TOL}), two "
+              f"launches identical")
     lm = lm_path()
     lap("lm path runs")
+    grads = grad_telemetry(lm.pop("params"))
+    for g in grads:
+        g.pop("fn")
+        print(f"grad_abs_stats over the {LM_ARCH} parameter tree, "
+              f"{g['route']} route: {g['values']['grad_absmean_isla']:.6g}, "
+              f"{g['fold_launches']} isla_fold launches, reduces "
+              f"{g['footprint']}, rel gaps {json.dumps(g['gaps'])}")
+    lap("lm grad telemetry")
     print(f"LM path, {lm['arch']} at full width and depth "
           f"({lm['n_params'] / 1e9:.3f} B params, bf16, init "
           f"{lm['init_s']:.2f} s): {LM_REQUESTS} requests, prompt lengths "
@@ -3413,14 +3877,18 @@ def main() -> int:
         return sum(p["launches"][kernel] + p["mesh_launches"][kernel]
                    for p in dense64)
 
+    tele_launches = sum(c["fold_launches"] for c in tele["calls"]
+                        + tele["router"] + grads) + sum(
+        a["launches"] for a in tele["accuracy"])
     lm_flash = flash + vflash
     a_bytes = sum(f["bytes_ms"] for f in lm_flash)
     a_ops = sum(f["ops_ms"] for f in lm_flash)
     kernels = [
         dict(name="isla_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:162",
-             launches=launched("isla_fold"),
-             max_abs_err=max(f["max_abs_err"] for f in served + folds),
+             launches=launched("isla_fold") + tele_launches,
+             max_abs_err=max(f["max_abs_err"]
+                             for f in served + folds + tfolds),
              ms=sum(f["ms"] for f in served),
              plain_ms=sum(f["plain_ms"] for f in served),
              bound_ms=max(f_bytes, f_ops),
@@ -3489,7 +3957,8 @@ def main() -> int:
         main_path_f64=f64_runs, main_path_tagged=tagged,
         main_path_mesh=mesh_runs, main_path_pipelined=pipe_runs,
         pipelined_profile=pipe_prof, fold_f64=fold64,
-        dense_f64=dense64, dense_f64_folds=replays64,
+        dense_f64=dense64, dense_f64_folds=replays64, telemetry=tele,
+        telemetry_folds=tfolds, grad_telemetry=grads,
         main_path_tagged_sketches=tagged_merges, fold=folds,
         batched=batched, wrappers=wrappers, pilot=pilots, tight_plan=tight,
         lm_path=lm,

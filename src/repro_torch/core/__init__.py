@@ -5,7 +5,11 @@ the multi-query executor's ``route="host"`` — copies of the reference's
 host code.  Device path (fp32, torch, ``cuda`` unless ``device="cpu"``):
 DeviceMomentStore / DeviceStack and ``route="device"``, whose serving tick
 folds samples through the hand-written CUDA kernels; MeshDeviceStack and
-``route="mesh"`` run that tick on every shard of a cell mesh.
+``route="mesh"`` run that tick on every shard of a cell mesh.  Telemetry
+for training loops: ``distributed.isla_mean`` and ``metrics.loss_stats``
+etc., one ``isla_fold`` launch a shard for Phase 1.  The online,
+non-i.i.d. and extreme-value extensions (``online``, ``noniid``,
+``extremes``) are host code, as in the reference.
 """
 from .types import (AggregateResult, Anchor, BlockResult, BlockResultsBatch,
                     Boundaries, IslaParams, Predicate, RegionMoments,
@@ -32,11 +36,14 @@ from .engine import (IslaQuery, aggregate, aggregate_array, baseline_sample,
                      sample_moments_batch)
 from .summarize import summarize
 from .baselines import mv_avg, mvb_avg, uniform_avg
+from .noniid import aggregate_noniid, block_leverages
 from .moment_store import (DeviceMomentStore, DeviceStack, MeshDeviceStack,
                            MomentStore, iter_chunked_draws, split_budget)
+from .online import OnlineBlockState, continue_block
+from .extremes import aggregate_extreme, block_rate_leverages
 from .multiquery import (GroupAnswer, MultiQueryExecutor, QueryAnswer,
                          QueryPlan, multi_aggregate, table_sampler)
-from . import distributed
+from . import distributed, metrics
 
 __all__ = [
     "AggregateResult", "Anchor", "BlockResult", "BlockResultsBatch",
@@ -58,8 +65,11 @@ __all__ = [
     "phase1_sampling_batch", "phase2_iteration", "phase2_iteration_batch",
     "run_block", "run_blocks_batched", "sample_blocks_batched",
     "sample_moments_batch", "summarize",
-    "mv_avg", "mvb_avg", "uniform_avg", "MomentStore", "DeviceMomentStore",
-    "DeviceStack", "MeshDeviceStack", "iter_chunked_draws", "split_budget", "StoreKey",
+    "mv_avg", "mvb_avg", "uniform_avg", "aggregate_noniid",
+    "block_leverages", "MomentStore", "DeviceMomentStore", "DeviceStack",
+    "MeshDeviceStack", "iter_chunked_draws", "split_budget", "StoreKey",
+    "OnlineBlockState", "continue_block",
+    "aggregate_extreme", "block_rate_leverages",
     "GroupAnswer", "MultiQueryExecutor", "QueryAnswer", "QueryPlan",
-    "multi_aggregate", "table_sampler", "distributed",
+    "multi_aggregate", "table_sampler", "distributed", "metrics",
 ]

@@ -32,8 +32,10 @@ run on; ``d2h_async``, a stat copy into a pinned host buffer behind a
 CUDA event; ``stage_trace``, the profiler ranges of the tick's stages;
 and ``book``, their wall clocks.
 
-Not ported yet (ROADMAP Queue A): the telemetry helpers (``isla_mean``
-and friends).
+The telemetry estimator (``isla_mean``, ``exact_mean`` and their pieces)
+is the last section: the ISLA mean of a tensor, or of a tensor sharded
+over a cell mesh, that crosses shards with O(1) floats; its Phase 1 is
+one ``isla_fold`` launch a shard.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import ops
 from ..kernels.isla_moments import (MAX_KEYS, StackKey, TaggedRuns,
                                      isla_fold_stack, isla_sketch_stack,
                                      isla_sketch_tagged, isla_tagged_fold,
@@ -1006,3 +1009,222 @@ def pilot_stats_device(values, device="cuda") -> Tuple[float, float, float]:
     v32, scale = prescale_pilot(values)
     _, mean, _, lo, sigma = pilot_moments(h2d(v32, F32, dev)).tolist()
     return mean * scale, sigma * scale, lo * scale
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: the ISLA mean of a (sharded) tensor, O(1) floats across shards.
+#
+# With a mesh (``launch.mesh.CellMesh``) every function takes a sequence
+# with one tensor a shard, on that shard's device: the host program runs
+# each shard's local steps, and ``_psum`` is each cross-device step (3
+# floats for the pilot, 6 for the empirical geometry, then 8 for "merged"
+# or 2 for "blocks"; 2 for ``exact_mean``).
+# ---------------------------------------------------------------------------
+
+
+def _strided(v: torch.Tensor, take: int, stride: int) -> torch.Tensor:
+    """``jax.lax.slice(v, (0,), (take * stride,), (stride,))`` of a flat
+    tensor, as fp32 (the cast after the selection: the same values)."""
+    return v[:take * stride:stride].to(F32)
+
+
+def local_pilot(values: torch.Tensor, pilot_size: int = 256
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cheap local sketch/sigma from a strided slice: ``(sum, sumsq, n)``
+    as fp32 0-d tensors on the values' device."""
+    v = values.reshape(-1)
+    n = v.shape[0]
+    take = min(pilot_size, n)
+    stride = max(n // take, 1)
+    pv = _strided(v, take, stride)
+    return pv.sum(), (pv * pv).sum(), _const(float(pv.shape[0]), pv)
+
+
+def _band_sums(v: torch.Tensor, sketch0: torch.Tensor, sigma: torch.Tensor,
+               params: IslaParams) -> torch.Tensor:
+    """The S∪L band's (sum, count) of ``v`` at the three centres
+    ``(sketch0, sketch0 - h, sketch0 + h)``, ``h = sigma / 4``: (3, 2)."""
+    h = 0.25 * sigma
+    c = torch.stack([sketch0, sketch0 - h, sketch0 + h])[:, None]
+    lo1, hi1 = c - params.p2 * sigma, c - params.p1 * sigma
+    lo2, hi2 = c + params.p1 * sigma, c + params.p2 * sigma
+    m = (((v > lo1) & (v < hi1)) | ((v > lo2) & (v < hi2))).to(F32)
+    return torch.stack([(v * m).sum(-1), m.sum(-1)], -1)
+
+
+def _band_geometry(sums: torch.Tensor, sketch0: torch.Tensor,
+                   sigma: torch.Tensor, params: IslaParams):
+    """``(kappa, b0)`` from the reduced (3, 2) band sums."""
+    h = 0.25 * sigma
+    centers = torch.stack([sketch0, sketch0 - h, sketch0 + h])
+    means = sums[:, 0] / sums[:, 1].clamp_min(1.0)
+    means = torch.where(sums[:, 1] > 0, means, centers)
+    kappa_hat = ((means[1] - means[2]) / (2.0 * h)).clamp(-0.9, 0.9)
+    b0_hat = means[0] - sketch0                      # sketch0 == pilot mean
+    # Shrink toward the analytic normal prior (kappa*, b0=0) by pilot mass:
+    # N0 ~ the pilot size at which measurement and prior weigh the same.
+    w = sums[0, 1] / (sums[0, 1] + 1024.0)
+    kappa = w * kappa_hat + (1.0 - w) * _lambda_star(params.p1, params.p2)
+    return kappa, w * b0_hat
+
+
+def pilot_band_geometry(pilot_vals, sketch0, sigma, params: IslaParams,
+                        mesh=None):
+    """Device-side ISLA-E geometry ``(kappa, b0)`` from the pilot slice.
+
+    The S∪L band mean at three centres (sketch0, sketch0 -+ h), one
+    broadcast (3, n) mask: a (3, 2) sum, reduced across shards (6 floats).
+    b0 is the band-mean offset at delta=0 (the skew signal); kappa the
+    central-difference slope (the Theorem-1 deviation ratio), both shrunk
+    toward the normal prior by pilot mass.  With a mesh each argument is a
+    sequence by shard, and so is the result."""
+    if mesh is None:
+        return _geometry([pilot_vals], [sketch0], [sigma], params, None)[0]
+    return _geometry(pilot_vals, sketch0, sigma, params, mesh)
+
+
+def _geometry(pvs, sks, sgs, params: IslaParams, mesh):
+    sums = _psum([_band_sums(v.to(F32).reshape(-1), sk, sg, params)
+                  for v, sk, sg in zip(pvs, sks, sgs)], mesh)
+    return [_band_geometry(s, sk, sg, params)
+            for s, sk, sg in zip(sums, sks, sgs)]
+
+
+def _psum(x, mesh):
+    """The cross-shard sum: ``x`` itself without a mesh; with one, ``x``
+    is a sequence with a tensor a shard, summed by ``mesh_all_reduce`` on
+    the mesh's first device, and the sum goes back to every shard's device
+    (the broadcast half of the reference's all-reduce, not a second
+    reduce): a list with a tensor a shard."""
+    if mesh is None:
+        return x
+    out = mesh_all_reduce(mesh, x)
+    return [out.to(d) for d in mesh.devices]
+
+
+def subsample(values: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Uniform sample of ``max(1, round(n * rate))`` elements: strided
+    without a generator (the reference's indices), else drawn with
+    replacement by ``torch.randint`` from ``generator``, which must live on
+    the values' device."""
+    v = values.reshape(-1)
+    n = v.shape[0]
+    m = max(1, int(round(n * rate)))
+    if generator is None:
+        stride = max(n // m, 1)
+        return v[:m * stride:stride]
+    if generator.device.type != v.device.type or (
+            v.device.type == "cuda"
+            and generator.device.index not in (None, v.device.index)):
+        raise ValueError(f"the generator lives on {generator.device}, the "
+                         f"values on {v.device}")
+    idx = torch.randint(0, n, (m,), generator=generator, device=v.device)
+    return v[idx]
+
+
+def _shards(values, generator, mesh):
+    """``(values, generators)`` as lists with an entry a shard."""
+    if mesh is None:
+        return [values], [generator]
+    if isinstance(values, torch.Tensor):
+        raise ValueError("with a mesh, values is a sequence with a tensor "
+                         "a shard")
+    values = list(values)
+    if len(values) != len(mesh.devices):
+        raise ValueError(f"{len(values)} value shards for "
+                         f"{len(mesh.devices)} mesh shards")
+    for v, d in zip(values, mesh.devices):
+        if v.device != d:
+            raise ValueError(f"a shard's values are on {v.device}, its "
+                             f"mesh device is {d}")
+    if generator is None:
+        return values, [None] * len(values)
+    gens = list(generator) if isinstance(generator, (list, tuple)) else None
+    if gens is None or len(gens) != len(values):
+        raise ValueError("with a mesh, generator is a sequence of "
+                         "generators, one on each shard's device")
+    return values, gens
+
+
+def isla_mean(values, params: IslaParams, mesh=None, rate: float = 0.05,
+              generator=None, scale_hint: Optional[float] = None,
+              semantics: str = "blocks", mode: str = "calibrated",
+              pilot_size: int = 256) -> torch.Tensor:
+    """Approximate mean of ``values`` (fp32 0-d tensor on the values'
+    device; with a mesh, on its first device).
+
+    Without a mesh ``values`` is one tensor; with one (``launch.mesh.
+    CellMesh``) a sequence with a tensor a shard, on that shard's device,
+    and ``generator`` (if any) a sequence with a generator a shard.
+    Cross-shard traffic: 3 floats (pilot), 6 (empirical geometry), then 8
+    (``"merged"``: one Phase 2 over the summed moments) or 2
+    (``"blocks"``: each shard a block, its partial weighted by its
+    sample count), whatever the tensor's size.  Phase 1 of the subsample
+    is one ``isla_fold`` launch a shard on the card (``ops.isla_moments``).
+    Nothing here reads a device value on the host.
+    """
+    if semantics not in ("blocks", "merged"):
+        raise ValueError(f"unknown semantics {semantics}")
+    shards, gens = _shards(values, generator, mesh)
+    flats = [v.reshape(-1) for v in shards]
+
+    # --- Pre-estimation (pilot): relaxed sketch0 + sigma, one 3-float sum.
+    pilots = _psum([torch.stack(local_pilot(v, pilot_size))
+                    for v in flats], mesh)
+    sk, sg, scales, bounds = [], [], [], []
+    for p in pilots:
+        ps, pss, pn = p.unbind()
+        sketch0 = ps / pn.clamp_min(1.0)
+        sigma = torch.sqrt((pss / pn.clamp_min(1.0)
+                            - sketch0 * sketch0).clamp_min(1e-12))
+        # fp32 safety: scale so values are O(1) (exact equivariance).
+        scale = (_const(scale_hint, p) if scale_hint is not None
+                 else torch.maximum(sketch0.abs(), sigma)).clamp_min(1e-12)
+        s, g = sketch0 / scale, sigma / scale
+        sk.append(s)
+        sg.append(g)
+        scales.append(scale)
+        bounds.append(torch.stack([s - params.p2 * g, s - params.p1 * g,
+                                   s + params.p1 * g, s + params.p2 * g]))
+
+    # --- ISLA-E geometry from the pilot slice (one 6-float sum).  The
+    # division by the scale commutes with the selection.
+    geometry = [None] * len(flats)
+    if mode == "empirical":
+        pvs = []
+        for v, scale in zip(flats, scales):
+            n_loc = v.shape[0]
+            take = min(max(pilot_size, 2048), n_loc)
+            pvs.append(_strided(v, take, max(n_loc // take, 1)) / scale)
+        geometry = _geometry(pvs, sk, sg, params, mesh)
+
+    # --- Phase 1 on the subsample: one fold launch a shard.
+    samps = [subsample(v, rate, g).to(F32) / scale
+             for v, g, scale in zip(flats, gens, scales)]
+    moms = [ops.isla_moments(x, b) for x, b in zip(samps, bounds)]
+
+    if semantics == "merged":
+        mom = _psum([m.reshape(-1) for m in moms], mesh)[0]
+        avg = phase2(mom[:4], mom[4:], sk[0], params, mode=mode,
+                     geometry=geometry[0])
+        return avg * scales[0]
+    parts = []
+    for m, x, s, geo in zip(moms, samps, sk, geometry):
+        avg = phase2(m[0], m[1], s, params, mode=mode, geometry=geo)
+        n_local = _const(float(x.shape[0]), avg)
+        parts.append(torch.stack([avg * n_local, n_local]))
+    acc = _psum(parts, mesh)[0]
+    return (acc[0] / acc[1].clamp_min(1.0)) * scales[0]
+
+
+def exact_mean(values, mesh=None) -> torch.Tensor:
+    """The exact competitor: a full fp32 reduction a shard, then one
+    2-float sum across shards (``values`` as in ``isla_mean``)."""
+    shards, _ = _shards(values, None, mesh)
+    parts = []
+    for v in shards:
+        s = v.sum(dtype=F32)
+        parts.append(torch.stack([s, _const(float(v.numel()), s)]))
+    acc = _psum(parts, mesh)[0]
+    return acc[0] / acc[1]

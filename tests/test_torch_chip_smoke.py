@@ -364,3 +364,110 @@ def test_dense64_path_on_the_cpu(run, monkeypatch):
     assert max(path["tagged_gaps"].values()) <= S.DENSE64_TOL
     assert len(path["fold_calls"]) == 3
     assert [r["active_blocks"] for r in path["ticks"]] == [20, 20, 20]
+
+
+def count_folds(monkeypatch, per_call: int = 1):
+    """The plain fold stands in for the kernel on the CPU and counts as
+    ``per_call`` launches."""
+    from repro_torch.kernels import isla_moments as K
+
+    real = K.isla_fold_stack
+
+    def fold(*args, **kw):
+        real(*args, **kw)
+        K.isla_fold.launches += per_call
+
+    monkeypatch.setattr(K, "isla_fold_stack", fold)
+
+
+TELEMETRY_SMALL = dict(shapes=((64, 256), (128, 256)),
+                       mesh_devices=["cpu"] * 4, accuracy_shape=(32, 256),
+                       router_tokens=(4, 64))
+
+
+def test_telemetry_path_on_the_cpu(monkeypatch):
+    """The telemetry phase rehearsed on the CPU at small sizes (the mesh
+    on four CPU shards): one fold a shard an ISLA call, the cross-shard
+    sums of each call, no upload, answers that agree with the plain runs."""
+    count_folds(monkeypatch)
+    path = S.telemetry_path(device="cpu", **TELEMETRY_SMALL)
+    names = [n for n, _, _ in S.telemetry_calls()]
+    assert len(names) == 11
+    calls = path["calls"]
+    assert len(calls) == 2 * (11 + 10)
+    for c in calls:
+        per_shard, sums = S.telemetry_expect(c["kind"], {
+            "semantics": c["name"].split()[1],
+            "mode": c["name"].split()[2]} if c["kind"] == "isla_mean"
+            else {})
+        assert c["fold_launches"] == per_shard * c["shards"]
+        assert c["footprint"] == (sums if c["route"] == "mesh" else [])
+        assert max(max(g.values()) for g in c["gaps"].values()) <= \
+            S.TELEMETRY_TOL
+    by = {(c["name"], c["route"], tuple(c["shape"])): c for c in calls}
+    assert by[("isla_mean merged empirical strided", "mesh", (64, 256))][
+        "footprint"] == [3, 6, 8]
+    assert by[("loss_stats", "mesh", (128, 256))]["footprint"] == [3, 6, 2, 2]
+    assert ("loss_stats_trimmed_exact", "mesh", (64, 256)) not in by
+    assert all("abs_err" in c for c in calls
+               if c["kind"] in ("isla_mean", "loss_stats"))
+    assert [a["route"] for a in path["accuracy"]] == ["device", "mesh"]
+    assert [r["fold_launches"] for r in path["router"]] == [1, 4]
+    assert path["router_experts"] == 128
+    assert sorted(path["panes"]) == [82, 164, 205, 328, 410, 655, 819, 1638]
+
+
+@pytest.mark.parametrize("fault", ["two launches", "upload", "footprint"])
+def test_telemetry_call_fails(monkeypatch, fault):
+    """A call that launches the fold twice, uploads through ``h2d`` or
+    reduces more than its sums fails the phase."""
+    import numpy as np
+    from repro_torch.core import distributed as D
+
+    count_folds(monkeypatch, 2 if fault == "two launches" else 1)
+    if fault == "upload":
+        real = D.isla_mean
+
+        def uploading(values, *a, **kw):
+            D.h2d(np.zeros(1, np.float32), device="cpu")
+            return real(values, *a, **kw)
+
+        monkeypatch.setattr(D, "isla_mean", uploading)
+    if fault == "footprint":
+        real_psum = D._psum
+
+        def psum(x, mesh):
+            if mesh is not None:
+                D.mesh_all_reduce(mesh, x)
+            return real_psum(x, mesh)
+
+        monkeypatch.setattr(D, "_psum", psum)
+    x = torch.from_numpy(np.random.default_rng(0).gamma(
+        2.0, 2.0, (64, 64)).astype(np.float32))
+    (dev, _), (shards, mesh) = S.telemetry_routes(x, ["cpu"] * 2, "cpu")
+    kw = dict(semantics="blocks", mode="calibrated", generator=False)
+    with pytest.raises(S.SmokeFailure):
+        S.telemetry_call("isla_mean", "isla_mean", kw, shards, mesh, None,
+                         None, "cpu")
+
+
+def test_grad_telemetry_on_the_cpu(monkeypatch):
+    """``grad_abs_stats`` over a reduced olmo-1b tree, the device route and
+    the mesh (leaves cut on dim 0): one fold a shard, sums 3 and 8."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+
+    count_folds(monkeypatch)
+    params = TM.init_params(get_config("olmo-1b", reduced=True),
+                            torch.Generator().manual_seed(0))
+    dev, mesh = S.grad_telemetry(params, device="cpu",
+                                 mesh_devices=["cpu"] * 4)
+    assert (dev["fold_launches"], dev["footprint"]) == (1, [])
+    assert (mesh["fold_launches"], mesh["footprint"]) == (4, [3, 8])
+    assert dev["gaps"]["grad_absmean_isla"]["cpu"] == 0.0
+
+
+def test_telemetry_fold_bound():
+    t_bytes, t_ops = S.telemetry_fold_bound_ms(335544)
+    assert t_bytes == pytest.approx((4 * 335544 + 80) / 3.35e12 * 1e3)
+    assert t_bytes > t_ops

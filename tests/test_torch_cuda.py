@@ -1239,3 +1239,101 @@ def test_dense64_stack_on_card_matches_cpu(cuda, sketch):
                 else:
                     assert torch.equal(pa, pb)
                 np.testing.assert_allclose(ra, rb, rtol=1e-12, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The telemetry estimator: one fold launch a call (a shard), the kernel path
+# against its plain path on the card at chip_smoke.py's sizes, no host sync.
+# ---------------------------------------------------------------------------
+
+TELEMETRY_SHAPES = ((512, 2048), (4096, 4096))
+
+
+def _plain_fold(monkeypatch):
+    """Every kernel wrapper takes its plain version for card tensors too
+    (what chip_smoke.py's ``PlainVersions`` does)."""
+    monkeypatch.setattr(K, "on_gpu", lambda t: False)
+
+
+def _losses(shape, dev):
+    x = np.random.default_rng(0).gamma(2.0, 2.0, size=shape)
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _telemetry_runs(x, mesh):
+    from repro_torch.core import metrics as TMX
+
+    p = TMX.DEFAULT_PARAMS
+    arg = x if mesh is None else list(x.tensor_split(len(mesh.devices)))
+    for sem in ("blocks", "merged"):
+        for mode in ("calibrated", "empirical"):
+            yield (f"{sem} {mode}", lambda sem=sem, mode=mode: TD.isla_mean(
+                arg, p, mesh=mesh, rate=0.02, semantics=sem, mode=mode))
+    yield "loss_stats", lambda: TMX.loss_stats(arg, mesh=mesh)[
+        "loss_mean_isla"]
+
+
+@pytest.mark.parametrize("route", ["device", "mesh"])
+def test_isla_mean_one_fold_launch_a_shard(cuda, route):
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    mesh = None if route == "device" else make_cell_mesh(
+        devices=["cuda:0"] * 4)
+    x = _losses((512, 2048), cuda)
+    for name, fn in _telemetry_runs(x, mesh):
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        assert K.isla_fold.launches == (1 if mesh is None else 4), name
+        assert K.pilot_stats.launches == K.isla_sketch.launches == 0
+        assert K.isla_fold.launches_f64 == K.isla_tagged_fold.launches == 0
+    K.reset_launch_counts()
+    TD.exact_mean(x)
+    assert K.isla_fold.launches == 0
+
+
+@pytest.mark.parametrize("shape", TELEMETRY_SHAPES)
+@pytest.mark.parametrize("route", ["device", "mesh"])
+def test_isla_mean_kernel_path_matches_plain_path(cuda, route, shape,
+                                                  monkeypatch):
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    mesh = None if route == "device" else make_cell_mesh(
+        devices=["cuda:0"] * 4)
+    x = _losses(shape, cuda)
+    got = {n: float(fn()) for n, fn in _telemetry_runs(x, mesh)}
+    _plain_fold(monkeypatch)
+    want = {n: float(fn()) for n, fn in _telemetry_runs(x, mesh)}
+    for n in got:
+        assert got[n] == pytest.approx(want[n], rel=1e-5), n
+
+
+def test_isla_mean_does_not_sync(cuda):
+    """The estimator runs whole on the card: no host sync inside
+    ``isla_mean`` or ``exact_mean`` (the kernel library is loaded by a
+    first call before the check)."""
+    from repro_torch.launch.mesh import make_cell_mesh
+
+    mesh = make_cell_mesh(devices=["cuda:0"] * 4)
+    x = _losses((512, 2048), cuda)
+    runs = list(_telemetry_runs(x, None)) + list(_telemetry_runs(x, mesh))
+    gen = lambda: TD.isla_mean(  # noqa: E731
+        x, TC.IslaParams(), generator=torch.Generator(
+            device=cuda).manual_seed(0))
+    runs += [("generator", gen), ("exact", lambda: TD.exact_mean(x))]
+    for _, fn in runs:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _, fn in runs:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_subsample_refuses_a_generator_on_another_device(cuda):
+    with pytest.raises(ValueError, match="generator lives on"):
+        TD.subsample(torch.ones(100, device=cuda), 0.1,
+                     torch.Generator().manual_seed(0))
