@@ -130,6 +130,26 @@ it beside SDPA (``enable_gqa``).  The flash library's SASS
 (``cuobjdump``) must show tensor-core instructions in every bf16
 instantiation, and its ``-Xptxas -v`` log no spill.
 
+Then the MoE path ("lm moe"): grok-1-314b (2 layers) and arctic-480b (1
+layer) at full width, the depth cut so that one 80 GB card holds each,
+one after the other (each model's parameters freed before the next is
+built), in bf16 from a seeded generator: six seeded prompts of
+384-2048 tokens (every other one on the 256-token routing group, the
+rest falling back to one group) through a ``BatchScheduler`` of four
+slots, 8 new tokens each.  It checks one ``flash_attention`` launch per
+layer of each prefill and no ISLA kernel, that every decode step routes
+all four slots, holds ``moe._route`` of the main path's own router
+logits on the card against ``_route`` run on the CPU on the same logits
+(every prefill and one decode tick: ``dispatch`` identical but for
+counted fp32 near-ties, ``combine`` within rel 1e-6), and the card's
+``apply_moe`` on a grouped prefill, a fallback one and a decode step
+against a per-token gather formulation (within 2e-2 of the output's
+scale); it prints each model's parameter count, init seconds and peak
+memory, prefill seconds a request, decode tick seconds, tokens/s and,
+from one profiled decode tick, its device events and busy share, and
+replays every flash call beside SDPA (48 q heads over 8 KV heads, and
+56 over 8).
+
 Every failure exits nonzero.  The last three lines of standard output
 are the card's name and power limit, one JSON object describing every
 kernel, and the result object; details go to
@@ -1045,6 +1065,15 @@ def device_kernel_seconds(prof) -> dict:
             us = e.time_range.elapsed_us()
             out[e.name] = out.get(e.name, 0.0) + us * 1e-6
     return out
+
+
+def device_event_count(prof) -> "int | None":
+    """How many device events (kernels, copies, fills) a profiled window
+    holds, None when not profiled or when the trace holds none."""
+    if not hasattr(prof, "events"):
+        return None
+    n = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    return n or None
 
 
 ISLA_KERNELS = ("isla_fold_kernel", "isla_fold_combine_kernel",
@@ -2877,8 +2906,11 @@ class FlashCalls:
     """Keeps the arguments of every call the LM path makes to
     ``flash_attention`` (the (B*H, S, hd) q, k, v views of one layer's
     prefill), by wrapping the name ``models.attention`` calls while
-    installed, and times every ``serve_prefill`` (synchronised host
-    clock)."""
+    installed, and times every ``serve_prefill`` (host clock, synchronised
+    on ``device``)."""
+
+    def __init__(self, device="cuda"):
+        self.device = device
 
     def __enter__(self):
         from repro_torch.models import attention as A
@@ -2893,11 +2925,10 @@ class FlashCalls:
             return flash(q, k, v, groups=groups)
 
         def spy_prefill(*args, **kw):
-            import torch
-            torch.cuda.synchronize()
+            sync(self.device)
             t0 = time.perf_counter()
             logits, cache = prefill(*args, **kw)
-            torch.cuda.synchronize()
+            sync(self.device)
             self.prefill_s.append(time.perf_counter() - t0)
             self.logits.append(logits)
             return logits, cache
@@ -3241,6 +3272,361 @@ def vlm_path(seed: int = 0) -> dict:
                 calls=spy.calls)
 
 
+# ---------------------------------------------------------------------------
+# The MoE path: grok-1-314b and arctic-480b at full width through the slot
+# scheduler, every prefill's attention through the flash kernel and every
+# layer's channel through ``models.moe``.
+# ---------------------------------------------------------------------------
+
+# (arch, n_layers): full width; the depth is cut to what one 80 GB card
+# holds with room for the init's fp32 draw of the largest expert leaf
+# (grok-1-314b: 2 layers, 11.45 B parameters, 22.9 GB in bf16, experts
+# split in 16 virtual ones of (6144, 16384); arctic-480b: 1 layer of 128
+# experts of (7168, 4864) x 3 and a dense residual, 14.07 B, 28.1 GB).
+MOE_RUNS = (("grok-1-314b", 2), ("arctic-480b", 1))
+MOE_REQUESTS = 6
+MOE_SLOTS = 4
+MOE_MAX_NEW = 8
+MOE_PROMPT_LENS = (384, 2048)  # seeded lengths, both ends included
+MOE_MAX_SEQ = 2048 + MOE_MAX_NEW + 16
+# Profiled tick of the re-run: a decode tick of the four first requests.
+MOE_PROFILE_TICK = 2
+# The card's MoE output against the gather formulation, bf16: the LM
+# tests' tolerance, relative to the output's largest element (the gates
+# enter the main path's combine rounded to bf16 and the oracle's in fp32,
+# and the oracle rounds each virtual slice's output before summing).
+MOE_TOL = 2e-2
+COMBINE_RTOL = 1e-6  # the card's gates against the CPU's, same logits
+
+
+def moe_prompt_lens(rng, group: int, lo: int, hi: int) -> "list[int]":
+    """``MOE_REQUESTS`` seeded prompt lengths in [lo, hi]; every other one
+    is rounded down to the routing group (at least two groups), so that
+    some prefills route in groups and the rest fall back to one group of
+    all their tokens."""
+    lens = [int(n) for n in rng.integers(lo, hi + 1, MOE_REQUESTS)]
+    lens[::2] = [max(2 * group, n // group * group) for n in lens[::2]]
+    check(any(n % group == 0 for n in lens)
+          and any(n % group for n in lens),
+          f"prompt lengths {lens} do not take both routing paths")
+    return lens
+
+
+class MoeCalls:
+    """Keeps, for every call the stack makes to ``models.moe.apply_moe``
+    while installed, its params, its input and the router logits its
+    ``_route`` took (the tensors the main path made, where it made
+    them), by wrapping the two names."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+
+        self.calls = []
+        self._apply, self._route = M.apply_moe, M._route
+        apply, route = self._apply, self._route
+
+        def spy_apply(cfg, params, x):
+            self.calls.append(dict(params=params, x=x))
+            return apply(cfg, params, x)
+
+        def spy_route(cfg, logits):
+            self.calls[-1]["logits"] = logits
+            return route(cfg, logits)
+
+        M.apply_moe, M._route = spy_apply, spy_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M.apply_moe, M._route = self._apply, self._route
+        return False
+
+
+def top_choices(probs, k: int):
+    """Each token's experts, pass by pass, as ``_route`` picks them (the
+    first index on ties): (G, Tg, k)."""
+    import torch
+
+    p, out = probs.clone(), []
+    for _ in range(k):
+        idx = p.argmax(-1)
+        out.append(idx)
+        p.scatter_(-1, idx[..., None], 0.0)
+    return torch.stack(out, -1)
+
+
+def fp32_ulp(x):
+    import torch
+    return torch.finfo(torch.float32).eps * torch.exp2(torch.floor(
+        torch.log2(x.abs().clamp_min(torch.finfo(torch.float32).tiny))))
+
+
+def check_route(cfg, logits) -> dict:
+    """``_route`` of the main path's router ``logits`` (G, Tg, E) where
+    they lie, against ``_route`` run on the CPU on the same logits.
+    ``dispatch`` must be identical, except for a token whose experts
+    differ where its two competing gates lie within one fp32 ulp of each
+    other (on either device: each computes its own softmax), and a token
+    of such a token's group whose slots moved with it; both are counted.
+    ``combine`` must lie within rel ``COMBINE_RTOL`` on every token whose
+    dispatch agrees."""
+    import torch
+    from repro_torch.models import moe as M
+
+    cpu = logits.detach().cpu()
+    d_dev, c_dev, _ = M._route(cfg, logits)
+    d_cpu, c_cpu, _ = M._route(cfg, cpu)
+    d_dev, c_dev = d_dev.cpu(), c_dev.cpu()
+    probs = [torch.softmax(t, -1).cpu() for t in (logits, cpu)]
+    k = cfg.moe.top_k
+    ch_dev, ch_cpu = (top_choices(p, k) for p in probs)
+    flipped = (ch_dev != ch_cpu).any(-1)                         # (G, Tg)
+    for g, t in flipped.nonzero().tolist():
+        j = int((ch_dev[g, t] != ch_cpu[g, t]).nonzero()[0])
+        a, b = int(ch_dev[g, t, j]), int(ch_cpu[g, t, j])
+        near = [abs(float(p[g, t, a] - p[g, t, b])) <= float(fp32_ulp(
+            torch.maximum(p[g, t, a], p[g, t, b]))) for p in probs]
+        check(any(near), f"{cfg.name}: token ({g}, {t}) takes expert {a} "
+                         f"on the card and {b} on the CPU, not a near-tie: "
+                         f"card {float(probs[0][g, t, a]):.9g} / "
+                         f"{float(probs[0][g, t, b]):.9g}, CPU "
+                         f"{float(probs[1][g, t, a]):.9g} / "
+                         f"{float(probs[1][g, t, b]):.9g}")
+    same = (d_dev == d_cpu).all(-1).all(-1)                      # (G, Tg)
+    moved = ~same & ~flipped
+    check(not bool((moved & ~flipped.any(-1, keepdim=True)).any()),
+          f"{cfg.name}: dispatch differs from the CPU's in a group where "
+          f"every token took the same experts")
+    rows = same[..., None, None].expand_as(c_cpu)
+    err = (c_dev - c_cpu).abs()[rows]
+    ref = c_cpu.abs()[rows]
+    rel = float((err / ref.clamp_min(torch.finfo(torch.float32).tiny))
+                [ref > 0].max()) if bool((ref > 0).any()) else 0.0
+    check(bool((err <= COMBINE_RTOL * ref).all()),
+          f"{cfg.name}: combine off the CPU's by rel {rel:.3g} "
+          f"(> {COMBINE_RTOL})")
+    G, tg = logits.shape[:2]
+    return dict(groups=G, group_tokens=tg, capacity=int(d_cpu.shape[-1]),
+                tokens=G * tg, kept=int(d_cpu.sum()),
+                near_ties=int(flipped.sum()), moved=int(moved.sum()),
+                combine_max_rel=rel)
+
+
+def moe_gather_oracle(cfg, params, x, logits):
+    """The expert part of ``apply_moe`` as a per-token gather: the kept
+    (token, expert, gate) triples of ``_route`` on the call's router
+    ``logits`` (G, Tg, E), each expert's FFN applied to its tokens slice
+    by slice (the virtual experts' f-slices), the slices' outputs summed
+    in fp32 and added to the tokens weighted by their fp32 gates.  The
+    smoke's oracle only; the main path never runs it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe as M
+
+    B, S, d = x.shape
+    T = B * S
+    tg = logits.shape[1]
+    dispatch, combine, _ = M._route(cfg, logits)
+    g, t, e, c = dispatch.nonzero(as_tuple=True)
+    gate = combine[g, t, e, c]
+    tok = g * tg + t
+    xf = x.reshape(T, d)
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    fac = M.virtual_expert_factor(cfg)
+    for ex in torch.unique(e).tolist():
+        sel = e == ex
+        rows, w = tok[sel], gate[sel]
+        xs = xf[rows]
+        out = torch.zeros((xs.shape[0], d), dtype=torch.float32,
+                          device=x.device)
+        for j in range(fac):
+            v = ex * fac + j
+            if cfg.mlp == "swiglu":
+                h = F.silu((xs @ params["w_gate"][v]).float()).to(x.dtype) \
+                    * (xs @ params["w_up"][v])
+                out += (h @ params["w_down"][v]).float()
+            else:
+                h = F.gelu((xs @ params["w_in"][v]).float(),
+                           approximate="tanh").to(x.dtype)
+                out += (h @ params["w_out"][v]).float()
+        y.index_add_(0, rows, out * w[:, None])
+    return y.to(x.dtype).reshape(B, S, d)
+
+
+def check_moe_oracle(cfg, params, x) -> dict:
+    """The card's ``apply_moe`` on a call's input against the gather
+    oracle: its expert part (the config without the dense residual) within
+    ``MOE_TOL`` of the oracle's largest element, and the whole output
+    (arctic: the residual FFN added) within ``MOE_TOL`` of the oracle plus
+    the residual."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+
+    experts_only = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, dense_residual=False))
+    with MoeCalls() as spy:
+        got = M.apply_moe(experts_only, params, x)[0]
+    want = moe_gather_oracle(cfg, params, x, spy.calls[0]["logits"])
+    full = M.apply_moe(cfg, params, x)[0]
+    want_full = want.float()
+    if cfg.moe.dense_residual:
+        want_full = want_full + L.apply_mlp(cfg, params["residual"],
+                                            x).float()
+    out = {}
+    for name, a, b in (("experts", got, want), ("output", full, want_full)):
+        check(bool(a.isfinite().all()) and a.shape == x.shape,
+              f"{cfg.name}: apply_moe's {name} is not finite {tuple(x.shape)}")
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        check(err <= MOE_TOL * scale,
+              f"{cfg.name}: apply_moe's {name} at {tuple(x.shape)} is "
+              f"{err:.3g} off the gather oracle (> {MOE_TOL} x {scale:.3g})")
+        out[name] = dict(max_abs_err=err, scale=scale)
+    return dict(shape=list(x.shape), **out)
+
+
+def moe_path(arch: str, n_layers: int, seed: int = 0, device="cuda",
+             reduced: bool = False, prompt_lens=MOE_PROMPT_LENS,
+             max_seq: int = MOE_MAX_SEQ) -> dict:
+    """One MoE model on the LM main path: ``arch`` at full width with
+    ``n_layers`` layers, bf16 weights from a seeded generator on
+    ``device``, ``MOE_REQUESTS`` seeded prompts (some on the routing
+    group, some not) through a ``BatchScheduler`` of ``MOE_SLOTS`` slots,
+    ``MOE_MAX_NEW`` new tokens each.  The launch counts are set to 0 just
+    before the scheduler runs and read just after: ``flash_attention``
+    must have launched once per layer of every prefill, and no ISLA
+    kernel.  Every MoE layer must have run ``apply_moe``, each decode
+    step on every slot.  Then, with the weights still there: every
+    prefill's and the first decode tick's routing held against the CPU's
+    (``check_route``), the MoE output of one grouped prefill, one that
+    fell back and one decode step against the gather oracle, and a re-run
+    tick by tick with one decode tick profiled.  ``reduced`` (with short
+    prompts) rehearses the phase on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.models import model as TM
+    from repro_torch.serve import BatchScheduler, Request
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(arch, reduced=reduced).replace(n_layers=n_layers)
+    held = None  # bytes held on the card before the model is built
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, gen)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_peak = torch.cuda.max_memory_allocated() if on_card else None
+    rng = np.random.default_rng(seed + 3)
+    lens = moe_prompt_lens(rng, cfg.moe.group_size, *prompt_lens)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in lens]
+
+    def scheduler():
+        sched = BatchScheduler(cfg, params, batch_slots=MOE_SLOTS,
+                               max_seq=max_seq, eos_id=-1)
+        for rid, prompt in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=prompt,
+                                 max_new=MOE_MAX_NEW))
+        return sched
+
+    sched = scheduler()
+    K.reset_launch_counts()
+    with FlashCalls(device) as spy, MoeCalls() as moe_spy:
+        t0 = time.perf_counter()
+        done = sched.run_until_drained()
+        sync(device)
+        wall = time.perf_counter() - t0
+    launches = dict(flash_attention=FA.flash_attention.launches,
+                    isla_fold=K.isla_fold.launches,
+                    pilot_stats=K.pilot_stats.launches,
+                    isla_sketch=K.isla_sketch.launches)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    admitted = len(spy.prefill_s)
+    check(admitted == MOE_REQUESTS and len(done) == MOE_REQUESTS,
+          f"{arch}: {len(done)} of {MOE_REQUESTS} requests served")
+    want_flash = admitted * cfg.n_layers if on_card else 0
+    check(launches["flash_attention"] == want_flash,
+          f"{arch}: flash_attention launched "
+          f"{launches['flash_attention']} times, not once per layer of "
+          f"{admitted} prefills ({want_flash})")
+    check(len(spy.calls) == admitted * cfg.n_layers,
+          f"{arch}: {len(spy.calls)} flash calls for {admitted} prefills")
+    check(launches["isla_fold"] + launches["pilot_stats"]
+          + launches["isla_sketch"] == 0, f"{arch}: the MoE path ran an "
+                                          f"ISLA kernel")
+    for r in done:
+        check(len(r.generated) == MOE_MAX_NEW + 1 and all(
+            0 <= t < cfg.padded_vocab for t in r.generated),
+              f"{arch}: request {r.rid} generated {r.generated}")
+    for lg in spy.logits:
+        check(tuple(lg.shape) == (1, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(lg).all()),
+              f"{arch}: prefill logits are not finite (1, 1, V)")
+    calls = moe_spy.calls
+    prefills = [c for c in calls if c["x"].shape[1] > 1]
+    decodes = [c for c in calls if c["x"].shape[1] == 1]
+    check(len(prefills) == admitted * cfg.n_layers
+          and len(decodes) % cfg.n_layers == 0 and decodes,
+          f"{arch}: {len(prefills)} prefill and {len(decodes)} decode MoE "
+          f"calls for {admitted} prefills of {cfg.n_layers} layers")
+    check(all(c["x"].shape[0] == MOE_SLOTS for c in decodes),
+          f"{arch}: a decode step did not route every slot")
+    check([c["x"].shape[1] for c in prefills[::cfg.n_layers]] == lens,
+          f"{arch}: prefills of {[c['x'].shape[1] for c in prefills]} "
+          f"tokens for prompts of {lens}")
+    routes = [dict(check_route(cfg, c["logits"]), call="prefill",
+                   tokens_in=c["x"].shape[1], layer=i % cfg.n_layers)
+              for i, c in enumerate(prefills)]
+    routes += [dict(check_route(cfg, c["logits"]), call="decode",
+                    tokens_in=c["x"].shape[0], layer=i)
+               for i, c in enumerate(decodes[:cfg.n_layers])]
+    grid = [i for i, n in enumerate(lens) if n % cfg.moe.group_size == 0]
+    off = [i for i, n in enumerate(lens) if n % cfg.moe.group_size]
+    picks = [("grouped prefill", prefills[grid[0] * cfg.n_layers]),
+             ("fallback prefill", prefills[off[0] * cfg.n_layers]),
+             ("decode step", decodes[0])]
+    oracle = [dict(check_moe_oracle(cfg, c["params"], c["x"]), call=name)
+              for name, c in picks]
+    del calls, prefills, decodes, picks, moe_spy
+    prefill_s = sum(spy.prefill_s)
+    decode_s = wall - prefill_s
+    new_tokens = sum(len(r.generated) for r in done)
+    # Where the time goes, after the counts were read: a re-run of the
+    # same traffic tick by tick (host clock, synchronised), then another
+    # with MOE_PROFILE_TICK under the profiler (its wall from the first).
+    tick_s, _ = drive(scheduler(), device=device)
+    _, profiled = drive(scheduler(), (MOE_PROFILE_TICK,), device)
+    prof = profiled[0]
+    prof["wall_s"] = tick_s[MOE_PROFILE_TICK]
+    if prof["device_events"]:
+        prof["busy_share"] = prof["device_s"] / prof["wall_s"]
+    else:
+        check(not on_card, f"{arch}: the profiled decode tick holds no "
+                           f"device event")
+    return dict(arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                n_experts=cfg.moe.n_experts, n_params=n_params,
+                init_s=init_s, held_bytes=held, init_peak_bytes=init_peak,
+                peak_bytes=peak,
+                prompt_lens=lens, slots=MOE_SLOTS, max_new=MOE_MAX_NEW,
+                launches=launches, wall_s=wall, prefill_s=prefill_s,
+                prefill_each_s=spy.prefill_s, decode_s=decode_s,
+                ticks=len(tick_s), decode_tick_s=decode_s / len(tick_s),
+                new_tokens=new_tokens, tokens_per_s=new_tokens / wall,
+                finish_order=[r.rid for r in done], rerun_tick_s=tick_s,
+                profiled_tick=prof, routes=routes, oracle=oracle,
+                calls=spy.calls)
+
+
 def ptxas_figures(log: str) -> dict:
     """Each function's registers, spill bytes and static shared memory
     from a ``-Xptxas -v`` log."""
@@ -3306,26 +3692,25 @@ def flash_sass() -> dict:
     return counts
 
 
-def drive(sched, profile_ticks=()):
+def drive(sched, profile_ticks=(), device="cuda"):
     """Run a scheduler to the end one tick at a time, synchronised; the
     ticks in ``profile_ticks`` (0-based) under the profiler.  Returns the
     ticks' wall seconds and, for each profiled tick, its device seconds by
-    kernel and its top host operators."""
-    import torch
-
+    kernel, its count of device events and its top host operators."""
     walls, profiled = [], []
     while sched.queue or any(x is not None for x in sched.slots):
         k = len(walls)
-        with profile_tick("cuda", k in profile_ticks) as prof:
+        with profile_tick(device, k in profile_ticks) as prof:
             t0 = time.perf_counter()
             active = sched.tick()
-            torch.cuda.synchronize()
+            sync(device)
             walls.append(time.perf_counter() - t0)
         if k in profile_ticks:
             kernels_s = device_kernel_seconds(prof)
             profiled.append(dict(
                 tick=k, active=active,
                 device_s=sum(kernels_s.values()),
+                device_events=device_event_count(prof),
                 kernels_s=dict(sorted(kernels_s.items(),
                                       key=lambda kv: -kv[1])[:8]),
                 host_ops_s=host_op_seconds(prof, top=8)))
@@ -3850,14 +4235,75 @@ def main() -> int:
               f"{sum(f['library_ms'] for f in layer) / n:.4f} ms; "
               + flash_err_text(layer))
     lap("vlm path replays")
+    total_bytes = torch.cuda.get_device_properties(0).total_memory
+    moe_runs = []
+    for arch, n_layers in MOE_RUNS:
+        m = moe_path(arch, n_layers)
+        check(m["peak_bytes"] < total_bytes,
+              f"{arch}: peak memory {m['peak_bytes']} B of {total_bytes}")
+        mcalls = m.pop("calls")
+        m["flash"] = [check_flash(q, k, v, g) for q, k, v, g in mcalls]
+        del mcalls
+        moe_runs.append(m)
+        lap(f"lm moe {arch}")
+        print(f"MoE path, {arch} at full width, {m['n_layers']} layer(s) "
+              f"(d_model {m['d_model']}, {m['n_experts']} experts; "
+              f"{m['n_params'] / 1e9:.3f} B params, bf16, init "
+              f"{m['init_s']:.2f} s; {m['held_bytes'] / 2**30:.2f} GiB held "
+              f"before it, peak {m['init_peak_bytes'] / 2**30:.2f} GiB at "
+              f"init, {m['peak_bytes'] / 2**30:.2f} GiB in all, of "
+              f"{total_bytes / 2**30:.2f}): {MOE_REQUESTS} requests, prompt "
+              f"lengths {m['prompt_lens']}, {MOE_SLOTS} slots, max_new "
+              f"{MOE_MAX_NEW}: {json.dumps(m['launches'])} launches")
+        print(f"  prefill s a request "
+              + ", ".join(f"{t:.4f}" for t in m["prefill_each_s"])
+              + f"; decode {m['decode_s']:.3f} s over {m['ticks']} ticks "
+              f"({m['decode_tick_s'] * 1e3:.2f} ms a tick, median re-run "
+              f"tick {sorted(m['rerun_tick_s'])[m['ticks'] // 2] * 1e3:.2f}"
+              f" ms); {m['new_tokens']} new tokens in {m['wall_s']:.3f} s "
+              f"= {m['tokens_per_s']:.1f} tok/s")
+        p = m["profiled_tick"]
+        top = list(p["kernels_s"].items())[:3]
+        print(f"  profiled decode tick {p['tick']} ({p['active']} slots): "
+              f"{p['device_events']} device events, busy "
+              f"{p['device_s'] * 1e3:.2f} ms of {p['wall_s'] * 1e3:.2f} ms "
+              f"wall ({p['busy_share']:.1%}); top kernels "
+              + ", ".join(f"{n[:48]} {t * 1e3:.2f} ms" for n, t in top))
+        rt = m["routes"]
+        print(f"  routing of {len(rt)} MoE calls on the card vs the CPU on "
+              f"the same logits: dispatch identical but "
+              f"{sum(r['near_ties'] for r in rt)} near-tie tokens (+"
+              f"{sum(r['moved'] for r in rt)} moved with them) of "
+              f"{sum(r['tokens'] for r in rt)}; combine max rel "
+              f"{max(r['combine_max_rel'] for r in rt):.3g}; (G, Tg, C) "
+              + ", ".join(sorted({f"({r['groups']}, {r['group_tokens']}, "
+                                  f"{r['capacity']})" for r in rt})))
+        print("  apply_moe vs the gather oracle: " + "; ".join(
+            f"{o['call']} {tuple(o['shape'])}: experts "
+            f"{o['experts']['max_abs_err']:.3g} of "
+            f"{o['experts']['scale']:.3g}, output "
+            f"{o['output']['max_abs_err']:.3g} of "
+            f"{o['output']['scale']:.3g}" for o in m["oracle"]))
+        fl = m["flash"]
+        print(f"  flash_attention on its {len(fl)} prefill calls "
+              f"({fl[0]['shape'][0]} q heads over {fl[0]['kv_heads']} KV "
+              f"heads, groups {fl[0]['groups']}, hd {fl[0]['shape'][2]}): "
+              f"{sum(f['ms'] for f in fl):.3f} ms (plain "
+              f"{sum(f['plain_ms'] for f in fl):.3f} ms, SDPA "
+              f"{sum(f['library_ms'] for f in fl):.3f} ms, bound "
+              f"{sum(f['bound_ms'] for f in fl):.4f} ms); at S = "
+              f"{max(m['prompt_lens'])} a call "
+              f"{max(fl, key=lambda f: f['shape'][1])['ms']:.4f} ms (SDPA "
+              f"{max(fl, key=lambda f: f['shape'][1])['library_ms']:.4f}); "
+              + flash_err_text(fl))
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}"
                                          for n, t in phase_s.items()))
 
     # Each kernel's entry sums the main path's own calls (every drawing
     # tick's launches in both ISLA runs, replayed on their panes; every
-    # prefill layer's attention in the olmo-1b and paligemma-3b runs,
-    # replayed on its q, k, v); its launches are the runs' counts added,
-    # the mesh and pipelined runs' included.
+    # prefill layer's attention in the olmo-1b, paligemma-3b, grok-1-314b
+    # and arctic-480b runs, replayed on its q, k, v); its launches are the
+    # runs' counts added, the mesh and pipelined runs' included.
     def launched(kernel):
         return sum(path["launches"][kernel]
                    for path in runs + mesh_runs + pipe_runs)
@@ -3880,7 +4326,7 @@ def main() -> int:
     tele_launches = sum(c["fold_launches"] for c in tele["calls"]
                         + tele["router"] + grads) + sum(
         a["launches"] for a in tele["accuracy"])
-    lm_flash = flash + vflash
+    lm_flash = flash + vflash + [f for m in moe_runs for f in m["flash"]]
     a_bytes = sum(f["bytes_ms"] for f in lm_flash)
     a_ops = sum(f["ops_ms"] for f in lm_flash)
     kernels = [
@@ -3941,7 +4387,9 @@ def main() -> int:
         dict(name="flash_attention", route="cuda", source=FLASH_SOURCE,
              replaces="src/repro/kernels/flash_attention.py:65",
              launches=(lm["launches"]["flash_attention"]
-                       + vlm["launches"]["flash_attention"]),
+                       + vlm["launches"]["flash_attention"]
+                       + sum(m["launches"]["flash_attention"]
+                             for m in moe_runs)),
              max_abs_err=max(f["max_abs_err"] for f in lm_flash + synth),
              ms=sum(f["ms"] for f in lm_flash),
              plain_ms=sum(f["plain_ms"] for f in lm_flash),
@@ -3964,7 +4412,8 @@ def main() -> int:
         lm_path=lm,
         phase_s=phase_s,
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
-        vlm_path=vlm, vlm_flash=vflash, flash_ptxas=ptxas, flash_sass=sass,
+        vlm_path=vlm, vlm_flash=vflash, moe_paths=moe_runs,
+        flash_ptxas=ptxas, flash_sass=sass,
         isla_ptxas=islaptx,
         kernels=kernels),
         indent=1, default=str))

@@ -28,9 +28,11 @@ def pdtype(cfg: ArchConfig) -> torch.dtype:
 def normal(gen: torch.Generator, shape, scale: float,
            dtype: torch.dtype) -> torch.Tensor:
     """fp32 standard normal draws times ``scale``, cast to ``dtype`` (the
-    reference's ``(jax.random.normal(k, shape) * scale).astype(dt)``)."""
+    reference's ``(jax.random.normal(k, shape) * scale).astype(dt)``).
+    Scaled in place: the same bits as ``x * scale``, without a second
+    fp32 temporary (one expert group of arctic-480b is 17.8 GB in fp32)."""
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=F32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

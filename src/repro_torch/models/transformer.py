@@ -13,9 +13,10 @@ Cache layout (serving): every attention period position owns
 ``{"k", "v": (G, B, S_max, KV, hd)}``; prefill and decode write it in
 place.
 
-This slice serves ``mixer == "attn"`` positions with ``channel`` in
-``{"mlp", "none"}``.  A Mamba2 mixer or an MoE channel raises
-``NotImplementedError`` naming its ROADMAP item; ``grad_boundary``,
+The port serves ``mixer == "attn"`` positions with ``channel`` in
+``{"mlp", "moe", "none"}``; an MoE channel runs ``moe.apply_moe`` and
+drops its aux, as the reference's prefill and decode do.  A Mamba2 mixer
+raises ``NotImplementedError`` naming its ROADMAP item; ``grad_boundary``,
 ``forward_train`` and the sharding ``constraint`` belong to the training
 path (ROADMAP Queue A item 11).
 """
@@ -27,11 +28,11 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import moe
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 Params = Dict[str, Any]
 
-MOE_ITEM = "ROADMAP Queue A item 8, 'MoE channel'"
 MAMBA_ITEM = "ROADMAP Queue A item 9, 'Mamba2 mixer'"
 
 
@@ -70,9 +71,6 @@ def served_kind(cfg: ArchConfig, pos: int) -> Tuple[str, str]:
     if mixer == "mamba":
         raise NotImplementedError(
             f"{cfg.name}: the Mamba2 mixer is not ported yet ({MAMBA_ITEM})")
-    if channel == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE channel is not ported yet ({MOE_ITEM})")
     return mixer, channel
 
 
@@ -88,15 +86,29 @@ def init_block_position(cfg: ArchConfig, pos: int,
                  "attn": attn.init_attention(cfg, gen)}
     if channel != "none":
         p["ln2"] = init_norm(cfg, gen)
-        p["mlp"] = init_mlp(cfg, gen)
+        if channel == "moe":
+            p["moe"] = moe.init_moe(cfg, gen)
+        else:
+            p["mlp"] = init_mlp(cfg, gen)
     return p
 
 
-def _stack(trees: List[Params]) -> Params:
-    """Leaves of same-structured dicts stacked on a new leading axis."""
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+def _fill_group(stacked: Params, tree: Params, g: int, groups: int) -> None:
+    """Move ``tree``'s leaves into group ``g`` of ``stacked``, each stacked
+    leaf allocated when group 0 reaches it (one group: the leaf itself,
+    unsqueezed), dropping each leaf from ``tree`` once moved, so that at
+    most one leaf is held twice."""
+    for k in list(tree):
+        v = tree.pop(k)
+        if isinstance(v, dict):
+            _fill_group(stacked.setdefault(k, {}), v, g, groups)
+        elif groups == 1:
+            stacked[k] = v.unsqueeze(0)
+        else:
+            if g == 0:
+                stacked[k] = torch.empty((groups,) + tuple(v.shape),
+                                         dtype=v.dtype, device=v.device)
+            stacked[k][g].copy_(v)
 
 
 def group_params(blocks: Params, g: int) -> Params:
@@ -107,11 +119,19 @@ def group_params(blocks: Params, g: int) -> Params:
 
 def init_stack(cfg: ArchConfig, gen: torch.Generator) -> List[Params]:
     """params["blocks"]: list over period positions, leaves stacked over
-    groups."""
+    groups.  Each position's groups are drawn one after another, and each
+    stacked leaf is allocated once and filled group by group, so the
+    resident weights are never held twice (an MoE position's experts are
+    the bulk of a large model)."""
     groups = n_groups_of(cfg)
-    return [_stack([init_block_position(cfg, pos, gen)
-                    for _ in range(groups)])
-            for pos in range(period_of(cfg))]
+    blocks = []
+    for pos in range(period_of(cfg)):
+        stacked: Params = {}
+        for g in range(groups):
+            _fill_group(stacked, init_block_position(cfg, pos, gen), g,
+                        groups)
+        blocks.append(stacked)
+    return blocks
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +145,9 @@ def _apply_channel(cfg: ArchConfig, pos: int, bp: Params,
     if channel == "none":
         return x
     h = apply_norm(cfg, bp.get("ln2", {}), x)
+    if channel == "moe":
+        y, _ = moe.apply_moe(cfg, bp["moe"], h)
+        return x + y
     return x + apply_mlp(cfg, bp["mlp"], h)
 
 

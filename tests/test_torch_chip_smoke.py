@@ -471,3 +471,102 @@ def test_telemetry_fold_bound():
     t_bytes, t_ops = S.telemetry_fold_bound_ms(335544)
     assert t_bytes == pytest.approx((4 * 335544 + 80) / 3.35e12 * 1e3)
     assert t_bytes > t_ops
+
+
+# The MoE phase rehearsed on the CPU: reduced configs (4 experts, groups
+# of 64, d_model 128), prompts of 40-130 tokens.
+MOE_SMALL = dict(reduced=True, device="cpu", prompt_lens=(40, 130),
+                 max_seq=160)
+
+
+@pytest.mark.parametrize("arch", [a for a, _ in S.MOE_RUNS])
+def test_moe_path_on_the_cpu(arch):
+    """The phase's checks pass on a reduced config on the CPU: every
+    request served, no ISLA kernel, every decode step routing all four
+    slots, the routing equal to itself run on the CPU (no near-tie), and
+    ``apply_moe`` within the tolerance of the gather oracle."""
+    r = S.moe_path(arch, 2, **MOE_SMALL)
+    assert len(r["finish_order"]) == S.MOE_REQUESTS
+    assert r["launches"]["flash_attention"] == 0  # the CPU: plain version
+    assert len(r["calls"]) == S.MOE_REQUESTS * 2
+    assert {o["call"] for o in r["oracle"]} == {
+        "grouped prefill", "fallback prefill", "decode step"}
+    for o in r["oracle"]:
+        assert o["experts"]["max_abs_err"] <= S.MOE_TOL * o["experts"][
+            "scale"]
+    assert len(r["routes"]) == (S.MOE_REQUESTS + 1) * 2
+    assert all(x["near_ties"] == x["moved"] == 0 for x in r["routes"])
+    assert {x["groups"] > 1 for x in r["routes"]} == {True, False}
+    assert r["profiled_tick"]["active"] == S.MOE_SLOTS
+
+
+def test_moe_prompt_lens_take_both_routing_paths():
+    import numpy as np
+
+    lens = S.moe_prompt_lens(np.random.default_rng(3), 256, 384, 2048)
+    assert len(lens) == S.MOE_REQUESTS
+    assert all(384 <= n <= 2048 for n in lens)
+    assert any(n % 256 == 0 for n in lens) and any(n % 256 for n in lens)
+
+
+def test_moe_oracle_finds_a_wrong_expert_weight():
+    """The gather oracle is independent of the dispatch and combine
+    products: a main path that applied the wrong virtual expert's weights
+    fails the check."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config("grok-1-314b", reduced=True).replace(
+        param_dtype="float32")
+    params = M.init_moe(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((1, 64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    S.check_moe_oracle(cfg, params, x)
+    real = M._expert_ffn
+
+    def swapped(cfg_, p, xe):
+        return real(cfg_, {k: v.roll(1, 0) for k, v in p.items()}, xe)
+
+    M._expert_ffn = swapped
+    try:
+        with pytest.raises(S.SmokeFailure, match="gather oracle"):
+            S.check_moe_oracle(cfg, params, x)
+    finally:
+        M._expert_ffn = real
+
+
+@pytest.mark.parametrize("spoil, match", [
+    ("dispatch", "every token took the same experts"),
+    ("combine", "combine off the CPU's")])
+def test_check_route_fails_on_a_wrong_route(spoil, match):
+    """``check_route`` refuses a CPU routing whose one token moved to
+    another expert's slot though no gate is near a tie, or whose one gate
+    is off by rel 1e-5."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config("arctic-480b", reduced=True)
+    logits = torch.randn((2, 64, cfg.moe.n_experts),
+                         generator=torch.Generator().manual_seed(2))
+    assert S.check_route(cfg, logits)["near_ties"] == 0
+    real = M._route
+
+    def spoiled(cfg_, lg):
+        d, c, aux = real(cfg_, lg)
+        if lg is not logits:  # the CPU's call
+            d, c = d.clone(), c.clone()
+            if spoil == "dispatch":
+                d[0, 3] = d[0, 3].roll(1, 0)
+                c[0, 3] = c[0, 3].roll(1, 0)
+            else:
+                c[0, 3] *= 1 + 1e-5
+        return d, c, aux
+
+    M._route = spoiled
+    try:
+        with pytest.raises(S.SmokeFailure, match=match):
+            S.check_route(cfg, logits)
+    finally:
+        M._route = real

@@ -627,6 +627,108 @@ def test_paligemma_prefix_prefill_on_cuda_matches_cpu(cuda, head_dim):
         torch.testing.assert_close(g, c, rtol=tol, atol=tol)
 
 
+def _moe_near_tie(probs, a, b) -> bool:
+    """Two fp32 gates a router product summed in another order may swap:
+    within rel 1e-5 of each other (the card's and the CPU's fp32 router
+    logits lie ~1e-6 apart)."""
+    pa, pb = float(probs[a]), float(probs[b])
+    return abs(pa - pb) <= 1e-5 * max(pa, pb)
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "grok-1-314b"])
+def test_moe_on_cuda_matches_cpu_without_sync(cuda, arch, monkeypatch):
+    """Reduced arctic-480b and grok-1-314b, fp32 params, on the card
+    against the same weights on the CPU, with no host sync anywhere in
+    the model (``set_sync_debug_mode("error")``): ``apply_moe`` on three
+    groups of 64 tokens, on 50 tokens (one group) and on a 4-slot decode
+    batch, its dispatch the CPU's but for counted near-ties and its output
+    within 1e-5 on every token routed alike; then ``serve_prefill`` of 70
+    and 64 tokens and 3 ``serve_decode`` steps (logits 1e-4 prefill, 1e-3
+    decode, as an entry of the bf16 cache may round one ulp apart), one
+    flash launch per layer of a prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TT
+
+    cfg = get_config(arch, reduced=True).replace(param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    layer0 = TT.group_params(params["blocks"][0], 0)["moe"]
+    moe_p = {d: _to(layer0, d) for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(5)
+    seen, routes = [], {}
+    real = M._route
+
+    def spy(cfg_, logits):
+        out = real(cfg_, logits)
+        seen.append((logits, out[0]))
+        return out
+
+    monkeypatch.setattr(M, "_route", spy)
+    flipped = 0
+    for shape in ((2, 96), (1, 50), (4, 1)):
+        x = torch.as_tensor(rng.normal(size=shape + (cfg.d_model,)),
+                            dtype=torch.float32)
+        y = {}
+        for dev in ("cpu", "cuda"):
+            xd = x.to(dev)
+            M.apply_moe(cfg, moe_p[dev], xd)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y[dev] = M.apply_moe(cfg, moe_p[dev], xd)[0]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            y[dev], routes[dev] = y[dev].cpu(), seen[-1]
+        (l_h, d_h), (_, d_c) = routes["cpu"], routes["cuda"]
+        p_h, d_c = torch.softmax(l_h, -1), d_c.cpu()
+        same = (d_h == d_c).all(-1).all(-1)                      # (G, Tg)
+        for g, t in (~same).nonzero().tolist():
+            kh = set(d_h[g, t].sum(-1).nonzero()[:, 0].tolist())
+            kc = set(d_c[g, t].sum(-1).nonzero()[:, 0].tolist())
+            if kh - kc and kc - kh:
+                assert _moe_near_tie(p_h[g, t], min(kh - kc),
+                                     min(kc - kh)), (shape, g, t)
+                flipped += 1
+        G, tg = same.shape
+        ok = same.reshape(-1)
+        torch.testing.assert_close(y["cuda"].reshape(G * tg, -1)[ok],
+                                   y["cpu"].reshape(G * tg, -1)[ok],
+                                   rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(M, "_route", real)
+    print(f"{arch}: {flipped} near-tie tokens took another expert")
+
+    toks = rng.integers(0, cfg.vocab, (2, 74))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        out = []
+        for b, n in ((0, 70), (1, 64)):
+            t = torch.as_tensor(toks[b:b + 1], device=dev)
+            cache = TM.init_cache(cfg, 1, n + 3, device=dev)
+            K.reset_launch_counts()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out.append(TM.serve_prefill(cfg, p, {"tokens": t[:, :n]},
+                                            cache)[0])
+                for i in range(3):
+                    pos = torch.full((1,), n + i, device=dev)
+                    out.append(TM.serve_decode(cfg, p, t[:, n + i:n + i + 1],
+                                               pos, cache)[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            assert FA.flash_attention.launches == (
+                cfg.n_layers if dev == "cuda" else 0)
+        logits[dev] = [o.float().cpu() for o in out]
+    for step, (c, g) in enumerate(zip(logits["cpu"], logits["cuda"])):
+        tol = 1e-4 if step % 4 == 0 else 1e-3
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, c, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", TAGGED_CASES)
 def test_tagged_fold_kernel_matches_plain_version(cuda, case, dtype):

@@ -1,8 +1,9 @@
 """The port's LM serving path against the reference on the CPU: reduced
 configs, the reference's params carried through ``convert.params_from``,
 the same seeded numpy tokens.  Prefill and decode logits and the KV cache,
-the slot scheduler's generated tokens and finish order, the families not
-ported yet, and the ``--workload lm`` CLI."""
+the slot scheduler's generated tokens and finish order, the MoE configs
+(arctic-480b, grok-1-314b) in the stack and the scheduler, the families
+not ported yet, and the ``--workload lm`` CLI."""
 import os
 import pathlib
 import subprocess
@@ -109,6 +110,49 @@ def test_prefill_and_decode_match_reference(arch, dtype):
         np.testing.assert_allclose(_f32(lt), _f32(lr), rtol=tol, atol=tol,
                                    err_msg=f"decode step {t}")
         _check_cache(cache_r, cache_t, dtype, f"decode step {t}")
+
+
+@pytest.mark.parametrize("prefill", [20, 64])
+@pytest.mark.parametrize("arch", ["arctic-480b", "grok-1-314b"])
+def test_moe_prefill_and_decode_match_reference(arch, prefill):
+    """The MoE channel in the stack, fp32 params: arctic-480b (dense
+    residual beside 4 experts) and grok-1-314b (4 experts split in 4
+    virtual ones each).  Two prompts prefilled together route their
+    2 x ``prefill`` tokens as one batch: 40 tokens fall back to one group
+    (40 % 64 != 0), 128 make two groups of 64.  Then 4 decode steps,
+    each routing the 2 slots' tokens together.
+
+    The cache is kept in the param dtype, as the paligemma test keeps it:
+    a bf16 cache from fp32 params rounds an entry one ulp apart now and
+    then, and at 64 tokens the decode steps that read such entries put
+    arctic's logits 1.5e-4 apart, past the fp32 1e-4; from an fp32 cache
+    the two agree to 1e-6 at every step."""
+    (cr, pr), (ct, pt) = _pair(arch, "float32")
+    B, S0 = 2, prefill
+    S = S0 + 4
+    toks = np.random.default_rng(4).integers(0, cr.vocab, (B, S))
+    tol = LOGIT_TOL["float32"]
+    cache_r = RM.init_cache(cr, B, S, dtype=jnp.float32)
+    cache_t = TM.init_cache(ct, B, S, dtype=torch.float32, device="cpu")
+    lr, cache_r = RM.serve_prefill(
+        cr, pr, {"tokens": jnp.asarray(toks[:, :S0], jnp.int32)}, cache_r)
+    lt, cache_t = TM.serve_prefill(
+        ct, pt, {"tokens": torch.as_tensor(toks[:, :S0])}, cache_t)
+    assert lt.shape == (B, 1, ct.padded_vocab)
+    np.testing.assert_allclose(_f32(lt), _f32(lr), rtol=tol, atol=tol)
+    _check_cache(cache_r, cache_t, "float32", "prefill", torch.float32)
+    for t in range(S0, S):
+        pos = np.full((B,), t)
+        lr, cache_r = RM.serve_decode(
+            cr, pr, jnp.asarray(toks[:, t:t + 1], jnp.int32),
+            jnp.asarray(pos, jnp.int32), cache_r)
+        lt, cache_t = TM.serve_decode(
+            ct, pt, torch.as_tensor(toks[:, t:t + 1]), torch.as_tensor(pos),
+            cache_t)
+        np.testing.assert_allclose(_f32(lt), _f32(lr), rtol=tol, atol=tol,
+                                   err_msg=f"decode step {t}")
+        _check_cache(cache_r, cache_t, "float32", f"decode step {t}",
+                     torch.float32)
 
 
 def test_decode_past_the_cache_clamps_like_reference():
@@ -249,8 +293,8 @@ def test_synth_frontend_embeds_shape_dtype_and_scale():
 # ---------------------------------------------------------------------------
 
 
-def _schedulers(seed, slots, max_seq):
-    (cr, pr), (ct, pt) = _pair("olmo-1b", "float32", seed)
+def _schedulers(seed, slots, max_seq, arch="olmo-1b"):
+    (cr, pr), (ct, pt) = _pair(arch, "float32", seed)
     return (RefScheduler(cr, pr, batch_slots=slots, max_seq=max_seq,
                          eos_id=-1),
             BatchScheduler(ct, pt, batch_slots=slots, max_seq=max_seq,
@@ -301,6 +345,28 @@ def test_scheduler_slot_recycling_under_oversubscription():
     assert _finished(port) == _finished(ref)
 
 
+@pytest.mark.parametrize("arch", ["arctic-480b", "grok-1-314b"])
+def test_moe_scheduler_matches_reference(arch):
+    """The slot scheduler on the MoE configs, fp32: each admission
+    prefills one prompt alone (its tokens route together; 70 and 64
+    tokens of a 64-token group size take the fallback and one group), and
+    every decode tick routes all 3 slots' tokens together, the slots with
+    no request too, as the reference's tick does: MoE capacity couples a
+    step's tokens, so the batch's make-up is part of the result.  The
+    finished tokens and order are the reference's."""
+    ref, port, cfg = _schedulers(6, 3, 96, arch)
+    prompts = [list(np.random.default_rng(7).integers(0, cfg.vocab, n))
+               for n in (5, 70, 9, 64, 12)]
+    for s, req in ((ref, RefRequest), (port, Request)):
+        for rid, pr in enumerate(prompts):
+            s.submit(req(rid=rid, prompt=[int(t) for t in pr],
+                         max_new=3 + rid % 3))
+    done = port.run_until_drained(max_ticks=64)
+    ref.run_until_drained(max_ticks=64)
+    assert len(done) == len(prompts) and all(r.done for r in done)
+    assert _finished(port) == _finished(ref)
+
+
 def test_scheduler_tick_counts():
     ref, port, _ = _schedulers(1, 2, 32)
     launches = FA.flash_attention.launches
@@ -321,15 +387,34 @@ def test_scheduler_tick_counts():
 @pytest.mark.parametrize("arch,item", [
     ("mamba2-130m", "item 9, 'Mamba2 mixer'"),
     ("jamba-1.5-large-398b", "item 9, 'Mamba2 mixer'"),
-    ("arctic-480b", "item 8, 'MoE channel'"),
-    ("grok-1-314b", "item 8, 'MoE channel'")])
+    ("arctic-480b", None),
+    ("grok-1-314b", None)])
 def test_unported_families_name_their_roadmap_item(arch, item):
+    """A family with a Mamba2 mixer raises at init and at its cache,
+    naming its ROADMAP Queue A item (jamba at its first Mamba position,
+    though its MoE positions are ported).  The MoE families (item 8,
+    ported) init, get their cache and serve a request."""
     cfg = get_config(arch, reduced=True)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
-        TM.init_params(cfg, gen)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue A {item}"):
+            TM.init_params(cfg, gen)
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue A {item}"):
+            TM.init_cache(cfg, 1, 8, device="cpu")
+        return
+    params = TM.init_params(cfg, gen)
+    assert params["blocks"][0]["moe"]["router"].dtype == torch.float32
+    cache = TM.init_cache(cfg, 1, 8, device="cpu")
+    assert tuple(cache[0]["k"].shape) == (cfg.n_layers, 1, 8,
+                                          cfg.n_kv_heads, cfg.head_dim)
+    sched = BatchScheduler(cfg, params, batch_slots=1, max_seq=8,
+                           eos_id=-1)
+    sched.submit(Request(rid=0, prompt=[3, 4, 5], max_new=2))
+    (req,) = sched.run_until_drained(max_ticks=8)
+    assert req.done and len(req.generated) == 3
+    assert all(0 <= t < cfg.padded_vocab for t in req.generated)
 
 
 @pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-medium"])
@@ -391,3 +476,17 @@ def test_serve_cli_defaults_to_the_lm_workload():
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "served 6 requests, 78 tokens" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "grok-1-314b"])
+def test_serve_cli_lm_serves_the_moe_configs(arch):
+    """``--workload lm --arch <moe arch> --reduced --device cpu`` serves
+    all six requests through the MoE channel."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
+         "lm", "--arch", arch, "--reduced", "--device", "cpu"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "served 6 requests, 78 tokens" in out.stdout
+    assert out.stdout.count("req ") == 6

@@ -564,8 +564,10 @@ def test_convert_carries_the_register_plane(rng):
 
 
 def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
-    """LM serving of an MoE config still raises, naming its ROADMAP Queue
-    A item by number and name, and ROADMAP.md lists that item.  The dense
+    """LM serving of a config with a Mamba2 mixer (jamba, whose MoE
+    positions are ported) still raises, naming its ROADMAP Queue A item
+    by number and name, and ROADMAP.md lists that item and the MoE
+    channel's (item 8, landed).  The dense
     payload on a float64 sketch stack (item 1b, once refused here), the
     mesh route (item 4, its sketch families with it) and the pipelined
     tick (item 3) run, and ROADMAP.md still lists all three items: the
@@ -573,8 +575,8 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
     one-shard CPU mesh COUNT DISTINCT answers as on the device route, and
     pipelined as serially, register plane and all."""
     monkeypatch.setattr(sys, "argv", [
-        "serve", "--workload", "lm", "--arch", "arctic-480b", "--reduced",
-        "--device", "cpu"])
+        "serve", "--workload", "lm", "--arch", "jamba-1.5-large-398b",
+        "--reduced", "--device", "cpu"])
     roadmap = (ROOT / "ROADMAP.md").read_text()
 
     def executor():
@@ -597,8 +599,9 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
     assert np.array_equal(dev64.n_sampled, host64.n_sampled)
     with pytest.raises(NotImplementedError) as err:
         TS.main()
-    assert "Queue A item 8, 'MoE channel'" in str(err.value)
-    for item in (("1b", "The float64 dense tick"), (8, "MoE channel")):
+    assert "Queue A item 9, 'Mamba2 mixer'" in str(err.value)
+    for item in (("1b", "The float64 dense tick"), (8, "MoE channel"),
+                 (9, "Mamba2 mixer")):
         assert re.search(rf"^{item[0]}\. \*\*{re.escape(item[1])}", roadmap,
                          re.M)
     assert re.search(r"^4\. \*\*Mesh route", roadmap, re.M)
