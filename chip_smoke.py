@@ -148,7 +148,36 @@ scale); it prints each model's parameter count, init seconds and peak
 memory, prefill seconds a request, decode tick seconds, tokens/s and,
 from one profiled decode tick, its device events and busy share, and
 replays every flash call beside SDPA (48 q heads over 8 KV heads, and
-56 over 8).
+56 over 8).  The MoE models are freed before the next phase.
+
+Then the Mamba path ("lm mamba"): mamba2-130m at full width and depth (24
+layers, d_model 768, 24 SSD heads of 64, d_state 128, chunk 256) in bf16
+from a seeded generator, six seeded prompts through a ``BatchScheduler``
+of four slots, 16 new tokens each; every other prompt a multiple of the
+chunk of two chunks or more, the rest shorter than a chunk (the
+reference's chunk contract).  It checks no ``flash_attention`` and no
+ISLA launch, holds every prefill's layer-0 ``ssd_chunked`` against the
+O(S^2) ``ssd_reference`` and a closed-form final state on the card on its
+own inputs (2e-2 of scale), a 512-token prefill and the next decode tick
+against the same weights in fp32 on the CPU (every Mamba call and the LM
+head again on the card's own inputs, 2e-2 of scale; the weights in fp32
+on the card, end to end, logits, h and conv rows within 1e-4 of scale;
+the bf16 run's end-to-end gap printed: bf16 roundings compound over 24
+layers, in the reference as here), and prefill(252) + 4 decode steps
+against prefill(256) (the reference's own contract, rtol and atol 2e-2,
+held in fp32 and printed in bf16); it prints the parameter count, init
+seconds, peak memory, prefill seconds a request, decode tick seconds,
+tokens/s and one profiled decode tick's device events and busy share
+(read only when the trace holds a kernel for every matrix product the
+tick's host side made).  Then jamba's
+hybrid stack (7 Mamba, 1 attention, MoE on odd positions) at its reduced
+config (8 layers, d_model 128) in bf16 and fp32 through the scheduler:
+one ``flash_attention`` launch per prefill, no ISLA kernel, the same
+SSD checks, the flash calls replayed beside SDPA, and in fp32 a prefill
+on the 64-token routing group and one off it, each with its next decode
+step, against the CPU within 1e-4 of scale (a router near-tie that takes
+another expert is counted).  One full-width period of jamba (8 layers) is
+90.29 GB in bf16, more than one card holds.
 
 Every failure exits nonzero.  The last three lines of standard output
 are the card's name and power limit, one JSON object describing every
@@ -492,7 +521,7 @@ def check_main_path_folds(calls) -> "list[dict]":
 
         got, again = run(), run()
         if f64:
-            host_state, host_panes, host_kw = to_cpu((state, panes, kw))
+            host_state, host_panes, host_kw = to_device((state, panes, kw))
             t0 = time.perf_counter()
             want = run(host_state, functools.partial(
                 fold_into, panes=host_panes, kw=host_kw))
@@ -2163,13 +2192,19 @@ def rel_gap(got, want) -> float:
         return float(np.max(np.where(diff > 0, diff / np.abs(want), 0.0)))
 
 
-def to_cpu(x):
-    """``x`` with every tensor in it (tuples, lists, dicts) on the CPU."""
+def to_device(x, device="cpu", dtype=None):
+    """``x`` with every tensor in it (tuples, lists, dicts) on ``device``;
+    with ``dtype``, its floating-point tensors of another width cast to it
+    (fp32 leaves of a bf16 tree stay fp32 when ``dtype`` is fp32)."""
     if isinstance(x, (tuple, list)):
-        return type(x)(to_cpu(v) for v in x)
+        return type(x)(to_device(v, device, dtype) for v in x)
     if isinstance(x, dict):
-        return {k: to_cpu(v) for k, v in x.items()}
-    return x.cpu() if hasattr(x, "cpu") else x
+        return {k: to_device(v, device, dtype) for k, v in x.items()}
+    if not hasattr(x, "to"):
+        return x
+    if dtype is not None and x.is_floating_point():
+        return x.to(device=device, dtype=dtype)
+    return x.to(device)
 
 
 def check_fold64(device, n_blocks: int, quota: int) -> dict:
@@ -2754,7 +2789,7 @@ def grad_telemetry(params, device="cuda", mesh_devices=MESH_DEVICES
         return tree.tensor_split(n)[s] if hasattr(tree, "tensor_split") \
             else tree
 
-    host = to_cpu(params)
+    host = to_device(params)
     n = len(mesh_devices)
     mesh, cmesh = (make_cell_mesh(devices=list(mesh_devices)),
                    make_cell_mesh(devices=["cpu"] * n))
@@ -3627,6 +3662,538 @@ def moe_path(arch: str, n_layers: int, seed: int = 0, device="cuda",
                 calls=spy.calls)
 
 
+# ---------------------------------------------------------------------------
+# The Mamba path ("lm mamba"): mamba2-130m at full width and depth, then
+# jamba's hybrid stack (Mamba, attention, MoE) at its reduced config.
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCH = "mamba2-130m"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+MAMBA_REQUESTS = 6
+MAMBA_SLOTS = 4
+MAMBA_MAX_NEW = 16
+MAMBA_PROMPT_HI = 2048  # the longest prompt, a multiple of the chunk (256)
+JAMBA_PROMPT_HI = 256   # the reduced jamba's: a multiple of its chunk (32)
+JAMBA_DTYPES = ("bfloat16", "float32")
+# bf16 on the card against fp32 (the CPU's, or the O(S^2) oracle's on the
+# same inputs), relative to the output's scale (its largest element).
+MAMBA_TOL = 2e-2
+# fp32 on the card against fp32 on the CPU, relative to the scale.
+JAMBA_TOL = 1e-4
+# mamba2-130m's weights in fp32 on the card against the CPU, 24 layers
+# deep, relative to the scale.
+MAMBA_F32_TOL = 1e-4
+# Two fp32 gates summed in other orders on the two devices may swap where
+# they lie within rel 1e-5 (tests/test_torch_cuda.py's MoE near-tie).
+NEAR_TIE_RTOL = 1e-5
+# Profiled tick of the re-run: a decode tick of the four first requests.
+MAMBA_PROFILE_TICK = 2
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def check_prompt_lens(cfg, lens, group=None) -> None:
+    """Every length meets the chunk contract (``mamba2.check_prefill``),
+    one is longer than a chunk and one shorter, and with a routing
+    ``group`` some lengths are on it and some are not."""
+    from repro_torch.models import mamba2 as M
+
+    for n in lens:
+        try:
+            M.check_prefill(cfg, n)
+        except ValueError as exc:
+            check(False, f"{cfg.name}: prompt length {n} is off the chunk "
+                         f"contract: {exc}")
+    chunk = cfg.mamba.chunk
+    check(any(n > chunk for n in lens) and any(n < chunk for n in lens),
+          f"{cfg.name}: prompt lengths {lens} do not take both more than "
+          f"one chunk of {chunk} and one short chunk")
+    if group is not None:
+        check(any(n % group == 0 for n in lens)
+              and any(n % group for n in lens),
+              f"{cfg.name}: prompt lengths {lens} do not take both routing "
+              f"paths of groups of {group}")
+
+
+def mamba_prompt_lens(rng, cfg, hi: int, group=None) -> "list[int]":
+    """``MAMBA_REQUESTS`` seeded prompt lengths: every other one a multiple
+    of the chunk, two chunks to ``hi`` (with a routing ``group``, the
+    first a multiple of it too); the rest shorter than a chunk, from 4
+    tokens (past the conv tail of d_conv - 1 = 3)."""
+    chunk = cfg.mamba.chunk
+    lens = [int(chunk * rng.integers(2, hi // chunk + 1)) if i % 2 == 0
+            else int(rng.integers(4, chunk)) for i in range(MAMBA_REQUESTS)]
+    if group is not None:  # the first on the routing group
+        step = math.lcm(chunk, group)
+        lens[0] = max(step * -(-2 * chunk // step), lens[0] // step * step)
+    check_prompt_lens(cfg, lens, group)
+    return lens
+
+
+class SsdCalls:
+    """Keeps, for every prefill the stack runs while installed, the inputs
+    and outputs of its layer-0 ``mamba2.ssd_chunked`` call (the tensors
+    the main path made, where it made them); the stack calls it
+    ``n_mamba`` times a prefill, once a Mamba layer, in order."""
+
+    def __init__(self, n_mamba: int):
+        self.n_mamba = n_mamba
+
+    def __enter__(self):
+        from repro_torch.models import mamba2 as M
+
+        self.calls, self._seen = [], 0
+        self._real = real = M.ssd_chunked
+
+        def spy(x, da, dt, Bm, Cm, chunk, h0=None):
+            y, h = real(x, da, dt, Bm, Cm, chunk, h0=h0)
+            if x.shape[1] > 1:  # a prefill (a decode step is one token)
+                if self._seen % self.n_mamba == 0:
+                    self.calls.append(dict(
+                        x=x, da=da, dt=dt, Bm=Bm, Cm=Cm, chunk=chunk,
+                        h0=None if h0 is None else h0.clone(), y=y, h=h))
+                self._seen += 1
+            return y, h
+
+        M.ssd_chunked = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba2 as M
+        M.ssd_chunked = self._real
+        return False
+
+
+def ssd_state_oracle(x, da, dt, Bm, Cm, h0=None):
+    """The SSD's final state and its output's h0 term in closed form, fp32:
+    h_S = sum_s exp(cum_S - cum_s) dt_s B_s x_s^T + exp(cum_S) h0, and
+    C_q . h0 exp(cum_q); the head map ``repeat_interleave``d here, not
+    taken from the module."""
+    import torch
+
+    H, G = x.shape[2], Bm.shape[2]
+    Br = torch.repeat_interleave(Bm, H // G, dim=2).float()
+    Cr = torch.repeat_interleave(Cm, H // G, dim=2).float()
+    cum = torch.cumsum(da.float(), dim=1)                      # (B,S,H)
+    w = torch.exp(cum[:, -1:, :] - cum) * dt.float()
+    h = torch.einsum("bsh,bshn,bshp->bhnp", w, Br, x.float())
+    y0 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if h0 is not None:
+        h = h + torch.exp(cum[:, -1])[..., None, None] * h0.float()
+        y0 = torch.einsum("bshn,bhnp,bsh->bshp", Cr, h0.float(),
+                          torch.exp(cum))
+    return h, y0
+
+
+def rel_err(got, want) -> "tuple[float, float]":
+    """(max |got - want| / max |want|, max |want|)."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / max(scale, 1e-30), scale
+
+
+def check_ssd(name: str, call: dict, tol: float) -> dict:
+    """The main path's ``ssd_chunked`` output on one prefill's layer-0
+    inputs against ``ssd_reference`` (the O(S^2) oracle) on the same
+    device tensors, and its final state against the closed form: each
+    within ``tol`` of the oracle's scale."""
+    from repro_torch.models import mamba2 as M
+
+    args = [call[k] for k in ("x", "da", "dt", "Bm", "Cm")]
+    h_ref, y0 = ssd_state_oracle(*args, call["h0"])
+    y_ref = M.ssd_reference(*args).float() + y0
+    y_err, y_scale = rel_err(call["y"], y_ref)
+    h_err, h_scale = rel_err(call["h"], h_ref)
+    S = call["x"].shape[1]
+    check(bool(call["y"].isfinite().all()) and bool(call["h"].isfinite().all())
+          and y_err <= tol and h_err <= tol,
+          f"{name}: ssd_chunked at S = {S} (chunk {call['chunk']}) is off "
+          f"the oracle: y rel {y_err:.3g} of {y_scale:.3g}, final state rel "
+          f"{h_err:.3g} of {h_scale:.3g} (> {tol})")
+    return dict(tokens=S, chunks=-(-S // call["chunk"]), y_rel=y_err,
+                y_scale=y_scale, h_rel=h_err, h_scale=h_scale)
+
+
+class MambaLayers:
+    """Keeps every ``mamba2._mamba_forward`` call the stack makes while
+    installed (its params, input, state and conv tail in and out) and
+    every ``lm_logits`` call (the final hidden state and the logits)."""
+
+    def __enter__(self):
+        from repro_torch.models import mamba2 as M
+        from repro_torch.models import model as TM
+
+        self.layers, self.heads = [], []
+        self._fwd, self._head = real_fwd, real_head = (M._mamba_forward,
+                                                       TM.lm_logits)
+
+        def spy_fwd(cfg, params, x, h0, conv0):
+            ins = dict(params=params, x=x, h0=h0.clone(),
+                       conv0=None if conv0 is None else conv0.clone())
+            out, h, conv = real_fwd(cfg, params, x, h0, conv0)
+            self.layers.append(dict(ins, out=out, h=h, conv=conv))
+            return out, h, conv
+
+        def spy_head(cfg, params, x):
+            logits = real_head(cfg, params, x)
+            self.heads.append(dict(x=x, logits=logits))
+            return logits
+
+        M._mamba_forward, TM.lm_logits = spy_fwd, spy_head
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba2 as M
+        from repro_torch.models import model as TM
+        M._mamba_forward, TM.lm_logits = self._fwd, self._head
+        return False
+
+
+def mamba_steps(cfg, params, toks, S: int, device, cache_dtype):
+    """A prefill of the first ``S`` of ``toks`` (1, >S) and the next decode
+    tick into a one-slot cache of ``cache_dtype`` on ``device``: (the two
+    steps' logits, the cache)."""
+    import torch
+    from repro_torch.models import model as TM
+
+    toks = toks.to(device)
+    cache = TM.init_cache(cfg, 1, S + 1, dtype=cache_dtype, device=device)
+    logits = [TM.serve_prefill(cfg, params, {"tokens": toks[:, :S]},
+                               cache)[0]]
+    logits.append(TM.serve_decode(cfg, params, toks[:, S:S + 1],
+                                  torch.full((1,), S, device=device),
+                                  cache)[0])
+    sync(device)
+    return logits, cache
+
+
+def steps_rel(got, want) -> dict:
+    """``rel_err`` of each step's logits and each Mamba position's h and
+    conv rows, ``got``'s against ``want``'s (from ``mamba_steps``)."""
+    (lg, cache), (lw, cw) = got, want
+    out = {f"logits_{i}": rel_err(g.cpu(), w.cpu())[0]
+           for i, (g, w) in enumerate(zip(lg, lw))}
+    for pos, (c, w) in enumerate(zip(cache, cw)):
+        for name in ("h", "conv"):
+            if name in c:
+                out[f"{name}_{pos}"] = rel_err(c[name].cpu(), w[name].cpu())[0]
+    return out
+
+
+def check_mamba_cpu(cfg, params, tokens, device) -> dict:
+    """A prefill of ``2 * chunk`` tokens (512 at full width) and the next
+    decode tick, on ``device`` and on the CPU in fp32 from the same
+    weights (an fp32 cache).  Held:
+
+    * the main path's bf16 (a bf16 cache), layer by layer: every Mamba
+      call of the card, run again on the CPU in fp32 on the card's own
+      inputs (hidden state, state, conv tail), its output, state and conv
+      tail within ``MAMBA_TOL`` of scale; the LM head likewise on the
+      card's final hidden state;
+    * the same weights in fp32 on the card (an fp32 cache), end to end:
+      logits, h and conv rows within ``MAMBA_F32_TOL`` of scale of the
+      CPU's free-running fp32 run.
+
+    The bf16 run's end-to-end gap to the CPU's fp32 run is measured and
+    returned, not held: bf16 roundings that each stay within the
+    layer-by-layer tolerance compound over the stack's depth (the
+    reference's own bf16 forward drifts from its fp32 one alike,
+    ``tests/test_torch_mamba.py``)."""
+    import torch
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import model as TM
+
+    S = 2 * cfg.mamba.chunk
+    toks = torch.as_tensor(tokens[:S + 1])[None, :]
+    with MambaLayers() as lay:
+        bf16 = mamba_steps(cfg, params, toks, S, device, torch.bfloat16)
+    cfg32 = cfg.replace(param_dtype="float32")
+    p32 = to_device(params, "cpu", torch.float32)
+    layerwise = dict(out=0.0, h=0.0, conv=0.0, head=0.0)
+    for i, c in enumerate(lay.layers):
+        out, h, conv = M._mamba_forward(
+            cfg32, to_device(c["params"], "cpu", torch.float32),
+            c["x"].float().cpu(), c["h0"].float().cpu(),
+            None if c["conv0"] is None else c["conv0"].float().cpu())
+        for name, want in (("out", out), ("h", h), ("conv", conv)):
+            err, scale = rel_err(c[name].cpu(), want)
+            check(err <= MAMBA_TOL, f"{cfg.name}: Mamba call {i} "
+                                    f"(S = {c['x'].shape[1]}): {name} rel "
+                                    f"{err:.3g} of {scale:.3g} off fp32 on "
+                                    f"the CPU on the same input "
+                                    f"(> {MAMBA_TOL})")
+            layerwise[name] = max(layerwise[name], err)
+    for c in lay.heads:
+        want = TM.lm_logits(cfg32, p32, c["x"].float().cpu())
+        err, scale = rel_err(c["logits"].cpu(), want)
+        check(err <= MAMBA_TOL, f"{cfg.name}: LM head rel {err:.3g} of "
+                                f"{scale:.3g} off fp32 on the CPU")
+        layerwise["head"] = max(layerwise["head"], err)
+    n_calls = len(lay.layers)
+    del lay
+    cpu = mamba_steps(cfg32, p32, toks, S, "cpu", torch.float32)
+    f32 = mamba_steps(cfg32, to_device(params, device, torch.float32), toks,
+                      S, device, torch.float32)
+    for lg in bf16[0] + f32[0]:
+        check(bool(lg.isfinite().all()), f"{cfg.name}: non-finite logits")
+    f32_rel = steps_rel(f32, cpu)
+    check(max(f32_rel.values()) <= MAMBA_F32_TOL,
+          f"{cfg.name}: fp32 on the card, a prefill of {S} and a decode "
+          f"tick, is off the CPU's: {json.dumps(f32_rel)} (> "
+          f"{MAMBA_F32_TOL} of scale)")
+    return dict(prefill_tokens=S, mamba_calls=n_calls,
+                layerwise_rel=layerwise, tolerance=MAMBA_TOL,
+                f32_rel=f32_rel, f32_tolerance=MAMBA_F32_TOL,
+                bf16_rel=steps_rel(bf16, cpu))
+
+
+def check_mamba_parity(cfg, params, tokens, device) -> dict:
+    """The reference's own contract (tests/test_model_parity.py): a
+    prefill of ``chunk - 4`` tokens (252 at full width) and 4 decode steps
+    give the last logits of a prefill of ``chunk`` tokens, within rtol and
+    atol 2e-2.  Held on ``device`` with the weights in fp32 (an fp32
+    cache); measured, not held, in the main path's bf16, where the two
+    paths' roundings compound over the depth as in ``check_mamba_cpu``."""
+    import torch
+    from repro_torch.models import model as TM
+
+    S = cfg.mamba.chunk
+    toks = torch.as_tensor(tokens[:S], device=device)[None, :]
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        c = cfg.replace(param_dtype=str(dt).replace("torch.", ""))
+        p = to_device(params, device, dt)
+        full = TM.serve_prefill(c, p, {"tokens": toks}, TM.init_cache(
+            c, 1, S, dtype=dt, device=device))[0]
+        cache = TM.init_cache(c, 1, S, dtype=dt, device=device)
+        TM.serve_prefill(c, p, {"tokens": toks[:, :S - 4]}, cache)
+        for t in range(S - 4, S):
+            step = TM.serve_decode(c, p, toks[:, t:t + 1],
+                                   torch.full((1,), t, device=device),
+                                   cache)[0]
+        g, w = step.float(), full.float()
+        diff = (g - w).abs()
+        ok = bool((diff <= 2e-2 + 2e-2 * w.abs()).all())
+        check(bool(g.isfinite().all()) and (ok or dt == torch.bfloat16),
+              f"{cfg.name} ({dt}): prefill({S - 4}) + 4 decode steps are "
+              f"{float(diff.max()):.3g} off prefill({S})'s last logits "
+              f"(rtol, atol 2e-2)")
+        out[c.param_dtype] = dict(max_abs_err=float(diff.max()),
+                                  scale=float(w.abs().max()),
+                                  within_contract=ok)
+    return dict(prefill=S - 4, decode_steps=4, full=S, **out)
+
+
+def check_jamba_cpu(cfg, params, prompts, device) -> dict:
+    """fp32: each prompt's prefill and the next decode step into a
+    one-slot fp32 cache on ``device``, and on the CPU from the same
+    weights: the logits within ``JAMBA_TOL`` of scale.  The router logits
+    of every MoE call are compared too: a token whose experts differ must
+    be a near-tie (its two gates within rel ``NEAR_TIE_RTOL`` on the CPU);
+    such tokens are counted, and a step they touched, or one after it, is
+    not held to ``JAMBA_TOL`` (its logits are printed)."""
+    import torch
+    from repro_torch.models import model as TM
+
+    p_cpu = to_device(params, "cpu")
+    out = []
+    for prompt in prompts:
+        S = len(prompt)
+        runs = {}
+        for dev, p in ((device, params), ("cpu", p_cpu)):
+            toks = torch.as_tensor(prompt + [prompt[0]], device=dev)[None, :]
+            cache = TM.init_cache(cfg, 1, S + 1, dtype=torch.float32,
+                                  device=dev)
+            with MoeCalls() as moe_spy:
+                lg = [TM.serve_prefill(cfg, p, {"tokens": toks[:, :S]},
+                                       cache)[0]]
+                n_pre = len(moe_spy.calls)
+                lg.append(TM.serve_decode(cfg, p, toks[:, S:],
+                                          torch.full((1,), S, device=dev),
+                                          cache)[0])
+            sync(dev)
+            runs[str(dev)] = (lg, [c["logits"] for c in moe_spy.calls],
+                              n_pre)
+        (lg_d, rt_d, n_pre), (lg_c, rt_c, _) = runs[str(device)], runs["cpu"]
+        ties = [0, 0]
+        for i, (a, b) in enumerate(zip(rt_d, rt_c)):
+            ca, cb = (top_choices(torch.softmax(t.float().cpu(), -1),
+                                  cfg.moe.top_k) for t in (a, b))
+            probs = torch.softmax(b.float(), -1)
+            for g, t in (ca != cb).any(-1).nonzero().tolist():
+                j = int((ca[g, t] != cb[g, t]).nonzero()[0])
+                x, y = int(ca[g, t, j]), int(cb[g, t, j])
+                px, py = float(probs[g, t, x]), float(probs[g, t, y])
+                check(abs(px - py) <= NEAR_TIE_RTOL * max(px, py),
+                      f"{cfg.name}: S = {S}: token ({g}, {t}) takes expert "
+                      f"{x} on the card and {y} on the CPU, not a near-tie "
+                      f"({px:.9g} / {py:.9g})")
+                ties[0 if i < n_pre else 1] += 1
+        errs = []
+        for step, (g, w) in enumerate(zip(lg_d, lg_c)):
+            check(bool(g.isfinite().all()), f"{cfg.name}: non-finite logits")
+            err, scale = rel_err(g.cpu(), w)
+            check(sum(ties[:step + 1]) > 0 or err <= JAMBA_TOL,
+                  f"{cfg.name}: S = {S}: step {step} logits rel {err:.3g} of "
+                  f"{scale:.3g} off the CPU's (> {JAMBA_TOL})")
+            errs.append(err)
+        out.append(dict(tokens=S, rel_err=errs, near_ties=ties,
+                        on_group=S % cfg.moe.group_size == 0))
+    return dict(prompts=out, tolerance=JAMBA_TOL)
+
+
+def decode_trace_whole(r: dict) -> bool:
+    """Whether a profiled tick's trace (a ``drive`` record) holds the
+    kernels it ran: at least one device event for every matrix product its
+    host side recorded (each launches one or more)."""
+    return (r["device_events"] or 0) >= r["products"] > 0
+
+
+def mamba_path(arch: str, seed: int = 0, device="cuda",
+               reduced: bool = False, dtype=None,
+               prompt_hi: int = MAMBA_PROMPT_HI, checks=()) -> dict:
+    """One Mamba config on the LM main path: ``arch`` (at the reduced
+    config with ``reduced``, in ``dtype`` when given) with weights from a
+    seeded generator on ``device``, ``MAMBA_REQUESTS`` seeded prompts
+    (``mamba_prompt_lens``) through a ``BatchScheduler`` of
+    ``MAMBA_SLOTS`` slots, ``MAMBA_MAX_NEW`` new tokens each.  The launch
+    counts are set to 0 just before the scheduler runs and read just
+    after: ``flash_attention`` must have launched once per attention layer
+    of every prefill (none for mamba2-130m), and no ISLA kernel.  Every
+    prefill's layer-0 SSD is held against the oracle on its own inputs
+    (``check_ssd``).  Then a re-run tick by tick, re-runs with one decode
+    tick profiled until its trace is whole (``decode_trace_whole``; its
+    busy share over the unprofiled re-run's tick), and the ``checks``
+    asked for: "cpu" (``check_mamba_cpu``,
+    or for an MoE config ``check_jamba_cpu``) and "parity"
+    (``check_mamba_parity``).  ``reduced`` with ``device="cpu"``
+    rehearses the phase on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.models import model as TM
+    from repro_torch.serve import BatchScheduler, Request
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(arch, reduced=reduced)
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=dtype)
+    n_attn = sum(cfg.block_is_attention(i) for i in range(cfg.n_layers))
+    n_mamba = cfg.n_layers - n_attn
+    held = None
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, gen)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(seed + 5)
+    group = cfg.moe.group_size if cfg.moe is not None else None
+    lens = mamba_prompt_lens(rng, cfg, prompt_hi, group)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in lens]
+    max_seq = max(lens) + MAMBA_MAX_NEW + 16
+
+    def scheduler():
+        sched = BatchScheduler(cfg, params, batch_slots=MAMBA_SLOTS,
+                               max_seq=max_seq, eos_id=-1)
+        for rid, prompt in enumerate(prompts):
+            sched.submit(Request(rid=rid, prompt=prompt,
+                                 max_new=MAMBA_MAX_NEW))
+        return sched
+
+    sched = scheduler()
+    K.reset_launch_counts()
+    with FlashCalls(device) as spy, SsdCalls(n_mamba) as ssd:
+        t0 = time.perf_counter()
+        done = sched.run_until_drained()
+        sync(device)
+        wall = time.perf_counter() - t0
+    launches = dict(flash_attention=FA.flash_attention.launches,
+                    isla_fold=K.isla_fold.launches,
+                    pilot_stats=K.pilot_stats.launches,
+                    isla_sketch=K.isla_sketch.launches)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    admitted = len(spy.prefill_s)
+    name = f"{arch} ({cfg.param_dtype})"
+    check(admitted == MAMBA_REQUESTS and len(done) == MAMBA_REQUESTS,
+          f"{name}: {len(done)} of {MAMBA_REQUESTS} requests served")
+    want_flash = admitted * n_attn if on_card else 0
+    check(launches["flash_attention"] == want_flash,
+          f"{name}: flash_attention launched {launches['flash_attention']} "
+          f"times, not once per attention layer of {admitted} prefills "
+          f"({want_flash})")
+    check(len(spy.calls) == admitted * n_attn,
+          f"{name}: {len(spy.calls)} flash calls for {admitted} prefills")
+    check(launches["isla_fold"] + launches["pilot_stats"]
+          + launches["isla_sketch"] == 0, f"{name}: the Mamba path ran an "
+                                          f"ISLA kernel")
+    for r in done:
+        check(len(r.generated) == MAMBA_MAX_NEW + 1 and all(
+            0 <= t < cfg.padded_vocab for t in r.generated),
+              f"{name}: request {r.rid} generated {r.generated}")
+    for lg in spy.logits:
+        check(tuple(lg.shape) == (1, 1, cfg.padded_vocab)
+              and bool(torch.isfinite(lg).all()),
+              f"{name}: prefill logits are not finite (1, 1, V)")
+    check([c["x"].shape[1] for c in ssd.calls] == lens,
+          f"{name}: layer-0 SSD calls of "
+          f"{[c['x'].shape[1] for c in ssd.calls]} tokens for prompts of "
+          f"{lens}")
+    ssd_checks = [check_ssd(name, c, MAMBA_TOL) for c in ssd.calls]
+    del ssd
+    prefill_s = sum(spy.prefill_s)
+    decode_s = wall - prefill_s
+    new_tokens = sum(len(r.generated) for r in done)
+    # Where the time goes, after the counts were read: a re-run of the
+    # same traffic tick by tick, then runs with MAMBA_PROFILE_TICK under the
+    # profiler (its wall from the first), until one's trace is whole.
+    tick_s, _ = drive(scheduler(), device=device)
+    for run in range(1, PROFILE_TRIES + 1):
+        _, profiled = drive(scheduler(), (MAMBA_PROFILE_TICK,), device)
+        prof = dict(profiled[0], runs=run, wall_s=tick_s[MAMBA_PROFILE_TICK])
+        if not on_card or decode_trace_whole(prof):
+            break
+        print(f"{name}: profiled decode tick, run {run}: "
+              f"{prof['device_events']} device events for "
+              f"{prof['products']} matrix products; taken again")
+    else:
+        check(False, f"{name}: the profiled decode tick lost kernels in "
+                     f"{PROFILE_TRIES} runs")
+    if on_card:
+        prof["busy_share"] = prof["device_s"] / prof["wall_s"]
+    extra = {}
+    if "cpu" in checks and cfg.moe is not None:
+        # one prompt on the routing group and one off it
+        picks = [next(p for p, n in zip(prompts, lens) if n % group == 0),
+                 next(p for p, n in zip(prompts, lens) if n % group)]
+        extra["cpu"] = check_jamba_cpu(cfg, params, picks, device)
+    elif "cpu" in checks:
+        extra["cpu"] = check_mamba_cpu(cfg, params, [int(t) for t in (
+            rng.integers(0, cfg.vocab, 2 * cfg.mamba.chunk + 1))], device)
+    if "parity" in checks:
+        extra["parity"] = check_mamba_parity(
+            cfg, params, [int(t) for t in rng.integers(
+                0, cfg.vocab, cfg.mamba.chunk)], device)
+    return dict(arch=arch, dtype=cfg.param_dtype, n_layers=cfg.n_layers,
+                d_model=cfg.d_model, mamba_layers=n_mamba,
+                attention_layers=n_attn, n_params=n_params, init_s=init_s,
+                held_bytes=held, peak_bytes=peak, prompt_lens=lens,
+                slots=MAMBA_SLOTS, max_new=MAMBA_MAX_NEW, max_seq=max_seq,
+                launches=launches, wall_s=wall, prefill_s=prefill_s,
+                prefill_each_s=spy.prefill_s, decode_s=decode_s,
+                ticks=len(tick_s), decode_tick_s=decode_s / len(tick_s),
+                new_tokens=new_tokens, tokens_per_s=new_tokens / wall,
+                finish_order=[r.rid for r in done], rerun_tick_s=tick_s,
+                profiled_tick=prof, ssd=ssd_checks, calls=spy.calls,
+                **extra)
+
+
 def ptxas_figures(log: str) -> dict:
     """Each function's registers, spill bytes and static shared memory
     from a ``-Xptxas -v`` log."""
@@ -3711,10 +4278,19 @@ def drive(sched, profile_ticks=(), device="cuda"):
                 tick=k, active=active,
                 device_s=sum(kernels_s.values()),
                 device_events=device_event_count(prof),
+                products=matrix_products(prof),
                 kernels_s=dict(sorted(kernels_s.items(),
                                       key=lambda kv: -kv[1])[:8]),
                 host_ops_s=host_op_seconds(prof, top=8)))
     return walls, profiled
+
+
+def matrix_products(prof) -> int:
+    """How many matrix products (``GEMM_OPS``) the host side of a profiled
+    window recorded, 0 when not profiled."""
+    if not hasattr(prof, "key_averages"):
+        return 0
+    return sum(r.count for r in prof.key_averages() if r.key in GEMM_OPS)
 
 
 def _leaves(tree):
@@ -4296,14 +4872,96 @@ def main() -> int:
               f"{max(fl, key=lambda f: f['shape'][1])['ms']:.4f} ms (SDPA "
               f"{max(fl, key=lambda f: f['shape'][1])['library_ms']:.4f}); "
               + flash_err_text(fl))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"lm mamba: {held / 2**30:.3f} GiB held on the card before the "
+          f"phase (the MoE models freed)")
+    mamba = mamba_path(MAMBA_ARCH, checks=("cpu", "parity"))
+    check(mamba["peak_bytes"] < total_bytes,
+          f"{MAMBA_ARCH}: peak memory {mamba['peak_bytes']} B")
+    check(not mamba.pop("calls"), f"{MAMBA_ARCH} made a flash call")
+    lap(f"lm mamba {MAMBA_ARCH}")
+    jambas = []
+    for dt in JAMBA_DTYPES:
+        j = mamba_path(JAMBA_ARCH, reduced=True, dtype=dt,
+                       prompt_hi=JAMBA_PROMPT_HI,
+                       checks=("cpu",) if dt == "float32" else ())
+        jcalls = j.pop("calls")
+        j["flash"] = [check_flash(q, k, v, g) for q, k, v, g in jcalls]
+        del jcalls
+        jambas.append(j)
+    lap(f"lm mamba {JAMBA_ARCH}")
+    for m in [mamba] + jambas:
+        p = m["profiled_tick"]
+        top = list(p["kernels_s"].items())[:3]
+        print(f"Mamba path, {m['arch']} ({m['dtype']}, {m['n_layers']} "
+              f"layers: {m['mamba_layers']} Mamba, {m['attention_layers']} "
+              f"attention; d_model {m['d_model']}; "
+              f"{m['n_params'] / 1e9:.4f} B params, init {m['init_s']:.2f} "
+              f"s; {m['held_bytes'] / 2**30:.3f} GiB held before it, peak "
+              f"{m['peak_bytes'] / 2**30:.3f} GiB): {MAMBA_REQUESTS} "
+              f"requests, prompt lengths {m['prompt_lens']}, {MAMBA_SLOTS} "
+              f"slots, max_new {MAMBA_MAX_NEW}: {json.dumps(m['launches'])} "
+              f"launches")
+        print(f"  prefill s a request "
+              + ", ".join(f"{t:.4f}" for t in m["prefill_each_s"])
+              + f"; decode {m['decode_s']:.3f} s over {m['ticks']} ticks "
+              f"({m['decode_tick_s'] * 1e3:.2f} ms a tick, median re-run "
+              f"tick {sorted(m['rerun_tick_s'])[m['ticks'] // 2] * 1e3:.2f}"
+              f" ms); {m['new_tokens']} new tokens in {m['wall_s']:.3f} s "
+              f"= {m['tokens_per_s']:.1f} tok/s")
+        print(f"  profiled decode tick {p['tick']} ({p['active']} slots, "
+              f"run {p['runs']}): {p['device_events']} device events for "
+              f"{p['products']} matrix products, busy "
+              f"{p['device_s'] * 1e3:.2f} ms of {p['wall_s'] * 1e3:.2f} ms "
+              f"wall unprofiled ({p['busy_share']:.1%}); top kernels "
+              + ", ".join(f"{n[:48]} {t * 1e3:.2f} ms" for n, t in top))
+        print("  layer-0 SSD vs the O(S^2) oracle: " + "; ".join(
+            f"S={c['tokens']} ({c['chunks']} chunks): y rel "
+            f"{c['y_rel']:.3g}, state rel {c['h_rel']:.3g}"
+            for c in m["ssd"]) + f" (tol {MAMBA_TOL} of scale)")
+        if "parity" in m:
+            q = m["parity"]
+            print(f"  prefill({q['prefill']}) + {q['decode_steps']} decode "
+                  f"steps vs prefill({q['full']}) (rtol, atol 2e-2; held in "
+                  f"fp32): " + "; ".join(
+                      f"{d} max abs {q[d]['max_abs_err']:.3g} at scale "
+                      f"{q[d]['scale']:.3g}, within: {q[d]['within_contract']}"
+                      for d in ("float32", "bfloat16")))
+        c = m.get("cpu")
+        if c is not None and "layerwise_rel" in c:
+            print(f"  vs fp32 on the CPU, prefill {c['prefill_tokens']} + a "
+                  f"decode tick: bf16 layer by layer on the card's inputs "
+                  f"({c['mamba_calls']} Mamba calls) max rel "
+                  f"{json.dumps(c['layerwise_rel'])} (tol {MAMBA_TOL}); "
+                  f"fp32 on the card end to end max rel "
+                  f"{max(c['f32_rel'].values()):.3g} (tol {MAMBA_F32_TOL}); "
+                  f"bf16 end to end (not held) "
+                  f"{json.dumps(c['bf16_rel'])}")
+        elif c is not None:
+            print("  fp32 card vs CPU logits (prefill, decode): " + "; ".join(
+                f"S={x['tokens']}{' on' if x['on_group'] else ' off'} the "
+                f"routing group: rel {x['rel_err'][0]:.3g}, "
+                f"{x['rel_err'][1]:.3g}, near-ties {x['near_ties']}"
+                for x in c["prompts"]) + f" (tol {JAMBA_TOL} of scale)")
+        fl = m.get("flash")
+        if fl:
+            print(f"  flash_attention on its {len(fl)} prefill calls "
+                  f"({fl[0]['shape'][0]} q heads over {fl[0]['kv_heads']} "
+                  f"KV heads, hd {fl[0]['shape'][2]}, {fl[0]['dtype']}): "
+                  f"{sum(f['ms'] for f in fl):.3f} ms (plain "
+                  f"{sum(f['plain_ms'] for f in fl):.3f} ms, SDPA "
+                  f"{sum(f['library_ms'] for f in fl):.3f} ms, bound "
+                  f"{sum(f['bound_ms'] for f in fl):.4f} ms); "
+                  + flash_err_text(fl))
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}"
                                          for n, t in phase_s.items()))
 
     # Each kernel's entry sums the main path's own calls (every drawing
     # tick's launches in both ISLA runs, replayed on their panes; every
-    # prefill layer's attention in the olmo-1b, paligemma-3b, grok-1-314b
-    # and arctic-480b runs, replayed on its q, k, v); its launches are the
-    # runs' counts added, the mesh and pipelined runs' included.
+    # prefill layer's attention in the olmo-1b, paligemma-3b, grok-1-314b,
+    # arctic-480b and jamba runs, replayed on its q, k, v); its launches
+    # are the runs' counts added, the mesh and pipelined runs' included.
     def launched(kernel):
         return sum(path["launches"][kernel]
                    for path in runs + mesh_runs + pipe_runs)
@@ -4326,7 +4984,8 @@ def main() -> int:
     tele_launches = sum(c["fold_launches"] for c in tele["calls"]
                         + tele["router"] + grads) + sum(
         a["launches"] for a in tele["accuracy"])
-    lm_flash = flash + vflash + [f for m in moe_runs for f in m["flash"]]
+    lm_flash = flash + vflash + [f for m in moe_runs + jambas
+                                 for f in m["flash"]]
     a_bytes = sum(f["bytes_ms"] for f in lm_flash)
     a_ops = sum(f["ops_ms"] for f in lm_flash)
     kernels = [
@@ -4389,7 +5048,7 @@ def main() -> int:
              launches=(lm["launches"]["flash_attention"]
                        + vlm["launches"]["flash_attention"]
                        + sum(m["launches"]["flash_attention"]
-                             for m in moe_runs)),
+                             for m in moe_runs + jambas)),
              max_abs_err=max(f["max_abs_err"] for f in lm_flash + synth),
              ms=sum(f["ms"] for f in lm_flash),
              plain_ms=sum(f["plain_ms"] for f in lm_flash),
@@ -4413,6 +5072,7 @@ def main() -> int:
         phase_s=phase_s,
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
         vlm_path=vlm, vlm_flash=vflash, moe_paths=moe_runs,
+        mamba_path=mamba, jamba_paths=jambas,
         flash_ptxas=ptxas, flash_sass=sass,
         isla_ptxas=islaptx,
         kernels=kernels),

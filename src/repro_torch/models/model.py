@@ -57,7 +57,10 @@ def _assemble_inputs(cfg: ArchConfig, params: Params, batch
 
 def serve_prefill(cfg: ArchConfig, params: Params, batch, cache):
     """Returns (last-position logits (B, 1, V), the cache with its first S
-    rows written in place)."""
+    rows, and each Mamba position's state and conv tail, written in
+    place).  A config with a Mamba mixer takes the reference's prompt
+    lengths only: at most the chunk or a multiple of it, and at least
+    ``d_conv - 1`` tokens (else ``ValueError``)."""
     x, positions, _ = _assemble_inputs(cfg, params, batch)
     x, cache = transformer.forward_prefill(cfg, params, x, positions, cache)
     x = apply_norm(cfg, params.get("final_norm", {}), x)
@@ -68,7 +71,8 @@ def serve_prefill(cfg: ArchConfig, params: Params, batch, cache):
 def serve_decode(cfg: ArchConfig, params: Params, token: torch.Tensor,
                  pos: torch.Tensor, cache):
     """One decode step: token (B, 1) -> logits (B, 1, V); the cache gets
-    row ``pos`` in place."""
+    row ``pos`` (and each Mamba position its new state and conv tail) in
+    place."""
     x = embed_tokens(cfg, params, token)
     x, cache = transformer.forward_decode(cfg, params, x, pos, cache)
     x = apply_norm(cfg, params.get("final_norm", {}), x)
@@ -78,6 +82,7 @@ def serve_decode(cfg: ArchConfig, params: Params, token: torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device="cuda"):
-    """The serving KV cache, bf16 by default whatever the param dtype (as
-    the reference's ``init_cache(dtype=jnp.bfloat16)``)."""
+    """The serving cache, bf16 by default whatever the param dtype (as
+    the reference's ``init_cache(dtype=jnp.bfloat16)``): attention k/v and
+    Mamba conv tails in ``dtype``, Mamba states ``h`` always fp32."""
     return transformer.init_cache(cfg, batch, max_seq, dtype, device)

@@ -9,16 +9,17 @@ reference, layers are stored stacked over ``n_groups = n_layers / period``:
 (G, ...) tensors, and the forward passes loop over groups (the
 reference's ``lax.scan``) and over the period inside.
 
-Cache layout (serving): every attention period position owns
-``{"k", "v": (G, B, S_max, KV, hd)}``; prefill and decode write it in
-place.
+Cache layout (serving): every period position owns a leaf stacked over
+groups: attention -> ``{"k", "v": (G, B, S_max, KV, hd)}`` in the cache
+dtype, mamba -> ``{"h": (G, B, H, N, P)`` fp32, ``"conv": (G, B, K-1,
+conv_dim)}`` in the cache dtype.  Prefill and decode write it in place
+(the scheduler prefills into views of one slot's rows).
 
-The port serves ``mixer == "attn"`` positions with ``channel`` in
-``{"mlp", "moe", "none"}``; an MoE channel runs ``moe.apply_moe`` and
-drops its aux, as the reference's prefill and decode do.  A Mamba2 mixer
-raises ``NotImplementedError`` naming its ROADMAP item; ``grad_boundary``,
-``forward_train`` and the sharding ``constraint`` belong to the training
-path (ROADMAP Queue A item 11).
+The port serves both mixers with ``channel`` in ``{"mlp", "moe",
+"none"}``; an MoE channel runs ``moe.apply_moe`` and drops its aux, as the
+reference's prefill and decode do.  ``grad_boundary``, ``forward_train``
+and the sharding ``constraint`` belong to the training path (ROADMAP
+Queue A item 11).
 """
 from __future__ import annotations
 
@@ -28,12 +29,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import attention as attn
-from . import moe
+from . import mamba2, moe
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 Params = Dict[str, Any]
-
-MAMBA_ITEM = "ROADMAP Queue A item 9, 'Mamba2 mixer'"
 
 
 def period_of(cfg: ArchConfig) -> int:
@@ -65,15 +64,6 @@ def position_kind(cfg: ArchConfig, pos: int) -> Tuple[str, str]:
     return mixer, channel
 
 
-def served_kind(cfg: ArchConfig, pos: int) -> Tuple[str, str]:
-    """``position_kind``, raising for what this port cannot serve yet."""
-    mixer, channel = position_kind(cfg, pos)
-    if mixer == "mamba":
-        raise NotImplementedError(
-            f"{cfg.name}: the Mamba2 mixer is not ported yet ({MAMBA_ITEM})")
-    return mixer, channel
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -81,9 +71,12 @@ def served_kind(cfg: ArchConfig, pos: int) -> Tuple[str, str]:
 
 def init_block_position(cfg: ArchConfig, pos: int,
                         gen: torch.Generator) -> Params:
-    _, channel = served_kind(cfg, pos)
-    p: Params = {"ln1": init_norm(cfg, gen),
-                 "attn": attn.init_attention(cfg, gen)}
+    mixer, channel = position_kind(cfg, pos)
+    p: Params = {"ln1": init_norm(cfg, gen)}
+    if mixer == "attn":
+        p["attn"] = attn.init_attention(cfg, gen)
+    else:
+        p["mamba"] = mamba2.init_mamba(cfg, gen)
     if channel != "none":
         p["ln2"] = init_norm(cfg, gen)
         if channel == "moe":
@@ -141,7 +134,7 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator) -> List[Params]:
 
 def _apply_channel(cfg: ArchConfig, pos: int, bp: Params,
                    x: torch.Tensor) -> torch.Tensor:
-    _, channel = served_kind(cfg, pos)
+    _, channel = position_kind(cfg, pos)
     if channel == "none":
         return x
     h = apply_norm(cfg, bp.get("ln2", {}), x)
@@ -154,41 +147,68 @@ def _apply_channel(cfg: ArchConfig, pos: int, bp: Params,
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16,
                device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """One cache entry per period position, leaves stacked over groups."""
+    """One cache entry per period position, leaves stacked over groups; a
+    Mamba position's state ``h`` is fp32 whatever ``dtype``."""
     groups = n_groups_of(cfg)
     cache: List[Dict[str, torch.Tensor]] = []
     for pos in range(period_of(cfg)):
-        served_kind(cfg, pos)
-        shape = (groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        cache.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)})
+        mixer, _ = position_kind(cfg, pos)
+        if mixer == "attn":
+            shape = (groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            cache.append({
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)})
+        else:
+            hs, cs = mamba2.mamba_state_shapes(cfg, batch)
+            cache.append({
+                "h": torch.zeros((groups,) + hs, dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((groups,) + cs, dtype=dtype,
+                                    device=device)})
     return cache
 
 
 def _forward(cfg: ArchConfig, params: Params, x: torch.Tensor, cache,
-             mix) -> Tuple[torch.Tensor, list]:
-    """The stack: for every group, every period position's attention
-    ``mix(bp, h, cache_k, cache_v)`` (writing its cache rows in place),
-    then its channel."""
+             attn_mix, decode: bool) -> Tuple[torch.Tensor, list]:
+    """The stack: for every group, every period position's mixer, then its
+    channel.  An attention position runs ``attn_mix(bp, h, cache_k,
+    cache_v)``, which writes its cache rows in place; a Mamba position runs
+    ``mamba2._mamba_forward`` from the cached state (and, decoding, the
+    cached conv tail) and copies the new state and tail into the cache."""
     for g in range(n_groups_of(cfg)):
         for pos in range(period_of(cfg)):
             bp = group_params(params["blocks"][pos], g)
             h = apply_norm(cfg, bp.get("ln1", {}), x)
-            y, _, _ = mix(bp["attn"], h, cache[pos]["k"][g],
-                          cache[pos]["v"][g])
+            c = cache[pos]
+            mixer, _ = position_kind(cfg, pos)
+            if mixer == "attn":
+                y, _, _ = attn_mix(bp["attn"], h, c["k"][g], c["v"][g])
+            else:
+                y, h_new, conv_new = mamba2._mamba_forward(
+                    cfg, bp["mamba"], h, h0=c["h"][g],
+                    conv0=c["conv"][g] if decode else None)
+                c["h"][g].copy_(h_new)
+                c["conv"][g].copy_(conv_new)
             x = _apply_channel(cfg, pos, bp, x + y)
     return x, cache
 
 
 def forward_prefill(cfg: ArchConfig, params: Params, x: torch.Tensor,
                     positions: torch.Tensor, cache):
-    """Prefill: causal forward that fills the cache's first S rows."""
+    """Prefill: causal forward that fills the cache's first S rows (and
+    each Mamba position's state and conv tail).  A config with a Mamba
+    mixer refuses, before any layer runs, a length off the chunk contract
+    or shorter than the conv tail (``mamba2.check_prefill``)."""
+    if cfg.mamba is not None:
+        mamba2.check_prefill(cfg, x.shape[1])
     return _forward(cfg, params, x, cache, lambda p, h, ck, cv:
-                    attn.attention_prefill(cfg, p, h, positions, ck, cv))
+                    attn.attention_prefill(cfg, p, h, positions, ck, cv),
+                    decode=False)
 
 
 def forward_decode(cfg: ArchConfig, params: Params, x: torch.Tensor,
                    pos: torch.Tensor, cache):
     """Single-token decode: x (B, 1, d); pos (B,) current positions."""
     return _forward(cfg, params, x, cache, lambda p, h, ck, cv:
-                    attn.attention_decode(cfg, p, h, pos, ck, cv))
+                    attn.attention_decode(cfg, p, h, pos, ck, cv),
+                    decode=True)

@@ -570,3 +570,208 @@ def test_check_route_fails_on_a_wrong_route(spoil, match):
             S.check_route(cfg, logits)
     finally:
         M._route = real
+
+
+# The Mamba phase rehearsed on the CPU: reduced configs (chunk 32), prompts
+# of two to four chunks and shorter than one.
+MAMBA_SMALL = dict(reduced=True, device="cpu", prompt_hi=128)
+
+
+@pytest.mark.parametrize("arch, dtype, checks", [
+    ("mamba2-130m", None, ("cpu", "parity")),
+    ("jamba-1.5-large-398b", "bfloat16", ()),
+    ("jamba-1.5-large-398b", "float32", ("cpu",))])
+def test_mamba_path_on_the_cpu(arch, dtype, checks):
+    """The phase's checks pass on a reduced config on the CPU: every
+    request served, no flash launch (the CPU: plain version) but one flash
+    call per prefill of jamba's one attention layer, no ISLA kernel, every
+    prefill's layer-0 SSD within the tolerance of the oracle, and the
+    checks asked for."""
+    r = S.mamba_path(arch, dtype=dtype, checks=checks, **MAMBA_SMALL)
+    assert len(r["finish_order"]) == S.MAMBA_REQUESTS
+    assert r["launches"] == dict(flash_attention=0, isla_fold=0,
+                                 pilot_stats=0, isla_sketch=0)
+    assert len(r["calls"]) == S.MAMBA_REQUESTS * r["attention_layers"]
+    assert r["attention_layers"] == (1 if arch.startswith("jamba") else 0)
+    assert [c["tokens"] for c in r["ssd"]] == r["prompt_lens"]
+    assert all(c["y_rel"] <= S.MAMBA_TOL and c["h_rel"] <= S.MAMBA_TOL
+               for c in r["ssd"])
+    assert {c["chunks"] > 1 for c in r["ssd"]} == {True, False}
+    assert r["profiled_tick"]["active"] == S.MAMBA_SLOTS
+    if "parity" in checks:
+        assert r["parity"]["float32"]["within_contract"]
+    if "cpu" in checks and arch.startswith("jamba"):
+        assert {p["on_group"] for p in r["cpu"]["prompts"]} == {True, False}
+        assert all(e <= S.JAMBA_TOL for p in r["cpu"]["prompts"]
+                   for e in p["rel_err"])
+    elif "cpu" in checks:
+        assert r["cpu"]["mamba_calls"] == 2 * r["mamba_layers"]
+        assert max(r["cpu"]["layerwise_rel"].values()) <= S.MAMBA_TOL
+        assert max(r["cpu"]["f32_rel"].values()) <= S.MAMBA_F32_TOL
+
+
+def _ssd_case(seed=0, S_=64, G=2):
+    """SSD inputs of the reduced mamba2-130m's width at ``G`` groups."""
+    g = torch.Generator().manual_seed(seed)
+    H, P, N = 4, 32, 16
+    x = torch.randn((1, S_, H, P), generator=g)
+    dt = torch.rand((1, S_, H), generator=g) * 0.2 + 0.01
+    A = -(torch.rand((H,), generator=g) * 1.5 + 0.5)
+    Bm, Cm = (torch.randn((1, S_, G, N), generator=g) for _ in range(2))
+    return x, dt * A, dt, Bm, Cm
+
+
+def _ssd_call(args, chunk=32, h0=None):
+    from repro_torch.models import mamba2 as M
+
+    y, h = M.ssd_chunked(*args, chunk, h0=h0)
+    return dict(zip(("x", "da", "dt", "Bm", "Cm"), args), chunk=chunk,
+                h0=h0, y=y, h=h)
+
+
+def test_check_ssd_holds_the_scan_and_finds_a_wrong_state():
+    """``check_ssd`` passes the scan (from zero and from a state) and fails
+    on a final state 5% off."""
+    args = _ssd_case()
+    S.check_ssd("t", _ssd_call(args), 1e-5)
+    h0 = torch.randn((1, 4, 16, 32), generator=torch.Generator()
+                     .manual_seed(3))
+    call = _ssd_call(args, h0=h0)
+    S.check_ssd("t", call, 1e-5)
+    call["h"] = call["h"] * 1.05
+    with pytest.raises(S.SmokeFailure, match="final state rel"):
+        S.check_ssd("t", call, S.MAMBA_TOL)
+
+
+def test_check_ssd_finds_a_repeat_head_map(monkeypatch):
+    """At two B/C groups a ``.repeat`` head map (head h on group h % G,
+    where the reference's ``jnp.repeat`` takes h // rep) fails the check:
+    the oracle maps heads on its own."""
+    from repro_torch.models import mamba2 as M
+
+    def tiled(t, rep, dim):
+        reps = [1] * t.dim()
+        reps[dim] = rep
+        return t.repeat(*reps)
+
+    monkeypatch.setattr(M, "_repeat_heads", tiled)
+    with pytest.raises(S.SmokeFailure, match="off the oracle"):
+        S.check_ssd("t", _ssd_call(_ssd_case()), S.MAMBA_TOL)
+
+
+def test_mamba_path_finds_a_wrong_ssd_state(monkeypatch):
+    """A main path whose scan returned a final state 5% off fails the
+    phase at the first prefill's layer-0 check."""
+    from repro_torch.models import mamba2 as M
+
+    real = M.ssd_chunked
+
+    def spoiled(*args, **kw):
+        y, h = real(*args, **kw)
+        return y, h * 1.05
+
+    monkeypatch.setattr(M, "ssd_chunked", spoiled)
+    with pytest.raises(S.SmokeFailure, match="final state rel"):
+        S.mamba_path("mamba2-130m", **MAMBA_SMALL)
+
+
+def test_mamba_path_finds_a_repeat_head_map(monkeypatch):
+    """The phase on a reduced mamba2-130m with two B/C groups: a
+    ``.repeat`` head map in the scan fails it."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import mamba2 as M
+
+    real_get = C.get_config
+
+    def two_groups(name, reduced=False):
+        cfg = real_get(name, reduced=reduced)
+        return cfg.replace(mamba=dataclasses.replace(cfg.mamba, n_groups=2))
+
+    def tiled(t, rep, dim):
+        reps = [1] * t.dim()
+        reps[dim] = rep
+        return t.repeat(*reps)
+
+    monkeypatch.setattr(C, "get_config", two_groups)
+    r = S.mamba_path("mamba2-130m", **MAMBA_SMALL)
+    assert len(r["finish_order"]) == S.MAMBA_REQUESTS
+    monkeypatch.setattr(M, "_repeat_heads", tiled)
+    with pytest.raises(S.SmokeFailure, match="off the oracle"):
+        S.mamba_path("mamba2-130m", **MAMBA_SMALL)
+
+
+@pytest.mark.parametrize("lens, group, match", [
+    ([512, 100], None, None),
+    ([300, 100], None, "off the chunk contract"),
+    ([512, 2], None, "off the chunk contract"),
+    ([512, 1024], None, "one short chunk"),
+    ([256, 100], None, "more than one chunk"),
+    ([512, 100], 64, None),
+    ([512, 192, 100], 256, None),
+    ([768, 100], 512, "routing paths")])
+def test_check_prompt_lens(lens, group, match):
+    """Full-width mamba2-130m (chunk 256, d_conv 4): a length past the
+    chunk and off it (300), one shorter than the conv tail (2), or a set
+    without both kinds (more than one chunk, and one short chunk), or
+    without both routing paths, fails."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-130m")
+    if match is None:
+        S.check_prompt_lens(cfg, lens, group)
+        return
+    with pytest.raises(S.SmokeFailure, match=match):
+        S.check_prompt_lens(cfg, lens, group)
+
+
+@pytest.mark.parametrize("arch, hi", [("mamba2-130m", 2048),
+                                      ("jamba-1.5-large-398b", 256)])
+def test_mamba_prompt_lens_meet_the_contract(arch, hi):
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, reduced=arch.startswith("jamba"))
+    chunk = cfg.mamba.chunk
+    group = cfg.moe.group_size if cfg.moe is not None else None
+    for seed in range(5, 9):
+        lens = S.mamba_prompt_lens(np.random.default_rng(seed), cfg, hi,
+                                   group)
+        assert len(lens) == S.MAMBA_REQUESTS
+        for n in lens:
+            assert (n % chunk == 0 and 2 * chunk <= n <= hi) or 4 <= n < chunk
+
+
+class _Row:
+    def __init__(self, key, count):
+        self.key, self.count = key, count
+
+
+class _Prof:
+    """A profiled window's stand-in: ``n_kernels`` device events and the
+    host's matrix products."""
+
+    def __init__(self, n_kernels, products):
+        self._events = [type("E", (), dict(device_type="DeviceType.CUDA"))()
+                        for _ in range(n_kernels)]
+        self._rows = [_Row("aten::mm", products), _Row("aten::add", 99)]
+
+    def events(self):
+        return self._events
+
+    def key_averages(self):
+        return self._rows
+
+
+@pytest.mark.parametrize("kernels, products, whole", [
+    (3112, 193, True), (193, 193, True), (0, 193, False), (120, 193, False),
+    (10, 0, False)])
+def test_decode_trace_whole(kernels, products, whole):
+    """A profiled tick's record, as ``drive`` makes it, is whole with a
+    device event for every matrix product the host recorded."""
+    prof = _Prof(kernels, products)
+    r = dict(device_events=S.device_event_count(prof),
+             products=S.matrix_products(prof))
+    assert r["products"] == products
+    assert S.decode_trace_whole(r) is whole

@@ -729,6 +729,59 @@ def test_moe_on_cuda_matches_cpu_without_sync(cuda, arch, monkeypatch):
         torch.testing.assert_close(g, c, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_mamba_on_cuda_matches_cpu_without_sync(cuda, arch):
+    """Reduced mamba2-130m and jamba, fp32 params and an fp32 cache, on
+    the card against the same weights on the CPU, with no host sync
+    anywhere in the model (``set_sync_debug_mode("error")``): a prefill
+    of 2 prompts x 64 tokens (two SSD chunks of 32) and 3 decode steps,
+    logits and every Mamba position's h and conv within 1e-4; jamba's
+    prefill makes one flash launch (its one attention position),
+    mamba2-130m none, and neither an ISLA launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+
+    cfg = get_config(arch, reduced=True).replace(param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(9).integers(0, cfg.vocab, (2, 67))
+    n_attn = sum(cfg.block_is_attention(i) for i in range(cfg.n_layers))
+    out, caches = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        t = torch.as_tensor(toks, device=dev)
+        cache = TM.init_cache(cfg, 2, 67, dtype=torch.float32, device=dev)
+        K.reset_launch_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits = [TM.serve_prefill(cfg, p, {"tokens": t[:, :64]},
+                                       cache)[0]]
+            for i in range(3):
+                pos = torch.full((2,), 64 + i, device=dev)
+                logits.append(TM.serve_decode(cfg, p, t[:, 64 + i:65 + i],
+                                              pos, cache)[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert FA.flash_attention.launches == (
+            n_attn if dev == "cuda" else 0)
+        assert K.isla_fold.launches + K.pilot_stats.launches \
+            + K.isla_sketch.launches == 0
+        out[dev] = [o.float().cpu() for o in logits]
+        caches[dev] = [{k: v.float().cpu() for k, v in c.items()}
+                       for c in cache]
+    for step, (c, g) in enumerate(zip(out["cpu"], out["cuda"])):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-4,
+                                   msg=f"step {step}")
+    for c, g in zip(caches["cpu"], caches["cuda"]):
+        for name in ("h", "conv"):
+            if name in c:
+                torch.testing.assert_close(g[name], c[name], rtol=1e-4,
+                                           atol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("case", TAGGED_CASES)
 def test_tagged_fold_kernel_matches_plain_version(cuda, case, dtype):

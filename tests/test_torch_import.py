@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.models.frontends",
               "repro_torch.serve.engine", "repro_torch.launch.serve",
               "repro_torch.launch.mesh", "repro_torch.sharding.specs",
-              "repro_torch.models.moe", "repro_torch.sharding.context"):
+              "repro_torch.models.moe", "repro_torch.sharding.context",
+              "repro_torch.models.mamba2"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -3,7 +3,7 @@ configs, the reference's params carried through ``convert.params_from``,
 the same seeded numpy tokens.  Prefill and decode logits and the KV cache,
 the slot scheduler's generated tokens and finish order, the MoE configs
 (arctic-480b, grok-1-314b) in the stack and the scheduler, the families
-not ported yet, and the ``--workload lm`` CLI."""
+once refused (MoE and Mamba2) serving, and the ``--workload lm`` CLI."""
 import os
 import pathlib
 import subprocess
@@ -387,28 +387,41 @@ def test_scheduler_tick_counts():
 @pytest.mark.parametrize("arch,item", [
     ("mamba2-130m", "item 9, 'Mamba2 mixer'"),
     ("jamba-1.5-large-398b", "item 9, 'Mamba2 mixer'"),
-    ("arctic-480b", None),
-    ("grok-1-314b", None)])
+    ("arctic-480b", "item 8, 'MoE channel'"),
+    ("grok-1-314b", "item 8, 'MoE channel'")])
 def test_unported_families_name_their_roadmap_item(arch, item):
-    """A family with a Mamba2 mixer raises at init and at its cache,
-    naming its ROADMAP Queue A item (jamba at its first Mamba position,
-    though its MoE positions are ported).  The MoE families (item 8,
-    ported) init, get their cache and serve a request."""
+    """The families whose ROADMAP Queue A item once raised here (the
+    Mamba2 mixer, item 9; the MoE channel, item 8) are ported: each inits,
+    gets its cache (a Mamba position's ``{"h", "conv"}``: h fp32, conv in
+    the cache dtype) and serves a request, and ROADMAP.md marks the item
+    landed."""
+    import re
+
     cfg = get_config(arch, reduced=True)
+    num, name = re.match(r"item (\d+), '(.+)'", item).groups()
+    assert re.search(rf"^{num}\. \*\*{re.escape(name)}:\*\* landed",
+                     (ROOT / "ROADMAP.md").read_text(), re.M), item
     gen = torch.Generator().manual_seed(0)
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue A {item}"):
-            TM.init_params(cfg, gen)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue A {item}"):
-            TM.init_cache(cfg, 1, 8, device="cpu")
-        return
     params = TM.init_params(cfg, gen)
-    assert params["blocks"][0]["moe"]["router"].dtype == torch.float32
     cache = TM.init_cache(cfg, 1, 8, device="cpu")
-    assert tuple(cache[0]["k"].shape) == (cfg.n_layers, 1, 8,
-                                          cfg.n_kv_heads, cfg.head_dim)
+    for pos, c in enumerate(cache):
+        if "k" in c:
+            assert tuple(c["k"].shape) == (cfg.n_layers // len(cache), 1,
+                                           8, cfg.n_kv_heads, cfg.head_dim)
+            continue
+        m = cfg.mamba
+        groups = cfg.n_layers // len(cache)
+        assert set(c) == {"h", "conv"}
+        assert tuple(c["h"].shape) == (groups, 1, m.n_heads, m.d_state,
+                                       m.head_dim)
+        assert tuple(c["conv"].shape) == (
+            groups, 1, m.d_conv - 1, m.d_inner + 2 * m.n_groups * m.d_state)
+        assert c["h"].dtype == torch.float32
+        assert c["conv"].dtype == torch.bfloat16
+        assert params["blocks"][pos]["mamba"]["A_log"].dtype == torch.float32
+    if cfg.moe is not None:
+        moe_pos = next(b for b in params["blocks"] if "moe" in b)
+        assert moe_pos["moe"]["router"].dtype == torch.float32
     sched = BatchScheduler(cfg, params, batch_slots=1, max_seq=8,
                            eos_id=-1)
     sched.submit(Request(rid=0, prompt=[3, 4, 5], max_new=2))
@@ -482,6 +495,19 @@ def test_serve_cli_defaults_to_the_lm_workload():
 def test_serve_cli_lm_serves_the_moe_configs(arch):
     """``--workload lm --arch <moe arch> --reduced --device cpu`` serves
     all six requests through the MoE channel."""
+    _serve_cli_six(arch)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_serve_cli_lm_serves_the_mamba_configs(arch):
+    """``--workload lm --arch <arch> --reduced --device cpu`` serves all
+    six requests through the Mamba2 mixer (prompts of 4-11 tokens, inside
+    the chunk contract); jamba through its attention and MoE positions
+    too."""
+    _serve_cli_six(arch)
+
+
+def _serve_cli_six(arch):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
          "lm", "--arch", arch, "--reduced", "--device", "cpu"], cwd=ROOT,

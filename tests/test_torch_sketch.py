@@ -563,11 +563,12 @@ def test_convert_carries_the_register_plane(rng):
         convert.store_from(dict(fields, regs=None))
 
 
-def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
-    """LM serving of a config with a Mamba2 mixer (jamba, whose MoE
-    positions are ported) still raises, naming its ROADMAP Queue A item
-    by number and name, and ROADMAP.md lists that item and the MoE
-    channel's (item 8, landed).  The dense
+def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch,
+                                                       capsys):
+    """LM serving of a config with a Mamba2 mixer (jamba: Mamba,
+    attention and MoE positions), which raised until its ROADMAP Queue A
+    item landed, serves the CLI's six requests, and ROADMAP.md lists that
+    item (9) and the MoE channel's (8), both landed.  The dense
     payload on a float64 sketch stack (item 1b, once refused here), the
     mesh route (item 4, its sketch families with it) and the pipelined
     tick (item 3) run, and ROADMAP.md still lists all three items: the
@@ -597,13 +598,14 @@ def test_unported_sketch_paths_name_their_roadmap_item(monkeypatch):
                   np.array([3, 1]), raw_values=vals64)
     assert np.array_equal(dev64.regs.numpy(), host64.regs)
     assert np.array_equal(dev64.n_sampled, host64.n_sampled)
-    with pytest.raises(NotImplementedError) as err:
-        TS.main()
-    assert "Queue A item 9, 'Mamba2 mixer'" in str(err.value)
+    TS.main()
+    assert "served 6 requests, 78 tokens" in capsys.readouterr().out
     for item in (("1b", "The float64 dense tick"), (8, "MoE channel"),
                  (9, "Mamba2 mixer")):
         assert re.search(rf"^{item[0]}\. \*\*{re.escape(item[1])}", roadmap,
                          re.M)
+    for item in ("8. **MoE channel:** landed", "9. **Mamba2 mixer:** landed"):
+        assert item in roadmap, item
     assert re.search(r"^4\. \*\*Mesh route", roadmap, re.M)
     assert re.search(r"^3\. \*\*Pipelined tick", roadmap, re.M)
     answers = {route: executor().run(q, np.random.default_rng(0),
