@@ -179,6 +179,44 @@ step, against the CPU within 1e-4 of scale (a router near-tie that takes
 another expert is counted).  One full-width period of jamba (8 layers) is
 90.29 GB in bf16, more than one card holds.
 
+Then the training path ("lm train"; the earlier models freed first, the
+bytes still held printed): olmo-1b at full width and depth (16 layers,
+1.177 B parameters) in bf16 with remat, from a seeded generator, takes 8
+``train_step``s of AdamW on the port's ``SyntheticStream`` at 4 x 1024
+tokens (two CE chunks of 512), each timed; every loss, ``grad_norm`` and
+telemetry value must be finite, the steps must launch ``isla_fold``
+exactly once each (the default ISLA loss telemetry; counts reset just
+before, read just after) and no other kernel (no ``flash_attention``:
+training attention is plain torch ops, as the reference's is jnp).  It
+prints the loss trajectory, step seconds, tokens/s, peak memory and
+``loss_mean_isla`` beside ``loss_mean_exact``, and profiles one more step
+(taken again until its trace holds a device event for every matrix
+product and the fold's kernel): its device events, busy share and top
+kernels.  One step at 1 x 8192 tokens must take ``_blocked_attention`` at
+block 1024 in every layer and its recompute, and stay finite.  The same
+model cut to one layer, in fp32, takes one step on the card and one on
+the CPU from the same weights and batch: metrics within rel 1e-5, the
+moments and new params within 1e-5 of each leaf's scale (where the
+gradient is near zero Adam's first step is held to 2 lr).  Reduced
+olmo-1b in fp32 takes one step over 2 microbatches against one over the
+whole batch (the same tolerances).  ``_blocked_attention`` at blocks 1024
+and 512 is held against the dense formula in fp32 at (1, 2048, 16, 128),
+outputs and q, k, v grads within 1e-5 of scale.  mamba2-130m at full
+width and depth takes 4 steps at 4 x 512 in bf16 with remat (one fold a
+step).  Reduced jamba and grok-1-314b in fp32 take one step on the card
+against the CPU (metrics and the MoE aux losses within 1e-4, the routing
+held by ``check_route``, near-ties counted).  Reduced olmo-1b takes the
+reference's integration run on the card: 30 steps whose last five losses
+average more than 0.2 below the first five, with a checkpoint at step 5
+(``train.checkpoint``) restored into the abstract shapes and steps 5-9
+replayed to within rtol 1e-5; the median ``|isla - exact|`` is printed.
+In the olmo-1b, mamba2-130m and descent runs each step's loss telemetry
+is replayed under the plain fold on that step's own per-token losses
+(within rel 1e-5), and the first pane of each length the telemetry
+folded is replayed by ``check_telemetry_folds``.  The ``kernels`` line's
+``isla_fold`` entry includes the phase's launches, and its error, time
+and bound those panes'.
+
 Every failure exits nonzero.  The last three lines of standard output
 are the card's name and power limit, one JSON object describing every
 kernel, and the result object; details go to
@@ -428,22 +466,26 @@ def check_fold(device, n_blocks: int, quota: int) -> dict:
 
 
 class Recorder:
-    """Counts the calls the main path makes to ``distributed.<name>`` and,
-    with ``keep``, keeps a copy of the arguments of every one
-    (``fold_panes``: the value panes and the resident rows just before the
-    fold; ``sketch_panes``: the hash panes and the resident register plane
-    just before the merge), by wrapping it while installed."""
+    """Counts the calls the main path makes to ``<module>.<name>``
+    (``module``: ``core.distributed`` when None) and, with ``keep``,
+    keeps a copy of the arguments of every one (``fold_panes``: the value
+    panes and the resident rows just before the fold; ``sketch_panes``:
+    the hash panes and the resident register plane just before the merge),
+    by wrapping it while installed.  A callable ``keep`` keeps only what
+    it returns for the call's arguments."""
 
-    def __init__(self, name: str, keep: bool = True):
+    def __init__(self, name: str, keep=True, module=None):
         self.name = name
         self.keep = keep
+        self.module = module
         self.count = 0
         self.calls = []
 
     def __enter__(self):
-        from repro_torch.core import distributed as D
-
-        self._real = real = getattr(D, self.name)
+        if self.module is None:
+            from repro_torch.core import distributed as D
+            self.module = D
+        self._real = real = getattr(self.module, self.name)
 
         def clone(x):
             if hasattr(x, "_fields"):  # a NamedTuple (TaggedRuns)
@@ -456,17 +498,17 @@ class Recorder:
 
         def spy(*args, **kw):
             self.count += 1
-            if self.keep:
+            if callable(self.keep):
+                self.calls.append(self.keep(*args, **kw))
+            elif self.keep:
                 self.calls.append(dict(args=clone(args), kw=clone(kw)))
             return real(*args, **kw)
 
-        setattr(D, self.name, spy)
+        setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.core import distributed as D
-
-        setattr(D, self.name, self._real)
+        setattr(self.module, self.name, self._real)
         return False
 
 
@@ -2193,9 +2235,12 @@ def rel_gap(got, want) -> float:
 
 
 def to_device(x, device="cpu", dtype=None):
-    """``x`` with every tensor in it (tuples, lists, dicts) on ``device``;
-    with ``dtype``, its floating-point tensors of another width cast to it
-    (fp32 leaves of a bf16 tree stay fp32 when ``dtype`` is fp32)."""
+    """``x`` with every tensor in it (tuples, NamedTuples, lists, dicts)
+    on ``device``; with ``dtype``, its floating-point tensors of another
+    width cast to it (fp32 leaves of a bf16 tree stay fp32 when ``dtype``
+    is fp32)."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):   # a NamedTuple
+        return type(x)(*(to_device(v, device, dtype) for v in x))
     if isinstance(x, (tuple, list)):
         return type(x)(to_device(v, device, dtype) for v in x)
     if isinstance(x, dict):
@@ -4194,6 +4239,685 @@ def mamba_path(arch: str, seed: int = 0, device="cuda",
                 **extra)
 
 
+# ---------------------------------------------------------------------------
+# The LM training path ("lm train").
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "olmo-1b"
+TRAIN_SHAPE = (4, 1024)       # olmo-1b at full width: B x S, two CE chunks
+TRAIN_STEPS = 8
+TRAIN_LONG = (1, 8192)        # one step through _blocked_attention
+TRAIN_LONG_BLOCK = 1024
+TRAIN_CPU_SHAPE = (1, 256)    # the depth-cut step, card against the CPU
+TRAIN_MICRO_SHAPE = (4, 64)   # reduced olmo-1b: microbatches vs one batch
+TRAIN_MICROBATCHES = 2
+BLOCKED_SHAPE = (1, 2048, 16, 128)   # _blocked_attention vs dense: B S H hd
+BLOCKED_BLOCKS = (1024, 512)
+TRAIN_MAMBA = ("mamba2-130m", (4, 512), 4)   # two SSD chunks of 256
+TRAIN_MOE_ARCHS = ("jamba-1.5-large-398b", "grok-1-314b")
+TRAIN_MOE_SHAPE = (2, 64)     # 128 tokens: two routing groups of 64
+# The reference's integration run (tests/test_train_integration.py): 30
+# steps, the mean of the last 5 losses below the first 5's by more than
+# ``drop``; a checkpoint at ``save_at`` restored and replayed.
+DESCENT = dict(shape=(8, 64), steps=30, lr=1e-2, warmup=5, total=200,
+               save_at=5, replay=5, drop=0.2, isla_rate=0.25)
+# fp32 card against the CPU: losses, metrics, moments (of each leaf's
+# scale) 1e-5; the MoE steps and their aux losses 1e-4, as the card tests
+# hold MoE models.
+TRAIN_TOL = 1e-5
+TRAIN_MOE_TOL = 1e-4
+# Adam's first step moves an element by lr * g / (|g| + eps): where |g| is
+# at most this share of its leaf's largest it lies within the two devices'
+# rounding of g, and the two steps may differ by up to 2 * lr there.
+TRAIN_SMALL_GRAD = 1e-4
+
+
+def train_config(lr=3e-4, warmup=2, total=100, weight_decay=0.1,
+                 **kw):
+    """A ``TrainConfig`` with the default ISLA loss telemetry and the exact
+    mean beside it."""
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    return TrainConfig(opt=OptimizerConfig(
+        lr=lr, warmup_steps=warmup, total_steps=total,
+        weight_decay=weight_decay), telemetry_exact=True, **kw)
+
+
+def train_launches() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import isla_moments as K
+
+    return dict(isla_fold=K.isla_fold.launches,
+                flash_attention=FA.flash_attention.launches,
+                other_isla=K.pilot_stats.launches + K.isla_sketch.launches
+                + K.isla_tagged_fold.launches + K.isla_fold.launches_f64
+                + K.isla_sketch_tagged.launches)
+
+
+def train_run(cfg, tcfg, params, opt, stream, steps, device, start=0,
+              name="lm train"):
+    """``steps`` optimizer steps on ``stream`` from ``start``, each timed
+    (synchronised host clock; the batch drawn and moved before the clock).
+    The launch counts are set to 0 just before the first step and read
+    just after the last.  Fails on a non-finite loss, ``grad_norm`` or
+    telemetry, on an ``isla_fold`` count other than one a step, on any
+    other kernel, and on a step whose loss telemetry parts from the same
+    ``loss_stats`` call on its own per-token losses under
+    ``PlainVersions`` by more than rel ``TELEMETRY_TOL``.  Returns
+    (params, opt, records, launches, panes): ``panes`` the first pane of
+    each length the telemetry folded, with its cuts."""
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.train import train_step as TS
+
+    recs = []
+    K.reset_launch_counts()
+    with Recorder("loss_stats", module=TS) as calls, FoldPanes() as panes:
+        panes.on = True
+        for step in range(start, start + steps):
+            batch = stream.batch_at(step)
+            sync(device)
+            t0 = time.perf_counter()
+            params, opt, m = TS.train_step(cfg, tcfg, params, opt, batch)
+            sync(device)
+            recs.append(dict(step=step, s=time.perf_counter() - t0,
+                             **{k: float(v) for k, v in m.items()}))
+    launches = train_launches()
+    for r in recs:
+        check(all(math.isfinite(v) for k, v in r.items() if k != "step"),
+              f"{name}: step {r['step']} is not finite: {r}")
+    check(launches["isla_fold"] == steps,
+          f"{name}: {launches['isla_fold']} isla_fold launches in {steps} "
+          f"steps, not one a step (the loss telemetry)")
+    check(launches["flash_attention"] == launches["other_isla"] == 0,
+          f"{name}: the training path launched {launches}")
+    check(calls.count == steps, f"{name}: {calls.count} loss_stats calls "
+                                f"in {steps} steps")
+    for c, r in zip(calls.calls, recs):
+        with PlainVersions():
+            plain = TS.loss_stats(*c["args"], **c["kw"])
+        gaps = {k: rel_gap(r[k], float(v)) for k, v in plain.items()}
+        r["plain_gap"] = max(gaps.values())
+        check(r["plain_gap"] <= TELEMETRY_TOL,
+              f"{name}: step {r['step']}'s loss telemetry parts from its "
+              f"plain replay on the same per-token losses by {gaps} > rel "
+              f"{TELEMETRY_TOL}")
+    return params, opt, recs, launches, panes.panes
+
+
+def train_profile(cfg, tcfg, params, opt, batch, device, wall_s) -> dict:
+    """One more step under the profiler, taken again up to
+    ``PROFILE_TRIES`` times until its trace is whole: a device event for
+    every matrix product its host side recorded, and the fold's kernel.
+    Its busy share is over ``wall_s``, an unprofiled step's."""
+    import torch
+    from repro_torch.train.train_step import train_step
+
+    on_card = torch.device(device).type == "cuda"
+    for run in range(1, PROFILE_TRIES + 1):
+        sync(device)
+        time.sleep(PROFILE_GAP_S)
+        with profile_tick(device, True) as prof:
+            train_step(cfg, tcfg, params, opt, batch)
+            sync(device)
+        kernels_s = device_kernel_seconds(prof)
+        r = dict(runs=run, device_events=device_event_count(prof),
+                 products=matrix_products(prof),
+                 device_s=sum(kernels_s.values()),
+                 fold_kernels=sum(1 for n in kernels_s
+                                  if "isla_fold_kernel" in n),
+                 kernels_s=dict(sorted(kernels_s.items(),
+                                       key=lambda kv: -kv[1])[:8]),
+                 wall_s=wall_s)
+        if not on_card or (decode_trace_whole(r) and r["fold_kernels"]):
+            break
+        print(f"lm train: profiled step, run {run}: {r['device_events']} "
+              f"device events for {r['products']} matrix products, "
+              f"{r['fold_kernels']} fold kernels; taken again")
+    else:
+        check(False, f"lm train: the profiled step lost kernels in "
+                     f"{PROFILE_TRIES} runs")
+    if on_card:
+        r["busy_share"] = r["device_s"] / wall_s
+    return r
+
+
+def train_olmo(device="cuda", reduced=False, shape=TRAIN_SHAPE,
+               steps=TRAIN_STEPS, long_shape=TRAIN_LONG, seed=0) -> dict:
+    """olmo-1b (full width and depth, bf16, remat: the config's own; the
+    reduced config with ``reduced``) from a seeded generator: ``steps``
+    steps on the port's ``SyntheticStream`` at ``shape`` (``train_run``),
+    one profiled step, then one step at ``long_shape`` that must take
+    ``_blocked_attention`` at block ``TRAIN_LONG_BLOCK`` in every
+    attention layer (and its recompute)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(TRAIN_ARCH, reduced=reduced)
+    held = None
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, gen)
+    opt = init_opt_state(params)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, S = shape
+    stream = SyntheticStream(cfg, batch=B, seq=S, device=device)
+    tcfg = train_config()
+    name = f"lm train {TRAIN_ARCH}"
+    params, opt, recs, launches, panes = train_run(
+        cfg, tcfg, params, opt, stream, steps, device, name=name)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    warm = sorted(r["s"] for r in recs[1:]) or [recs[0]["s"]]
+    median_s = warm[len(warm) // 2]
+    prof = train_profile(cfg, tcfg, params, opt, stream.batch_at(steps),
+                         device, median_s)
+    LB, LS = long_shape
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    batch = SyntheticStream(cfg, batch=LB, seq=LS,
+                            device=device).batch_at(0)
+    K.reset_launch_counts()
+    with Recorder("_blocked_attention", module=A,
+                  keep=lambda q, k, v, positions, block: block) as blocked:
+        sync(device)
+        t0 = time.perf_counter()
+        _, _, lm = train_step(cfg, tcfg, params, opt, batch)
+        sync(device)
+        long_s = time.perf_counter() - t0
+    long_launches = train_launches()
+    long_peak = torch.cuda.max_memory_allocated() if on_card else None
+    long_m = {k: float(v) for k, v in lm.items()}
+    check(all(math.isfinite(v) for v in long_m.values()),
+          f"{name}: the S = {LS} step is not finite: {long_m}")
+    check(long_launches["isla_fold"] == 1 and long_launches[
+        "flash_attention"] == long_launches["other_isla"] == 0,
+          f"{name}: the S = {LS} step launched {long_launches}")
+    # each attention layer's forward, and its recompute under remat
+    want = cfg.n_layers * (2 if cfg.remat else 1)
+    check(blocked.calls == [TRAIN_LONG_BLOCK] * want,
+          f"{name}: the S = {LS} step made {blocked.count} blocked "
+          f"attention calls of blocks {sorted(set(blocked.calls))}, not "
+          f"{want} of {TRAIN_LONG_BLOCK}")
+    del params, opt, batch, lm
+    return dict(arch=TRAIN_ARCH, dtype=cfg.param_dtype, remat=cfg.remat,
+                n_layers=cfg.n_layers, d_model=cfg.d_model,
+                n_params=n_params, init_s=init_s, held_bytes=held,
+                peak_bytes=peak, shape=list(shape), steps=recs,
+                launches=launches, median_step_s=median_s,
+                tokens_per_s=B * S / median_s,
+                isla_gap=[abs(r["loss_mean_isla"] - r["loss_mean_exact"])
+                          for r in recs],
+                profiled_step=prof, long_shape=list(long_shape),
+                long_s=long_s, long_peak_bytes=long_peak,
+                long_metrics=long_m, long_launches=long_launches,
+                long_blocked_calls=blocked.count, panes=panes)
+
+
+def check_step_pair(name, lr, b1, got, want, tol) -> dict:
+    """A step's (new params, opt state, metrics) on the card (``got``)
+    against the same step on the CPU (``want``): every metric within rel
+    ``tol``; ``m`` and ``v`` within ``tol`` of each leaf's scale; the new
+    params within ``tol`` of each leaf's scale wherever |g| (read off the
+    first step's ``m = (1 - b1) g``) exceeds ``TRAIN_SMALL_GRAD`` of the
+    leaf's largest, and within ``2 * lr`` of each other elsewhere (Adam's
+    first step there is g / (|g| + eps) of two roundings of a near-zero
+    g).  Returns the largest gaps."""
+    from repro_torch.core.tree import tree_leaves, tree_paths
+
+    (gp, go, gm), (wp, wo, wm) = got, want
+    check(sorted(gm) == sorted(wm), f"{name}: metrics {sorted(gm)} vs "
+                                    f"{sorted(wm)}")
+    gaps = {}
+    for k in wm:
+        a, b = float(gm[k]), float(wm[k])
+        gaps[k] = abs(a - b) / max(abs(b), 1e-30)
+        check(gaps[k] <= tol, f"{name}: {k} {a!r} on the card, {b!r} on the "
+                              f"CPU (rel {gaps[k]:.3g} > {tol})")
+    worst = dict(m=0.0, v=0.0, params=0.0, params_small=0.0)
+    for part, g_tree, w_tree in (("m", go.m, wo.m), ("v", go.v, wo.v)):
+        for (path, w), g in zip(tree_paths(w_tree), tree_leaves(g_tree)):
+            err, scale = rel_err(g.cpu(), w)
+            worst[part] = max(worst[part], err)
+            check(err <= tol, f"{name}: {part}{path} off the CPU's by "
+                              f"{err:.3g} of its scale {scale:.3g}")
+    for (path, w), g, m in zip(tree_paths(wp), tree_leaves(gp),
+                               tree_leaves(wo.m)):
+        gabs = m.float().abs() / (1 - b1)
+        big = gabs > TRAIN_SMALL_GRAD * gabs.max()
+        gap = (g.cpu().float() - w.float()).abs()
+        scale = float(w.float().abs().max())
+        e_big = float(gap[big].max()) / scale if bool(big.any()) else 0.0
+        e_small = float(gap[~big].max()) if bool((~big).any()) else 0.0
+        worst["params"] = max(worst["params"], e_big)
+        worst["params_small"] = max(worst["params_small"], e_small)
+        check(e_big <= tol, f"{name}: params{path} off the CPU's by "
+                            f"{e_big:.3g} of its scale {scale:.3g}")
+        check(e_small <= 2 * lr * 1.0001,
+              f"{name}: params{path} off the CPU's by {e_small:.3g} where "
+              f"|g| is near zero (> 2 lr = {2 * lr:.3g})")
+    return dict(metric_rel=gaps, **worst)
+
+
+def train_cpu_pair(device="cuda", reduced=False, shape=TRAIN_CPU_SHAPE,
+                   seed=1) -> dict:
+    """olmo-1b at full width cut to one layer, in fp32 (reduced with
+    ``reduced``): the same weights (a seeded CPU generator), optimizer
+    state and batch, one ``train_step`` on ``device`` and one on the CPU,
+    held by ``check_step_pair`` at ``TRAIN_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    cfg = get_config(TRAIN_ARCH, reduced=reduced).replace(
+        n_layers=1, param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(seed))
+    opt = init_opt_state(params)
+    B, S = shape
+    batch = SyntheticStream(cfg, batch=B, seq=S, device="cpu").batch_at(0)
+    tcfg = train_config(lr=1e-3)
+    from repro_torch.kernels import isla_moments as K
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = train_step(cfg, tcfg, to_device(params, device),
+                     to_device(opt, device), to_device(batch, device))
+    sync(device)
+    card_s = time.perf_counter() - t0
+    launches = train_launches()
+    check(launches["isla_fold"] == 1, f"lm train depth-cut step: "
+                                      f"{launches}")
+    t0 = time.perf_counter()
+    want = train_step(cfg, tcfg, params, opt, batch)
+    cpu_s = time.perf_counter() - t0
+    gaps = check_step_pair(f"lm train {TRAIN_ARCH} (1 layer, fp32)",
+                           tcfg.opt.lr, tcfg.opt.b1, to_device(got, "cpu"),
+                           want, TRAIN_TOL)
+    return dict(arch=TRAIN_ARCH, n_layers=1, d_model=cfg.d_model,
+                dtype="float32", shape=list(shape), card_s=card_s,
+                cpu_s=cpu_s, launches=launches, tolerance=TRAIN_TOL,
+                loss=float(got[2]["loss"]), **gaps)
+
+
+def train_microbatch(device="cuda", shape=TRAIN_MICRO_SHAPE, seed=5) -> dict:
+    """Reduced olmo-1b in fp32 on ``device``: one step over
+    ``TRAIN_MICROBATCHES`` microbatches against one step over the whole
+    batch, from the same weights and batch (``check_step_pair`` at
+    ``TRAIN_TOL``: the accumulated grads are divided by the count, so the
+    two steps agree up to rounding)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    cfg = get_config(TRAIN_ARCH, reduced=True).replace(param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    opt = init_opt_state(params)
+    B, S = shape
+    batch = SyntheticStream(cfg, batch=B, seq=S, device=device).batch_at(0)
+    whole = train_config(lr=1e-3)
+    split = dataclasses.replace(whole, microbatches=TRAIN_MICROBATCHES)
+    from repro_torch.kernels import isla_moments as K
+
+    K.reset_launch_counts()
+    got = train_step(cfg, split, params, opt, batch)
+    want = train_step(cfg, whole, params, opt, batch)
+    sync(device)
+    launches = train_launches()
+    check(launches["isla_fold"] == 2, f"lm train microbatches: {launches}")
+    gaps = check_step_pair(
+        f"lm train {TRAIN_ARCH} (reduced, fp32) over "
+        f"{TRAIN_MICROBATCHES} microbatches", whole.opt.lr, whole.opt.b1,
+        to_device(got, "cpu"), to_device(want, "cpu"), TRAIN_TOL)
+    return dict(arch=TRAIN_ARCH, shape=list(shape),
+                microbatches=TRAIN_MICROBATCHES, launches=launches,
+                tolerance=TRAIN_TOL, **gaps)
+
+
+def check_blocked(device="cuda", shape=BLOCKED_SHAPE, blocks=BLOCKED_BLOCKS,
+                  seed=2) -> list:
+    """``_blocked_attention`` against the dense formula on ``device`` in
+    fp32 (full heads, one KV head a q head), at each block: the outputs
+    and the q, k, v grads within ``TRAIN_TOL`` of their scale."""
+    import torch
+    from repro_torch.models import attention as A
+
+    B, S, H, hd = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device=device)
+               for _ in range(3))
+    ct = torch.randn((B, S, H * hd), generator=gen, device=device)
+    pos = torch.arange(S, device=device).expand(B, S)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, ct))
+
+    def dense(q_, k_, v_):
+        causal = pos[:, None, :, None] >= pos[:, None, None, :]
+        probs = torch.softmax(A._masked(A._gqa_scores(q_, k_), causal), -1)
+        return A._gqa_out(probs, v_, q_.dtype)
+
+    want = grads(dense)
+    out = []
+    for block in blocks:
+        sync(device)
+        t0 = time.perf_counter()
+        got = grads(lambda a, b, c: A._blocked_attention(a, b, c, pos,
+                                                          block))
+        sync(device)
+        s = time.perf_counter() - t0
+        errs = {n: rel_err(g, w)[0] for n, g, w in zip(
+            ("out", "q", "k", "v"), got, want)}
+        check(max(errs.values()) <= TRAIN_TOL,
+              f"_blocked_attention at block {block} off the dense formula "
+              f"on the card: {errs} (tol {TRAIN_TOL} of scale)")
+        out.append(dict(shape=list(shape), block=block, rel=errs, s=s))
+    return out
+
+
+def train_mamba(device="cuda", reduced=False, spec=TRAIN_MAMBA,
+                seed=3) -> dict:
+    """mamba2-130m at full width and depth in bf16 with remat (the
+    reduced config with ``reduced``): ``train_run`` steps at its shape."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+
+    arch, (B, S), steps = spec
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(arch, reduced=reduced).replace(remat=True)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = TM.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    opt = init_opt_state(params)
+    stream = SyntheticStream(cfg, batch=B, seq=S, device=device)
+    params, opt, recs, launches, panes = train_run(
+        cfg, train_config(), params, opt, stream, steps, device,
+        name=f"lm train {arch}")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    return dict(arch=arch, dtype=cfg.param_dtype, remat=cfg.remat,
+                n_layers=cfg.n_layers, d_model=cfg.d_model,
+                n_params=sum(t.numel() for t in _leaves(params)),
+                shape=[B, S], chunks=S // cfg.mamba.chunk, steps=recs,
+                launches=launches, peak_bytes=peak, panes=panes)
+
+
+def train_moe_pair(arch, device="cuda", shape=TRAIN_MOE_SHAPE,
+                   seed=4) -> dict:
+    """A reduced MoE config in fp32: one ``train_step`` on ``device``
+    against the same on the CPU (``check_step_pair`` at
+    ``TRAIN_MOE_TOL``), the aux losses of ``train_loss`` on both, and
+    the card's routing of every MoE call held by ``check_route`` (its
+    near-ties counted)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    cfg = get_config(arch, reduced=True).replace(param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(seed))
+    opt = init_opt_state(params)
+    B, S = shape
+    batch = SyntheticStream(cfg, batch=B, seq=S, device="cpu").batch_at(0)
+    tcfg = train_config(lr=1e-3)
+    dp, do, db = (to_device(t, device) for t in (params, opt, batch))
+    from repro_torch.kernels import isla_moments as K
+
+    K.reset_launch_counts()
+    with MoeCalls() as routes:
+        got = train_step(cfg, tcfg, dp, do, db)
+        sync(device)
+    launches = train_launches()
+    check(launches["isla_fold"] == 1 and launches["flash_attention"] == 0,
+          f"lm train {arch}: {launches}")
+    want = train_step(cfg, tcfg, params, opt, batch)
+    name = f"lm train {arch} (reduced, fp32)"
+    gaps = check_step_pair(name, tcfg.opt.lr, tcfg.opt.b1,
+                           to_device(got, "cpu"), want, TRAIN_MOE_TOL)
+    with torch.no_grad():
+        aux = [TM.train_loss(cfg, p, b)[1] for p, b in ((dp, db),
+                                                        (params, batch))]
+    aux_rel = {}
+    for k in ("moe_lb_loss", "moe_z_loss"):
+        a, b = float(aux[0][k]), float(aux[1][k])
+        aux_rel[k] = abs(a - b) / max(abs(b), 1e-30)
+        check(aux_rel[k] <= TRAIN_MOE_TOL,
+              f"{name}: {k} {a!r} on the card, {b!r} on the CPU")
+    route = [check_route(cfg, c["logits"].detach()) for c in routes.calls]
+    n_moe = sum(cfg.block_is_moe(i) for i in range(cfg.n_layers))
+    check(len(route) == n_moe, f"{name}: {len(route)} routed calls for "
+                               f"{n_moe} MoE layers")
+    return dict(arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                shape=list(shape), launches=launches, aux_rel=aux_rel,
+                moe_calls=len(route),
+                near_ties=sum(r["near_ties"] for r in route),
+                tokens=sum(r["tokens"] for r in route),
+                tolerance=TRAIN_MOE_TOL, **gaps)
+
+
+def train_descent(device="cuda", ckpt_dir=None, seed=0,
+                  spec=DESCENT) -> dict:
+    """The reference's integration run on ``device``: reduced olmo-1b from
+    a seeded generator, ``spec["steps"]`` steps (ISLA telemetry at rate
+    0.25 with the exact mean beside it); the mean of the last 5 losses
+    below the first 5's by more than ``spec["drop"]``.  A checkpoint of
+    params and optimizer state at ``spec["save_at"]`` (``checkpoint.save``
+    into ``ckpt_dir``, a temporary directory when None) is restored into
+    the abstract shapes and steps ``save_at`` .. ``save_at + replay - 1``
+    replayed: their losses within rtol 1e-5 of the first run's."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train import checkpoint
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import abstract_opt_state, init_opt_state
+
+    cfg = get_config(TRAIN_ARCH, reduced=True)
+    params = TM.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    opt = init_opt_state(params)
+    B, S = spec["shape"]
+    stream = SyntheticStream(cfg, batch=B, seq=S, device=device)
+    tcfg = train_config(lr=spec["lr"], warmup=spec["warmup"],
+                        total=spec["total"], weight_decay=0.0,
+                        isla_rate=spec["isla_rate"])
+    at = spec["save_at"]
+    name = f"lm train {TRAIN_ARCH} (reduced) descent"
+    with tempfile.TemporaryDirectory() as tmp:
+        d = ckpt_dir or tmp
+        params, opt, first, l1, panes = train_run(
+            cfg, tcfg, params, opt, stream, at, device, name=name)
+        checkpoint.save(d, at, {"params": params, "opt": opt},
+                        fingerprint=cfg.name)
+        params, opt, rest, l2, _ = train_run(
+            cfg, tcfg, params, opt, stream, spec["steps"] - at, device,
+            start=at, name=name)
+        like = {"params": TM.abstract_params(cfg),
+                "opt": abstract_opt_state(TM.abstract_params(cfg))}
+        try:
+            back, _ = checkpoint.restore(d, at, like, device=device,
+                                         fingerprint=cfg.name)
+        except (KeyError, ValueError) as exc:
+            check(False, f"{name}: the step-{at} checkpoint does not "
+                         f"restore: {exc}")
+    _, _, replay, l3, _ = train_run(cfg, tcfg, back["params"], back["opt"],
+                                    stream, spec["replay"], device, start=at,
+                                    name=name + " replay")
+    losses = [r["loss"] for r in first + rest]
+    drop = (sum(losses[:5]) - sum(losses[-5:])) / 5
+    check(drop > spec["drop"], f"{name}: no learning: first 5 "
+                               f"{losses[:5]}, last 5 {losses[-5:]}")
+    again = [r["loss"] for r in replay]
+    want = losses[at:at + spec["replay"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(again, want))
+    check(rel <= 1e-5, f"{name}: the replay after restore gave {again}, "
+                       f"the run {want}")
+    gaps = sorted(abs(r["loss_mean_isla"] - r["loss_mean_exact"])
+                  for r in first + rest)
+    return dict(arch=TRAIN_ARCH, shape=[B, S], steps=spec["steps"],
+                losses=losses, drop=drop, replay_losses=again,
+                replay_rel=rel, isla_median_gap=gaps[len(gaps) // 2],
+                plain_gap=max(r["plain_gap"] for r in first + rest + replay),
+                panes=panes,
+                launches=dict(isla_fold=l1["isla_fold"] + l2["isla_fold"]
+                              + l3["isla_fold"]))
+
+
+def train_path(device="cuda", reduced=False, **over) -> dict:
+    """The "lm train" phase: ``train_olmo``, ``train_cpu_pair``,
+    ``train_microbatch``, ``check_blocked``, ``train_mamba``,
+    ``train_moe_pair`` for each of
+    ``TRAIN_MOE_ARCHS`` and ``train_descent``; ``reduced`` with
+    ``device="cpu"`` rehearses it on the CPU (``over`` sets the shapes).
+    ``panes`` holds the first pane of each length that the loss telemetry
+    of the olmo-1b, mamba2-130m and descent runs folded, for
+    ``check_telemetry_folds``."""
+    out = dict(olmo=train_olmo(device, reduced, **over.get("olmo", {})))
+    out["cpu_pair"] = train_cpu_pair(device, reduced,
+                                     **over.get("cpu_pair", {}))
+    out["microbatch"] = train_microbatch(device)
+    out["blocked"] = check_blocked(device, **over.get("blocked", {}))
+    out["mamba"] = train_mamba(device, reduced, **over.get("mamba", {}))
+    out["moe"] = [train_moe_pair(a, device) for a in TRAIN_MOE_ARCHS]
+    out["descent"] = train_descent(device)
+    out["fold_launches"] = (
+        out["olmo"]["launches"]["isla_fold"]
+        + out["olmo"]["long_launches"]["isla_fold"]
+        + out["cpu_pair"]["launches"]["isla_fold"]
+        + out["microbatch"]["launches"]["isla_fold"]
+        + out["mamba"]["launches"]["isla_fold"]
+        + sum(m["launches"]["isla_fold"] for m in out["moe"])
+        + out["descent"]["launches"]["isla_fold"])
+    out["panes"] = {}
+    for run in (out["olmo"], out["mamba"], out["descent"]):
+        for n, pane in run.pop("panes").items():
+            out["panes"].setdefault(n, pane)
+    return out
+
+
+def print_train(t: dict, total_bytes: int) -> None:
+    """The "lm train" phase's figures."""
+    o = t["olmo"]
+    p = o["profiled_step"]
+    steps = o["steps"]
+    print(f"Train path, {o['arch']} ({o['n_layers']} layers, d_model "
+          f"{o['d_model']}, {o['n_params'] / 1e9:.4f} B "
+          f"params, {o['dtype']}, remat {o['remat']}; init "
+          f"{o['init_s']:.2f} s; {o['held_bytes'] / 2**30:.3f} GiB held "
+          f"before it, peak {o['peak_bytes'] / 2**30:.2f} GiB of "
+          f"{total_bytes / 2**30:.2f}): {len(steps)} steps at B x S = "
+          f"{o['shape'][0]} x {o['shape'][1]}: {json.dumps(o['launches'])} "
+          f"launches")
+    print("  loss " + ", ".join(f"{r['loss']:.4f}" for r in steps)
+          + "; grad_norm " + ", ".join(f"{r['grad_norm']:.3f}"
+                                       for r in steps))
+    print("  step s " + ", ".join(f"{r['s']:.4f}" for r in steps)
+          + f"; median after the first {o['median_step_s']:.4f} s = "
+          f"{o['tokens_per_s']:.0f} tok/s")
+    print("  loss_mean_isla vs loss_mean_exact " + ", ".join(
+        f"{r['loss_mean_isla']:.4f}/{r['loss_mean_exact']:.4f}"
+        for r in steps) + "; the telemetry against its plain replay max "
+        f"rel {max(r['plain_gap'] for r in steps):.3g} (tol rel "
+        f"{TELEMETRY_TOL})")
+    top = list(p["kernels_s"].items())[:3]
+    print(f"  profiled step (run {p['runs']}): {p['device_events']} device "
+          f"events for {p['products']} matrix products, {p['fold_kernels']} "
+          f"isla_fold kernel(s), busy {p['device_s'] * 1e3:.2f} ms of "
+          f"{p['wall_s'] * 1e3:.2f} ms unprofiled ({p['busy_share']:.1%}); "
+          f"top kernels " + ", ".join(f"{n[:48]} {s * 1e3:.2f} ms"
+                                      for n, s in top))
+    lm = o["long_metrics"]
+    print(f"  one step at B x S = {o['long_shape'][0]} x "
+          f"{o['long_shape'][1]} ({o['long_blocked_calls']} blocked "
+          f"attention calls at block {TRAIN_LONG_BLOCK}): {o['long_s']:.3f} "
+          f"s, peak {o['long_peak_bytes'] / 2**30:.2f} GiB, loss "
+          f"{lm['loss']:.4f}, grad_norm {lm['grad_norm']:.3f}")
+    c = t["cpu_pair"]
+    print(f"  {c['arch']} cut to 1 layer, fp32, B x S = {c['shape'][0]} x "
+          f"{c['shape'][1]}, one step on the card ({c['card_s']:.3f} s) vs "
+          f"the CPU ({c['cpu_s']:.2f} s): metrics max rel "
+          f"{max(c['metric_rel'].values()):.3g}, m {c['m']:.3g}, v "
+          f"{c['v']:.3g}, params {c['params']:.3g} of scale (|g| near 0: "
+          f"{c['params_small']:.3g} abs) (tol {c['tolerance']})")
+    u = t["microbatch"]
+    print(f"  reduced {u['arch']}, fp32, B x S = {u['shape'][0]} x "
+          f"{u['shape'][1]}: one step over {u['microbatches']} microbatches "
+          f"vs one over the batch: metrics max rel "
+          f"{max(u['metric_rel'].values()):.3g}, m {u['m']:.3g}, v "
+          f"{u['v']:.3g}, params {u['params']:.3g} (tol {u['tolerance']})")
+    print("  _blocked_attention vs the dense formula, fp32 " + "; ".join(
+        f"{tuple(b['shape'])} block {b['block']}: max rel "
+        f"{max(b['rel'].values()):.3g} ({b['s']:.3f} s with grads)"
+        for b in t["blocked"]))
+    m = t["mamba"]
+    print(f"  {m['arch']} ({m['n_layers']} layers, d_model {m['d_model']}, "
+          f"{m['n_params'] / 1e9:.4f} B params, {m['dtype']}, remat): "
+          f"{len(m['steps'])} steps at "
+          f"B x S = {m['shape'][0]} x {m['shape'][1]} ({m['chunks']} SSD "
+          f"chunks): loss " + ", ".join(f"{r['loss']:.4f}"
+                                        for r in m["steps"])
+          + "; step s " + ", ".join(f"{r['s']:.3f}" for r in m["steps"])
+          + f"; peak {m['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{json.dumps(m['launches'])} launches; the telemetry against its "
+          f"plain replay max rel "
+          f"{max(r['plain_gap'] for r in m['steps']):.3g}")
+    for x in t["moe"]:
+        print(f"  {x['arch']} (reduced, fp32) one step card vs CPU: "
+              f"metrics max rel {max(x['metric_rel'].values()):.3g}, "
+              f"moe_lb_loss {x['aux_rel']['moe_lb_loss']:.3g}, moe_z_loss "
+              f"{x['aux_rel']['moe_z_loss']:.3g}, m {x['m']:.3g}, v "
+              f"{x['v']:.3g}, params {x['params']:.3g} (tol "
+              f"{x['tolerance']}); {x['moe_calls']} routed calls, "
+              f"{x['near_ties']} near-tie tokens of {x['tokens']}")
+    d = t["descent"]
+    print(f"  reduced {d['arch']}, {d['steps']} steps at B x S = "
+          f"{d['shape'][0]} x {d['shape'][1]}: loss "
+          f"{d['losses'][0]:.4f} -> {d['losses'][-1]:.4f} (first-5 minus "
+          f"last-5 mean {d['drop']:.3f}); replay after restore max rel "
+          f"{d['replay_rel']:.3g}; median |isla - exact| "
+          f"{d['isla_median_gap']:.4g}; the telemetry against its plain "
+          f"replay max rel {d['plain_gap']:.3g}")
+    for f in t["folds"]:
+        print(f"  isla_fold on a {f['samples']}-sample training telemetry "
+              f"pane: {f['ms']:.4f} ms on the card (profiler, "
+              f"{f['kernels_a_call']:g} kernels a call; CUDA events "
+              f"{f['event_ms']:.4f} ms; plain {f['plain_ms']:.4f} ms), bound "
+              f"{f['bound_ms']:.5f} ms by {f['bound_by']}, max rel err "
+              f"{f['max_rel_err']:.3g} (tol rel {TELEMETRY_TOL}), two "
+              f"launches identical")
+    print(f"  isla_fold launches in the phase: {t['fold_launches']}")
+
+
 def ptxas_figures(log: str) -> dict:
     """Each function's registers, spill bytes and static shared memory
     from a ``-Xptxas -v`` log."""
@@ -4954,6 +5678,14 @@ def main() -> int:
                   f"{sum(f['library_ms'] for f in fl):.3f} ms, bound "
                   f"{sum(f['bound_ms'] for f in fl):.4f} ms); "
                   + flash_err_text(fl))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"lm train: {held / 2**30:.3f} GiB held on the card before the "
+          f"phase (the earlier models freed)")
+    train = train_path()
+    train["folds"] = check_telemetry_folds(train.pop("panes"))
+    lap("lm train")
+    print_train(train, total_bytes)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}"
                                          for n, t in phase_s.items()))
 
@@ -4961,13 +5693,17 @@ def main() -> int:
     # tick's launches in both ISLA runs, replayed on their panes; every
     # prefill layer's attention in the olmo-1b, paligemma-3b, grok-1-314b,
     # arctic-480b and jamba runs, replayed on its q, k, v); its launches
-    # are the runs' counts added, the mesh and pipelined runs' included.
+    # are the runs' counts added, the mesh and pipelined runs' included
+    # (and isla_fold's the telemetry and training phases' calls).
     def launched(kernel):
         return sum(path["launches"][kernel]
                    for path in runs + mesh_runs + pipe_runs)
 
-    f_bytes = sum(f["bytes_ms"] for f in served)
-    f_ops = sum(f["ops_ms"] for f in served)
+    # isla_fold's time sums one replay of each pane: the served ticks',
+    # the telemetry phase's and the training steps' loss telemetry's.
+    fold_panes = served + tfolds + train["folds"]
+    f_bytes = sum(f["bytes_ms"] for f in fold_panes)
+    f_ops = sum(f["ops_ms"] for f in fold_panes)
     s_bytes = sum(f["bytes_ms"] for f in merged)
     s_ops = sum(f["ops_ms"] for f in merged)
     t_bytes = sum(f["bytes_ms"] for f in tagged)
@@ -4991,11 +5727,11 @@ def main() -> int:
     kernels = [
         dict(name="isla_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:162",
-             launches=launched("isla_fold") + tele_launches,
-             max_abs_err=max(f["max_abs_err"]
-                             for f in served + folds + tfolds),
-             ms=sum(f["ms"] for f in served),
-             plain_ms=sum(f["plain_ms"] for f in served),
+             launches=(launched("isla_fold") + tele_launches
+                       + train["fold_launches"]),
+             max_abs_err=max(f["max_abs_err"] for f in fold_panes + folds),
+             ms=sum(f["ms"] for f in fold_panes),
+             plain_ms=sum(f["plain_ms"] for f in fold_panes),
              bound_ms=max(f_bytes, f_ops),
              bound_by="bytes" if f_bytes >= f_ops else "operations",
              library_ms=None),
@@ -5072,7 +5808,7 @@ def main() -> int:
         phase_s=phase_s,
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
         vlm_path=vlm, vlm_flash=vflash, moe_paths=moe_runs,
-        mamba_path=mamba, jamba_paths=jambas,
+        mamba_path=mamba, jamba_paths=jambas, train_path=train,
         flash_ptxas=ptxas, flash_sass=sass,
         isla_ptxas=islaptx,
         kernels=kernels),

@@ -20,7 +20,8 @@ port continues it tick for tick:
 ``DeviceMomentStore.from_host(store_from(...), sizes, device=...)`` then
 puts a carried store on the device (``dtype=torch.float64`` continues a
 float64 reference store tick for tick, bit for bit).  ``params_from`` also
-carries an LM's param pytree into the port's ``models``.
+carries an LM's param pytree into the port's ``models``, and
+``opt_state_from`` its AdamW state into the port's ``train``.
 """
 from __future__ import annotations
 
@@ -59,6 +60,20 @@ def params_from(fields: Mapping[str, Any], device="cuda"):
         raise ValueError(f"unknown IslaParams fields {sorted(extra)}")
     return IslaParams(**{k: type(getattr(IslaParams(), k))(v)
                          for k, v in fields.items()})
+
+
+def opt_state_from(state, device="cuda"):
+    """The port's ``train.optimizer.OptState`` from the reference's, as
+    numpy (``jax.tree_util.tree_map(np.asarray, opt_state)``: anything
+    with ``step``, ``m`` and ``v``, as attributes or keys), bit for bit,
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    from .train.optimizer import OptState
+
+    dev = resolve_device(device)
+    get = (state.__getitem__ if isinstance(state, Mapping)
+           else lambda k: getattr(state, k))
+    return OptState(step=_tensor(get("step"), dev),
+                    m=_tensors(get("m"), dev), v=_tensors(get("v"), dev))
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:

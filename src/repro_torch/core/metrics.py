@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .distributed import exact_mean, isla_mean
+from .tree import tree_leaves
 from .types import IslaParams
 
 DEFAULT_PARAMS = IslaParams(e=0.01, te=3.0)
@@ -83,19 +84,6 @@ def loss_stats_trimmed_exact(per_token_loss: torch.Tensor,
     mask = ((flat >= lo) & (flat <= hi)).to(torch.float32)
     return {"loss_mean_trimmed": (flat * mask).sum()
             / mask.sum().clamp_min(1.0)}
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict / list / tuple tree in the reference's
-    order (``jax.tree_util.tree_leaves``: a dict's entries by sorted key,
-    sequences in order; None holds no leaf)."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 def _grad_sample(grads, max_leaves: int) -> torch.Tensor:

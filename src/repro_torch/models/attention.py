@@ -9,9 +9,13 @@ Prefill attention runs through the hand-written flash kernel
 projected k and v in the activation dtype — not the bf16 cache copy, as
 the reference's ``_gqa_scores(q, k)`` does.  Decode attends over the
 cache with plain torch ops (the reference's jnp path, outside any Pallas
-kernel).  Both write the cache in place.  ``attention_train`` and
-``_blocked_attention`` belong to the training path (ROADMAP Queue A
-item 11).
+kernel).  Both write the cache in place.
+
+Training attention (``attention_train``) is the reference's jnp path in
+torch ops, differentiated by autograd: the flash kernel, like the
+reference's Pallas kernel, has no backward.  Dense scores below
+``BLOCKED_THRESHOLD`` tokens, the blocked online softmax
+(``_blocked_attention``) at or above it.
 """
 from __future__ import annotations
 
@@ -135,3 +139,69 @@ def attention_decode(cfg: ArchConfig, params: Params, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, cache_v, x.dtype)
     return out @ params["wo"], cache_k, cache_v
+
+
+def _masked(scores: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``jnp.where(keep, scores, NEG_INF)``: a finite fill, so that no NaN
+    reaches a gradient."""
+    return torch.where(keep, scores, torch.full((), NEG_INF, dtype=F32,
+                                                device=scores.device))
+
+
+# Blocked online softmax at and above this sequence length (the
+# reference's: below it the dense (B, H, S, S) scores fit and are faster).
+BLOCKED_THRESHOLD = 8192
+
+
+def attention_train(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention for training: dense fp32 scores and softmax,
+    the probabilities rounded to the activation dtype before P.V
+    (``_gqa_out``); at ``S >= BLOCKED_THRESHOLD`` with ``S % 1024 == 0``
+    the blocked online softmax at block 1024, as in the reference."""
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    S = x.shape[1]
+    if S >= BLOCKED_THRESHOLD and S % 1024 == 0:
+        out = _blocked_attention(q, k, v, positions, block=1024)
+    else:
+        causal = positions[:, None, :, None] >= positions[:, None, None, :]
+        probs = torch.softmax(_masked(_gqa_scores(q, k), causal), dim=-1)
+        out = _gqa_out(probs, v, x.dtype)
+    return out @ params["wo"]
+
+
+def _blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       positions: torch.Tensor, block: int) -> torch.Tensor:
+    """Exact causal attention with an online softmax over KV blocks.
+
+    q: (B,S,H,hd); k/v: (B,S,KV,hd).  Returns (B,S,H*hd) in q's dtype.
+    The running max ``m``, normaliser ``l`` and accumulator ``acc`` are
+    fp32; both contractions are fp32 products of the input-dtype operands
+    (exact in fp32), and ``p`` is rounded to v's dtype before P.V, as in
+    the reference."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd).to(F32)
+    scale = hd ** -0.5
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=F32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, hd), dtype=F32, device=q.device)
+    for j in range(S // block):
+        sl = slice(j * block, (j + 1) * block)
+        k_j, v_j, p_j = k[:, sl], v[:, sl], positions[:, sl]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, k_j.to(F32)) * scale
+        causal = positions[:, None, None, :, None] >= \
+            p_j[:, None, None, None, :]
+        s = _masked(s, causal)                   # (B,KV,G,S,block)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_j.dtype).to(F32),
+                          v_j.to(F32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]    # (B,KV,G,S,hd)
+    out = out.movedim(3, 1)                      # (B,S,KV,G,hd)
+    return out.reshape(B, S, H * hd).to(q.dtype)

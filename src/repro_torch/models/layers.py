@@ -1,16 +1,17 @@
-"""Shared model layers: norms, RoPE, MLPs, embedding, LM head.
+"""Shared model layers: norms, RoPE, MLPs, embedding, LM head, chunked CE
+loss.
 
 Functional style, as in ``repro.models.layers``: params are plain dicts of
 tensors; every layer is ``fn(cfg, params, x, ...) -> y``.  Compute in the
 param dtype, norm/activation math in fp32.  Init draws from an explicit
 ``torch.Generator`` on the generator's device, at the reference's scales
 (the numbers differ from ``jax.random``'s; parity goes through
-``convert.params_from``).  ``chunked_ce_loss`` belongs to the training
-path (ROADMAP Queue A item 11).
+``convert.params_from``).  Training differentiates these functions with
+autograd (``model.train_loss``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -119,7 +120,7 @@ def apply_mlp(cfg: ArchConfig, params: Params,
 
 
 # ---------------------------------------------------------------------------
-# Embedding / LM head
+# Embedding / LM head / loss
 # ---------------------------------------------------------------------------
 
 
@@ -141,3 +142,39 @@ def lm_logits(cfg: ArchConfig, params: Params,
               x: torch.Tensor) -> torch.Tensor:
     head = params.get("lm_head", params["embedding"])
     return x @ head.T
+
+
+def chunked_ce_loss(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                    labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over the vocab, computed in sequence chunks of
+    ``cfg.loss_chunk`` (one chunk of all S when the chunk does not divide
+    S, as in the reference).  Chunking bounds the forward pass alone: one
+    chunk's (B, chunk, V) logits at a time.  Under autograd
+    ``logsumexp`` keeps every chunk's fp32 logits for the backward, so a
+    training step holds all B * S * V of them, as the reference's scan
+    stores them.
+
+    The logits are the head product in the activation dtype, then cast to
+    fp32 (bf16 logits are rounded to bf16 first, as the reference's are);
+    the gold logit is gathered (the reference's one-hot contraction gives
+    the same fp32 value).  Returns (sum_loss, per_token_loss (B, S)) — the
+    per-token loss feeds the ISLA telemetry."""
+    B, S, _ = x.shape
+    head = params.get("lm_head", params["embedding"])  # (V, D)
+    chunk = min(cfg.loss_chunk, S)
+    if S % chunk != 0:
+        chunk = S
+    if mask is None:
+        mask = torch.ones((B, S), dtype=F32, device=x.device)
+    labels = labels.long()
+    toks = []
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        logits = (x[:, sl] @ head.T).to(F32)                # (B, chunk, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+        toks.append((logz - gold) * mask[:, sl])
+    per_token = torch.cat(toks, dim=1)
+    return per_token.sum(), per_token

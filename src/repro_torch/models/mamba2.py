@@ -29,8 +29,11 @@ them.  Nothing reads a value back to the host.
 The chunk contract is the reference's: a sequence longer than the chunk
 must be a multiple of it, and a prefill must hold at least ``d_conv - 1``
 tokens (the conv tail it leaves in the cache); both raise ``ValueError``.
-``ssd_reference`` is the O(S^2) oracle for tests; ``apply_mamba_train``
-belongs to the training path (ROADMAP Queue A item 11).
+The training forward (``apply_mamba_train``) is the same forward with no
+state in and none kept, under the same chunk contract, differentiated by
+autograd (the masked ``exp`` of ``_segsum_exp`` has a zero gradient where
+it is masked, so no NaN).  ``ssd_reference`` is the O(S^2) oracle for
+tests.
 """
 from __future__ import annotations
 
@@ -212,6 +215,13 @@ def ssd_reference(x, da, dt, Bm, Cm) -> torch.Tensor:
     w = scores * L
     return torch.einsum("bqsh,bsh,bshp->bqhp", w, dt.to(F32),
                         x.to(F32)).to(x.dtype)
+
+
+def apply_mamba_train(cfg: ArchConfig, params: Params,
+                      x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence mixer (training: no state in, none kept)."""
+    y, _, _ = _mamba_forward(cfg, params, x, h0=None, conv0=None)
+    return y
 
 
 def _mamba_forward(cfg: ArchConfig, params: Params, x: torch.Tensor,

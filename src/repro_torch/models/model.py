@@ -1,15 +1,18 @@
-"""Public model API, serving half: init / prefill / decode / cache.
+"""Public model API: init / abstract shapes / train loss / prefill /
+decode / cache.
 
 Batch contract (as in ``repro.models.model``):
-  prefill: {"tokens": (B, S_tok) integer, optional "prefix_embeds": (B, F, d)}
-           with F + S_tok = S
+  train:   {"tokens": (B, S_tok) integer, "labels": (B, S_tok) integer,
+            optional "prefix_embeds": (B, F, d)} with F + S_tok = S
+  prefill: {"tokens": (B, S_tok) integer, optional "prefix_embeds"}
   decode:  token (B, 1) integer, pos (B,) integer, plus the cache
 
 Params are the reference's pytree as plain dicts of tensors:
 ``{"embedding", ["lm_head"], "blocks": [per period position, leaves
 stacked over groups], "final_norm"}``; ``convert.params_from`` carries
-the reference's own.  ``train_loss`` belongs to the training path
-(ROADMAP Queue A item 11).
+the reference's own.  Loss = masked mean CE over the token positions
+(+ the MoE aux terms); its per-token losses feed the ISLA telemetry
+(``train.train_step``).
 """
 from __future__ import annotations
 
@@ -19,9 +22,13 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import transformer
-from .layers import apply_norm, embed_tokens, init_embed, init_norm, lm_logits
+from .layers import (apply_norm, chunked_ce_loss, embed_tokens, init_embed,
+                     init_norm, lm_logits)
 
 Params = Dict[str, Any]
+
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 1e-3
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
@@ -32,6 +39,22 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
         "blocks": transformer.init_stack(cfg, gen),
         "final_norm": init_norm(cfg, gen),
     }
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is ``meta``: ``init_params`` draws from
+    it make shapes and dtypes only."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The param tree's shapes and dtypes as ``meta`` tensors (the
+    reference's ``eval_shape`` of ``init_params``): nothing is
+    allocated."""
+    return init_params(cfg, _MetaGenerator())
 
 
 def _assemble_inputs(cfg: ArchConfig, params: Params, batch
@@ -53,6 +76,33 @@ def _assemble_inputs(cfg: ArchConfig, params: Params, batch
     S = x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     return x, positions, mask
+
+
+def train_loss(cfg: ArchConfig, params: Params, batch, constraint=None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean CE loss + aux.  aux holds the per-token losses (B, S) over the
+    full sequence (0 on prefix positions: ISLA telemetry reads them), the
+    loss mask and, for MoE configs, the summed load-balance and z losses,
+    which the loss adds at ``MOE_LB_COEF`` and ``MOE_Z_COEF``."""
+    x, positions, mask = _assemble_inputs(cfg, params, batch)
+    x, aux = transformer.forward_train(cfg, params, x, positions,
+                                       constraint=constraint)
+    x = apply_norm(cfg, params.get("final_norm", {}), x)
+    # labels over the full sequence: prefix positions are masked anyway
+    labels = batch["labels"]
+    if cfg.frontend is not None:
+        pad = torch.zeros((labels.shape[0], cfg.frontend_len),
+                          dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    sum_loss, per_token = chunked_ce_loss(cfg, params, x, labels, mask)
+    loss = sum_loss / mask.sum().clamp_min(1.0)
+    if cfg.moe is not None:
+        loss = loss + MOE_LB_COEF * aux.get("moe_lb_loss", 0.0) \
+            + MOE_Z_COEF * aux.get("moe_z_loss", 0.0)
+    aux = dict(aux)
+    aux["per_token_loss"] = per_token
+    aux["loss_mask"] = mask
+    return loss, aux
 
 
 def serve_prefill(cfg: ArchConfig, params: Params, batch, cache):

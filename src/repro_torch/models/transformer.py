@@ -17,15 +17,25 @@ conv_dim)}`` in the cache dtype.  Prefill and decode write it in place
 
 The port serves both mixers with ``channel`` in ``{"mlp", "moe",
 "none"}``; an MoE channel runs ``moe.apply_moe`` and drops its aux, as the
-reference's prefill and decode do.  ``grad_boundary``, ``forward_train``
-and the sharding ``constraint`` belong to the training path (ROADMAP
-Queue A item 11).
+reference's prefill and decode do.
+
+Training (``forward_train``) runs the same loops through the training
+mixers (``attn.attention_train``, ``mamba2.apply_mamba_train``), sums the
+MoE aux losses, and puts ``grad_boundary`` at every block edge.  With
+``cfg.remat`` each group runs under ``torch.utils.checkpoint`` (policy
+``"full"``: nothing saved inside the group; ``"dots"``: the matrix
+products' outputs saved), the reference's ``jax.checkpoint`` of its scan
+body.  ``constraint`` is the activation sharding constraint: ``None`` on
+one device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from . import attention as attn
@@ -33,6 +43,31 @@ from . import mamba2, moe
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 Params = Dict[str, Any]
+F32 = torch.float32
+
+
+class _GradBoundary(torch.autograd.Function):
+    """Identity forward; the backward casts the cotangent to the primal
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_boundary(x: torch.Tensor) -> torch.Tensor:
+    """Identity with a cotangent dtype boundary (the reference's
+    ``custom_vjp``): fp32 products (attention scores, the router) give
+    their inputs fp32 cotangents, and this casts the cotangent back to the
+    primal dtype at each block edge so the promotion does not run down the
+    residual stream.  autograd already casts a cotangent to its input's
+    dtype; the boundary names where the reference puts it."""
+    return _GradBoundary.apply(x)
 
 
 def period_of(cfg: ArchConfig) -> int:
@@ -132,16 +167,24 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator) -> List[Params]:
 # ---------------------------------------------------------------------------
 
 
-def _apply_channel(cfg: ArchConfig, pos: int, bp: Params,
-                   x: torch.Tensor) -> torch.Tensor:
+def _channel(cfg: ArchConfig, pos: int, bp: Params, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``x`` plus the position's channel (MLP or MoE) on its normed input,
+    and the MoE aux (empty for an MLP or no channel)."""
     _, channel = position_kind(cfg, pos)
     if channel == "none":
-        return x
+        return x, {}
     h = apply_norm(cfg, bp.get("ln2", {}), x)
     if channel == "moe":
-        y, _ = moe.apply_moe(cfg, bp["moe"], h)
-        return x + y
-    return x + apply_mlp(cfg, bp["mlp"], h)
+        y, aux = moe.apply_moe(cfg, bp["moe"], h)
+        return x + y, aux
+    return x + apply_mlp(cfg, bp["mlp"], h), {}
+
+
+def _apply_channel(cfg: ArchConfig, pos: int, bp: Params,
+                   x: torch.Tensor) -> torch.Tensor:
+    """The serving channel: the MoE aux dropped."""
+    return _channel(cfg, pos, bp, x)[0]
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
@@ -212,3 +255,84 @@ def forward_decode(cfg: ArchConfig, params: Params, x: torch.Tensor,
     return _forward(cfg, params, x, cache, lambda p, h, ck, cv:
                     attn.attention_decode(cfg, p, h, pos, ck, cv),
                     decode=True)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train)
+# ---------------------------------------------------------------------------
+
+
+def _train_group_body(cfg: ArchConfig, constraint, x: torch.Tensor,
+                      aux: Dict[str, torch.Tensor], group: List[Params],
+                      positions: torch.Tensor):
+    """One group: every period position's mixer, then its channel; an MoE
+    channel's aux losses added to ``aux`` (its router probs dropped)."""
+    for pos in range(period_of(cfg)):
+        bp = group[pos]
+        # constraint BEFORE the boundary, as in the reference: backward
+        # casts the cotangent before the constraint's resharding.
+        if constraint is not None:
+            x = constraint(x)
+        x = grad_boundary(x)
+        h = apply_norm(cfg, bp.get("ln1", {}), x)
+        mixer, _ = position_kind(cfg, pos)
+        if mixer == "attn":
+            y = attn.attention_train(cfg, bp["attn"], h, positions)
+        else:
+            y = mamba2.apply_mamba_train(cfg, bp["mamba"], h)
+        x, a = _channel(cfg, pos, bp, x + y)
+        if a:
+            aux = {k: aux.get(k, 0.0) + v for k, v in a.items()
+                   if not k.endswith("probs")}
+    return x, aux
+
+
+def _unbind(tree: Params, groups: int) -> List[Params]:
+    """A period position's stacked leaves as ``groups`` trees of views
+    (one ``unbind`` a leaf: its backward stacks the groups' grads once)."""
+    out: List[Params] = [{} for _ in range(groups)]
+    for k, v in tree.items():
+        parts = (_unbind(v, groups) if isinstance(v, dict)
+                 else v.unbind(0))
+        for g in range(groups):
+            out[g][k] = parts[g]
+    return out
+
+
+# Matrix products whose outputs the "dots" policy saves (the reference's
+# dots_with_no_batch_dims_saveable keeps the dots; here mm, bmm, addmm).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward_train(cfg: ArchConfig, params: Params, x: torch.Tensor,
+                  positions: torch.Tensor, constraint=None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, d) embedded inputs -> final hidden states + aux losses
+    (``moe_lb_loss``, ``moe_z_loss`` summed over the MoE positions, fp32;
+    empty without MoE)."""
+    aux: Dict[str, torch.Tensor] = {}
+    if cfg.moe is not None:
+        aux = {k: torch.zeros((), dtype=F32, device=x.device)
+               for k in ("moe_lb_loss", "moe_z_loss")}
+    n_groups = n_groups_of(cfg)
+    per_pos = [_unbind(p, n_groups) for p in params["blocks"]]
+    body = functools.partial(_train_group_body, cfg, constraint)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    for g in range(n_groups):
+        group = [p[g] for p in per_pos]
+        if cfg.remat:
+            x, aux = checkpoint(body, x, aux, group, positions,
+                                use_reentrant=False,
+                                preserve_rng_state=False, **kw)
+        else:
+            x, aux = body(x, aux, group, positions)
+    return x, aux

@@ -775,3 +775,188 @@ def test_decode_trace_whole(kernels, products, whole):
              products=S.matrix_products(prof))
     assert r["products"] == products
     assert S.decode_trace_whole(r) is whole
+
+
+# The training phase ("lm train") rehearsed on the CPU: reduced configs,
+# small shapes, the blocked attention's threshold lowered to 1024 tokens.
+TRAIN_SMALL = dict(olmo=dict(shape=(2, 64), steps=3, long_shape=(1, 1024)),
+                   cpu_pair=dict(shape=(1, 64)),
+                   blocked=dict(shape=(1, 256, 4, 32), blocks=(128, 64)),
+                   mamba=dict(spec=("mamba2-130m", (2, 64), 2)))
+
+
+@pytest.fixture
+def small_train(monkeypatch):
+    from repro_torch.models import attention as A
+
+    count_folds(monkeypatch)
+    monkeypatch.setattr(A, "BLOCKED_THRESHOLD", 1024)
+
+
+def test_train_path_on_the_cpu(small_train):
+    """Every check of the phase passes on reduced configs: one fold launch
+    a step in every run (the plain fold counted), no other kernel, finite
+    steps, the long step through the blocked attention at block 1024, the
+    pairs of steps within their tolerances, the descent and the replay."""
+    r = S.train_path("cpu", reduced=True, **TRAIN_SMALL)
+    o = r["olmo"]
+    assert [s["step"] for s in o["steps"]] == [0, 1, 2]
+    assert o["launches"] == dict(isla_fold=3, flash_attention=0,
+                                 other_isla=0)
+    assert o["long_blocked_calls"] == o["n_layers"]
+    assert o["long_launches"]["isla_fold"] == 1
+    assert r["cpu_pair"]["params"] <= S.TRAIN_TOL
+    assert r["microbatch"]["launches"]["isla_fold"] == 2
+    assert [b["block"] for b in r["blocked"]] == [128, 64]
+    assert r["mamba"]["chunks"] == 2 and len(r["mamba"]["steps"]) == 2
+    assert [m["moe_calls"] for m in r["moe"]] == [4, 2]
+    d = r["descent"]
+    assert d["drop"] > S.DESCENT["drop"] and d["replay_rel"] <= 1e-5
+    assert len(d["losses"]) == S.DESCENT["steps"]
+    assert r["fold_launches"] == 3 + 1 + 1 + 2 + 2 + 2 + 30 + 5
+    for steps in (o["steps"], r["mamba"]["steps"]):
+        assert all(s["plain_gap"] <= S.TELEMETRY_TOL for s in steps)
+    assert d["plain_gap"] <= S.TELEMETRY_TOL
+    # the loss telemetry's panes: 3 samples of 128 tokens (olmo-1b and
+    # mamba2-130m at rate 0.02), 128 of the descent's 512 (rate 0.25)
+    assert sorted(r["panes"]) == [3, 128]
+
+
+def test_train_run_fails_on_a_step_without_a_fold(small_train):
+    """With the telemetry off no fold runs: the phase's count of one
+    launch a step fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = get_config("olmo-1b", reduced=True)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    stream = SyntheticStream(cfg, batch=2, seq=32, device="cpu")
+    with pytest.raises(S.SmokeFailure, match="isla_fold launches"):
+        S.train_run(cfg, S.train_config(telemetry_mode="off"), params,
+                    init_opt_state(params), stream, 2, "cpu")
+    # the olmo run itself, its config's telemetry turned off
+    real = S.train_config
+    S.train_config = lambda **kw: real(telemetry_mode="off", **kw)
+    try:
+        with pytest.raises(S.SmokeFailure, match="isla_fold launches"):
+            S.train_olmo("cpu", reduced=True, **TRAIN_SMALL["olmo"])
+    finally:
+        S.train_config = real
+
+
+def test_train_run_fails_on_a_fold_off_its_plain_version(small_train,
+                                                        monkeypatch):
+    """A fold whose moments part from its plain version's by 1% (standing
+    in for a wrong kernel: the plain version, under ``PlainVersions``,
+    stays right): the step's loss telemetry parts from its plain replay
+    on the same per-token losses, and the run fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+
+    real, on_gpu = ops.isla_moments, K.on_gpu
+
+    def off(values, bounds, *a, **kw):
+        out = real(values, bounds, *a, **kw)
+        if K.on_gpu is not on_gpu:  # the plain version
+            return out
+        return torch.cat([out[:, :1], out[:, 1:] * 1.01], dim=1)
+
+    monkeypatch.setattr(ops, "isla_moments", off)
+    cfg = get_config("olmo-1b", reduced=True)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    stream = SyntheticStream(cfg, batch=8, seq=64, device="cpu")
+    with pytest.raises(S.SmokeFailure, match="plain replay"):
+        S.train_run(cfg, S.train_config(isla_rate=0.25), params,
+                    init_opt_state(params), stream, 2, "cpu")
+
+
+def test_train_descent_fails_on_a_checkpoint_that_drops_a_leaf(
+        small_train, monkeypatch):
+    """A save that leaves one leaf (the optimizer's first moment of the
+    embedding) out of the checkpoint: the restore, and the phase, fail."""
+    from repro_torch.train import checkpoint
+
+    real = checkpoint.save
+
+    def lossy(d, step, tree, *a, **kw):
+        m = dict(tree["opt"].m)
+        m.pop("embedding")
+        return real(d, step, {"params": tree["params"],
+                              "opt": tree["opt"]._replace(m=m)}, *a, **kw)
+
+    monkeypatch.setattr(checkpoint, "save", lossy)
+    with pytest.raises(S.SmokeFailure,
+                       match=r"missing leaf \['opt'\]\.m\['embedding'\]"):
+        S.train_descent("cpu")
+
+
+def test_train_microbatch_fails_on_grads_summed_but_not_divided(
+        small_train, monkeypatch):
+    """A train step that sums its microbatches' grads and losses and does
+    not divide them by the count: the grad norm, the moments and the loss
+    part from the one-batch step's, and the phase's microbatch check
+    fails."""
+    from repro_torch.core.metrics import loss_stats
+    from repro_torch.core.types import IslaParams
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.core.tree import tree_map
+
+    real = TS.train_step
+
+    def summed(cfg, tcfg, params, opt, batch, constraint=None):
+        if tcfg.microbatches == 1:
+            return real(cfg, tcfg, params, opt, batch, constraint)
+        n = tcfg.microbatches
+        mb = TS._split_microbatches(batch, n)
+        grads, loss, per_tok = None, 0.0, []
+        for i in range(n):
+            l, aux, g = TS._value_and_grad(
+                cfg, params, tree_map(lambda x: x[i], mb), constraint)
+            g = tree_map(lambda x: x.float(), g)
+            grads = g if grads is None else tree_map(
+                lambda a, b: a + b, grads, g)
+            loss = loss + l
+            per_tok.append(aux["per_token_loss"])
+        new_p, new_o, m = adamw_update(tcfg.opt, params, grads, opt)
+        m["loss"] = loss
+        m.update(loss_stats(torch.cat(per_tok), params=IslaParams(e=0.01),
+                            rate=tcfg.isla_rate,
+                            include_exact=tcfg.telemetry_exact))
+        return new_p, new_o, m
+
+    monkeypatch.setattr(TS, "train_step", summed)
+    with pytest.raises(S.SmokeFailure, match="microbatches: (grad_norm|loss)"):
+        S.train_microbatch("cpu")
+    monkeypatch.setattr(TS, "train_step", real)
+    assert S.train_microbatch("cpu")["params"] <= S.TRAIN_TOL
+
+
+def test_check_step_pair_finds_a_wrong_moment():
+    """The pair check reads every moment leaf: one element off by 1e-4 of
+    its leaf's scale in ``v`` fails it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    cfg = get_config("olmo-1b", reduced=True).replace(param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = SyntheticStream(cfg, batch=2, seq=32, device="cpu").batch_at(0)
+    tcfg = S.train_config(lr=1e-3)
+    want = train_step(cfg, tcfg, params, init_opt_state(params), batch)
+    S.check_step_pair("same", 1e-3, 0.9, want, want, S.TRAIN_TOL)
+    p, o, m = want
+    v = dict(o.v)
+    v["embedding"] = v["embedding"].clone()
+    v["embedding"][3, 5] += 1e-4 * float(v["embedding"].abs().max())
+    with pytest.raises(S.SmokeFailure, match=r"v\['embedding'\]"):
+        S.check_step_pair("spoiled", 1e-3, 0.9, (p, o._replace(v=v), m),
+                          want, S.TRAIN_TOL)

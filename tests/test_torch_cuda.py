@@ -5,6 +5,8 @@ card is looked for inside the fixture, never at import).  Run on a GPU
 machine with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1492,3 +1494,146 @@ def test_subsample_refuses_a_generator_on_another_device(cuda):
     with pytest.raises(ValueError, match="generator lives on"):
         TD.subsample(torch.ones(100, device=cuda), 0.1,
                      torch.Generator().manual_seed(0))
+
+
+# The SSD's per-head leaves (H values a layer): each grad sums terms of
+# every position that largely cancel, so fp32 leaves them further from
+# the float64 step than any other leaf.  On an H100 (700 W) reduced
+# jamba's A_log v stood 1.44e-4 of scale off the float64 step, the CPU's
+# 5.2e-5 (the two 1.6e-4 apart); reduced mamba2-130m's per-head leaves
+# 2.5e-5 and 1.6e-5.  SSD_TOL is the larger reading with twice the room.
+SSD_LEAVES = ("['A_log']", "['D']", "['dt_bias']")
+SSD_TOL = 3e-4
+# Every module whose ``F32`` is the step's fp32 arithmetic: the float64
+# step runs with each set to float64.
+TRAIN_F32_MODULES = ("models.layers", "models.attention", "models.mamba2",
+                     "models.moe", "models.transformer", "train.optimizer",
+                     "train.train_step")
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m",
+                                  "jamba-1.5-large-398b"])
+def test_train_step_on_cuda_matches_cpu_without_sync(cuda, arch,
+                                                     monkeypatch):
+    """Reduced olmo-1b, mamba2-130m and jamba in fp32 with remat: one
+    ``train_step`` on the card (after a warm-up step that loads the fold
+    library) with no host sync anywhere in it
+    (``set_sync_debug_mode("error")``), against the same step on the CPU
+    from the same weights, optimizer state and batch (the batch drawn on
+    the CPU: the same on both devices), and against the step in float64
+    on the CPU (params, moments and every fp32 computation of the step in
+    float64).  Every metric of the card within rel 1e-5 of the CPU's
+    (jamba, an MoE config: 1e-4).  Each leaf of ``m``, ``v`` and the new
+    params, on the card and on the CPU alike, within 1e-5 (MoE 1e-4) of
+    its scale of the float64 step's, the params wherever |g| exceeds 1e-4
+    of its leaf's largest (elsewhere the card's within 2 lr of the CPU's:
+    Adam's first step is g / (|g| + eps) of two roundings of a near-zero
+    g); the SSD's per-head leaves within ``SSD_TOL``.  The two fp32 steps
+    are held against float64, not against each other, because each
+    rounds on its own side of it: reduced mamba2-130m's ``wdt`` v stood
+    3.9e-6 of scale off float64 on the card and 6.6e-6 on the CPU, 1.04e-5
+    apart (H100, 700 W).  One ``isla_fold`` launch a step, no flash
+    launch; jamba's routing on the card the CPU's but for counted
+    near-ties."""
+    import importlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe as M
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import TrainConfig, train_step
+    from repro_torch.core.tree import tree_leaves, tree_map, tree_paths
+
+    cfg = get_config(arch, reduced=True).replace(param_dtype="float32",
+                                                 remat=True)
+    tol = 1e-4 if cfg.moe is not None else 1e-5
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    opt = init_opt_state(params)
+    batch = SyntheticStream(cfg, batch=2, seq=64, device="cpu").batch_at(0)
+    on_card = SyntheticStream(cfg, batch=2, seq=64, device=cuda).batch_at(0)
+    for k in batch:
+        assert torch.equal(on_card[k].cpu(), batch[k])
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=1e-3, warmup_steps=2),
+                       telemetry_exact=True)
+    move = lambda t, d: tree_map(lambda x: x.to(d), t)  # noqa: E731
+    wide = lambda t: tree_map(  # noqa: E731
+        lambda x: x.double() if x.is_floating_point() else x, t)
+    with monkeypatch.context() as mp:
+        for name in TRAIN_F32_MODULES:
+            mp.setattr(importlib.import_module(f"repro_torch.{name}"),
+                       "F32", torch.float64)
+        f64p, f64, _ = train_step(cfg.replace(param_dtype="float64"), tcfg,
+                               wide(params), wide(opt), batch)
+    logits = {}
+    real = M._route
+
+    def spy(cfg_, lg):  # kept where it lies: a copy to the host syncs
+        logits.setdefault(lg.device.type, []).append(lg.detach().clone())
+        return real(cfg_, lg)
+
+    monkeypatch.setattr(M, "_route", spy)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p, o, b = (move(t, dev) for t in (params, opt, batch))
+        if dev == "cuda":
+            train_step(cfg, tcfg, p, o, b)
+            torch.cuda.synchronize()
+            logits.pop("cuda", None)
+            K.reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = train_step(cfg, tcfg, p, o, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            assert K.isla_fold.launches == 1
+            assert FA.flash_attention.launches == 0
+        out[dev] = move(got, "cpu")
+    (gp, go, gm), (wp, wo, wm) = out["cuda"], out["cpu"]
+    assert sorted(gm) == sorted(wm)
+    for k in wm:
+        assert float(gm[k]) == pytest.approx(float(wm[k]), rel=tol), k
+    flipped = 0
+    assert len(logits.get("cuda", [])) == len(logits.get("cpu", []))
+    for lg_c, lg_h in zip(logits.get("cuda", []), logits.get("cpu", [])):
+        p_c, p_h = torch.softmax(lg_c.cpu(), -1), torch.softmax(lg_h, -1)
+        top_c, top_h = p_c.topk(2, -1).indices, p_h.topk(2, -1).indices
+        for g, t in (top_c.sort(-1).values != top_h.sort(-1).values
+                     ).any(-1).nonzero().tolist():
+            a = set(top_c[g, t].tolist()) - set(top_h[g, t].tolist())
+            b = set(top_h[g, t].tolist()) - set(top_c[g, t].tolist())
+            assert _moe_near_tie(p_h[g, t], min(a), min(b)), (g, t)
+            flipped += 1
+    # (part, path, card, cpu, float64, where the leaf is held)
+    leaves = [(part, path, g, w, x, None)
+              for part, g_tree, w_tree, x_tree in (
+                  ("m", go.m, wo.m, f64.m), ("v", go.v, wo.v, f64.v))
+              for (path, w), g, x in zip(tree_paths(w_tree),
+                                         tree_leaves(g_tree),
+                                         tree_leaves(x_tree))]
+    for (path, w), g, x, m in zip(tree_paths(wp), tree_leaves(gp),
+                                  tree_leaves(f64p),
+                                  tree_leaves(wo.m)):
+        gabs = m.abs() / (1 - tcfg.opt.b1)
+        assert float((g - w).abs().max()) <= 2 * tcfg.opt.lr * 1.0001, path
+        leaves.append(("params", path, g, w, x, gabs > 1e-4 * gabs.max()))
+    worst, fails = {}, []
+    for part, path, g, w, x, big in leaves:
+        ssd = path.endswith(SSD_LEAVES)
+        scale = float(x.abs().max())
+        pick = (lambda t: t) if big is None else (lambda t: t[big])
+        gaps = {pair: float(pick((a.double() - b.double()).abs()).max())
+                / scale for pair, a, b in (("card-cpu", g, w),
+                                           ("card-f64", g, x),
+                                           ("cpu-f64", w, x))}
+        for pair, e in gaps.items():
+            key = ("ssd " if ssd else "") + f"{part} {pair}"
+            worst[key] = max(worst.get(key, 0.0), e)
+        lim = SSD_TOL if ssd else tol
+        fails += [(part, path, pair, gaps[pair])
+                  for pair in ("card-f64", "cpu-f64") if gaps[pair] > lim]
+    print(f"{arch}: {flipped} near-tie tokens took another expert; worst "
+          f"gaps of scale {json.dumps(worst)}")
+    assert not fails, fails

@@ -31,7 +31,11 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.serve.engine", "repro_torch.launch.serve",
               "repro_torch.launch.mesh", "repro_torch.sharding.specs",
               "repro_torch.models.moe", "repro_torch.sharding.context",
-              "repro_torch.models.mamba2"):
+              "repro_torch.models.mamba2", "repro_torch.train",
+              "repro_torch.train.checkpoint", "repro_torch.train.compression",
+              "repro_torch.train.data", "repro_torch.train.elastic",
+              "repro_torch.train.optimizer", "repro_torch.train.train_step",
+              "repro_torch.core.tree"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -39,6 +43,15 @@ def test_every_module_imports_without_jax_or_repro():
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from repro_torch.models.model import (train_loss, "
+            "abstract_params, MOE_LB_COEF, MOE_Z_COEF)\n"
+            "from repro_torch.models.layers import chunked_ce_loss\n"
+            "from repro_torch.models.attention import (attention_train, "
+            "_blocked_attention, BLOCKED_THRESHOLD)\n"
+            "from repro_torch.models.transformer import (grad_boundary, "
+            "_train_group_body, forward_train)\n"
+            "from repro_torch.models.mamba2 import apply_mamba_train\n"
+            "from repro_torch.convert import opt_state_from\n"
             "assert 'jax' not in [k for k, v in sys.modules.items() "
             "if v is not None]\n"
             f"print('ok', {len(mods)})\n")
