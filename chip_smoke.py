@@ -127,8 +127,9 @@ batch 1 (S = 1023 and 2047), each followed by 8 greedy ``serve_decode``
 steps.  It checks one ``flash_attention`` launch per layer of each
 prefill, replays each of those calls against the plain version and times
 it beside SDPA (``enable_gqa``).  The flash library's SASS
-(``cuobjdump``) must show tensor-core instructions in every bf16
-instantiation, and its ``-Xptxas -v`` log no spill.
+(``cuobjdump``) must show ``wgmma`` (HGMMA) and TMA loads (UTMALDG), and
+no ``mma.sync`` (HMMA), in every bf16 instantiation, and its ``-Xptxas
+-v`` log no spill.
 
 Then the MoE path ("lm moe"): grok-1-314b (2 layers) and arctic-480b (1
 layer) at full width, the depth cut so that one 80 GB card holds each,
@@ -3085,7 +3086,8 @@ def check_flash(q, k, v, groups: int, reps: int = 10) -> dict:
 
 
 def check_flash_synthetic(device) -> "list[dict]":
-    """The kernel off the two LM paths: GQA (4 q heads per KV head), MQA
+    """The kernel off the two LM paths: GQA (4 q heads per KV head; 56 q
+    heads over 8 KV heads, arctic's odd group of 7, at a long length), MQA
     (8 q heads of 256 over one KV head, paligemma's layout), fp32 inputs
     (the CUDA-core body), and each head_dim it takes, at ragged prefill
     lengths."""
@@ -3094,6 +3096,7 @@ def check_flash_synthetic(device) -> "list[dict]":
 
     rng = np.random.default_rng(11)
     cases = [("gqa", 32, 4, 1000, 128, torch.bfloat16),
+             ("gqa7_long", 56, 7, 1718, 128, torch.bfloat16),
              ("mqa", 16, 8, 1000, 256, torch.bfloat16),
              ("fp32", 16, 1, 777, 128, torch.float32),
              ("hd256_fp32", 16, 1, 777, 256, torch.float32),
@@ -4961,9 +4964,9 @@ FLASH_FN = re.compile(r"(flash_fwd_[a-z0-9]+)ILi(\d+)E")
 
 
 def flash_sass() -> dict:
-    """Per instantiation of the flash kernels (``flash_fwd_mma<hd>``, the
-    bf16 tensor-core body; ``flash_fwd_f32<hd>``): its count of tensor-core
-    (HMMA, HGMMA), fp32 FMA, ldmatrix (LDSM) and cp.async (LDGSTS)
+    """Per instantiation of the flash kernels (``flash_fwd_wgmma<hd>``, the
+    bf16 body; ``flash_fwd_f32<hd>``): its count of tensor-core (HMMA:
+    ``mma.sync``; HGMMA: ``wgmma``), TMA load (UTMALDG) and fp32 FMA
     instructions in the built library's SASS (``cuobjdump -sass``)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import isla_moments as K
@@ -4979,7 +4982,7 @@ def flash_sass() -> dict:
         if m:
             counts[f"{m.group(1)}<{m.group(2)}>"] = {
                 op: len(re.findall(rf"\b{op}\b", chunk))
-                for op in ("HMMA", "HGMMA", "FFMA", "LDSM", "LDGSTS")}
+                for op in ("HMMA", "HGMMA", "UTMALDG", "FFMA")}
     return counts
 
 
@@ -5093,13 +5096,16 @@ def main() -> int:
         print("isla_kernels.cu was built before this run: its ptxas "
               "figures are not printed")
     sass = flash_sass()
-    check(len(sass) == 8 and all(
-        c["HMMA"] + c["HGMMA"] > 0
-        for n, c in sass.items() if n.startswith("flash_fwd_mma")),
-          f"a bf16 flash kernel runs no tensor-core instruction: {sass}")
+    bf16_sass = {n: c for n, c in sass.items()
+                 if n.startswith("flash_fwd_wgmma")}
+    check(len(sass) == 8 and len(bf16_sass) == 4 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+        for c in bf16_sass.values()),
+          f"a bf16 flash kernel issues no wgmma or no TMA load, or an "
+          f"mma.sync: {sass}")
     print("flash_attention SASS (cuobjdump): " + ", ".join(
-        f"{n} HMMA {c['HMMA']} HGMMA {c['HGMMA']} FFMA {c['FFMA']}"
-        for n, c in sorted(sass.items())))
+        f"{n} HMMA {c['HMMA']} HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']} "
+        f"FFMA {c['FFMA']}" for n, c in sorted(sass.items())))
 
     phase_s = {"build": build_s}
     stamp = [time.perf_counter()]

@@ -24,46 +24,73 @@
 //   0.0163 ms; at paligemma's S = 2047, (8, S, 256) over one KV head,
 //   0.0170 ms.
 //
-//   bf16 (the served type): flash_fwd_mma, the FlashAttention-2 shape on
-//   mma.sync.aligned.m16n8k16 bf16 -> fp32.  One block of 4 warps per
-//   (bh, 64-query tile); each warp owns 16 query rows and every output row
-//   is written by exactly one warp, with no atomics and a fixed summation
-//   order, so two runs give identical bits.  Tiles launch longest first
-//   (all heads' last query tiles, then the ones before), consecutive blocks
-//   sharing a KV head under GQA.  The block walks its BK-key K/V tiles up
-//   to the causal limit (the TPU kernel's fori_loop over KV blocks):
-//   - Q, K and V tiles arrive in shared memory by cp.async, zero-filled
-//     past S (src-size 0), K/V double-buffered so tile t + 1 loads while
-//     tile t computes.  Rows are padded by 16 bytes (an odd number of
-//     16-byte chunks a row), so the eight row addresses of an ldmatrix
-//     phase fall in eight distinct bank groups: conflict-free without a
-//     swizzle.
-//   - S = Q K^T: Q fragments (ldmatrix; held in registers at hd <= 128,
-//     reloaded from shared memory per k-step at hd 256) against K
-//     fragments (ldmatrix), fp32 accumulators in registers.  The fp32
-//     scores are then multiplied by scale * log2(e) (never q rounded to
-//     bf16 after scaling: hd^-0.5 is not a power of two at hd 32 or 128),
-//     masked, and exponentiated with exp2f.
-//   - O += P V: the score accumulators, packed to bf16 pairs, are the A
-//     operand directly (P never goes to shared memory); V fragments come
-//     by ldmatrix.trans.  P is split into a bf16 high half and a bf16 low
-//     half (p - hi, rounded), and both go through the tensor cores, so P
-//     is carried to about 2^-16 relative, as the Pallas kernel and the
-//     plain version keep P in fp32; P rounded to bf16 alone would carry an
-//     error of 2^-9 on every p.  The split doubles the P V MMAs: half
-//     again as many MMAs in all (192 against 128 a warp and tile at hd
-//     128).
-//   Tiles: BK = 64 keys at hd <= 128, 32 at hd 256 (its O accumulator is
-//   hd / 2 = 128 fp32 registers a thread).  Shared memory (Q + two K/V
-//   stages, padded): 25,600 / 46,080 / 87,040 / 101,376 B at hd 32 / 64 /
-//   128 / 256, so two blocks (8 warps) an SM at hd 128 and 256.  Registers
-//   and spills: `-Xptxas -v` in the build log (chip_smoke.py prints them
-//   and fails on a spill; PERF.md records them).  Neither 32-key tiles, nor
-//   Q reloaded from shared memory at hd 128, nor three or four blocks an
-//   SM (forced by register caps) made it faster.
-//   Left for a later pass: wgmma fed by TMA (the only path to the full
-//   tensor-core rate), and MQA/GQA blocks that share one K/V tile among
-//   the q heads of a KV head.
+//   bf16 (the served type): flash_fwd_wgmma, Hopper's shape (wgmma fed
+//   by TMA, warp-specialised, persistent).  A block is 384 threads, one
+//   an SM: warpgroup 0 is the producer (one thread issues every TMA load,
+//   after setmaxnreg.dec to 24 registers), warpgroups 1 and 2 compute
+//   (setmaxnreg.inc to 240).  The grid is min(SMs, jobs) blocks.
+//   - Units and jobs.  A unit is 64 query rows of one q head; a job is two
+//     units that read the same K/V tiles, one a consumer warpgroup.  The
+//     host picks the pairing from the counts: more pair jobs than SMs,
+//     pairs of one causal extent (the same query tile in q heads 2p and
+//     2p + 1 of a KV head under GQA and MQA; tiles t - 1 and t of a q head
+//     under MHA and for the last q head of an odd group, as arctic's 7);
+//     at most one pair job an SM, tile t with tile n_qt - 1 - t (every job
+//     n_qt + 1 tiles of rows, so the one round is balanced); at most one
+//     unit an SM, one unit a job.  Blocks walk the jobs in one static
+//     order (longest first, a block's place in a round alternating ends),
+//     no atomics and no split of the keys, so every output row is written
+//     once in a fixed summation order and two runs give identical bits.
+//   - Loads.  Q, K and V arrive by cp.async.bulk.tensor through 3-D
+//     tensor maps over (heads, S, hd), encoded at each call
+//     (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the
+//     library needs no libcuda) and passed as __grid_constant__: boxes of
+//     64 columns (128 B, 128B swizzle; hd 32: 32 columns, 64 B, 64B
+//     swizzle) by 64 rows (Q) or BK rows (K, V); rows past S arrive as
+//     zeros.  K and V have their own full and empty mbarriers a stage: K
+//     is released after its S = Q K^T, V after its P V one tile later.
+//   - S = Q K^T: wgmma m64nBKk16, Q and K both from shared memory
+//     (K-major, swizzled descriptors), fp32 accumulators.  Then the mask
+//     (on the diagonal's tiles and past S only, behind a warp-uniform
+//     branch), the raw rows' maxima (the scale is positive, so max(s) *
+//     scale = max(s * scale) exactly), and p = 2^(s * scale log2 e - m)
+//     as one FFMA and one ex2.approx.ftz: the fp32 scores are scaled after
+//     the product, never q rounded to bf16 after scaling (hd^-0.5 is not a
+//     power of two at hd 32 or 128).  Each row lives in four lanes of one
+//     warp, so its sums run in a fixed order.
+//   - O += P V: wgmma m64nHDk16 with P as the register A operand (the
+//     score accumulator's layout is the A fragment's: P never goes to
+//     shared memory) and V from shared memory through its transpose bit.
+//     P is split into a bf16 high half and a bf16 low half (p - hi,
+//     rounded) and both go through the tensor cores, so P is carried to
+//     about 2^-16 relative, as the Pallas kernel and the plain version
+//     keep P in fp32; P rounded to bf16 alone would carry an error of 2^-9
+//     on every p.  The split makes half again as many products.
+//   - Overlap.  Tile kt's S = Q K^T is issued together with tile kt - 1's
+//     P V, so that product runs during tile kt's softmax; and the two
+//     consumer warpgroups issue their products in turns (named barriers 1
+//     and 2, FlashAttention-3's ping-pong), each taking the job's tile
+//     count + 1 turns, with empty turns past its unit's extent.
+//   - Epilogue: O / max(l, 1e-30) rounded once to bf16, stored from the
+//     registers as bf16 pairs, rows below S only.
+//   Tiles: BK = 128 keys at hd 32-128, 48 at hd 256 (its O accumulator is
+//   128 fp32 registers a thread; 48-key tiles leave room for the scores
+//   and both halves of P beside it).  K/V stages: 4 / 4 / 2 / 3 at hd 32 /
+//   64 / 128 / 256.  Dynamic shared memory (2 Q tiles, the K and V stages,
+//   the barriers, 1 KB to align the tiles to the swizzle's 1024 B):
+//   74,912 / 148,640 / 164,960 / 214,144 B.  Registers: 168 at launch (the
+//   384-thread bound), 240 a consumer thread after setmaxnreg; spills:
+//   `-Xptxas -v` in the build log (chip_smoke.py fails on a spill).
+//   What the compiler needs (ptxas C7520/C7515 otherwise serialise every
+//   wgmma): warp and warpgroup indices read through a shuffle, the
+//   mbarrier spin inside the PTX, predicated (not branched) arrivals, and
+//   every wgmma group waited for on every path (tile 0 peeled).  Tried
+//   and left out: a clock-based trap in the barrier wait (its registers
+//   cost 13% at hd 128), 64-key tiles at hd 256 (6% faster, but a 16 B
+//   spill), three stages at hd 128 (no gain), the mask on every tile
+//   without a branch (slower at hd 128).  Left for a later pass: a TMA
+//   store epilogue, and the second P V product of the split (a fifth of
+//   the time at hd 128, measured by leaving it out).
 //
 //   fp32 (a parity type, not a served one): flash_fwd_f32, the CUDA-core
 //   body — one block of 8 warps per (bh, 64-query tile), fp32 Q/K/V/P
@@ -72,79 +99,275 @@
 //   would keep three digits against a 1e-4 tolerance).  q * scale is taken
 //   in fp32 before the product.  At hd 256 its tiles take 213,248 B of
 //   dynamic shared memory (one block an SM).
+#include <cuda.h>          // CUtensorMap
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;                  // query rows per block
+constexpr int BQ = 64;  // query rows of a unit (bf16), of a block (fp32)
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16), cp.async, ldmatrix.
+// bf16: wgmma fed by TMA, one producer warp and two consumer warpgroups.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = MMA_WARPS * 32;  // 16 query rows a warp
+constexpr int WG_THREADS = 384;   // warpgroup 0 loads, 1 and 2 compute
+constexpr int CONSUMERS = 2;      // consumer warpgroups, one unit each
 
 template <int HD>
-struct MmaTile {
-  static constexpr int BK = HD <= 128 ? 64 : 32;  // keys per K/V tile
-  static constexpr bool Q_IN_REGS = HD <= 128;
-  static constexpr int LD = HD + 8;  // padded row, in bf16 elements
-  static constexpr int SMEM = (BQ + 4 * BK) * LD * 2;  // Q, 2 x (K, V)
+struct WgTile {
+  // Keys per K/V tile: at hd 256 the O accumulator holds 128 registers a
+  // thread, and 48-key tiles leave the scores and P room beside it.
+  static constexpr int BK = HD == 256 ? 48 : 128;
+  static constexpr int STAGES = HD <= 64 ? 4 : HD == 128 ? 2 : 3;  // ring
+  static constexpr int BOX = HD == 32 ? 32 : 64;      // columns a TMA box
+  static constexpr int ROW_B = BOX * 2;               // its row: 64 or 128 B
+  static constexpr uint64_t SWIZZLE = HD == 32 ? 2 : 1;  // 64B or 128B
+  static constexpr int Q_BYTES = BQ * HD * 2;         // one unit's Q
+  static constexpr int KV_BYTES = BK * HD * 2;        // one K (or V) tile
+  static constexpr int BAR_OFF = CONSUMERS * Q_BYTES + 2 * STAGES * KV_BYTES;
+  // + the mbarriers, + slack to align the tiles to the swizzle's 1024 B.
+  static constexpr int SMEM = BAR_OFF + 8 * (4 * STAGES + 2 * CONSUMERS) +
+                              1024;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; src-size 0 writes 16 zero bytes, reads none.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
+// Arrives on the barrier where `pred` holds: a predicated instruction,
+// not a branch, so no divergent region forms around the wgmma near it.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+
+// Waits until the barrier has completed the phase of the given parity.
+// The spin stays inside the PTX, so the compiler sees no divergent branch
+// around the wgmma that follow.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (column, row, head) into shared memory; its
+// bytes complete on `bar`.  Rows past the tensor's end arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c, int r, int h) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r), "r"(h)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (given in bytes, kept in 16-byte units) and the
+// swizzle of the tile.
+template <int HD>
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (WgTile<HD>::SWIZZLE << 62);
+}
+
+// Named barrier `id` over the two consumer warpgroups (256 threads): a
+// warpgroup waits at it (sync) for the other's arrival (arrive).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// still running (groups complete in the order they were committed).
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
+// Pins an accumulator's registers at this point of the program, so the
+// compiler moves no access to them across an asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
+#define WG_D8(i)                                                      \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define WG_D32(i) \
+  WG_D8(i), WG_D8((i) + 8), WG_D8((i) + 16), WG_D8((i) + 24)
+#define WG_W8(i)                                                      \
+  "=f"(d[(i)]), "=f"(d[(i) + 1]), "=f"(d[(i) + 2]), "=f"(d[(i) + 3]), \
+      "=f"(d[(i) + 4]), "=f"(d[(i) + 5]), "=f"(d[(i) + 6]), "=f"(d[(i) + 7])
+#define WG_W32(i) \
+  WG_W8(i), WG_W8((i) + 8), WG_W8((i) + 16), WG_W8((i) + 24)
+
+// S = Q K^T: d (64 x N fp32) = (wgmma_ss_init) or += (wgmma_ss) A (64 x
+// 16, shared) * B (16 x N, shared), both K-major; N = 2 * size of d.  The
+// init form only writes d, so the compiler keeps no earlier scores live.
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[24], uint64_t da,
+                                              uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : WG_W8(0), WG_W8(8), WG_W8(16)
+      : "l"(da), "l"(db), "r"(0));
 }
 
-// d (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_W32(0), WG_W32(32)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(0), WG_D32(32)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+// O += P V: d (64 x N fp32) += A (64 x 16 bf16, registers) * B (16 x N,
+// shared, MN-major: V's rows are keys, its columns contiguous).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D32(0), WG_D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_D32(0), WG_D32(32), WG_D32(64), WG_D32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+#undef WG_W32
+#undef WG_W8
+#undef WG_D32
+#undef WG_D8
+
+// 2^x on the SFU (denormal results flush to zero: a p below 2^-126 of the
+// row's largest, which is 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
@@ -164,210 +387,418 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
                  __float2bfloat16_rn(x1 - __bfloat162float(h1)));
 }
 
-// The explicit minimum of one block an SM lets ptxas spend up to 255
-// registers (226 at hd 128 against 178 without it), which it uses to keep
-// more fragments in flight; shared memory caps the blocks an SM at two
-// either way.
-template <int HD>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, long long n_bh, int S,
-              int groups, float scale_log2) {
-  using Tile = MmaTile<HD>;
-  constexpr int BK = Tile::BK, LD = Tile::LD;
-  constexpr int CH = HD / 8;         // 16-byte chunks a row
-  constexpr int KSTEPS = HD / 16;    // k-steps of S = Q K^T
-  constexpr int NT = BK / 8;         // 8-key score tiles a warp
-  constexpr int OT = HD / 8;         // 8-column output tiles a warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LD;          // [2][BK][LD]
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;      // [2][BK][LD]
+// One job of a block: two units (64 query rows of one q head each) that
+// read the same K/V tiles of KV head `kvh`, the first `n_kt` of them.
+struct Job {
+  int kvh, head[CONSUMERS], tile[CONSUMERS], n_kt;
+};
 
-  const int n_qt = (S + BQ - 1) / BQ;
-  const long long bh = blockIdx.x % n_bh;
-  const int qt = n_qt - 1 - (int)(blockIdx.x / n_bh);  // longest first
-  const int q0 = qt * BQ;
-  const long long kvh = bh / groups;
-  const __nv_bfloat16* qb = q + bh * (long long)S * HD;
-  const __nv_bfloat16* kb = k + kvh * (long long)S * HD;
-  const __nv_bfloat16* vb = v + kvh * (long long)S * HD;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row, column pair
-  const int wq = q0 + warp * 16;            // this warp's first query row
-  const int kv_end = min(q0 + BQ, S);       // keys [0, kv_end) are read
-  const int n_kt = (kv_end + BK - 1) / BK;
+// How a launch pairs its units into jobs (chosen on the host from the
+// counts, so every block knows every job's units).
+enum Pairing : int {
+  SAME_EXTENT = 0,  // more pair jobs than SMs: pairs of one causal extent
+  LONG_SHORT = 1,   // a pair job an SM at most: tile t with n_qt - 1 - t
+  SINGLE = 2,       // a unit an SM at most: one unit a job
+};
 
-  for (int c = tid; c < BQ * CH; c += MMA_THREADS) {
-    const int r = c / CH, ch = c % CH, s = q0 + r;
-    cp_async16(smem_addr(Qs + r * LD + ch * 8),
-               qb + (long long)min(s, S - 1) * HD + ch * 8, s < S);
+// The jobs in one static order.
+// SAME_EXTENT, longest first: level t (from the last query tile down)
+// holds the jobs whose longest unit is query tile t: first, KV head by KV
+// head, the pairs of q heads (2p, 2p + 1) of a KV head at tile t (GQA and
+// MQA: one causal extent); then, when a KV head has an odd number of q
+// heads (MHA included), its last q head's tiles (t - 1, t) for odd t, or
+// tile t alone when it is the last and even.  Jobs are read in increasing
+// index, so a cursor walks the levels.
+// LONG_SHORT, KV head by KV head: q heads 2p and 2p + 1 at tiles t and
+// n_qt - 1 - t; an odd KV head's last q head at its tiles t and
+// n_qt - 1 - t (the middle tile alone).  Every job then holds n_qt + 1
+// tiles of rows, so one round of them is balanced.
+// SINGLE, longest first: tile n_qt - 1 of every q head, then the tile
+// before, and so on.
+struct Schedule {
+  int S, n_qt, n_kv, groups, pairs, odd, bk, mode;
+  int t;     // the SAME_EXTENT cursor's level
+  int base;  // index of its first job
+
+  __device__ Schedule(int S_, int n_kv_, int groups_, int bk_, int mode_)
+      : S(S_), n_qt((S_ + BQ - 1) / BQ), n_kv(n_kv_), groups(groups_),
+        pairs(groups_ / 2), odd(groups_ & 1), bk(bk_), mode(mode_),
+        t(n_qt - 1), base(0) {}
+
+  __device__ int count(int lvl) const {
+    return n_kv * pairs +
+           (odd && ((lvl & 1) || lvl == n_qt - 1) ? n_kv : 0);
   }
-  auto load_kv = [&](int kt, int st) {
-    const int k0 = kt * BK;
-    __nv_bfloat16* kd = Ks + st * BK * LD;
-    __nv_bfloat16* vd = Vs + st * BK * LD;
-    for (int c = tid; c < BK * CH; c += MMA_THREADS) {
-      const int r = c / CH, ch = c % CH, s = k0 + r;
-      const long long off = (long long)min(s, S - 1) * HD + ch * 8;
-      cp_async16(smem_addr(kd + r * LD + ch * 8), kb + off, s < S);
-      cp_async16(smem_addr(vd + r * LD + ch * 8), vb + off, s < S);
-    }
-  };
-  load_kv(0, 0);
-  cp_async_commit();
 
-  // ldmatrix row addresses: lane l feeds row l % 8 of matrix l / 8.
-  // Q as A (16 x 16): matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15).
-  const uint32_t q_frag =
-      smem_addr(Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                (lane >> 4) * 8);
-  // K as B for two 8-key tiles: (keys 0-7, d 0-7 | d 8-15), (keys 8-15, ..).
-  const int k_frag =
-      ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  // V as B (transposed) for two 8-column tiles: (keys 0-7 | 8-15) x cols.
-  const int v_frag =
-      ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-
-  uint32_t qf[Tile::Q_IN_REGS ? KSTEPS : 1][4];
-  float oacc[OT][4];
-#pragma unroll
-  for (int t = 0; t < OT; ++t)
-    oacc[t][0] = oacc[t][1] = oacc[t][2] = oacc[t][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // rows g, g + 8
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_kt) {
-      load_kv(kt + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
+  __device__ Job at(int j) {
+    Job job;
+    if (mode == SINGLE) {
+      const int bh = n_kv * groups;
+      job.head[0] = job.head[1] = j % bh;
+      job.kvh = job.head[0] / groups;
+      job.tile[0] = n_qt - 1 - j / bh;
+      job.tile[1] = -1;
+    } else if (mode == LONG_SHORT) {
+      const int per_kv = pairs * n_qt + (odd ? (n_qt + 1) / 2 : 0);
+      job.kvh = j / per_kv;
+      int r = j % per_kv;
+      if (r < pairs * n_qt) {
+        job.head[0] = job.kvh * groups + 2 * (r / n_qt);
+        job.head[1] = job.head[0] + 1;
+        r %= n_qt;
+      } else {
+        r -= pairs * n_qt;
+        job.head[0] = job.head[1] = job.kvh * groups + groups - 1;
+      }
+      job.tile[0] = r;
+      job.tile[1] = (job.head[0] == job.head[1] && 2 * r == n_qt - 1)
+                        ? -1
+                        : n_qt - 1 - r;
     } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if constexpr (Tile::Q_IN_REGS) {
-      if (kt == 0) {
-#pragma unroll
-        for (int ks = 0; ks < KSTEPS; ++ks)
-          ldmatrix_x4(qf[ks], q_frag + ks * 32);
+      while (j >= base + count(t)) {
+        base += count(t);
+        --t;
+      }
+      const int r = j - base, same = n_kv * pairs;
+      if (r < same) {
+        job.kvh = r / pairs;
+        job.head[0] = job.kvh * groups + 2 * (r % pairs);
+        job.head[1] = job.head[0] + 1;
+        job.tile[0] = job.tile[1] = t;
+      } else {
+        job.kvh = r - same;
+        job.head[0] = job.head[1] = job.kvh * groups + groups - 1;
+        job.tile[0] = (t & 1) ? t - 1 : t;
+        job.tile[1] = (t & 1) ? t : -1;
       }
     }
-    const int k0 = kt * BK;
-    // A warp whose rows all precede the tile (hd 256's last tile) skips it.
-    if (k0 <= wq + 15) {
-      const uint32_t kst = smem_addr(Ks + st * BK * LD + k_frag);
-      const uint32_t vst = smem_addr(Vs + st * BK * LD + v_frag);
-      float sacc[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t a[4];
-        if constexpr (Tile::Q_IN_REGS) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
-        } else {
-          ldmatrix_x4(a, q_frag + ks * 32);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, kst + (j * 8 * LD + ks * 16) * 2);
-          mma_bf16(sacc[j], a, b[0], b[1]);
-          mma_bf16(sacc[j + 1], a, b[2], b[3]);
-        }
-      }
+    const int last = job.tile[0] > job.tile[1] ? job.tile[0] : job.tile[1];
+    job.n_kt = (min((last + 1) * BQ, S) + bk - 1) / bk;
+    return job;
+  }
+};
 
-      // Scores: scale (with log2 e) in fp32, mask, online softmax.  Entry
-      // e of tile j is row g + 8 * (e / 2), key k0 + 8 j + 2 t4 + e % 2.
-      const bool edge = k0 + BK - 1 > wq || k0 + BK > S;
-      float mx[2] = {m[0], m[1]};
+// Block b's r-th job: rounds of the grid's size, the block's place in a
+// round alternating ends (b, then G - 1 - b), so a block that took one of
+// the longer jobs of a round takes one of the shorter of the next.
+__device__ __forceinline__ int job_index(int r, int b, int G) {
+  return r * G + ((r & 1) ? G - 1 - b : b);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                __nv_bfloat16* __restrict__ o, int S, int n_kv, int groups,
+                int pairing, int n_jobs, float scale_log2) {
+  using T = WgTile<HD>;
+  constexpr int BK = T::BK, STAGES = T::STAGES, ROW_B = T::ROW_B;
+  constexpr int PER_BOX = T::BOX / 16;  // k-steps of 16 in a box's row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                              // [2][Q_BYTES]
+  const uint32_t k_s = q_s + CONSUMERS * T::Q_BYTES;      // [STAGES][..]
+  const uint32_t v_s = k_s + STAGES * T::KV_BYTES;        // [STAGES][..]
+  // full_k, full_v: the stage's K (V) tile has landed (one arrival and its
+  // bytes); empty_k, empty_v: the 8 consumer warps are done with it (K
+  // after its S = Q K^T, V after its P V, one tile later); q_full,
+  // q_empty: the same for each consumer's Q tile (its 4 warps).
+  const uint32_t full_k = base + T::BAR_OFF, full_v = full_k + 8 * STAGES;
+  const uint32_t empty_k = full_v + 8 * STAGES;
+  const uint32_t empty_v = empty_k + 8 * STAGES;
+  const uint32_t q_full = empty_v + 8 * STAGES;
+  const uint32_t q_empty = q_full + 8 * CONSUMERS;
+
+  // Warp and warpgroup indices read through a shuffle: the compiler then
+  // knows them warp-uniform, and the wgmma paths are not divergent to it.
+  const int warp = __shfl_sync(FULL, (int)threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 4 * CONSUMERS);
+      mbar_init(empty_v + 8 * s, 4 * CONSUMERS);
+    }
+    for (int u = 0; u < CONSUMERS; ++u) {
+      mbar_init(q_full + 8 * u, 1);
+      mbar_init(q_empty + 8 * u, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int G = gridDim.x, b = blockIdx.x;
+  Schedule sched(S, n_kv, groups, BK, pairing);
+  if (warp < 4) {
+    // Producer: one thread issues every TMA load of the block's jobs.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp == 0 && lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0, q_phase[CONSUMERS] = {0, 0};
+      for (int r = 0;; ++r) {
+        const int j = job_index(r, b, G);
+        if (j >= n_jobs) break;
+        const Job job = sched.at(j);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+        for (int u = 0; u < CONSUMERS; ++u) {
+          if (job.tile[u] < 0) continue;
+          mbar_wait(q_empty + 8 * u, q_phase[u] ^ 1);
+          q_phase[u] ^= 1;
+          mbar_expect_tx(q_full + 8 * u, T::Q_BYTES);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float s = sacc[j][e] * scale_log2;
-          if (edge) {
-            const int key = k0 + j * 8 + 2 * t4 + (e & 1);
-            const int row = wq + g + (e >> 1) * 8;
-            if (key > row || key >= S) s = NEG_INF;
+          for (int c = 0; c < HD / T::BOX; ++c)
+            tma_load(q_s + u * T::Q_BYTES + c * BQ * ROW_B, &q_map,
+                     q_full + 8 * u, c * T::BOX, job.tile[u] * BQ,
+                     job.head[u]);
+        }
+        for (int kt = 0; kt < job.n_kt; ++kt) {
+          const uint32_t kd = k_s + stage * T::KV_BYTES;
+          const uint32_t vd = v_s + stage * T::KV_BYTES;
+          mbar_wait(empty_k + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full_k + 8 * stage, T::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < HD / T::BOX; ++c)
+            tma_load(kd + c * BK * ROW_B, &k_map, full_k + 8 * stage,
+                     c * T::BOX, kt * BK, job.kvh);
+          mbar_wait(empty_v + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full_v + 8 * stage, T::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < HD / T::BOX; ++c)
+            tma_load(vd + c * BK * ROW_B, &v_map, full_v + 8 * stage,
+                     c * T::BOX, kt * BK, job.kvh);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
           }
-          sacc[j][e] = s;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s);
-        }
-      }
-      float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
-        corr[r] = exp2f(m[r] - mx[r]);
-        m[r] = mx[r];
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(sacc[j][e] - m[e >> 1]);
-          sacc[j][e] = p;
-          rs[e >> 1] += p;
-        }
-      }
-      // l is this thread's share of its rows' sums (its columns); the
-      // four threads of a row are added once, at the end.
-      l[0] = l[0] * corr[0] + rs[0];
-      l[1] = l[1] * corr[1] + rs[1];
-#pragma unroll
-      for (int t = 0; t < OT; ++t) {
-        oacc[t][0] *= corr[0];
-        oacc[t][1] *= corr[0];
-        oacc[t][2] *= corr[1];
-        oacc[t][3] *= corr[1];
-      }
-
-      // O += P V, P as the A operand straight from the score registers.
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t ph[4], pl[4];
-        split_bf16(sacc[2 * kk][0], sacc[2 * kk][1], ph[0], pl[0]);
-        split_bf16(sacc[2 * kk][2], sacc[2 * kk][3], ph[1], pl[1]);
-        split_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1], ph[2], pl[2]);
-        split_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int t = 0; t < OT; t += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vst + (kk * 16 * LD + t * 8) * 2);
-          mma_bf16(oacc[t], ph, b[0], b[1]);
-          mma_bf16(oacc[t + 1], ph, b[2], b[3]);
-          mma_bf16(oacc[t], pl, b[0], b[1]);
-          mma_bf16(oacc[t + 1], pl, b[2], b[3]);
         }
       }
     }
-    __syncthreads();  // this stage is reloaded next iteration
-  }
+  } else {
+    // Consumers: warpgroup u computes unit u of each job.  Warp wq of it
+    // owns query rows 16 wq + g and 16 wq + g + 8 of the unit; lane
+    // (g, t4) holds the accumulator columns 8 j + 2 t4 and + 1.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int u = (warp >> 2) - 1, wq = warp & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t qa = q_s + u * T::Q_BYTES;
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    float s[BK / 2], acc[HD / 2];
+    uint32_t ph[BK / 16][4], pl[BK / 16][4];  // P of the pending P V
+    if (u == 1) bar_arrive(1);  // warpgroup 0 takes the first turn
+    for (int r = 0;; ++r) {
+      const int j = job_index(r, b, G);
+      if (j >= n_jobs) break;
+      const Job job = sched.at(j);
+      const int tile = u ? job.tile[1] : job.tile[0];
+      const int head = u ? job.head[1] : job.head[0];
+      const int n_kt = tile < 0 ? 0 : (min((tile + 1) * BQ, S) + BK - 1) / BK;
+      const int wrow = tile * BQ + wq * 16;  // this warp's first row
+      const int row0 = wrow + g;              // and rows row0, row0 + 8
+      float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      // S = Q K^T of the tile in `stage` on the tensor cores, both
+      // operands in shared memory: issued and committed, not waited for.
+      auto issue_qk = [&]() {
+        const uint32_t ka = k_s + stage * T::KV_BYTES;
+        wgmma_ss_init(s, gmma_desc<HD>(qa, 16, 8 * ROW_B),
+                      gmma_desc<HD>(ka, 16, 8 * ROW_B));
+#pragma unroll
+        for (int ks = 1; ks < HD / 16; ++ks) {
+          const uint32_t off = (ks / PER_BOX) * ROW_B, in = (ks % PER_BOX) * 32;
+          wgmma_ss(s, gmma_desc<HD>(qa + off * BQ + in, 16, 8 * ROW_B),
+                   gmma_desc<HD>(ka + off * BK + in, 16, 8 * ROW_B));
+        }
+        wgmma_commit();
+      };
+      // O += P V of the tile in `p_stage`: P, split into bf16 hi and lo
+      // halves, is the register A operand (the accumulator's layout is the
+      // A fragment's).  Issued and committed, not waited for.
+      int p_stage = 0;
+      uint32_t p_phase = 0;
+      auto issue_pv = [&]() {
+        const uint32_t va = v_s + p_stage * T::KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t dv =
+              gmma_desc<HD>(va + kk * 16 * ROW_B, BK * ROW_B, 8 * ROW_B);
+          wgmma_rs(acc, ph[kk], dv);
+          wgmma_rs(acc, pl[kk], dv);
+        }
+        wgmma_commit();
+      };
+      // Tile kt's scores once its S has landed: release its K, mask, online
+      // softmax (scores times scale log2 e, in fp32) into s; returns the
+      // rows' correction factors.  Entry 4 j + e is row row0 + 8 (e / 2),
+      // key k0 + 8 j + 2 t4 + e % 2.
+      auto softmax = [&](int kt, float& c0, float& c1) {
+        fence_regs(s);
+        __syncwarp();
+        mbar_arrive_if(empty_k + 8 * stage, lane == 0);
+        mbar_arrive_if(q_empty + 8 * u, lane == 0 && kt == n_kt - 1);
+        // Mask where a warp's rows cross the tile's keys (the diagonal's
+        // tiles) or keys pass S, behind a warp-uniform branch; then the raw
+        // rows' maxima: the scale is positive, so max(s) * scale =
+        // max(s * scale) exactly.
+        const int k0 = kt * BK;
+        const bool edge = k0 + BK - 1 > wrow || k0 + BK > S;
+        const int d0 = row0 - (k0 + 2 * t4), lim = S - (k0 + 2 * t4);
+        if (edge) {
+#pragma unroll
+          for (int jn = 0; jn < BK / 8; ++jn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int jj = 8 * jn + (e & 1);  // key - (k0 + 2 t4)
+              const bool out = (jj > d0 + (e >> 1) * 8) | (jj >= lim);
+              s[4 * jn + e] = out ? NEG_INF : s[4 * jn + e];
+            }
+          }
+        }
+        float mr0 = NEG_INF, mr1 = NEG_INF;
+#pragma unroll
+        for (int jn = 0; jn < BK / 8; ++jn) {
+          mr0 = fmaxf(mr0, fmaxf(s[4 * jn], s[4 * jn + 1]));
+          mr1 = fmaxf(mr1, fmaxf(s[4 * jn + 2], s[4 * jn + 3]));
+        }
+        mr0 = fmaxf(mr0, __shfl_xor_sync(FULL, mr0, 1));
+        mr0 = fmaxf(mr0, __shfl_xor_sync(FULL, mr0, 2));
+        mr1 = fmaxf(mr1, __shfl_xor_sync(FULL, mr1, 1));
+        mr1 = fmaxf(mr1, __shfl_xor_sync(FULL, mr1, 2));
+        const float mx0 = fmaxf(m0, mr0 * scale_log2);
+        const float mx1 = fmaxf(m1, mr1 * scale_log2);
+        c0 = ex2(m0 - mx0);
+        c1 = ex2(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        // p = 2^(s * scale log2 e - m): one FFMA and one ex2 a score.
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < BK / 8; ++jn) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * jn + e] =
+                ex2(fmaf(s[4 * jn + e], scale_log2, e < 2 ? -m0 : -m1));
+          rs0 += s[4 * jn] + s[4 * jn + 1];
+          rs1 += s[4 * jn + 2] + s[4 * jn + 3];
+        }
+        // l is this thread's share of its rows' sums (its columns); the
+        // four threads of a row are added once, at the end.
+        l0 = l0 * c0 + rs0;
+        l1 = l1 * c1 + rs1;
+      };
+      // Rescale O, split P into ph / pl, and make this tile the pending
+      // P V's.
+      auto rescale_and_split = [&](float c0, float c1) {
+#pragma unroll
+        for (int jn = 0; jn < HD / 8; ++jn) {
+          acc[4 * jn] *= c0;
+          acc[4 * jn + 1] *= c0;
+          acc[4 * jn + 2] *= c1;
+          acc[4 * jn + 3] *= c1;
+        }
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], ph[kk][i],
+                       pl[kk][i]);
+        }
+        p_stage = stage;
+        p_phase = phase;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
 
+      // Turns: the two warpgroups issue their products in alternation,
+      // each taking job.n_kt + 1 turns a job (FlashAttention-3's ping-pong),
+      // so one's softmax runs while the other's products occupy the tensor
+      // cores.  Every mbarrier wait comes before the turn that needs it.
+      auto turn_begin = [&]() { bar_sync(1 + u); };
+      auto turn_end = [&]() { bar_arrive(2 - u); };
+      if (n_kt > 0) {
+        // Turn 0: tile 0's S = Q K^T.  Turn kt: tile kt's S = Q K^T with
+        // tile kt - 1's P V, so the tensor cores also run that product
+        // during this tile's softmax.  Turn n_kt: the last tile's P V.
+        // Every wgmma group is waited for on every path.
+        float c0, c1;
+        mbar_wait(q_full + 8 * u, q_phase);
+        mbar_wait(full_k + 8 * stage, phase);
+        turn_begin();
+        wgmma_fence();
+        issue_qk();
+        turn_end();
+        wgmma_wait<0>();
+        softmax(0, c0, c1);
+        rescale_and_split(c0, c1);
+        for (int kt = 1; kt < n_kt; ++kt) {
+          mbar_wait(full_k + 8 * stage, phase);
+          mbar_wait(full_v + 8 * p_stage, p_phase);
+          turn_begin();
+          wgmma_fence();
+          issue_qk();
+          issue_pv();
+          turn_end();
+          wgmma_wait<1>();
+          softmax(kt, c0, c1);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          __syncwarp();
+          mbar_arrive_if(empty_v + 8 * p_stage, lane == 0);
+          rescale_and_split(c0, c1);
+        }
+        mbar_wait(full_v + 8 * p_stage, p_phase);
+        turn_begin();
+        wgmma_fence();
+        issue_pv();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        mbar_arrive_if(empty_v + 8 * p_stage, lane == 0);
+      }
+      // The job's tiles past this unit's extent, each released before the
+      // empty turn that lets the other warpgroup reach the tile after it.
+      for (int k = n_kt > 0 ? n_kt + 1 : 0; k <= job.n_kt; ++k) {
+        if (k > n_kt) {
+          mbar_wait(full_k + 8 * stage, phase);
+          mbar_wait(full_v + 8 * stage, phase);
+          __syncwarp();
+          mbar_arrive_if(empty_k + 8 * stage, lane == 0);
+          mbar_arrive_if(empty_v + 8 * stage, lane == 0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        turn_begin();
+        turn_end();
+      }
+      if (n_kt == 0) continue;
+      q_phase ^= 1;
+
+      l0 += __shfl_xor_sync(FULL, l0, 1);
+      l0 += __shfl_xor_sync(FULL, l0, 2);
+      l1 += __shfl_xor_sync(FULL, l1, 1);
+      l1 += __shfl_xor_sync(FULL, l1, 2);
+      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+      __nv_bfloat16* out = o + ((long long)head * S + row0) * HD + 2 * t4;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(FULL, l[r], 1);
-    l[r] += __shfl_xor_sync(FULL, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wq + g + 8 * r;
-    if (row >= S) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* out = o + (bh * S + row) * HD + 2 * t4;
-#pragma unroll
-    for (int t = 0; t < OT; ++t) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(
-          oacc[t][2 * r] / den, oacc[t][2 * r + 1] / den);
-      *reinterpret_cast<__nv_bfloat162*>(out + t * 8) = pair;
+      for (int jn = 0; jn < HD / 8; ++jn) {
+        if (row0 < S)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * jn) =
+              __floats2bfloat162_rn(acc[4 * jn] / d0, acc[4 * jn + 1] / d0);
+        if (row0 + 8 < S)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * HD + 8 * jn) =
+              __floats2bfloat162_rn(acc[4 * jn + 2] / d1,
+                                    acc[4 * jn + 3] / d1);
+      }
     }
+    if (u == 0) bar_sync(1);  // the other's last arrival: none left open
   }
 }
 
@@ -511,20 +942,78 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Launch.
 // ---------------------------------------------------------------------------
 
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime, so the
+// library needs no link against libcuda.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map over a contiguous (heads, S, HD) bf16 tensor, boxes of `rows` rows
+// by WgTile<HD>::BOX columns, swizzled as the wgmma descriptors read them;
+// rows past S read as zeros.
+template <int HD>
+bool encode_map(CUtensorMap* map, const void* base, long long heads, int S,
+                int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)S,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)S * HD * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)WgTile<HD>::BOX, (cuuint32_t)rows,
+                             1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                HD == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                         : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 long long bh, int S, int groups, float scale,
                 cudaStream_t stream) {
-  constexpr int bytes = MmaTile<HD>::SMEM;
+  using T = WgTile<HD>;
+  const long long n_kv = bh / groups;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map<HD>(&q_map, q, bh, S, BQ) ||
+      !encode_map<HD>(&k_map, k, n_kv, S, T::BK) ||
+      !encode_map<HD>(&v_map, v, n_kv, S, T::BK))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const long long n_blocks = bh * ((S + BQ - 1) / BQ);
-  flash_fwd_mma<HD><<<(unsigned)n_blocks, MMA_THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh, S, groups, scale * LOG2E);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // Pairs of one causal extent keep both consumer warpgroups busy on every
+  // K/V tile; when the pairs fit in one round, a long unit with a short
+  // one balances the SMs; when the units do, one unit an SM ends soonest.
+  const long long n_qt = (S + BQ - 1) / BQ, units = bh * n_qt;
+  const long long pair_jobs =
+      n_kv * (n_qt * (groups / 2) + (groups & 1 ? (n_qt + 1) / 2 : 0));
+  const int pairing = units <= sms ? SINGLE
+                      : pair_jobs <= sms ? LONG_SHORT : SAME_EXTENT;
+  const long long n_jobs = pairing == SINGLE ? units : pair_jobs;
+  const int grid = (int)(n_jobs < sms ? n_jobs : sms);
+  flash_fwd_wgmma<HD><<<grid, WG_THREADS, T::SMEM, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), S, (int)n_kv,
+      groups, pairing, (int)n_jobs, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 

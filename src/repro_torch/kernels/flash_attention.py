@@ -63,7 +63,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             f"copies 16-byte chunks)")
+                             f"reads it through TMA tensor maps)")
     out = torch.empty_like(q)
     if bh == 0 or s == 0:
         return out

@@ -499,18 +499,24 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-@pytest.mark.parametrize("groups", [1, 3, 8])
-@pytest.mark.parametrize("s", [200, 256])
+@pytest.mark.parametrize("groups", [1, 2, 3, 6, 7, 8])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 200, 256, 500,
+                               1966])
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_version(cuda, dtype, hd, s, groups):
     """The kernel against its plain version on the same card tensors: fp32
     at the reference sweep's 1e-4, bf16 output at 2e-2 (one to two bf16
-    ulps on O(1) values); S = 200 is ragged, 256 a multiple of the tile;
-    groups 8 is paligemma's MQA layout at hd 256; a repeat launch gives
-    identical bits."""
+    ulps on O(1) values).  S runs over the edges of the 64-row query unit
+    and of the 128-key tile (1, 63-65, 127-129), ragged (200), a multiple
+    of both (256), olmo-1b's longest prefill (1966) and 500, where the
+    units pair long with short on the 132 SMs (up to 256 one unit a job,
+    at 1966 pairs of one extent); groups 2, 6 and 7
+    are jamba's, grok's and arctic's layouts (7: an odd number of q heads a
+    KV head, 28 q heads), 8 paligemma's MQA at hd 256; a repeat launch
+    gives identical bits."""
     rng = np.random.default_rng(hd + s + groups)
-    bh = 24
+    bh = 24 if 24 % groups == 0 else 4 * groups
 
     def t(shape, scale):
         return torch.as_tensor(rng.normal(size=shape) * scale,
