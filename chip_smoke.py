@@ -218,6 +218,36 @@ folded is replayed by ``check_telemetry_folds``.  The ``kernels`` line's
 ``isla_fold`` entry includes the phase's launches, and its error, time
 and bound those panes'.
 
+Then the training CLI ("lm train cli"): ``python -m
+repro_torch.launch.train`` on olmo-1b at full width and depth in a child
+process that sees the smoke's card alone (run A: 6 steps at 4 x 1024,
+``--telemetry-exact``, checkpoints every 4 steps, so steps 4 and 6 are
+committed, 11.77 GB each); then a crash after step 4's commit, mid-write
+of step 6 (run A's step 6 moved aside, a partial ``step_00000006.tmp``
+left); then run B, the CLI's ``run`` in this process with ``--resume``:
+it must print ``[resume] from step 4``, have removed the ``.tmp`` by its
+first step, run steps 4 and 5 with one ``isla_fold`` launch each and no
+other kernel (counts set to 0 just before, read just after) and commit
+step 6.  Its rows (loss and every 0-d metric) and its step-6
+checkpoint, leaf by leaf, must equal run A's bit for bit (two
+uninterrupted runs of the CLI on the card agree bit for bit:
+``tools/train_cli_repeat.py``).  It prints each step's seconds and
+tokens/s, the restore, the checkpoint submit (the host copy) and write
+seconds, the checkpoint's bytes and the peak memory before run B's first
+step and in all.  The checkpoints live under the git-ignored
+``_train_cli/``, whose free space must hold three of them, and are
+removed when the phase ends.  Its fold launches join the ``kernels``
+line's ``isla_fold``.
+
+Every profiled window (the kernel timings, the profiled ticks and
+steps) is padded by 20 ms of host time at each end, inside the window
+(the card's timestamps part from the host's by up to 0.41 ms, and the
+profiler keeps only the device events inside its host-side window:
+``tools/profiler_windows.py``), and opens with 64 one-cycle spins that no
+reading counts (a window drops its first device records, up to 14
+seen).  The smoke prints how many windows each measurement
+took and how many lead spins the windows lost.
+
 Every failure exits nonzero.  The last three lines of standard output
 are the card's name and power limit, one JSON object describing every
 kernel, and the result object; details go to
@@ -280,7 +310,50 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
 
 PROFILE_TRIES = 3       # windows a measurement takes when events go astray
 PROFILE_GAP_S = 0.005   # host pause between the last work and a window
-PROFILE_LEAD_S = 1e-4   # device spin that opens a window, not counted
+PROFILE_LEAD_S = 1e-4   # a launch worker's mark spin (mark_threads)
+# Two ways a window lost device events on the card.  The profiler keeps
+# an event only inside its window on the host's clock, and the card's
+# timestamps part from the host's: a kernel was stamped up to 0.41 ms
+# before its own launch (tools/profiler_windows.py), so a short window
+# whose events all shift past an edge keeps none; every window therefore
+# pauses PROFILE_PAD_S on the host after it opens and, synchronised,
+# before it closes, inside the window.  And a window drops its first
+# device records, kernels and copies alike, whatever their time: up to 14
+# seen, and 0-11 of the lead spins below in 98 of 104 windows of one smoke
+# (chip_smoke.json's profiled_windows); so every window opens with
+# PROFILE_LEAD_KERNELS one-cycle spins that the reading of a trace leaves
+# out.
+PROFILE_PAD_S = 0.02
+PROFILE_LEAD_KERNELS = 64
+SPIN = "spin_kernel"    # torch.cuda._sleep's kernel: never counted
+# One entry a kernel_events measurement: the windows it took and, for
+# each window, the events and the lead spins it kept and, when it was not
+# whole, its device events by name.
+WINDOW_LOG: "list[dict]" = []
+
+
+def padded_profile(**kw):
+    """A ``torch.profiler.profile`` over ``kw`` padded by ``PROFILE_PAD_S``
+    of host time at each end, inside the window, the card synchronised
+    before the closing pause, and opened by ``PROFILE_LEAD_KERNELS``
+    one-cycle spins (``device_events`` leaves them out)."""
+    import torch
+    from torch.profiler import profile
+
+    class Padded(profile):
+        def __enter__(self):
+            super().__enter__()
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(PROFILE_LEAD_KERNELS):
+                torch.cuda._sleep(1)
+            return self
+
+        def __exit__(self, *exc):
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            return super().__exit__(*exc)
+
+    return Padded(**kw)
 
 
 def kernel_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
@@ -289,13 +362,11 @@ def kernel_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
     given (untimed unless it runs such a kernel): ``(mean device ms a call
     or None when the trace holds no such event, events a call)``.
 
-    The trace's window edges are not exact on the card: a kernel that ran
-    just before a window can land in it, and the first kernel inside it
-    can be left out (seen on the parent tree too).  So a window opens
-    after a host pause with a short device spin (``torch.cuda._sleep``,
-    never counted), and a window whose events are not a whole number a
-    call is taken again, up to ``PROFILE_TRIES`` windows (the last one is
-    reported)."""
+    A window can drop device records on the card (``PROFILE_PAD_S``), so
+    each is padded and opened by spins that are never counted
+    (``padded_profile``), and a window whose events are not a whole
+    number a call is taken again, up to ``PROFILE_TRIES`` windows (the
+    last one is reported; ``WINDOW_LOG`` gets what each window kept)."""
     events = window_events(fn, names, reps, warm, setup)
     us = [t for _, t in events]
     return (sum(us) / reps * 1e-3 if us else None), len(us) / reps
@@ -305,28 +376,36 @@ def window_events(fn, names, reps: int = 20, warm: int = 3, setup=None):
     """``kernel_events``'s window: the ``(name, us)`` of each device event
     whose name contains one of ``names`` over ``reps`` calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     for _ in range(warm):
         if setup is not None:
             setup()
         fn()
-    for _ in range(PROFILE_TRIES):
+    log = dict(reps=reps, windows=[])
+    for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
         time.sleep(PROFILE_GAP_S)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(int(PROFILE_LEAD_S * SLEEP_CYCLES_PER_S))
+        with padded_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if setup is not None:
                     setup()
                 fn()
             torch.cuda.synchronize()
-        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if str(e.device_type).endswith("CUDA")
-                  and "spin_kernel" not in e.name
-                  and any(n in e.name for n in names)]
-        if events and len(events) % reps == 0:
+        device = device_events(prof)
+        kept = [e for e in device if any(n in e.name for n in names)]
+        events = [(e.name, e.time_range.elapsed_us()) for e in kept]
+        whole = bool(events) and len(events) % reps == 0
+        spins = sum(1 for e in prof.events() if SPIN in e.name)
+        counts = {}
+        for e in device if not whole else ():
+            counts[e.name[:70]] = counts.get(e.name[:70], 0) + 1
+        log["windows"].append(dict(events=len(kept), lead_spins=spins,
+                                   names=counts))
+        if whole:
             break
+    log["tries"] = tries
+    WINDOW_LOG.append(log)
     return events
 
 
@@ -947,9 +1026,11 @@ def check_pilot(device, loop_n: int) -> "list[dict]":
             err = max(err, max_abs_err(st, ws))
         hot_ms, per_call = kernel_events(lambda: K.pilot_moments(v),
                                          (PILOT_KERNEL,))
+        hot_tries = WINDOW_LOG[-1]["tries"]
         cold_ms, _ = kernel_events(lambda: K.pilot_moments(v),
                                    (PILOT_KERNEL,),
                                    setup=lambda: flush.max())
+        cold_tries = WINDOW_LOG[-1]["tries"]
         check(per_call == 1.0, f"pilot_moments n={n}: {per_call} kernel "
                                f"launches a call, not 1")
         bound = 4 * n / HBM_BYTES_PER_S * 1e3
@@ -958,6 +1039,7 @@ def check_pilot(device, loop_n: int) -> "list[dict]":
                    tolerance=("rel 1e-5; count and min exact; pilot_stats' "
                               "sum (x-c) also 4 n ulps of c"), ms=hot_ms,
                    cold_ms=cold_ms, launches_per_call=per_call,
+                   windows_taken=dict(hot=hot_tries, cold=cold_tries),
                    event_ms=time_ms(lambda: K.pilot_moments(v)),
                    plain_ms=time_ms(lambda: ref.pilot_moments_ref(v)),
                    std_mean_min_ms=time_ms(
@@ -1077,13 +1159,15 @@ def serve_ticks(loop, ex, C, K, ticks, distinct, device, profile_at, folds,
         fc0, sc0, tc0 = folds.count, merges.count, tagged.count
         rt0 = table_s[0]
         prof = profile_tick(device, k in profile_at)
-        t0 = time.perf_counter()
+        # the wall clock inside the window: a profiled tick's excludes
+        # the window's padding
         with prof, D.collective_footprint() as reduces:
+            t0 = time.perf_counter()
             out = loop.tick()
             if device == "cuda":
                 import torch
                 torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
         records.append(dict(
             e=e, wall_s=wall, answered=len(out),
             device_busy_s=device_seconds(prof),
@@ -1105,24 +1189,33 @@ def serve_ticks(loop, ex, C, K, ticks, distinct, device, profile_at, folds,
 
 
 def profile_tick(device: str, on: bool):
-    """A torch.profiler context over one tick (CPU + CUDA activity) when
-    ``on`` and on the card, else a no-op context."""
+    """A torch.profiler context over one tick (CPU + CUDA activity,
+    ``padded_profile``) when ``on`` and on the card, else a no-op
+    context."""
     import contextlib
 
     if not (on and device == "cuda"):
         return contextlib.nullcontext()
-    from torch.profiler import ProfilerActivity, profile
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    from torch.profiler import ProfilerActivity
+    return padded_profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+
+
+def device_events(prof) -> list:
+    """A profiled window's device events (kernels, copies, fills) but the
+    spins that open it or mark a thread (``SPIN``); [] when not
+    profiled."""
+    if not hasattr(prof, "events"):
+        return []
+    return [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+            and SPIN not in e.name]
 
 
 def device_seconds(prof):
     """Seconds of kernel time on the card inside a profiled tick (the sum
     of the device events' durations), None when not profiled or when the
     trace holds no device event."""
-    if not hasattr(prof, "events"):
-        return None
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if str(e.device_type).endswith("CUDA")]
+    spans = [e.time_range.elapsed_us() for e in device_events(prof)]
     return sum(spans) * 1e-6 if spans else None
 
 
@@ -1130,22 +1223,15 @@ def device_kernel_seconds(prof) -> dict:
     """Seconds of device time by kernel name in a profiled window (empty
     when not profiled or when the trace holds no device event)."""
     out = {}
-    if not hasattr(prof, "events"):
-        return out
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            us = e.time_range.elapsed_us()
-            out[e.name] = out.get(e.name, 0.0) + us * 1e-6
+    for e in device_events(prof):
+        out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() * 1e-6
     return out
 
 
 def device_event_count(prof) -> "int | None":
     """How many device events (kernels, copies, fills) a profiled window
     holds, None when not profiled or when the trace holds none."""
-    if not hasattr(prof, "events"):
-        return None
-    n = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
-    return n or None
+    return len(device_events(prof)) or None
 
 
 ISLA_KERNELS = ("isla_fold_kernel", "isla_fold_combine_kernel",
@@ -1158,10 +1244,7 @@ def device_kernel_counts(prof) -> "dict | None":
     profiled window (by the device events' names), and how many sort
     kernels (``sort`` in the name), None when not profiled or when the
     trace holds no device event."""
-    if not hasattr(prof, "events"):
-        return None
-    names = [e.name for e in prof.events()
-             if str(e.device_type).endswith("CUDA")]
+    names = [e.name for e in device_events(prof)]
     if not names:
         return None
     out = {k: sum(1 for n in names if k in n) for k in ISLA_KERNELS}
@@ -1729,7 +1812,8 @@ def answer_key(a) -> str:
 
 def pipe_profile(device: str, on: bool):
     """A profiler over one tick, every thread's ranges included (the
-    launch worker's too), when ``on``; else a no-op context."""
+    launch worker's too), when ``on`` (``padded_profile`` on the card);
+    else a no-op context."""
     import contextlib
 
     if not on:
@@ -1739,7 +1823,8 @@ def pipe_profile(device: str, on: bool):
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                      if device == "cuda" else [])
-    return profile(activities=acts, experimental_config=_ExperimentalConfig(
+    make = padded_profile if device == "cuda" else profile
+    return make(activities=acts, experimental_config=_ExperimentalConfig(
         profile_all_threads=True))
 
 
@@ -1823,15 +1908,15 @@ def pipe_serve(device: str, route: str, n_blocks: int, n_groups: int,
         prof = pipe_profile(device, k in profile_at)
         if k in profile_at:
             time.sleep(PROFILE_GAP_S)
-        t0 = time.perf_counter()
         with prof:
             if k in profile_at:
                 mark_threads(device)
+            t0 = time.perf_counter()
             out = ex.run(qs, rng, route=route, incremental=True,
                          chunk_blocks=chunk_blocks, pipeline=pipeline)
             if device == "cuda":
                 torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
         got = {n: getattr(K, n).launches - before[n] for n in ISLA_LAUNCHES}
         rec = dict(e=e, wall_s=wall, stages_s=dict(ex.last_stage_times),
                    new_samples=sum({a.pass_id: a.new_samples
@@ -2411,15 +2496,17 @@ def dense64_serve(kind, distinct, anchor, ticks, device="cuda",
             prof = profile_tick(device, k in profile_at)
             # The wall clock takes the payload's host build too: the
             # tagged one cuts each key's slice and run table on the host.
-            t0 = time.perf_counter()
+            # It runs inside the window: a profiled tick's excludes the
+            # window's padding.
             with prof:
+                t0 = time.perf_counter()
                 kw = (tagged64_payload(stack, stores, tick, n_groups,
                                        distinct) if kind == "tagged"
                       else dense64_payload(tick, n_groups))
                 stack.tick(params, timings=timings, **kw)
                 if device == "cuda":
                     torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+                wall = time.perf_counter() - t0
             after = (K.isla_fold.launches_f64, K.isla_fold.launches,
                      K.isla_sketch.launches)
             f64, f32, sk = (a - b for a, b in zip(after, before))
@@ -4921,6 +5008,337 @@ def print_train(t: dict, total_bytes: int) -> None:
     print(f"  isla_fold launches in the phase: {t['fold_launches']}")
 
 
+# ---------------------------------------------------------------------------
+# The training CLI ("lm train cli"): python -m repro_torch.launch.train on
+# olmo-1b at full width, a crash between two checkpoints, a resume.
+# ---------------------------------------------------------------------------
+
+CLI_ARCH = "olmo-1b"
+CLI_SHAPE = TRAIN_SHAPE       # the "lm train" phase's olmo-1b steps
+CLI_STEPS = 6
+CLI_EVERY = 4                 # run A commits steps 4 and 6
+CLI_RESUME = 4                # the step run B resumes from
+# Run B's steps and its step-6 checkpoint against run A's: two
+# uninterrupted runs of the CLI on the card agreed bit for bit
+# (tools/train_cli_repeat.py), so they are held bit for bit.
+CLI_TOL = 0.0
+CLI_DIR = ROOT / "_train_cli"  # git-ignored; removed when the phase ends
+CLI_TIMEOUT_S = 900
+CLI_LOG = re.compile(r"^step +(\d+) loss (\d+\.\d{4}) \((\d+\.\d{2})s\) "
+                     r"isla_loss (\d+\.\d{4})$")
+
+
+def cli_argv(ckpt_dir, out=None, resume=False, device="cuda", reduced=False,
+             shape=CLI_SHAPE, steps=CLI_STEPS) -> "list[str]":
+    """The CLI's arguments for the phase's runs."""
+    B, S = shape
+    argv = ["--arch", CLI_ARCH, "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--ckpt-every", str(CLI_EVERY), "--ckpt-dir",
+            str(ckpt_dir), "--log-every", "1", "--telemetry-exact",
+            "--device", device]
+    if out is not None:
+        argv += ["--out", str(out)]
+    if resume:
+        argv.append("--resume")
+    if reduced:
+        argv.append("--reduced")
+    return argv
+
+
+def tree_bytes(cfg) -> int:
+    """Bytes of the trainer's checkpoint tree: the params in their dtype,
+    AdamW's fp32 ``m`` and ``v``, the int32 step."""
+    from repro_torch.models import model as TM
+
+    leaves = _leaves(TM.abstract_params(cfg))
+    return sum(t.numel() * (t.element_size() + 8) for t in leaves) + 4
+
+
+def own_card() -> str:
+    """The smoke's card as ``CUDA_VISIBLE_DEVICES`` names it, so a child
+    process sees that card alone."""
+    import os
+
+    import torch
+
+    idx = torch.cuda.current_device()
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return vis.split(",")[idx] if vis else str(idx)
+
+
+def run_cli(argv, device) -> "tuple[str, float]":
+    """``python -m repro_torch.launch.train`` in a child process (on the
+    card, with the smoke's card its only visible one): (its standard
+    output, its wall seconds).  Fails on a nonzero exit."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if device == "cuda":
+        env["CUDA_VISIBLE_DEVICES"] = own_card()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"lm train cli: the CLI exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+class Timed:
+    """Keeps the seconds of each call of ``<owner>.<name>`` (the card
+    synchronised after it) while installed."""
+
+    def __init__(self, owner, name: str, device):
+        self.owner, self.name, self.device = owner, name, device
+        self.seconds = []
+
+    def __enter__(self):
+        self._real = real = getattr(self.owner, self.name)
+
+        def spy(*args, **kw):
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            sync(self.device)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._real)
+        return False
+
+
+def ckpt_leaves(d: Path) -> "tuple[dict, list]":
+    """A committed checkpoint's manifest and its leaves as raw arrays
+    (memory-mapped; a bf16 leaf as its uint16 bits)."""
+    import numpy as np
+
+    manifest = json.loads((d / "manifest.json").read_text())
+    return manifest, [np.load(d / leaf["file"], mmap_mode="r")
+                      for leaf in manifest["leaves"]]
+
+
+def as_f32(a):
+    """A stored leaf as float32 (uint16-stored bf16 bits widened)."""
+    import numpy as np
+
+    if a.dtype == np.uint16:
+        return (a.astype(np.uint32) << 16).view(np.float32)
+    return np.asarray(a, np.float32)
+
+
+def compare_ckpts(got: Path, want: Path, tol: float) -> dict:
+    """Two committed checkpoints leaf by leaf: the same step, fingerprint,
+    paths, shapes and dtypes, and each leaf's values the same bits (``tol``
+    0) or within ``tol`` of the leaf's largest magnitude."""
+    import numpy as np
+
+    mg, lg = ckpt_leaves(got)
+    mw, lw = ckpt_leaves(want)
+    meta = lambda m: [(x["path"], x["shape"], x["dtype"])
+                      for x in m["leaves"]]
+    check(meta(mg) == meta(mw) and mg["step"] == mw["step"]
+          and mg["fingerprint"] == mw["fingerprint"],
+          f"lm train cli: the step-{mw['step']} checkpoints differ in their "
+          f"manifests")
+    worst, nbytes = 0.0, 0
+    for leaf, a, b in zip(mw["leaves"], lg, lw):
+        nbytes += b.nbytes
+        if np.array_equal(a, b):
+            continue
+        a, b = as_f32(a), as_f32(b)
+        gap = float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                               1e-30)
+        worst = max(worst, gap)
+        check(gap <= tol, f"lm train cli: leaf {leaf['path']} of the "
+                          f"step-{mw['step']} checkpoints parts by {gap:.3g} "
+                          f"of its scale (tol {tol})")
+    return dict(leaves=len(lw), bytes=nbytes, max_rel_gap=worst,
+                step=mw["step"], fingerprint=mw["fingerprint"])
+
+
+def close_metrics(got: dict, want: dict, tol: float) -> float:
+    """The largest relative gap between two history rows (every key but
+    ``dt_s``), held to ``tol``."""
+    check(sorted(got) == sorted(want), f"lm train cli: run B's row keys "
+                                       f"{sorted(got)} != run A's")
+    worst = 0.0
+    for k, w in want.items():
+        if k == "dt_s":
+            continue
+        gap = abs(got[k] - w) / max(abs(w), 1e-30)
+        worst = max(worst, gap)
+        check(gap <= tol, f"lm train cli: step {want['step']}'s {k} is "
+                          f"{got[k]} after the resume, {w} in run A")
+    return worst
+
+
+def train_cli_path(device="cuda", reduced=False, shape=CLI_SHAPE,
+                   root=None) -> dict:
+    """The "lm train cli" phase.  Run A: ``python -m
+    repro_torch.launch.train`` on olmo-1b (full width and depth unless
+    ``reduced``) for ``CLI_STEPS`` steps at ``shape`` with checkpoints
+    every ``CLI_EVERY`` steps, in a child process that sees the smoke's
+    card alone.  Then a crash after step 4's commit, mid-write of step 6:
+    run A's ``step_00000006`` moved aside and a partial
+    ``step_00000006.tmp`` left.  Run B: the CLI's ``run`` in this process
+    with ``--resume``; it must print ``[resume] from step 4``, remove the
+    ``.tmp``, run steps 4 and 5 with one ``isla_fold`` launch each and no
+    other kernel (counts set to 0 just before, read just after) and
+    commit step 6; its rows and its step-6 checkpoint must equal run A's
+    within ``CLI_TOL``.  The checkpoint directory lies under ``root``
+    (``CLI_DIR``), whose free space must hold three trees; it is removed
+    when the phase ends."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.launch import train as TT
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(CLI_ARCH, reduced=reduced)
+    base = Path(root) if root is not None else CLI_DIR
+    d = base / "ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    d.mkdir(parents=True)
+    tb = tree_bytes(cfg)
+    B, S = shape
+    try:
+        free = shutil.disk_usage(d).free
+        check(free >= 3 * tb, f"lm train cli: {free} bytes free under {d}, "
+                              f"fewer than three checkpoints of {tb} bytes")
+        if on_card:
+            torch.cuda.empty_cache()
+        out_a = base / "run_a.json"
+        log_a, a_s = run_cli(cli_argv(d, out=out_a, device=device,
+                                      reduced=reduced, shape=shape), device)
+        a = json.loads(out_a.read_text())["history"]
+        lines = [ln for ln in log_a.splitlines() if ln.startswith("step")]
+        check([r["step"] for r in a] == list(range(CLI_STEPS))
+              and len(lines) == CLI_STEPS
+              and all(CLI_LOG.match(ln) for ln in lines),
+              f"lm train cli: run A logged {lines}, history "
+              f"{[r['step'] for r in a]}")
+        check(sorted(os.listdir(d)) == ["step_00000004", "step_00000006"],
+              f"lm train cli: run A left {sorted(os.listdir(d))}")
+        kept = base / "run_a_step_00000006"
+        os.rename(d / "step_00000006", kept)
+        tmp = d / "step_00000006.tmp"
+        tmp.mkdir()
+        (tmp / "leaf_00000.npy").write_bytes(b"\x93NUMPY\x01\x00")
+
+        args = TT.parser().parse_args(cli_argv(
+            d, resume=True, device=device, reduced=reduced, shape=shape))
+        first = {}
+
+        def at_first_step(real):
+            """The step, noting before the first one the peak memory so
+            far and whether the crash's ``.tmp`` is still there (the
+            step-6 write would remove it later)."""
+            def step(*a, **kw):
+                if not first:
+                    first["tmp"] = tmp.exists()
+                    first["peak"] = (torch.cuda.max_memory_allocated()
+                                     if on_card else None)
+                return real(*a, **kw)
+            return step
+
+        buf = io.StringIO()
+        real_step = TT.train_step
+        TT.train_step = at_first_step(real_step)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() if on_card else None
+        K.reset_launch_counts()
+        try:
+            with Timed(TT.ckpt.AsyncCheckpointer, "submit", device) as subs, \
+                    Timed(TT.ckpt.AsyncCheckpointer, "close", device) as \
+                    closes, Timed(TT.ckpt, "restore", device) as restores, \
+                    contextlib.redirect_stdout(buf):
+                t0 = time.perf_counter()
+                b = TT.run(args)["history"]
+                b_s = time.perf_counter() - t0
+        finally:
+            TT.train_step = real_step
+        launches = train_launches()
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        log_b = buf.getvalue()
+        print(log_b, end="")
+        check(log_b.splitlines()[:1] == [f"[resume] from step {CLI_RESUME}"],
+              f"lm train cli: run B began {log_b.splitlines()[:1]}, not "
+              f"[resume] from step {CLI_RESUME}")
+        check(not first.get("tmp", True), "lm train cli: run B's stray .tmp "
+                                          "was still there at its first step")
+        check([r["step"] for r in b] == list(range(CLI_RESUME, CLI_STEPS)),
+              f"lm train cli: run B ran steps {[r['step'] for r in b]}")
+        check(all(math.isfinite(v) for r in a + b for v in r.values()),
+              "lm train cli: a step is not finite")
+        n_b = CLI_STEPS - CLI_RESUME
+        check(launches["isla_fold"] == n_b and launches["flash_attention"]
+              == launches["other_isla"] == 0,
+              f"lm train cli: run B's {n_b} steps launched {launches}, not "
+              f"one isla_fold a step")
+        check(sorted(os.listdir(d)) == ["step_00000004", "step_00000006"],
+              f"lm train cli: run B left {sorted(os.listdir(d))}")
+        rows_gap = max(close_metrics(g, w, CLI_TOL)
+                       for g, w in zip(b, a[CLI_RESUME:]))
+        cmp = compare_ckpts(d / "step_00000006", kept, CLI_TOL)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return dict(arch=CLI_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                dtype=cfg.param_dtype, shape=[B, S], free_bytes=free,
+                tree_bytes=tb, a_wall_s=a_s, a_steps=a, b_wall_s=b_s,
+                b_steps=b, launches=launches, held_bytes=held,
+                first_step_peak_bytes=first.get("peak"),
+                peak_bytes=peak, submit_s=subs.seconds, close_s=closes.seconds,
+                restore_s=restores.seconds, rows_max_rel_gap=rows_gap,
+                checkpoint=cmp, tolerance=CLI_TOL,
+                fold_launches=launches["isla_fold"])
+
+
+def print_train_cli(c: dict) -> None:
+    """The "lm train cli" phase's figures."""
+    B, S = c["shape"]
+    gib = 2 ** 30
+    print(f"Train CLI, {c['arch']} ({c['n_layers']} layers, d_model "
+          f"{c['d_model']}, {c['dtype']}) at B x S = {B} x {S}: run A "
+          f"(python -m repro_torch.launch.train, {CLI_STEPS} steps, "
+          f"checkpoints every {CLI_EVERY}) {c['a_wall_s']:.2f} s of "
+          f"process; run B (--resume after a crash mid-write of step 6) "
+          f"{c['b_wall_s']:.2f} s; {c['free_bytes'] / 1e9:.1f} GB free for "
+          f"checkpoints of {c['tree_bytes'] / 1e9:.3f} GB")
+    for name, rows in (("A", c["a_steps"]), ("B", c["b_steps"])):
+        print(f"  run {name} step s " + ", ".join(
+            f"{r['step']}: {r['dt_s']:.3f}" for r in rows) + "; tok/s "
+            + ", ".join(f"{B * S / r['dt_s']:.0f}" for r in rows
+                        if r["dt_s"] > 0) + "; loss "
+            + ", ".join(f"{r['loss']:.4f}" for r in rows))
+    ck = c["checkpoint"]
+    peak = c["peak_bytes"]
+    print(f"  run B: restore {', '.join(f'{s:.2f}' for s in c['restore_s'])}"
+          f" s, submit (host copy) "
+          f"{', '.join(f'{s:.2f}' for s in c['submit_s'])} s, close (the "
+          f"write) {', '.join(f'{s:.2f}' for s in c['close_s'])} s; "
+          f"checkpoint {ck['bytes'] / 1e9:.3f} GB in {ck['leaves']} leaves; "
+          + (f"{c['held_bytes'] / gib:.3f} GiB held before it, peak "
+             f"{c['first_step_peak_bytes'] / gib:.2f} GiB before the first "
+             f"step, {peak / gib:.2f} GiB in all; " if peak is not None
+             else "")
+          + f"{json.dumps(c['launches'])} launches")
+    print(f"  run B against run A: rows at steps "
+          f"{CLI_RESUME}-{CLI_STEPS - 1} max rel {c['rows_max_rel_gap']:.3g}, "
+          f"step-{ck['step']} checkpoints max rel {ck['max_rel_gap']:.3g} "
+          f"(tol {c['tolerance']}"
+          + (": bit for bit)" if c["tolerance"] == 0 else ")"))
+
+
 def ptxas_figures(log: str) -> dict:
     """Each function's registers, spill bytes and static shared memory
     from a ``-Xptxas -v`` log."""
@@ -5279,7 +5697,9 @@ def main() -> int:
               + f"; plain {r['plain_ms']:.4f} ms, torch.std_mean + "
               f"torch.min {r['std_mean_min_ms']:.4f} ms; max rel err "
               f"{r['max_rel_err']:.3g} ({r['tolerance']}), two runs "
-              f"identical")
+              f"identical; profiled windows taken: "
+              f"{r['windows_taken']['hot']} (after the upload), "
+              f"{r['windows_taken']['cold']} (L2 flushed)")
         print(f"  pilot_stats_device n={r['n']}: {h['whole']:.4f} ms of "
               f"host time (stages one by one: scale {h['scale']:.4f}, "
               f"upload {h['upload']:.4f}, launch {h['launch']:.4f}, "
@@ -5692,6 +6112,19 @@ def main() -> int:
     train["folds"] = check_telemetry_folds(train.pop("panes"))
     lap("lm train")
     print_train(train, total_bytes)
+    cli = train_cli_path()
+    lap("lm train cli")
+    print_train_cli(cli)
+    tries = [w["tries"] for w in WINDOW_LOG]
+    lost = [PROFILE_LEAD_KERNELS - x["lead_spins"] for w in WINDOW_LOG
+            for x in w["windows"]]
+    print(f"profiled kernel windows: {len(tries)} measurements, "
+          + ", ".join(f"{tries.count(n)} took {n} window(s)"
+                      for n in range(1, PROFILE_TRIES + 1))
+          + f" (each padded by {PROFILE_PAD_S * 1e3:g} ms at both ends and "
+          f"opened by {PROFILE_LEAD_KERNELS} spins); lead spins lost a "
+          f"window: {min(lost)}-{max(lost)}, {sum(1 for n in lost if n)} of "
+          f"{len(lost)} windows lost some")
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}"
                                          for n, t in phase_s.items()))
 
@@ -5700,7 +6133,8 @@ def main() -> int:
     # prefill layer's attention in the olmo-1b, paligemma-3b, grok-1-314b,
     # arctic-480b and jamba runs, replayed on its q, k, v); its launches
     # are the runs' counts added, the mesh and pipelined runs' included
-    # (and isla_fold's the telemetry and training phases' calls).
+    # (and isla_fold's the telemetry and training phases' calls, the
+    # training CLI's resumed run's too).
     def launched(kernel):
         return sum(path["launches"][kernel]
                    for path in runs + mesh_runs + pipe_runs)
@@ -5734,7 +6168,7 @@ def main() -> int:
         dict(name="isla_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:162",
              launches=(launched("isla_fold") + tele_launches
-                       + train["fold_launches"]),
+                       + train["fold_launches"] + cli["fold_launches"]),
              max_abs_err=max(f["max_abs_err"] for f in fold_panes + folds),
              ms=sum(f["ms"] for f in fold_panes),
              plain_ms=sum(f["plain_ms"] for f in fold_panes),
@@ -5815,6 +6249,7 @@ def main() -> int:
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
         vlm_path=vlm, vlm_flash=vflash, moe_paths=moe_runs,
         mamba_path=mamba, jamba_paths=jambas, train_path=train,
+        train_cli=cli, profiled_windows=WINDOW_LOG,
         flash_ptxas=ptxas, flash_sass=sass,
         isla_ptxas=islaptx,
         kernels=kernels),

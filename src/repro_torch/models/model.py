@@ -1,5 +1,5 @@
 """Public model API: init / abstract shapes / train loss / prefill /
-decode / cache.
+decode / cache / abstract cache.
 
 Batch contract (as in ``repro.models.model``):
   train:   {"tokens": (B, S_tok) integer, "labels": (B, S_tok) integer,
@@ -136,3 +136,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     the reference's ``init_cache(dtype=jnp.bfloat16)``): attention k/v and
     Mamba conv tails in ``dtype``, Mamba states ``h`` always fp32."""
     return transformer.init_cache(cfg, batch, max_seq, dtype, device)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16):
+    """``init_cache``'s shapes and dtypes as ``meta`` tensors: attention
+    k/v and Mamba conv tails in ``dtype``, Mamba states ``h`` fp32."""
+    return transformer.abstract_cache(cfg, batch, max_seq, dtype)

@@ -211,6 +211,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     return cache
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16
+                   ) -> List[Dict[str, torch.Tensor]]:
+    """The cache's shapes and dtypes as ``meta`` tensors (the reference's
+    ``eval_shape`` of ``init_cache``): nothing is allocated."""
+    return init_cache(cfg, batch, max_seq, dtype, device="meta")
+
+
 def _forward(cfg: ArchConfig, params: Params, x: torch.Tensor, cache,
              attn_mix, decode: bool) -> Tuple[torch.Tensor, list]:
     """The stack: for every group, every period position's mixer, then its

@@ -753,7 +753,8 @@ class _Prof:
     host's matrix products."""
 
     def __init__(self, n_kernels, products):
-        self._events = [type("E", (), dict(device_type="DeviceType.CUDA"))()
+        self._events = [type("E", (), dict(device_type="DeviceType.CUDA",
+                                           name="kernel"))()
                         for _ in range(n_kernels)]
         self._rows = [_Row("aten::mm", products), _Row("aten::add", 99)]
 
@@ -960,3 +961,76 @@ def test_check_step_pair_finds_a_wrong_moment():
     with pytest.raises(S.SmokeFailure, match=r"v\['embedding'\]"):
         S.check_step_pair("spoiled", 1e-3, 0.9, (p, o._replace(v=v), m),
                           want, S.TRAIN_TOL)
+
+
+# The training CLI phase ("lm train cli") rehearsed on the CPU: reduced
+# olmo-1b at 2 x 64 tokens, run A through the CLI in a child process.
+CLI_SMALL = dict(reduced=True, shape=(2, 64))
+
+
+def test_train_cli_path_on_the_cpu(small_train, tmp_path):
+    """Run A commits steps 4 and 6; after the simulated crash run B
+    resumes from step 4, removes the stray ``.tmp``, launches one fold a
+    step (the plain fold counted) and repeats run A's steps 4 and 5 and
+    its step-6 checkpoint bit for bit; the directory is removed."""
+    r = S.train_cli_path("cpu", root=tmp_path / "cli", **CLI_SMALL)
+    assert [s["step"] for s in r["a_steps"]] == list(range(S.CLI_STEPS))
+    assert [s["step"] for s in r["b_steps"]] == [4, 5]
+    assert r["launches"] == dict(isla_fold=2, flash_attention=0,
+                                 other_isla=0)
+    assert r["rows_max_rel_gap"] == 0 and r["checkpoint"]["max_rel_gap"] == 0
+    assert r["checkpoint"]["step"] == S.CLI_STEPS
+    assert len(r["restore_s"]) == len(r["submit_s"]) == 1
+    assert r["tree_bytes"] >= r["checkpoint"]["bytes"]
+    assert not (tmp_path / "cli").exists()
+    S.print_train_cli(r)
+
+
+@pytest.mark.parametrize("spoil, match", [
+    ("latest", r"began \['step +0 loss .*'\], not \[resume\] from step 4"),
+    ("clean", "stray .tmp was still there at its first step"),
+    ("stale", "not \\[resume\\] from step 4")])
+def test_train_cli_path_fails_on_a_wrong_resume(small_train, monkeypatch,
+                                                tmp_path, spoil, match):
+    """Run B that finds no checkpoint (and starts over from step 0), one
+    that leaves the crash's ``.tmp`` behind, or one that resumes from
+    another step than 4 (here 2: a checkpoint of step 2 slipped in): the
+    phase fails, and still removes its directory."""
+    from repro_torch.train import checkpoint as ckpt
+
+    if spoil == "latest":
+        monkeypatch.setattr(ckpt, "latest_step", lambda d: None)
+    elif spoil == "clean":
+        monkeypatch.setattr(ckpt, "clean_tmp", lambda d: 0)
+    else:
+        real = ckpt.latest_step
+        monkeypatch.setattr(ckpt, "latest_step",
+                            lambda d: min(real(d), 2) if real(d) else None)
+        real_restore = ckpt.restore
+        monkeypatch.setattr(ckpt, "restore", lambda d, step, *a, **kw:
+                            real_restore(d, 4, *a, **kw))
+    with pytest.raises(S.SmokeFailure, match=match):
+        S.train_cli_path("cpu", root=tmp_path / "cli", **CLI_SMALL)
+    assert not (tmp_path / "cli").exists()
+
+
+def test_compare_ckpts_finds_one_changed_bit(tmp_path):
+    """Two checkpoints that differ in one bf16 element: held bit for bit,
+    the comparison fails on that leaf; held to a tolerance above the gap,
+    it passes and reports the gap."""
+    import numpy as np
+    from repro_torch.train import checkpoint as ckpt
+
+    tree = {"a": torch.arange(6, dtype=torch.bfloat16).reshape(2, 3),
+            "b": torch.ones(4)}
+    ckpt.save(str(tmp_path / "x"), 6, tree, fingerprint="f")
+    tree["a"] = tree["a"].clone()
+    tree["a"][1, 2] = 5.0 + 2 ** -5
+    ckpt.save(str(tmp_path / "y"), 6, tree, fingerprint="f")
+    x, y = tmp_path / "x" / "step_00000006", tmp_path / "y" / "step_00000006"
+    assert S.compare_ckpts(x, x, 0.0)["max_rel_gap"] == 0
+    with pytest.raises(S.SmokeFailure, match=r"leaf \['a'\]"):
+        S.compare_ckpts(y, x, 0.0)
+    gap = S.compare_ckpts(y, x, 1e-2)["max_rel_gap"]
+    assert gap == pytest.approx(2 ** -5 / 5, rel=0.1)
+    assert np.isfinite(gap)

@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.train.checkpoint", "repro_torch.train.compression",
               "repro_torch.train.data", "repro_torch.train.elastic",
               "repro_torch.train.optimizer", "repro_torch.train.train_step",
-              "repro_torch.core.tree"):
+              "repro_torch.core.tree", "repro_torch.launch.train",
+              "repro_torch.launch.specs_io"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -52,6 +53,9 @@ def test_every_module_imports_without_jax_or_repro():
             "_train_group_body, forward_train)\n"
             "from repro_torch.models.mamba2 import apply_mamba_train\n"
             "from repro_torch.convert import opt_state_from\n"
+            "from repro_torch.models.model import abstract_cache\n"
+            "from repro_torch.launch.train import run, build_step\n"
+            "from repro_torch.launch.specs_io import input_specs\n"
             "assert 'jax' not in [k for k, v in sys.modules.items() "
             "if v is not None]\n"
             f"print('ok', {len(mods)})\n")
