@@ -239,6 +239,25 @@ step and in all.  The checkpoints live under the git-ignored
 removed when the phase ends.  Its fold launches join the ``kernels``
 line's ``isla_fold``.
 
+Then the sharded train step ("lm train mesh"): olmo-1b at full width
+and depth (bf16, remat, TP on) takes 3 meshless steps at 4 x 1024, then
+the same init and batches through ``launch.train.build_step`` over a
+one-rank ``("data", "model")`` nccl mesh (a ``FileStore`` group,
+destroyed at the end): one ``isla_fold`` launch a step (counts set to 0
+just before, read just after), each step's telemetry replayed under the
+plain fold; the sharded rows and final params and moments must equal the
+meshless ones bit for bit, or else the reason is printed and a
+one-layer fp32 sharded step must hold within ``TRAIN_TOL`` of the
+meshless one.  Its step-2 state is saved (``checkpoint.save`` of the
+DTensors, under the git-ignored ``_train_mesh/``), restored with
+``shardings=`` and stepped again to the same bits.  It prints step
+seconds and peak memory beside the meshless ones.  Where four cards are
+visible (never on a one-card machine) it also spawns four nccl ranks
+(``train_mesh_cards``): a (2, 2) mesh for 3 steps with each rank's peak,
+step time and each collective's count and bytes, the meshless steps and
+a one-layer fp32 pair beside them, and the elastic drill from (2, 2) to
+(1, 2) at step 2.  Its fold launches join the ``kernels`` line's.
+
 Every profiled window (the kernel timings, the profiled ticks and
 steps) is padded by 20 ms of host time at each end, inside the window
 (the card's timestamps part from the host's by up to 0.41 ms, and the
@@ -4386,9 +4405,11 @@ def train_launches() -> dict:
 
 
 def train_run(cfg, tcfg, params, opt, stream, steps, device, start=0,
-              name="lm train"):
+              name="lm train", step_fn=None):
     """``steps`` optimizer steps on ``stream`` from ``start``, each timed
-    (synchronised host clock; the batch drawn and moved before the clock).
+    (synchronised host clock; the batch drawn and moved before the clock),
+    through ``step_fn(params, opt, batch)`` (``train_step`` itself when
+    None; the sharded step of ``launch.train.build_step``).
     The launch counts are set to 0 just before the first step and read
     just after the last.  Fails on a non-finite loss, ``grad_norm`` or
     telemetry, on an ``isla_fold`` count other than one a step, on any
@@ -4401,6 +4422,8 @@ def train_run(cfg, tcfg, params, opt, stream, steps, device, start=0,
     from repro_torch.train import train_step as TS
 
     recs = []
+    if step_fn is None:
+        step_fn = functools.partial(TS.train_step, cfg, tcfg)
     K.reset_launch_counts()
     with Recorder("loss_stats", module=TS) as calls, FoldPanes() as panes:
         panes.on = True
@@ -4408,7 +4431,7 @@ def train_run(cfg, tcfg, params, opt, stream, steps, device, start=0,
             batch = stream.batch_at(step)
             sync(device)
             t0 = time.perf_counter()
-            params, opt, m = TS.train_step(cfg, tcfg, params, opt, batch)
+            params, opt, m = step_fn(params, opt, batch)
             sync(device)
             recs.append(dict(step=step, s=time.perf_counter() - t0,
                              **{k: float(v) for k, v in m.items()}))
@@ -5339,6 +5362,470 @@ def print_train_cli(c: dict) -> None:
           + (": bit for bit)" if c["tolerance"] == 0 else ")"))
 
 
+# The sharded train step ("lm train mesh"): launch.train.build_step over a
+# DeviceMesh, the port's DTensor path.  On every run: olmo-1b at full width
+# through a one-rank ("data", "model") mesh held to the meshless steps of
+# the same init and batches; on a machine with MESH_CARDS cards, also a
+# (2, 2) mesh over them and the elastic drill.
+MESH_ARCH = TRAIN_ARCH
+MESH_SHAPE = TRAIN_SHAPE
+MESH_STEPS = 3
+MESH_CKPT_STEP = 2            # the step whose checkpoint is restored
+MESH_AXES = ("data", "model")
+MESH_CARDS = 4
+MESH_GRID = (2, 2)            # the four-card mesh
+MESH_DRILL_STEPS = 4          # the drill: --fail 2:1 from (2, 2) to (1, 2)
+MESH_DIR = ROOT / "_train_mesh"  # git-ignored; removed when the phase ends
+COLLECTIVE_NS = ("_c10d_functional", "c10d_functional", "c10d")
+COLLECTIVE_OPS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all",
+                  "broadcast")
+
+
+class CollectiveCounter:
+    """While installed, counts each collective the process issues (the
+    functional collectives DTensor redistributes through) by name, with
+    the bytes of its input tensors."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counts = self.counts = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                import torch
+                name = func.__name__.split(".")[0]
+                if func.namespace in COLLECTIVE_NS and any(
+                        k in name for k in COLLECTIVE_OPS):
+                    c = counts.setdefault(name, {"count": 0, "bytes": 0})
+                    c["count"] += 1
+                    c["bytes"] += sum(
+                        a.numel() * a.element_size() for a in args
+                        if isinstance(a, torch.Tensor))
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        return False
+
+
+class OneRankGroup:
+    """A one-rank process group (``nccl`` on the card, ``gloo`` on the
+    CPU) through a ``FileStore`` in a temporary directory, destroyed on
+    exit."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        import tempfile
+
+        import torch
+        import torch.distributed as dist
+
+        self._dir = tempfile.TemporaryDirectory()
+        store = dist.FileStore(str(Path(self._dir.name) / "store"), 1)
+        backend = "nccl" if torch.device(self.device).type == "cuda" \
+            else "gloo"
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        self._dir.cleanup()
+        return False
+
+
+def trees_gap(got, want) -> dict:
+    """Leaf by leaf (the sharded trees gathered whole): how many leaves
+    differ in any bit, and the largest gap over the leaf's largest
+    magnitude."""
+    import torch
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.train.train_step import local_value
+
+    differ, worst, where = 0, 0.0, None
+    for (path, w), g in zip(tree_paths(want), tree_leaves(got)):
+        g, w = local_value(g), local_value(w)
+        if torch.equal(g, w):
+            continue
+        differ += 1
+        gap = float((g.float() - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), 1e-30)
+        if gap >= worst:
+            worst, where = gap, path
+    return dict(leaves=len(tree_leaves(want)), differ=differ,
+                max_rel_gap=worst, worst_leaf=where)
+
+
+def mesh_fp32_pair(device, reduced, shape, mesh, seed=1) -> dict:
+    """Where the bf16 steps are not bit for bit: olmo-1b at full width cut
+    to one layer in fp32, one sharded step on ``mesh`` against one
+    meshless step from the same weights and batch, held by
+    ``check_step_pair`` at ``TRAIN_TOL`` (the "lm train" phase's card
+    tolerance)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TT
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import local_value, train_step
+    from repro_torch.core.tree import tree_map
+
+    cfg = get_config(MESH_ARCH, reduced=reduced).replace(
+        n_layers=1, param_dtype="float32")
+    params = TM.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    B, S = shape
+    batch = SyntheticStream(cfg, batch=B, seq=S, device=device).batch_at(0)
+    tcfg = train_config(lr=1e-3)
+    step_fn, _ = TT.build_step(cfg, tcfg, mesh)
+    got = tree_map(local_value, step_fn(params, init_opt_state(params),
+                                        batch))
+    want = train_step(cfg, tcfg, params, init_opt_state(params), batch)
+    return check_step_pair(f"lm train mesh {MESH_ARCH} (1 layer, fp32)",
+                           tcfg.opt.lr, tcfg.opt.b1, to_device(got, "cpu"),
+                           to_device(want, "cpu"), TRAIN_TOL)
+
+
+def train_mesh_path(device="cuda", reduced=False, shape=MESH_SHAPE,
+                    steps=MESH_STEPS, root=None, seed=0) -> dict:
+    """The "lm train mesh" phase on one card.  olmo-1b (full width and
+    depth, bf16, remat; TP on, as it has at least ``TP_THRESHOLD``
+    parameters) from one seeded init: ``steps`` meshless steps
+    (``train_run``), then the same init and batches through
+    ``launch.train.build_step`` over a one-rank ``MESH_AXES`` mesh (an
+    ``nccl`` group through a ``FileStore``; destroyed at the end), each
+    step's loss telemetry one ``isla_fold`` launch replayed against its
+    plain version.  The sharded steps' rows and final params and moments
+    must equal the meshless ones bit for bit; where they do not, the
+    reason is printed and ``mesh_fp32_pair`` must hold at ``TRAIN_TOL``.
+    The sharded run commits its step-``MESH_CKPT_STEP`` state
+    (``checkpoint.save`` of the DTensors), which is restored with
+    ``shardings=`` and stepped again to the same bits."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import abstract_opt_state, init_opt_state
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(MESH_ARCH, reduced=reduced)
+    B, S = shape
+    stream = SyntheticStream(cfg, batch=B, seq=S, device=device)
+    tcfg = train_config()
+    name = "lm train mesh"
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    p0 = TM.init_params(cfg, torch.Generator(device=device)
+                        .manual_seed(seed))
+    peak_reset()
+    want_p, want_o, want_recs, want_launches, _ = train_run(
+        cfg, tcfg, p0, init_opt_state(p0), stream, steps, device,
+        name=f"{name}: meshless")
+    want_peak = peak()
+    base = Path(root) if root is not None else MESH_DIR
+    shutil.rmtree(base, ignore_errors=True)
+    d = base / "ckpt"
+    d.mkdir(parents=True)
+    try:
+        with OneRankGroup(device):
+            mesh = make_host_mesh((1, 1), MESH_AXES)
+            step_fn, plc = TT.build_step(cfg, tcfg, mesh)
+            peak_reset()
+            k = MESH_CKPT_STEP
+            q, r, recs, launches, panes = train_run(
+                cfg, tcfg, p0, init_opt_state(p0), stream, k, device,
+                name=name, step_fn=step_fn)
+            t0 = time.perf_counter()
+            ckpt.save(str(d), k, {"params": q, "opt": r}, fingerprint=name)
+            save_s = time.perf_counter() - t0
+            q, r, more, more_launches, more_panes = train_run(
+                cfg, tcfg, q, r, stream, steps - k, device, start=k,
+                name=name, step_fn=step_fn)
+            got_peak = peak()
+            recs += more
+            for key in launches:
+                launches[key] += more_launches[key]
+            panes = {**more_panes, **panes}
+            rows = [{key: (g[key], w[key]) for key in w
+                     if key not in ("s", "step", "plain_gap")}
+                    for g, w in zip(recs, want_recs)]
+            rows_same = all(a == b for row in rows for a, b in row.values())
+            gap = trees_gap({"params": q, "opt": r},
+                            {"params": want_p, "opt": want_o})
+            del want_p, want_o
+            fallback = None
+            if not rows_same or gap["differ"]:
+                print(f"{name}: the one-rank mesh steps are not the meshless "
+                      f"steps bit for bit (rows equal: {rows_same}; "
+                      f"{gap['differ']} of {gap['leaves']} leaves differ, "
+                      f"worst {gap['max_rel_gap']:.3g} of scale at "
+                      f"{gap['worst_leaf']}); holding a one-layer fp32 step "
+                      f"pair to {TRAIN_TOL}")
+                fallback = mesh_fp32_pair(device, reduced, TRAIN_CPU_SHAPE,
+                                          mesh)
+            # the committed step, restored onto the mesh and stepped again
+            ap = TM.abstract_params(cfg)
+            like = {"params": ap, "opt": abstract_opt_state(ap)}
+            t0 = time.perf_counter()
+            back, _ = ckpt.restore(str(d), k, like, fingerprint=name,
+                                   shardings={"params": plc.params,
+                                              "opt": plc.opt})
+            restore_s = time.perf_counter() - t0
+            again_p, again_o, again, again_launches, _ = train_run(
+                cfg, tcfg, back["params"], back["opt"], stream, 1, device,
+                start=k, name=f"{name}: restored", step_fn=step_fn)
+            del back
+            if steps == k + 1:
+                replay = trees_gap({"params": again_p, "opt": again_o},
+                                   {"params": q, "opt": r})
+                check(replay["differ"] == 0 and all(
+                    again[0][key] == recs[k][key] for key in again[0]
+                    if key not in ("s", "plain_gap")),
+                      f"{name}: the step-{k} checkpoint restored with "
+                      f"shardings= stepped to other bits: {replay}")
+            del q, r, again_p, again_o
+            placements = sorted({str(s.placements) for s in
+                                 tree_leaves(plc.params)})
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    fold_launches = (want_launches["isla_fold"] + launches["isla_fold"]
+                     + again_launches["isla_fold"])
+    return dict(arch=MESH_ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                dtype=cfg.param_dtype, shape=[B, S], mesh=[1, 1],
+                placements=placements, steps=recs, meshless_steps=want_recs,
+                rows_bit_equal=rows_same, trees=gap, fp32_pair=fallback,
+                launches=launches, peak_bytes=got_peak,
+                meshless_peak_bytes=want_peak, save_s=save_s,
+                restore_s=restore_s, restored_step=again[0],
+                panes=panes, fold_launches=fold_launches)
+
+
+def mesh_card_rank(rank, world, store, out, reduced, shape, steps,
+                   device="cuda"):
+    """One rank of ``train_mesh_cards``: card ``rank``, an ``nccl`` group
+    through the file store.  olmo-1b over a ``MESH_GRID`` mesh for
+    ``steps`` sharded steps (each timed, its collectives counted), rank 0
+    beside them the meshless steps on its card and a one-layer fp32 step
+    pair (``mesh_fp32_pair``); then every rank runs the CLI's ``run``
+    with ``--fail 2:1 --model-parallel 2`` (the elastic drill to (1, 2)
+    at step 2).  Rank 0 writes the JSON ``out``; every rank its peak.
+    ``device="cpu"`` rehearses it on gloo ranks of the CPU."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(1)
+        device = torch.device("cpu")
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    res = {}
+    try:
+        mesh = make_host_mesh(MESH_GRID, MESH_AXES)
+        cfg = get_config(MESH_ARCH, reduced=reduced)
+        B, S = shape
+        stream = SyntheticStream(cfg, batch=B, seq=S, device=device)
+        tcfg = train_config()
+        step_fn, plc = TT.build_step(cfg, tcfg, mesh)
+        p0 = TM.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(0))
+        params, opt = p0, init_opt_state(p0)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        rows = []
+        K.reset_launch_counts()
+        for st in range(steps):
+            batch = stream.batch_at(st)
+            sync(device)
+            t0 = time.perf_counter()
+            with CollectiveCounter() as cc:
+                params, opt, m = step_fn(params, opt, batch)
+            sync(device)
+            rows.append(dict(step=st, s=time.perf_counter() - t0,
+                             collectives=cc.counts,
+                             **{k: float(v) for k, v in m.items()}))
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        folds = K.isla_fold.launches
+        del params, opt
+        peaks, launches = [None] * world, [None] * world
+        dist.all_gather_object(peaks, peak)
+        dist.all_gather_object(launches, folds)
+        res.update(grid=list(MESH_GRID), steps=rows, peaks=peaks,
+                   fold_launches=launches)
+        if rank == 0:
+            p, o = p0, init_opt_state(p0)
+            want = []
+            for st in range(steps):
+                p, o, m = train_step(cfg, tcfg, p, o, stream.batch_at(st))
+                want.append({k: float(v) for k, v in m.items()})
+            res["meshless_steps"] = want
+            del p, o
+        del p0
+        if on_card:
+            torch.cuda.empty_cache()
+        res["fp32_pair"] = mesh_fp32_pair(device, reduced, TRAIN_CPU_SHAPE,
+                                          mesh)
+        drill = Path(out).with_name("drill")
+        argv = ["--arch", MESH_ARCH, "--steps", str(MESH_DRILL_STEPS),
+                "--batch", str(B), "--seq", str(S), "--log-every", "1",
+                "--model-parallel", str(MESH_GRID[1]), "--ckpt-dir",
+                str(drill), "--ckpt-every", "2", "--fail", "2:1",
+                "--telemetry-exact", "--device", device.type] + (
+                    ["--reduced"] if reduced else [])
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist = TT.run(TT.parser().parse_args(argv))["history"]
+        res["drill"] = dict(history=hist, log=buf.getvalue().splitlines(),
+                            s=time.perf_counter() - t0,
+                            files=sorted(p.name for p in drill.iterdir())
+                            if rank == 0 else None)
+        if rank == 0:
+            Path(out).write_text(json.dumps(res, default=str))
+        dist.barrier()        # the ranks the drill dropped wait for the rest
+    finally:
+        dist.destroy_process_group()
+
+
+def train_mesh_cards(reduced=False, shape=MESH_SHAPE, steps=MESH_STEPS,
+                     root=None, device="cuda") -> dict:
+    """``MESH_CARDS`` ranks, one a card (``mesh_card_rank``), over a
+    ``MESH_GRID`` mesh; the results checked: finite steps with one
+    ``isla_fold`` launch a rank a step (each rank's count), the meshless
+    steps' losses beside them (bf16, printed; the fp32 pair held at
+    ``TRAIN_TOL`` in the rank), the drill's rows for steps 0-3 with its
+    elastic line and its checkpoints.  ``device="cpu"`` (with
+    ``reduced``) rehearses it on four gloo ranks."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    base = Path(root) if root is not None else MESH_DIR
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    out = base / "cards.json"
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            mp.spawn(mesh_card_rank, args=(
+                MESH_CARDS, str(Path(d) / "store"), str(out), reduced,
+                tuple(shape), steps, device), nprocs=MESH_CARDS)
+            wall = time.perf_counter() - t0
+        res = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    res["wall_s"] = wall
+    name = "lm train mesh (4 cards)"
+    for r in res["steps"]:
+        check(all(math.isfinite(v) for k, v in r.items()
+                  if k not in ("step", "collectives")),
+              f"{name}: step {r['step']} is not finite: {r}")
+    # the CPU's plain fold launches (and counts) nothing
+    want = steps if device == "cuda" else 0
+    check(res["fold_launches"] == [want] * MESH_CARDS,
+          f"{name}: isla_fold launches a rank {res['fold_launches']} in "
+          f"{steps} steps")
+    dr = res["drill"]
+    check([r["step"] for r in dr["history"]] == list(range(
+        MESH_DRILL_STEPS)), f"{name}: the drill ran steps "
+                            f"{[r['step'] for r in dr['history']]}")
+    check("[elastic] step 2: data axis 2 -> 1 after 1 failures" in dr["log"],
+          f"{name}: the drill printed {dr['log'][:3]}")
+    check(dr["files"] == ["step_00000002", "step_00000004"],
+          f"{name}: the drill left {dr['files']}")
+    return res
+
+
+def gib_text(n) -> str:
+    return "not measured" if n is None else f"{n / 2 ** 30:.2f}"
+
+
+def print_train_mesh(t: dict) -> None:
+    """The "lm train mesh" phase's figures."""
+    B, S = t["shape"]
+    gib = 2 ** 30
+    ms = [r["s"] for r in t["steps"]]
+    ws = [r["s"] for r in t["meshless_steps"]]
+    print(f"Train mesh, {t['arch']} ({t['n_layers']} layers, d_model "
+          f"{t['d_model']}, {t['dtype']}) at B x S = {B} x {S} over a "
+          f"one-rank ('data', 'model') nccl mesh: step s "
+          + ", ".join(f"{x:.3f}" for x in ms) + " (meshless "
+          + ", ".join(f"{x:.3f}" for x in ws) + f"); peak "
+          f"{gib_text(t['peak_bytes'])} GiB (meshless "
+          f"{gib_text(t['meshless_peak_bytes'])}); rows bit for bit: "
+          f"{t['rows_bit_equal']}; trees: {t['trees']['differ']} of "
+          f"{t['trees']['leaves']} leaves differ; isla_fold launches "
+          f"{t['launches']['isla_fold']} in {len(ms)} sharded steps; "
+          f"step-{MESH_CKPT_STEP} checkpoint save {t['save_s']:.2f} s, "
+          f"restore with shardings= {t['restore_s']:.2f} s, stepped again "
+          f"to the same bits; placements {t['placements']}")
+    if t["fp32_pair"] is not None:
+        print(f"  one-layer fp32 pair: {json.dumps(t['fp32_pair'])}")
+    c = t.get("cards")
+    if c is None:
+        print(f"  four-card {MESH_GRID} mesh: not run (fewer than "
+              f"{MESH_CARDS} cards visible)")
+        return
+    print(f"  four cards, {tuple(c['grid'])} mesh: step s "
+          + ", ".join(f"{r['s']:.3f}" for r in c["steps"]) + "; losses "
+          + ", ".join(f"{r['loss']:.6f}" for r in c["steps"])
+          + " (meshless on card 0: " + ", ".join(
+              f"{r['loss']:.6f}" for r in c["meshless_steps"])
+          + "); peak GiB a card " + ", ".join(
+              gib_text(p) for p in c["peaks"])
+          + f"; isla_fold launches a rank {c['fold_launches']}")
+    for r in c["steps"]:
+        print(f"    step {r['step']} collectives (rank 0): " + ", ".join(
+            f"{k} {v['count']} x, {v['bytes'] / 1e6:.1f} MB"
+            for k, v in sorted(r["collectives"].items())))
+    print(f"  one-layer fp32 (2, 2) pair: {json.dumps(c['fp32_pair'])}")
+    dr = c["drill"]
+    print(f"  elastic drill (2, 2) -> (1, 2) at step 2: {dr['s']:.1f} s; "
+          + "; ".join(dr["log"]))
+
+
 def ptxas_figures(log: str) -> dict:
     """Each function's registers, spill bytes and static shared memory
     from a ``-Xptxas -v`` log."""
@@ -6115,6 +6602,12 @@ def main() -> int:
     cli = train_cli_path()
     lap("lm train cli")
     print_train_cli(cli)
+    mesh_train = train_mesh_path()
+    if torch.cuda.device_count() >= MESH_CARDS:
+        mesh_train["cards"] = train_mesh_cards()
+    mesh_train["folds"] = check_telemetry_folds(mesh_train.pop("panes"))
+    lap("lm train mesh")
+    print_train_mesh(mesh_train)
     tries = [w["tries"] for w in WINDOW_LOG]
     lost = [PROFILE_LEAD_KERNELS - x["lead_spins"] for w in WINDOW_LOG
             for x in w["windows"]]
@@ -6134,14 +6627,15 @@ def main() -> int:
     # arctic-480b and jamba runs, replayed on its q, k, v); its launches
     # are the runs' counts added, the mesh and pipelined runs' included
     # (and isla_fold's the telemetry and training phases' calls, the
-    # training CLI's resumed run's too).
+    # training CLI's resumed run's and the sharded steps' too).
     def launched(kernel):
         return sum(path["launches"][kernel]
                    for path in runs + mesh_runs + pipe_runs)
 
     # isla_fold's time sums one replay of each pane: the served ticks',
-    # the telemetry phase's and the training steps' loss telemetry's.
-    fold_panes = served + tfolds + train["folds"]
+    # the telemetry phase's and the training and sharded steps' loss
+    # telemetry's.
+    fold_panes = served + tfolds + train["folds"] + mesh_train["folds"]
     f_bytes = sum(f["bytes_ms"] for f in fold_panes)
     f_ops = sum(f["ops_ms"] for f in fold_panes)
     s_bytes = sum(f["bytes_ms"] for f in merged)
@@ -6168,7 +6662,8 @@ def main() -> int:
         dict(name="isla_fold", route="cuda", source=FOLD_SOURCE,
              replaces="src/repro/kernels/isla_moments.py:162",
              launches=(launched("isla_fold") + tele_launches
-                       + train["fold_launches"] + cli["fold_launches"]),
+                       + train["fold_launches"] + cli["fold_launches"]
+                       + mesh_train["fold_launches"]),
              max_abs_err=max(f["max_abs_err"] for f in fold_panes + folds),
              ms=sum(f["ms"] for f in fold_panes),
              plain_ms=sum(f["plain_ms"] for f in fold_panes),
@@ -6249,7 +6744,7 @@ def main() -> int:
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
         vlm_path=vlm, vlm_flash=vflash, moe_paths=moe_runs,
         mamba_path=mamba, jamba_paths=jambas, train_path=train,
-        train_cli=cli, profiled_windows=WINDOW_LOG,
+        train_cli=cli, train_mesh=mesh_train, profiled_windows=WINDOW_LOG,
         flash_ptxas=ptxas, flash_sass=sass,
         isla_ptxas=islaptx,
         kernels=kernels),

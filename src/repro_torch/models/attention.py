@@ -22,9 +22,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
+from ..sharding.context import head_plan, plan_placements, run_local
 from .layers import apply_rope, normal, pdtype
 
 Params = Dict[str, torch.Tensor]
@@ -160,14 +162,32 @@ def attention_train(cfg: ArchConfig, params: Params, x: torch.Tensor,
     (``_gqa_out``); at ``S >= BLOCKED_THRESHOLD`` with ``S % 1024 == 0``
     the blocked online softmax at block 1024, as in the reference."""
     q, k, v = _project_qkv(cfg, params, x, positions)
-    S = x.shape[1]
-    if S >= BLOCKED_THRESHOLD and S % 1024 == 0:
-        out = _blocked_attention(q, k, v, positions, block=1024)
+    if isinstance(q, DTensor):
+        # DTensor has no rule for the scores' einsum over split heads
+        # (it flattens batch and KV heads): batch and heads are
+        # independent, so the core runs on each rank's own ones
+        plan = head_plan(q, 0, (q.shape[2], k.shape[2]))
+        qkv = plan_placements(plan, 0, 2)
+        out = run_local(_attention_core, q.device_mesh,
+                        (q, k, v, positions),
+                        (qkv, qkv, qkv, plan_placements(plan, 0)),
+                        (plan_placements(plan, 0, 2),))
     else:
-        causal = positions[:, None, :, None] >= positions[:, None, None, :]
-        probs = torch.softmax(_masked(_gqa_scores(q, k), causal), dim=-1)
-        out = _gqa_out(probs, v, x.dtype)
+        out = _attention_core(q, k, v, positions)
     return out @ params["wo"]
+
+
+def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H*hd) in q's dtype: dense
+    causal scores, or the blocked online softmax at and above
+    ``BLOCKED_THRESHOLD`` tokens."""
+    S = q.shape[1]
+    if S >= BLOCKED_THRESHOLD and S % 1024 == 0:
+        return _blocked_attention(q, k, v, positions, block=1024)
+    causal = positions[:, None, :, None] >= positions[:, None, None, :]
+    probs = torch.softmax(_masked(_gqa_scores(q, k), causal), dim=-1)
+    return _gqa_out(probs, v, q.dtype)
 
 
 def _blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -15,8 +15,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ArchConfig
+from ..sharding.context import run_local
 
 Params = Dict[str, torch.Tensor]
 F32 = torch.float32
@@ -135,7 +137,17 @@ def init_embed(cfg: ArchConfig, gen: torch.Generator) -> Params:
 
 def embed_tokens(cfg: ArchConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens]
+    table = params["embedding"]
+    if isinstance(table, DTensor):
+        # DTensor's rules for an indexed read of a split table (and its
+        # backward, index_put) fail: each rank reads its own batch rows
+        # from the whole table
+        rows = tuple(p if isinstance(p, Shard) and p.dim == 0
+                     else Replicate() for p in tokens.placements)
+        return run_local(lambda t, tok: t[tok], table.device_mesh,
+                         (table, tokens),
+                         ((Replicate(),) * len(rows), rows), (rows,))
+    return table[tokens]
 
 
 def lm_logits(cfg: ArchConfig, params: Params,
@@ -174,7 +186,15 @@ def chunked_ce_loss(cfg: ArchConfig, params: Params, x: torch.Tensor,
         sl = slice(c * chunk, (c + 1) * chunk)
         logits = (x[:, sl] @ head.T).to(F32)                # (B, chunk, V)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+        if isinstance(logits, DTensor):
+            # DTensor's gather on vocab-sharded logits has no working
+            # rule: the gold logit as a masked sum over the vocab (the
+            # reference's one-hot contraction; the same fp32 value)
+            vocab = torch.arange(logits.shape[-1], device=x.device)
+            gold = torch.where(labels[:, sl, None] == vocab, logits,
+                               0.0).sum(-1)
+        else:
+            gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
         toks.append((logz - gold) * mask[:, sl])
     per_token = torch.cat(toks, dim=1)
     return per_token.sum(), per_token

@@ -41,9 +41,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
-from ..sharding.context import constrain_heads
+from ..sharding.context import (constrain_heads, head_plan, plan_placements,
+                                run_local)
 from .layers import normal, pdtype
 
 Params = Dict[str, torch.Tensor]
@@ -231,13 +233,77 @@ def _mamba_forward(cfg: ArchConfig, params: Params, x: torch.Tensor,
     (B,K-1,conv_dim), or None for a prefill of fewer than K-1 tokens, as
     in the reference).  ``conv0`` (decode) is the cached conv tail."""
     m = _mcfg(cfg)
-    Bsz, S, _ = x.shape
-    H, P, N, G = m.n_heads, m.head_dim, m.d_state, m.n_groups
     z = x @ params["wz"]
     xs = x @ params["wx"]
     Bs = x @ params["wB"]
     Cs = x @ params["wC"]
     dth = x @ params["wdt"]
+    if isinstance(xs, DTensor):
+        # DTensor has no rule for the convs' pad nor the SSD's einsums
+        # over split heads: the training mixer runs on each rank's own
+        # batch rows and heads (the reference's constrain_heads layout)
+        y, h_final, new_conv = _local_conv_ssd(cfg, params, xs, Bs, Cs, dth)
+    else:
+        y, h_final, new_conv = _conv_ssd(
+            cfg, {k: params[k] for k in _CORE}, xs, Bs, Cs, dth, h0, conv0)
+    # gated RMSNorm
+    yf = y.to(F32) * F.silu(z.to(F32))
+    ms = (yf * yf).mean(dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(ms + 1e-6) * params["norm_scale"].to(F32)
+    out = yf.to(x.dtype) @ params["out_proj"]
+    return out, h_final, new_conv
+
+
+# The params of the convs and the scan (``_conv_ssd``), and the dim of each
+# that a head-parallel region splits (None: every head reads it whole).
+_CORE = ("conv_x_w", "conv_x_b", "conv_B_w", "conv_B_b", "conv_C_w",
+         "conv_C_b", "dt_bias", "A_log", "D")
+_CORE_HEAD_DIM = {"conv_x_w": 1, "conv_x_b": 0, "dt_bias": 0, "A_log": 0,
+                  "D": 0}
+_CORE_GROUP_DIM = {"conv_B_w": 1, "conv_B_b": 0, "conv_C_w": 1,
+                   "conv_C_b": 0}
+
+
+def _local_conv_ssd(cfg: ArchConfig, params: Params, xs, Bs, Cs, dth):
+    """``_conv_ssd`` of a training forward (no state in) on DTensors, run
+    on this rank's batch rows and heads: (y, h_final, None) as DTensors.
+    The B/C streams are split with the heads only where there are several
+    groups (each group's heads together); one group is read whole."""
+    m = _mcfg(cfg)
+    groups = m.n_groups
+    plan = head_plan(xs, 0, (m.n_heads,) + ((groups,) if groups > 1
+                                              else ()))
+    bc_dim = 2 if groups > 1 else None
+    heads = plan_placements(plan, 0, 2)
+    bc = plan_placements(plan, 0, bc_dim)
+    pl = [plan_placements(plan, None, _CORE_HEAD_DIM.get(k) if
+                          k in _CORE_HEAD_DIM else
+                          (_CORE_GROUP_DIM[k] if groups > 1 else None))
+          for k in _CORE]
+
+    def core(xs, Bs, Cs, dth, *ps):
+        y, h, _ = _conv_ssd(cfg, dict(zip(_CORE, ps)), xs, Bs, Cs, dth,
+                            None, None)
+        return y, h
+
+    y, h = run_local(core, xs.device_mesh,
+                     (xs, Bs, Cs, dth, *(params[k] for k in _CORE)),
+                     (heads, bc, bc, heads, *pl),
+                     (heads, plan_placements(plan, 0, 1)))
+    return y, h, None
+
+
+def _conv_ssd(cfg: ArchConfig, params: Params, xs, Bs, Cs, dth,
+              h0: Optional[torch.Tensor], conv0: Optional[torch.Tensor]):
+    """The projected streams (xs (B,S,H*P), Bs/Cs (B,S,G*N), dth (B,S,H))
+    through the causal convs and the SSD scan: (y (B,S,H*P) with the D
+    skip, h_final (B,H,N,P) fp32, the new conv tail).  Head and group
+    counts are read off the streams, so a rank's own heads run alone."""
+    m = _mcfg(cfg)
+    Bsz, S, _ = xs.shape
+    H = dth.shape[-1]
+    P, N = m.head_dim, m.d_state
+    G = Bs.shape[-1] // N
 
     def joined(tail, stream):  # jnp.concatenate's type promotion
         dt_ = torch.promote_types(tail.dtype, stream.dtype)
@@ -265,7 +331,7 @@ def _mamba_forward(cfg: ArchConfig, params: Params, x: torch.Tensor,
                     if S >= tail_len else None)
 
     def silu(t):
-        return F.silu(t.to(F32)).to(x.dtype)
+        return F.silu(t.to(F32)).to(xs.dtype)
 
     xc, Bc, Cc = silu(xc), silu(Bc), silu(Cc)
     xh = constrain_heads(xc.reshape(Bsz, S, H, P), head_dim=2)
@@ -280,13 +346,7 @@ def _mamba_forward(cfg: ArchConfig, params: Params, x: torch.Tensor,
     y, h_final = ssd_chunked(xh, da, dt, Bm, Cm, m.chunk, h0=h0)
     y = y + xh.to(F32).to(y.dtype) \
         * params["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(Bsz, S, m.d_inner)
-    # gated RMSNorm
-    yf = y.to(F32) * F.silu(z.to(F32))
-    ms = (yf * yf).mean(dim=-1, keepdim=True)
-    yf = yf * torch.rsqrt(ms + 1e-6) * params["norm_scale"].to(F32)
-    out = yf.to(x.dtype) @ params["out_proj"]
-    return out, h_final, new_conv
+    return y.reshape(Bsz, S, H * P), h_final, new_conv
 
 
 def mamba_state_shapes(cfg: ArchConfig, batch: int):

@@ -87,7 +87,8 @@ def train_loss(cfg: ArchConfig, params: Params, batch, constraint=None
     x, positions, mask = _assemble_inputs(cfg, params, batch)
     x, aux = transformer.forward_train(cfg, params, x, positions,
                                        constraint=constraint)
-    x = apply_norm(cfg, params.get("final_norm", {}), x)
+    x = transformer._seq_whole(apply_norm(cfg, params.get("final_norm", {}),
+                                          x))
     # labels over the full sequence: prefix positions are masked anyway
     labels = batch["labels"]
     if cfg.frontend is not None:

@@ -25,9 +25,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
-from ..sharding.context import constrain_expert_parallel
+from ..sharding.context import constrain_expert_parallel, run_local
 from .layers import apply_mlp, init_mlp, normal, pdtype
 
 Params = Dict[str, torch.Tensor]
@@ -97,6 +98,53 @@ def _expert_ffn(cfg: ArchConfig, params: Params,
     # jax.nn.gelu defaults to the tanh approximation.
     h = F.gelu(h.to(F32), approximate="tanh").to(xe.dtype)
     return torch.einsum("egcf,efd->egcd", h, params["w_out"])
+
+
+def _local_moe(cfg: ArchConfig, params: Params, xt: torch.Tensor,
+               dispatch: torch.Tensor, combine: torch.Tensor
+               ) -> torch.Tensor:
+    """The dispatch, expert and combine products on DTensors, run on each
+    rank's own groups and experts (DTensor has no rule for their einsums
+    over split experts: they flatten them with the slots).  The layout is
+    ``constrain_expert_parallel``'s: groups over the dp axes and experts
+    over "model" where they divide; where the experts do not, the
+    expert-internal TP of the weights' spec (ff over "model").  Each rank
+    combines its own experts (or ff slices), so the (G, Tg, d) output is a
+    partial sum over "model"."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = xt.device_mesh
+    G, E = dispatch.shape[0], dispatch.shape[2]
+    up = ("w_gate", "w_up") if cfg.mlp == "swiglu" else ("w_in",)
+    down = "w_down" if cfg.mlp == "swiglu" else "w_out"
+    ff = params[down].shape[1]
+    # per mesh dim: (xt, dispatch and combine, up weights, down weight, out)
+    plan, dp = [], 1
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if name == "model" and E % n == 0:
+            plan.append((Replicate(), Shard(2), Shard(0), Shard(0),
+                         Partial()))
+        elif name == "model" and ff % n == 0:
+            plan.append((Replicate(), Replicate(), Shard(2), Shard(1),
+                         Partial()))
+        elif name in ("pod", "data") and G % (dp * n) == 0:
+            dp *= n
+            plan.append((Shard(0), Shard(0), Replicate(), Replicate(),
+                         Shard(0)))
+        else:
+            plan.append((Replicate(),) * 5)
+    x_pl, dc_pl, up_pl, down_pl, out_pl = (tuple(c) for c in zip(*plan))
+    names = up + (down,)
+
+    def moe(xt, dispatch, combine, *ws):
+        xe = torch.einsum("gtd,gtec->egcd", xt, dispatch)
+        ye = _expert_ffn(cfg, dict(zip(names, ws)), xe)
+        return torch.einsum("egcd,gtec->gtd", ye, combine)
+
+    return run_local(moe, mesh, (xt, dispatch, combine,
+                                 *(params[k] for k in names)),
+                     (x_pl, dc_pl, dc_pl) + (up_pl,) * len(up)
+                     + (down_pl,), (out_pl,))
 
 
 def _route(cfg: ArchConfig, logits: torch.Tensor
@@ -189,11 +237,15 @@ def apply_moe(cfg: ArchConfig, params: Params, x: torch.Tensor
     if fac > 1:
         dispatch = _repeat_experts(dispatch, fac)
         combine = _repeat_experts(combine, fac)
-    xe = torch.einsum("gtd,gtec->egcd", xt, dispatch)            # (E',G,C,d)
-    xe = constrain_expert_parallel(xe)
-    ye = _expert_ffn(cfg, params, xe)
-    ye = constrain_expert_parallel(ye)
-    yt = torch.einsum("egcd,gtec->gtd", ye, combine.to(x.dtype))  # (G,Tg,d)
+    if isinstance(xt, DTensor):
+        yt = _local_moe(cfg, params, xt, dispatch, combine.to(x.dtype))
+    else:
+        xe = torch.einsum("gtd,gtec->egcd", xt, dispatch)        # (E',G,C,d)
+        xe = constrain_expert_parallel(xe)
+        ye = _expert_ffn(cfg, params, xe)
+        ye = constrain_expert_parallel(ye)
+        yt = torch.einsum("egcd,gtec->gtd", ye,
+                          combine.to(x.dtype))                    # (G,Tg,d)
     y = yt.reshape(B, S, d)
 
     if m.dense_residual:

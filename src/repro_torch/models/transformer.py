@@ -38,6 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
+from ..sharding.context import like_layout, unshard_dim
 from . import attention as attn
 from . import mamba2, moe
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
@@ -174,11 +175,20 @@ def _channel(cfg: ArchConfig, pos: int, bp: Params, x: torch.Tensor
     _, channel = position_kind(cfg, pos)
     if channel == "none":
         return x, {}
-    h = apply_norm(cfg, bp.get("ln2", {}), x)
+    h = _seq_whole(apply_norm(cfg, bp.get("ln2", {}), x))
     if channel == "moe":
         y, aux = moe.apply_moe(cfg, bp["moe"], h)
-        return x + y, aux
-    return x + apply_mlp(cfg, bp["mlp"], h), {}
+        return x + like_layout(y, x), aux
+    return x + like_layout(apply_mlp(cfg, bp["mlp"], h), x), {}
+
+
+def _seq_whole(h: torch.Tensor) -> torch.Tensor:
+    """A normed (B, S, d) input gathered on S before the mixer's, the
+    channel's or the head's products (Megatron-SP's all-gather after the
+    norm: the
+    activation constraint splits the residual stream on S, and DTensor
+    cannot flatten (B, S) with S split).  A plain tensor as it is."""
+    return unshard_dim(h, 1)
 
 
 def _apply_channel(cfg: ArchConfig, pos: int, bp: Params,
@@ -282,13 +292,13 @@ def _train_group_body(cfg: ArchConfig, constraint, x: torch.Tensor,
         if constraint is not None:
             x = constraint(x)
         x = grad_boundary(x)
-        h = apply_norm(cfg, bp.get("ln1", {}), x)
+        h = _seq_whole(apply_norm(cfg, bp.get("ln1", {}), x))
         mixer, _ = position_kind(cfg, pos)
         if mixer == "attn":
             y = attn.attention_train(cfg, bp["attn"], h, positions)
         else:
             y = mamba2.apply_mamba_train(cfg, bp["mamba"], h)
-        x, a = _channel(cfg, pos, bp, x + y)
+        x, a = _channel(cfg, pos, bp, x + like_layout(y, x))
         if a:
             aux = {k: aux.get(k, 0.0) + v for k, v in a.items()
                    if not k.endswith("probs")}
@@ -300,8 +310,10 @@ def _unbind(tree: Params, groups: int) -> List[Params]:
     (one ``unbind`` a leaf: its backward stacks the groups' grads once)."""
     out: List[Params] = [{} for _ in range(groups)]
     for k, v in tree.items():
+        # DTensor has no unbind of a split dim: an FSDP-sharded group
+        # stack is gathered first (the all-gather at use)
         parts = (_unbind(v, groups) if isinstance(v, dict)
-                 else v.unbind(0))
+                 else unshard_dim(v, 0).unbind(0))
         for g in range(groups):
             out[g][k] = parts[g]
     return out

@@ -18,6 +18,14 @@ Failure atomicity: a crash mid-write leaves only a ``.tmp`` dir, which
 ``latest_step`` ignores and ``clean_tmp`` removes.  Recovery restores the
 last committed checkpoint and replays the step-indexed data stream from
 that step.
+
+Sharded trees (DTensor leaves, the sharded train step's): a save gathers
+each leaf whole with ``full_tensor()``, every rank of its mesh taking
+part on the calling thread, and rank 0 of the process group alone
+writes, in the same format.  ``restore(..., shardings=)`` re-shards on
+load: every rank reads each leaf whole and keeps its own shard of the
+placements given, on any mesh (the elastic recovery's smaller one) or
+none.
 """
 from __future__ import annotations
 
@@ -30,9 +38,30 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core.distributed import resolve_device
-from ..core.tree import tree_map, tree_paths, tree_unflatten
+from ..core.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the process
+    group, or the one process when none is up."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _host_copy(tree):
+    """The tree's tensors copied to the host (a DTensor gathered whole
+    first: a collective), so later writes to its tensors do not reach
+    the checkpoint."""
+    def copy(x):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        if isinstance(x, torch.Tensor):
+            return x.detach().to("cpu", copy=True)
+        return x
+    return tree_map(copy, tree)
 
 
 def _host_array(leaf) -> np.ndarray:
@@ -53,9 +82,14 @@ def _logical_dtype(leaf, arr: np.ndarray) -> str:
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None,
          fingerprint: str = "") -> str:
-    """Synchronous atomic save.  Returns the committed directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Synchronous atomic save.  Returns the committed directory.  Every
+    rank calls it for a tree with DTensor leaves; rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if any(isinstance(x, DTensor) for _, x in tree_paths(tree)):
+        tree = _host_copy(tree)
+    if not _writes():
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -117,10 +151,17 @@ def _tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, step: int, like_tree, device="cuda",
-            fingerprint: Optional[str] = None):
+            fingerprint: Optional[str] = None, shardings=None):
     """Restore into the structure of ``like_tree`` (tensors, ``meta`` ones
     included), each leaf in its like's dtype on ``device`` (the card
-    unless the caller asks for the CPU).  Returns (tree, manifest)."""
+    unless the caller asks for the CPU).  ``shardings``: a matching tree
+    of ``sharding.MeshSharding`` for elastic re-shard-on-load, each leaf
+    then a DTensor on its mesh's device (every rank of the mesh calls
+    it).  Returns (tree, manifest)."""
+    sh_flat = (tree_leaves(shardings) if shardings is not None
+               else [None] * len(tree_paths(like_tree)))
+    if shardings is not None:
+        device = _mesh_device(sh_flat[0].mesh)
     dev = resolve_device(device)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.json")) as f:
@@ -131,7 +172,8 @@ def restore(ckpt_dir: str, step: int, like_tree, device="cuda",
             f"{fingerprint!r} — refusing to restore a different config")
     by_path = {l["path"]: l for l in manifest["leaves"]}
     out = []
-    for path, like in tree_paths(like_tree):
+    for (path, like), sh in zip(tree_paths(like_tree), sh_flat,
+                                strict=True):
         entry = by_path.get(path)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {path}")
@@ -139,14 +181,23 @@ def restore(ckpt_dir: str, step: int, like_tree, device="cuda",
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(
                 f"{path}: shape {arr.shape} != expected {tuple(like.shape)}")
-        out.append(_tensor(arr, entry["dtype"]).to(device=dev,
-                                                    dtype=like.dtype))
+        t = _tensor(arr, entry["dtype"]).to(device=dev, dtype=like.dtype)
+        out.append(t if sh is None else sh.place(t))
     return tree_unflatten(like_tree, out), manifest
+
+
+def _mesh_device(mesh) -> torch.device:
+    """The device a rank of ``mesh`` holds its shards on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 class AsyncCheckpointer:
     """Background writer thread: ``submit`` returns once the tree is copied
-    to the host; commits happen in order.  ``wait()`` drains the queue."""
+    to the host; commits happen in order.  ``wait()`` drains the queue.
+    Under a process group every rank submits (a DTensor tree is gathered
+    on the calling thread) and rank 0 alone queues the write."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
@@ -181,10 +232,9 @@ class AsyncCheckpointer:
     def submit(self, step: int, tree, extra=None, fingerprint: str = ""):
         # the host copy on the caller thread: later in-place writes to the
         # tree's tensors do not reach the checkpoint
-        host_tree = tree_map(
-            lambda x: (x.detach().to("cpu", copy=True)
-                       if isinstance(x, torch.Tensor) else x), tree)
-        self._q.put((int(step), host_tree, extra, fingerprint))
+        host_tree = _host_copy(tree)
+        if _writes():
+            self._q.put((int(step), host_tree, extra, fingerprint))
 
     def wait(self):
         self._q.join()

@@ -1034,3 +1034,98 @@ def test_compare_ckpts_finds_one_changed_bit(tmp_path):
     gap = S.compare_ckpts(y, x, 1e-2)["max_rel_gap"]
     assert gap == pytest.approx(2 ** -5 / 5, rel=0.1)
     assert np.isfinite(gap)
+
+
+# The sharded train step phase ("lm train mesh") rehearsed on the CPU:
+# reduced olmo-1b at 2 x 64 tokens over a one-rank gloo mesh.
+MESH_SMALL = dict(reduced=True, shape=(2, 64))
+
+
+def test_train_mesh_path_on_the_cpu(small_train, monkeypatch, tmp_path):
+    """Three meshless steps, then the same init and batches through
+    ``build_step`` over a one-rank mesh (TP on, as olmo-1b's on the card):
+    one fold a step (the plain fold counted), rows and final trees the
+    meshless ones bit for bit; the step-2 checkpoint restored with
+    ``shardings=`` steps to the same bits; the group is gone and the
+    directory removed."""
+    import torch.distributed as dist
+    from repro_torch.sharding import specs as SP
+    monkeypatch.setattr(SP, "TP_THRESHOLD", 0)
+    r = S.train_mesh_path("cpu", root=tmp_path / "mesh", **MESH_SMALL)
+    assert [s["step"] for s in r["steps"]] == list(range(S.MESH_STEPS))
+    assert r["launches"] == dict(isla_fold=S.MESH_STEPS, flash_attention=0,
+                                 other_isla=0)
+    assert r["fold_launches"] == 2 * S.MESH_STEPS + 1
+    # torch's CPU kernels may round one metric an ulp apart between two
+    # runs in a process (``tests/test_torch_launch_train.py``): then the
+    # phase has held the fp32 pair instead
+    assert (r["rows_bit_equal"] and r["trees"]["differ"] == 0) or \
+        r["fp32_pair"]["params"] <= S.TRAIN_TOL
+    assert r["restored_step"]["loss"] == r["steps"][S.MESH_CKPT_STEP]["loss"]
+    assert "(Replicate(), Shard(dim=2))" in r["placements"]
+    assert not dist.is_initialized()
+    assert not (tmp_path / "mesh").exists()
+    r["folds"] = []
+    S.print_train_mesh(r)
+
+
+def test_train_mesh_fp32_pair_holds_on_the_cpu(small_train):
+    """The fallback the phase takes when its bf16 steps are not bit for
+    bit: a one-layer fp32 sharded step against the meshless one, held by
+    ``check_step_pair``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    with S.OneRankGroup("cpu"):
+        mesh = make_host_mesh((1, 1), S.MESH_AXES)
+        gaps = S.mesh_fp32_pair("cpu", True, (2, 64), mesh)
+    assert gaps["params"] <= S.TRAIN_TOL
+
+
+def test_train_mesh_fails_on_steps_that_part(small_train, monkeypatch,
+                                             tmp_path):
+    """A sharded step whose params part from the meshless ones (a spoiled
+    update) is reported and sent to the fp32 pair, which then fails; the
+    directory is still removed and the group destroyed."""
+    import torch.distributed as dist
+    from repro_torch.train import train_step as TS
+    real = TS.make_jit_train_step
+
+    def spoiled(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(params, opt, batch):
+            p, o, m = step(params, opt, batch)
+            m["loss"] = m["loss"] * 1.01
+            return p, o, m
+        return run
+
+    monkeypatch.setattr(TS, "make_jit_train_step", spoiled)
+    import repro_torch.launch.train as TT
+    monkeypatch.setattr(TT, "make_jit_train_step", spoiled)
+    with pytest.raises(S.SmokeFailure, match="loss"):
+        S.train_mesh_path("cpu", root=tmp_path / "mesh", **MESH_SMALL)
+    assert not dist.is_initialized()
+    assert not (tmp_path / "mesh").exists()
+
+
+def test_train_mesh_cards_on_four_gloo_ranks(tmp_path):
+    """The four-card part rehearsed on four gloo ranks of the CPU (reduced
+    olmo-1b, TP off below its threshold): finite sharded steps (the
+    plain fold launches nothing on the CPU), the collectives
+    counted, the one-layer fp32 pair held, the drill from (2, 2) to
+    (1, 2) at step 2 with its checkpoints; the directory removed."""
+    r = S.train_mesh_cards(reduced=True, shape=(4, 64), root=tmp_path / "m",
+                           device="cpu")
+    assert r["grid"] == [2, 2] and len(r["steps"]) == S.MESH_STEPS
+    assert r["fold_launches"] == [0] * S.MESH_CARDS     # the plain fold
+    assert r["fp32_pair"]["params"] <= S.TRAIN_TOL
+    assert any(v["count"] for st in r["steps"]
+               for v in st["collectives"].values())
+    assert [h["step"] for h in r["drill"]["history"]] == [0, 1, 2, 3]
+    assert not (tmp_path / "m").exists()
+    S.print_train_mesh(dict(
+        shape=[4, 64], arch="olmo-1b", n_layers=2, d_model=128,
+        dtype="float32", steps=[], meshless_steps=[], peak_bytes=None,
+        meshless_peak_bytes=None, rows_bit_equal=True,
+        trees=dict(differ=0, leaves=25), launches=dict(isla_fold=0),
+        save_s=0.0, restore_s=0.0, placements=[], fp32_pair=None,
+        cards=r))

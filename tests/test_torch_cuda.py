@@ -1643,3 +1643,58 @@ def test_train_step_on_cuda_matches_cpu_without_sync(cuda, arch,
     print(f"{arch}: {flipped} near-tie tokens took another expert; worst "
           f"gaps of scale {json.dumps(worst)}")
     assert not fails, fails
+
+
+def test_one_rank_mesh_step_on_cuda_is_the_meshless_step(cuda, monkeypatch):
+    """Reduced olmo-1b in fp32 with remat and TP on (its threshold set to
+    0, as olmo-1b's own size turns it on): two steps of
+    ``launch.train.build_step`` over a one-rank ``("data", "model")``
+    nccl mesh (a ``FileStore`` process group) equal the meshless
+    ``train_step``'s from the same weights and batches bit for bit, rows
+    and trees, with one ``isla_fold`` launch a step."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.sharding import specs as SP
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_step import (TrainConfig, local_value,
+                                              train_step)
+
+    monkeypatch.setattr(SP, "TP_THRESHOLD", 0)
+    cfg = get_config("olmo-1b", reduced=True).replace(param_dtype="float32",
+                                                      remat=True)
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                           total_steps=2),
+                       telemetry_exact=True)
+    params = TM.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    stream = SyntheticStream(cfg, batch=4, seq=64, device=cuda)
+    p, o = params, init_opt_state(params)
+    want = []
+    for st in range(2):
+        p, o, m = train_step(cfg, tcfg, p, o, stream.batch_at(st))
+        want.append({k: float(v) for k, v in m.items()})
+    with tempfile.TemporaryDirectory() as d:
+        store = dist.FileStore(f"{d}/store", 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh((1, 1), ("data", "model"))
+            step_fn, _ = TT.build_step(cfg, tcfg, mesh)
+            q, r = params, init_opt_state(params)
+            K.reset_launch_counts()
+            got = []
+            for st in range(2):
+                q, r, m = step_fn(q, r, stream.batch_at(st))
+                got.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            assert K.isla_fold.launches == 2
+            assert got == want
+            for a, b in zip(tree_leaves((q, r)), tree_leaves((p, o))):
+                assert torch.equal(local_value(a), b)
+        finally:
+            dist.destroy_process_group()

@@ -285,22 +285,31 @@ def test_microbatches_run():
     close_rows(two["history"], one["history"], 1e-5, list(range(STEPS)))
 
 
-def test_more_than_one_device_names_item_12(monkeypatch):
-    """Two visible cards would build the reference's mesh: the port
-    raises, naming the item that ports it, before it allocates anything;
-    it never trains on one card of several."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    made = []
-    monkeypatch.setattr(TT.model_lib, "init_params",
-                        lambda *a: made.append(a))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 12"):
-        TT.run(args(device="cuda"))
-    assert made == []
+def test_two_ranks_build_a_mesh_and_train(tmp_path):
+    """Two gloo ranks (a process group of two: ``device_count`` is its
+    world) make ``run`` build the reference's (2, 1) ``("data",
+    "model")`` mesh and train the sharded step on it: the history is the
+    one-device run's (within ``REPEAT_TOL``), rank 0 alone prints."""
+    import _torch_mesh_lm_cases as M
+    with shared("olmo-1b") as (ct, host):
+        one = TT.run(args())
+    batches = [{k: v.numpy() for k, v in _PortStream(ct, B, S).batch_at(
+        st).items()} for st in range(STEPS)]
+    M.write_case(tmp_path / "case.pkl", ct, host, batches)
+    argv = ["--reduced", "--device", "cpu", "--steps", str(STEPS),
+            "--batch", str(B), "--seq", str(S), "--lr", "1e-3", "--warmup",
+            "1", "--log-every", "1", "--telemetry-exact"]
+    M.spawn(M.cli_run, 2, tmp_path, str(tmp_path / "case.pkl"), argv,
+            str(tmp_path))
+    got = json.loads((tmp_path / "result.json").read_text())
+    assert got["meshes"] == [[2, 1]] and got["device_count"] == 2
+    close_rows(got["history"], one["history"], REPEAT_TOL,
+               list(range(STEPS)))
+    lines = [(tmp_path / f"stdout_{r}.txt").read_text().splitlines()
+             for r in range(2)]
+    assert len(lines[0]) == STEPS and all(LOG.match(ln) for ln in lines[0])
+    assert lines[1] == []
     assert TT.device_count(torch.device("cpu")) == 1
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TT.build_step(None, None, mesh=object())
 
 
 def test_build_step_without_a_mesh_is_train_step():
