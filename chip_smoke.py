@@ -258,6 +258,24 @@ step time and each collective's count and bytes, the meshless steps and
 a one-layer fp32 pair beside them, and the elastic drill from (2, 2) to
 (1, 2) at step 2.  Its fold launches join the ``kernels`` line's.
 
+Then the dry run ("dryrun"): ``python -m repro_torch.launch.dryrun`` in
+three child processes started together (olmo-1b's every shape on the
+(16, 16) mesh, its train_4k on (2, 16, 16), mamba2-130m's long_500k on
+(16, 16): rank 0 of a fake process group, fake CUDA tensors), each
+cell ``ok`` (or the config's own skip) and each child's card bytes 0
+over its cells; it prints each cell's FLOPs, bytes and collective bytes
+a device, dominant term, bound and trace time.  Then olmo-1b at full
+width and depth (bf16, remat) takes one real training step at 4 x 1024
+and one real 1966-token prefill, each under ``roofline.op_cost.
+CostCounter``, beside the same call traced on fake tensors: FLOPs,
+bytes, every op's count and the kernel records must be equal (one
+``isla_fold`` record; one ``flash_attention`` record a layer at row 8's
+operations); the step's bound is printed beside the "lm train" phase's
+warm step.  Then its prefill and two decode steps on a one-rank mesh
+must equal the meshless ones bit for bit with equal flash launches
+(counts set to 0 before the real calls, read after; they join the
+``kernels`` line's).
+
 Every profiled window (the kernel timings, the profiled ticks and
 steps) is padded by 20 ms of host time at each end, inside the window
 (the card's timestamps part from the host's by up to 0.41 ms, and the
@@ -5384,9 +5402,12 @@ COLLECTIVE_OPS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all",
 class CollectiveCounter:
     """While installed, counts each collective the process issues (the
     functional collectives DTensor redistributes through) by name, with
-    the bytes of its input tensors."""
+    the bytes of its input tensors.  A DTensor op is handed on to DTensor
+    (``NotImplemented``) with the mode still installed, so the collectives
+    DTensor issues inside an op's dispatch are counted too."""
 
     def __enter__(self):
+        from torch.distributed.tensor import DTensor
         from torch.utils._python_dispatch import TorchDispatchMode
 
         counts = self.counts = {}
@@ -5394,6 +5415,8 @@ class CollectiveCounter:
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 import torch
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
                 name = func.__name__.split(".")[0]
                 if func.namespace in COLLECTIVE_NS and any(
                         k in name for k in COLLECTIVE_OPS):
@@ -5824,6 +5847,313 @@ def print_train_mesh(t: dict) -> None:
     dr = c["drill"]
     print(f"  elastic drill (2, 2) -> (1, 2) at step 2: {dr['s']:.1f} s; "
           + "; ".join(dr["log"]))
+
+
+# The dry run and the roofline ("dryrun"): ``python -m
+# repro_torch.launch.dryrun`` in child processes (rank 0 of a fake process
+# group of the production mesh, fake tensors: nothing allocated on the card,
+# nothing launched), then the counter (``roofline.op_cost.CostCounter``)
+# held on the card: one real olmo-1b training step and one real prefill
+# against their fake traces, and the sharded serving forward on a
+# one-rank mesh against the meshless one.
+DRY_CELLS = (("olmo-1b", None, "single"),        # every applicable shape
+             ("olmo-1b", "train_4k", "multi"),
+             ("mamba2-130m", "long_500k", "single"))
+DRY_ARCH = TRAIN_ARCH
+DRY_SHAPE = TRAIN_SHAPE          # the "lm train" phase's step
+DRY_PROMPT = 1966                # the LM phase's longest prompt
+DRY_DECODE_STEPS = 2
+DRY_DIR = ROOT / "chiprun_out" / "dryrun_out_torch"
+DRY_TIMEOUT_S = 300
+MEM_LINE = re.compile(r"max_memory_allocated\(\) = (\d+), held after them "
+                      r"(\d+)")
+CELL_LINE = re.compile(r"^(\S+)\s+(\S+)\s+(single|multi)\s+-> (\w+)", re.M)
+
+
+def dryrun_cells(cells=DRY_CELLS, out_dir=DRY_DIR, on_card=True) -> dict:
+    """Each ``(arch, shape or None for every shape, mesh)`` of ``cells``
+    through ``python -m repro_torch.launch.dryrun`` in a child process of
+    its own, all started together.  Fails unless every child exits 0,
+    every cell is ``ok`` or a ``skip`` of the arch's own, and (``on_card``)
+    every child allocated 0 bytes on the card.  Returns the cells' JSON,
+    keyed ``arch/shape/mesh``, and the children's card bytes and wall."""
+    import os
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               DRYRUN_OUT=str(out_dir))
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, mesh in cells:
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                arch, "--mesh", mesh, "--force"]
+        if shape is not None:
+            argv += ["--shape", shape]
+        procs.append(subprocess.Popen(argv, env=env, cwd=ROOT, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DRY_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    result, card_bytes = {}, []
+    for (arch, shape, mesh), p, (out, err) in zip(cells, procs, outs):
+        check(p.returncode == 0, f"dryrun {arch} {shape} {mesh}: exit "
+                                 f"{p.returncode}: {out[-1500:]} "
+                                 f"{err[-1500:]}")
+        m = MEM_LINE.search(out)
+        if on_card:
+            check(m is not None and int(m.group(1)) == int(m.group(2)) == 0,
+                  f"dryrun {arch} {shape} {mesh}: the child allocated on "
+                  f"the card: {m.group(0) if m else 'no report'}")
+            card_bytes.append(int(m.group(1)))
+        for a, s, me, status in CELL_LINE.findall(out):
+            with open(Path(out_dir) / f"{a}__{s}__{me}.json") as f:
+                cell = json.load(f)
+            check(cell["status"] == status and status in ("ok", "skip"),
+                  f"dryrun {a} {s} {me}: {status}: "
+                  f"{cell.get('error', '')}")
+            result[f"{a}/{s}/{me}"] = cell
+        check(any(k.startswith(f"{arch}/") for k in result),
+              f"dryrun {arch} {shape} {mesh}: no cell in {out[-800:]}")
+    return dict(cells=result, card_bytes=card_bytes, wall_s=wall_s)
+
+
+def _fake_like(tree, fake_mode):
+    """``tree``'s tensors as fake tensors of the same shapes, dtypes and
+    devices (no data)."""
+    import torch
+    from repro_torch.core.tree import tree_map
+
+    def one(t):
+        with fake_mode:
+            return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return tree_map(one, tree)
+
+
+def count_pair(name, fn, args, device) -> dict:
+    """``fn(*args)`` once for real and once traced on fake copies of
+    ``args``, each under a ``CostCounter``: their flops, bytes, per-op
+    tables and kernel records must be equal."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.roofline.op_cost import CostCounter
+
+    with CostCounter() as real:
+        fn(*args)
+    sync(device)
+    fm = FakeTensorMode()
+    fake_args = _fake_like(args, fm)
+    t0 = time.perf_counter()
+    with fm, CostCounter() as fake:
+        fn(*fake_args)
+    trace_s = time.perf_counter() - t0
+
+    def records(c):
+        return [(k["name"], k["flops"], k["bytes"], k["dtype"])
+                for k in c.kernels]
+
+    diff = sorted(k for k in set(real.ops) | set(fake.ops)
+                  if real.ops.get(k) != fake.ops.get(k))
+    check(real.cost == fake.cost and records(real) == records(fake)
+          and not diff,
+          f"{name}: the real run's count parts from the fake trace's: "
+          f"flops {real.cost.flops} / {fake.cost.flops}, bytes "
+          f"{real.cost.hbm_bytes} / {fake.cost.hbm_bytes}, ops that "
+          f"differ {[(k, real.ops.get(k), fake.ops.get(k)) for k in diff]}"
+          f", kernels {records(real)} / {records(fake)}")
+    return dict(flops=real.cost.flops, bytes=real.cost.hbm_bytes,
+                flops_by_dtype=real.cost.flops_by_dtype,
+                kernels=records(real), ops=len(real.ops),
+                fake_trace_s=trace_s, cost=real.cost)
+
+
+def serve_pair(cfg, params, toks, device) -> dict:
+    """olmo-1b's prefill of ``toks`` and ``DRY_DECODE_STEPS`` decode
+    steps, meshless and through a one-rank ``MESH_AXES`` mesh (the
+    params, batch and cache placed by their specs): logits and cache bit
+    for bit, the same flash_attention launches (on the card) and kernel
+    records."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.roofline.op_cost import CostCounter
+    from repro_torch.sharding import (batch_specs, cache_specs, param_specs,
+                                      shardings)
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train.train_step import local_value, place
+
+    B, S = toks.shape
+    S0 = S - DRY_DECODE_STEPS
+
+    def run(mesh):
+        p = params
+        cache = TM.init_cache(cfg, B, S, device=device)
+        batch = {"tokens": toks[:, :S0]}
+        if mesh is not None:
+            p = place(p, shardings(mesh, param_specs(cfg, mesh, p)))
+            cache = place(cache, shardings(mesh, cache_specs(cfg, mesh,
+                                                             cache)))
+            batch = place(batch, shardings(mesh, batch_specs(cfg, mesh,
+                                                             batch)))
+        before = FA.flash_attention.launches
+        logits = []
+        sync(device)
+        t0 = time.perf_counter()
+        with use_mesh(mesh), CostCounter() as c:
+            lg, cache = TM.serve_prefill(cfg, p, batch, cache)
+            logits.append(local_value(lg))
+            for i in range(DRY_DECODE_STEPS):
+                tok, pos = toks[:, S0 + i:S0 + i + 1], torch.full(
+                    (B,), S0 + i, dtype=torch.int64, device=device)
+                if mesh is not None:
+                    inp = place({"token": tok, "pos": pos}, shardings(
+                        mesh, batch_specs(cfg, mesh, {"token": tok,
+                                                      "pos": pos})))
+                    tok, pos = inp["token"], inp["pos"]
+                lg, cache = TM.serve_decode(cfg, p, tok, pos, cache)
+                logits.append(local_value(lg))
+        sync(device)
+        return (logits, [local_value(t) for t in tree_leaves(cache)],
+                FA.flash_attention.launches - before,
+                [k["name"] for k in c.kernels], time.perf_counter() - t0)
+
+    want = run(None)
+    with OneRankGroup(device):
+        got = run(make_host_mesh((1, 1), MESH_AXES))
+    same = all(torch.equal(a, b) for a, b in zip(got[0], want[0])) and all(
+        torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    check(same, "dryrun: the one-rank sharded serving forward parts from "
+                "the meshless one")
+    check(got[2] == want[2] and got[3] == want[3],
+          f"dryrun: sharded serving launched {got[2]} flash kernels "
+          f"({len(got[3])} records), meshless {want[2]} ({len(want[3])})")
+    return dict(prompt=S0, decode_steps=DRY_DECODE_STEPS, bit_equal=same,
+                flash_launches=[got[2], want[2]], records=len(got[3]),
+                sharded_s=got[4], meshless_s=want[4])
+
+
+def dryrun_path(device="cuda", reduced=False, cells=DRY_CELLS,
+                shape=DRY_SHAPE, prompt=DRY_PROMPT, out_dir=DRY_DIR,
+                seed=0) -> dict:
+    """The "dryrun" phase: ``dryrun_cells``; then olmo-1b (full width and
+    depth, bf16, remat) from a seeded init: one real training step at
+    ``shape`` and one real prefill of ``prompt`` tokens, each under the
+    counter, against the same calls traced on fake tensors with no mesh
+    (``count_pair``: one ``isla_fold`` record for the step, one
+    ``flash_attention`` record a layer for the prefill, each at its bound
+    of ``PERF.md``'s kernel table); then ``serve_pair``.  The launch
+    counts are set to 0 before the real calls and read after them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import isla_moments as K
+    from repro_torch.models import model as TM
+    from repro_torch.roofline.analysis import analyze_cost, model_flops
+    from repro_torch.train.data import SyntheticStream
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    on_card = torch.device(device).type == "cuda"
+    out = dict(dry=dryrun_cells(cells, out_dir, on_card))
+    cfg = get_config(DRY_ARCH, reduced=reduced)
+    params = TM.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(seed))
+    B, S = shape
+    batch = SyntheticStream(cfg, batch=B, seq=S, device=device).batch_at(0)
+    tcfg = train_config()
+    K.reset_launch_counts()
+    step = count_pair(f"dryrun {DRY_ARCH} train step", functools.partial(
+        train_step, cfg, tcfg), (params, init_opt_state(params), batch),
+        device)
+    check([k[0] for k in step["kernels"]] == ["isla_fold"],
+          f"dryrun: the step's kernel records are {step['kernels']}")
+    tshape = ShapeConfig("train", S, B, "train")
+    step["roofline"] = analyze_cost(step.pop("cost"), cfg, tshape, 1)
+    step["model_flops"] = model_flops(cfg, tshape)
+    toks = torch.randint(0, cfg.vocab, (1, prompt + DRY_DECODE_STEPS),
+                         generator=torch.Generator().manual_seed(seed + 1)
+                         ).to(device)
+    cache = TM.init_cache(cfg, 1, prompt, device=device)
+    pre = count_pair(f"dryrun {DRY_ARCH} prefill", functools.partial(
+        TM.serve_prefill, cfg), (params, {"tokens": toks[:, :prompt]},
+                                 cache), device)
+    hd, H = cfg.head_dim, cfg.n_heads
+    row8 = 4.0 * H * hd * prompt * (prompt + 1) / 2
+    check([k[:2] for k in pre["kernels"]] == [("flash_attention", row8)]
+          * cfg.n_layers,
+          f"dryrun: the prefill's kernel records are {pre['kernels']}")
+    pshape = ShapeConfig("prefill", prompt, 1, "prefill")
+    pre["roofline"] = analyze_cost(pre.pop("cost"), cfg, pshape, 1)
+    out["serve"] = serve_pair(cfg, params, toks, device)
+    out["launches"] = dict(isla_fold=K.isla_fold.launches,
+                           flash_attention=FA.flash_attention.launches)
+    if on_card:
+        check(out["launches"] == dict(
+            isla_fold=1, flash_attention=cfg.n_layers * 3),
+              f"dryrun: the real calls launched {out['launches']}")
+    del params
+    out.update(arch=DRY_ARCH, shape=list(shape), step=step, prefill=pre)
+    return out
+
+
+def print_dryrun(d: dict, warm_step_s=None) -> None:
+    dry = d["dry"]
+    print(f"dryrun: {len(dry['cells'])} cells in child processes, "
+          f"{dry['wall_s']:.1f} s wall; card bytes allocated by the "
+          f"children: {dry['card_bytes']}")
+    for key, c in dry["cells"].items():
+        if c["status"] == "skip":
+            print(f"  {key}: skip ({c['reason']})")
+            continue
+        rf = c["roofline"]
+        print(f"  {key}: flops/dev {rf['hlo_flops_per_dev']:.4e} (model "
+              f"{rf['model_flops_per_dev']:.4e}), bytes/dev "
+              f"{rf['hlo_bytes_per_dev']:.4e}, collectives/dev "
+              f"{rf['collective_bytes_per_dev']:.4e} B in "
+              f"{sum(rf['collective_counts'].values())} ops; "
+              f"{rf['dominant']}-bound, bound {rf['step_time_bound_s']:.4g} "
+              f"s (compute {rf['compute_s']:.4g}, memory "
+              f"{rf['memory_s']:.4g}, collective {rf['collective_s']:.4g}, "
+              f"NVLink {rf['collective_s_nvlink']:.4g}); temp "
+              f"{c['memory_analysis']['temp_size_in_bytes'] / 2**30:.2f} "
+              f"GiB; trace {c['t_trace_s']} s on {c['trace_device']}")
+    for what, r in (("train step", d["step"]), ("prefill", d["prefill"])):
+        rf = r["roofline"]
+        print(f"dryrun anchor, {d['arch']} {what}: real run and fake trace "
+              f"count alike: {r['flops']:.6e} flops "
+              f"({json.dumps(r['flops_by_dtype'])}), {r['bytes']:.6e} B, "
+              f"{r['ops']} op kinds, kernel records "
+              f"{[k[0] for k in r['kernels']]} (fake trace "
+              f"{r['fake_trace_s']:.2f} s); bound "
+              f"{rf['step_time_bound_s']:.4f} s, {rf['dominant']}-bound "
+              f"(compute {rf['compute_s']:.4f}, memory {rf['memory_s']:.4f})")
+    rf = d["step"]["roofline"]
+    mf = d["step"]["model_flops"]
+    line = (f"dryrun: {d['arch']} at {d['shape'][0]} x {d['shape'][1]}: "
+            f"model_flops {mf:.4e} = {mf / 989e12:.4f} s at 989 TFLOP/s; "
+            f"step_time_bound_s {rf['step_time_bound_s']:.4f}")
+    if warm_step_s:
+        line += (f"; the \"lm train\" phase's warm step "
+                 f"{warm_step_s:.4f} s: roofline fraction "
+                 f"{mf / 989e12 / warm_step_s:.2%}, the bound's "
+                 f"{rf['step_time_bound_s'] / warm_step_s:.2%} of it")
+    print(line)
+    s = d["serve"]
+    print(f"dryrun: sharded serving on a one-rank mesh, prefill "
+          f"{s['prompt']} + {s['decode_steps']} decode steps: bit for bit "
+          f"the meshless run ({s['bit_equal']}), flash launches "
+          f"{s['flash_launches'][0]} / {s['flash_launches'][1]}, "
+          f"{s['sharded_s']:.2f} s sharded, {s['meshless_s']:.2f} s "
+          f"meshless; launches {json.dumps(d['launches'])}")
 
 
 def ptxas_figures(log: str) -> dict:
@@ -6608,6 +6938,9 @@ def main() -> int:
     mesh_train["folds"] = check_telemetry_folds(mesh_train.pop("panes"))
     lap("lm train mesh")
     print_train_mesh(mesh_train)
+    dry = dryrun_path()
+    lap("dryrun")
+    print_dryrun(dry, train["olmo"]["median_step_s"])
     tries = [w["tries"] for w in WINDOW_LOG]
     lost = [PROFILE_LEAD_KERNELS - x["lead_spins"] for w in WINDOW_LOG
             for x in w["windows"]]
@@ -6627,7 +6960,9 @@ def main() -> int:
     # arctic-480b and jamba runs, replayed on its q, k, v); its launches
     # are the runs' counts added, the mesh and pipelined runs' included
     # (and isla_fold's the telemetry and training phases' calls, the
-    # training CLI's resumed run's and the sharded steps' too).
+    # training CLI's resumed run's and the sharded steps' too; and both
+    # kernels' launches in the dryrun phase's real step, prefill and
+    # serving runs).
     def launched(kernel):
         return sum(path["launches"][kernel]
                    for path in runs + mesh_runs + pipe_runs)
@@ -6663,7 +6998,8 @@ def main() -> int:
              replaces="src/repro/kernels/isla_moments.py:162",
              launches=(launched("isla_fold") + tele_launches
                        + train["fold_launches"] + cli["fold_launches"]
-                       + mesh_train["fold_launches"]),
+                       + mesh_train["fold_launches"]
+                       + dry["launches"]["isla_fold"]),
              max_abs_err=max(f["max_abs_err"] for f in fold_panes + folds),
              ms=sum(f["ms"] for f in fold_panes),
              plain_ms=sum(f["plain_ms"] for f in fold_panes),
@@ -6719,7 +7055,8 @@ def main() -> int:
              launches=(lm["launches"]["flash_attention"]
                        + vlm["launches"]["flash_attention"]
                        + sum(m["launches"]["flash_attention"]
-                             for m in moe_runs + jambas)),
+                             for m in moe_runs + jambas)
+                       + dry["launches"]["flash_attention"]),
              max_abs_err=max(f["max_abs_err"] for f in lm_flash + synth),
              ms=sum(f["ms"] for f in lm_flash),
              plain_ms=sum(f["plain_ms"] for f in lm_flash),
@@ -6744,7 +7081,8 @@ def main() -> int:
         lm_flash=flash, flash_synthetic=synth, lm_small=small,
         vlm_path=vlm, vlm_flash=vflash, moe_paths=moe_runs,
         mamba_path=mamba, jamba_paths=jambas, train_path=train,
-        train_cli=cli, train_mesh=mesh_train, profiled_windows=WINDOW_LOG,
+        train_cli=cli, train_mesh=mesh_train, dryrun=dry,
+        profiled_windows=WINDOW_LOG,
         flash_ptxas=ptxas, flash_sass=sass,
         isla_ptxas=islaptx,
         kernels=kernels),

@@ -8,7 +8,12 @@ with the port's other sources by ``isla_moments.build`` and loaded with
 PyTorch version (``ref.flash_attention_ref``); given CUDA tensors it
 launches the kernel, or raises — it never falls back.
 ``flash_attention.launches`` counts the calls that launched the kernel on
-the card (one ``__global__`` launch each), and nothing else.
+the card (one ``__global__`` launch each), and nothing else.  Given fake
+tensors (a dry-run trace) it returns an empty output of the right shape
+(``ops.fake_kernel``).  A launch, a plain run on the CPU (its own ops
+not counted) or a fake call records the kernel's operations and bytes in
+an installed ``roofline.op_cost.CostCounter``, so the counter sees the
+program the card runs on any device.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 
 from . import ref
 from .isla_moments import _raise_on, _same_device, library
-from .ops import on_gpu
+from ..roofline.op_cost import is_fake, no_count, record_kernel
+from .ops import fake_kernel, on_gpu
 
 SOURCE = "flash_attention.cu"
 HEAD_DIMS = (32, 64, 128, 256)  # every head_dim of the repo's configs
@@ -53,8 +59,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     _same_device(q, k=k, v=v)
+    if is_fake(q):
+        return fake_kernel("flash_attention", (q, k, v), torch.empty_like(q),
+                           *cost(q, k), q.dtype)
     if not on_gpu(q):
-        return ref.flash_attention_ref(q, k, v, groups=groups)
+        with no_count():
+            out = ref.flash_attention_ref(q, k, v, groups=groups)
+        record_kernel("flash_attention", *cost(q, k), q.dtype)
+        return out
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {hd}")
@@ -74,7 +86,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "flash_attention")
     flash_attention.launches += 1
+    record_kernel("flash_attention", *cost(q, k), q.dtype)
     return out
+
+
+def cost(q: torch.Tensor, k: torch.Tensor) -> "tuple[float, float]":
+    """(operations, bytes) of one call, the bound of ``PERF.md``'s kernel
+    table: 4 * hd flops for each (query, key <= query) pair, S(S+1)/2 a
+    head; q, k, v read once and the output written once."""
+    bh, s, hd = q.shape
+    return (4.0 * bh * hd * s * (s + 1) / 2,
+            float((2 * bh + 2 * k.shape[0]) * s * hd * q.element_size()))
 
 
 flash_attention.launches = 0

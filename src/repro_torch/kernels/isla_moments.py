@@ -73,7 +73,8 @@ import numpy as np
 import torch
 
 from . import ref
-from .ops import on_gpu
+from ..roofline.op_cost import is_fake, no_count, record_kernel
+from .ops import fake_kernel, on_gpu
 
 LANE = 128          # lane width of the (rows, 128) tile layout
 DEFAULT_TM = 512    # rows per tile of the reference layout
@@ -490,11 +491,24 @@ def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
                  **{f"gid_panes[{i}]": t for i, t in enumerate(gid_panes)},
                  **{f"valid_panes[{i}]": t
                     for i, t in enumerate(valid_panes)})
+    if is_fake(values):
+        fake_kernel("isla_fold", (values, bounds, out_s, out_l, out_t, pad,
+                                  cell_idx, *gid_panes, *valid_panes),
+                    out_s, *fold_cost(values, bounds, (out_s, out_l, out_t),
+                                      keys, n_chunks * chunk_len,
+                                      (pad, cell_idx, *gid_panes,
+                                       *valid_panes)), dt)
+        return
     if not on_gpu(values):
-        ref.isla_fold_stack_ref(values, bounds, out_s, out_l, out_t,
-                                keys=keys, pad=pad, gid_panes=gid_panes,
-                                valid_panes=valid_panes, cell_idx=cell_idx,
-                                chunks=chunks)
+        with no_count():
+            ref.isla_fold_stack_ref(values, bounds, out_s, out_l, out_t,
+                                    keys=keys, pad=pad, gid_panes=gid_panes,
+                                    valid_panes=valid_panes,
+                                    cell_idx=cell_idx, chunks=chunks)
+        record_kernel("isla_fold", *fold_cost(
+            values, bounds, (out_s, out_l, out_t), keys,
+            n_chunks * chunk_len, (pad, cell_idx, *gid_panes,
+                                   *valid_panes)), dt)
         return
     n = n_chunks * chunk_len
     if n_rows == 0 or n == 0:
@@ -544,6 +558,22 @@ def isla_fold_stack(values: torch.Tensor, bounds: torch.Tensor,
         isla_fold.launches_f64 += 1
     else:
         isla_fold.launches += 1
+    record_kernel("isla_fold", *fold_cost(
+        values, bounds, (out_s, out_l, out_t), keys, n,
+        (pad, cell_idx, *gid_panes, *valid_panes)), dt)
+
+
+def fold_cost(values, bounds, outs, keys, n: int, panes
+              ) -> Tuple[float, float]:
+    """(operations, bytes) of one fold, the bound of ``PERF.md``'s kernel
+    table: 17 operations a sample a key; each sample, mask, id and cut
+    read once, each resident row read and written once."""
+    samples = values.shape[0] * n
+    nbytes = samples * values.element_size() + sum(
+        t.numel() * t.element_size() for t in (bounds, *panes)
+        if t is not None) + 2 * sum(t.numel() * t.element_size()
+                                    for t in outs if t is not None)
+    return 17.0 * samples * len(keys), float(nbytes)
 
 
 isla_fold.launches = 0

@@ -3,7 +3,10 @@
 ``on_gpu`` is the one dispatch rule every kernel wrapper follows: a CPU
 tensor takes the kernel's plain PyTorch version, a CUDA tensor launches
 the kernel, anything else raises.  There is no fallback from the card to
-the CPU.
+the CPU.  A fake tensor (a dry-run trace) reaches neither: the wrappers
+of the kernels on the LM path (``flash_attention``, ``isla_fold``) test
+for it before ``on_gpu`` and return ``fake_kernel``'s empty output of
+the right shape.
 """
 from __future__ import annotations
 
@@ -18,6 +21,22 @@ def on_gpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def fake_kernel(name: str, inputs, out, flops: float, nbytes: float,
+                dtype: torch.dtype):
+    """Shape inference of a hand-written kernel given fake tensors (a
+    dry-run trace: shapes and dtypes, no data): ``out`` as it is, nothing
+    launched and no plain version run; the kernel's operations and bytes
+    are recorded in the active ``roofline.op_cost.CostCounter``.  A real
+    tensor among ``inputs`` or ``out`` raises: this is not a fallback."""
+    from ..roofline import op_cost
+    if not all(op_cost.is_fake(t) for t in list(inputs) + [out]
+               if t is not None):
+        raise ValueError(f"{name}: shape inference takes fake tensors "
+                         f"only")
+    op_cost.record_kernel(name, flops, nbytes, dtype, fake=True)
+    return out
 
 
 def isla_moments(values: torch.Tensor, bounds, tm: int = 512,

@@ -76,11 +76,13 @@ def _world_size() -> int:
     return dist.get_world_size()
 
 
-def make_host_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
+def make_host_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                   device: Optional[str] = None):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the initialised
     default process group (rank r at the r-th place in row-major order;
     ``cuda`` for an ``nccl`` group, each rank on its current card, else
-    ``cpu``).  Raises when no group is up or its world is not
+    ``cpu``; ``device`` names it instead, as the dry run's fake group asks
+    for ``cuda``).  Raises when no group is up or its world is not
     ``prod(shape)``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -90,7 +92,8 @@ def make_host_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
         raise RuntimeError(
             f"a {'x'.join(map(str, shape))} mesh over {tuple(axes)} needs "
             f"{n} ranks; the process group has {world or 'none'}")
-    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device is None:
+        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device, tuple(shape),
                             mesh_dim_names=tuple(axes))
 
@@ -128,14 +131,20 @@ def mesh_barrier(mesh) -> None:
         dist.barrier(group=mesh.get_group(d))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+# The production meshes by ``multi_pod``: (shape, axis names).
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: Optional[str] = None):
     """Single pod: (16, 16) data x model = 256 devices.  Multi-pod: (2, 16,
-    16) pod x data x model = 512.  A ``DeviceMesh`` when a process group
-    of that size is up, else the ``AbstractMesh``."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    16) pod x data x model = 512 (``PRODUCTION``).  A ``DeviceMesh`` (on
+    ``device``, as ``make_host_mesh``) when a process group of that size
+    is up, else the ``AbstractMesh``."""
+    shape, axes = PRODUCTION[multi_pod]
     if _world_size() == math.prod(shape):
-        return make_host_mesh(shape, axes)
+        return make_host_mesh(shape, axes, device)
     return make_abstract_mesh(shape, axes)
 
 

@@ -44,8 +44,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
-from ..sharding.context import (constrain_heads, head_plan, plan_placements,
-                                run_local)
+from ..sharding.context import (constrain_heads, grad_in_layout, head_plan,
+                                plan_placements, run_local)
 from .layers import normal, pdtype
 
 Params = Dict[str, torch.Tensor]
@@ -240,12 +240,18 @@ def _mamba_forward(cfg: ArchConfig, params: Params, x: torch.Tensor,
     dth = x @ params["wdt"]
     if isinstance(xs, DTensor):
         # DTensor has no rule for the convs' pad nor the SSD's einsums
-        # over split heads: the training mixer runs on each rank's own
-        # batch rows and heads (the reference's constrain_heads layout)
-        y, h_final, new_conv = _local_conv_ssd(cfg, params, xs, Bs, Cs, dth)
+        # over split heads: the mixer runs on each rank's own batch rows
+        # and heads (the reference's constrain_heads layout)
+        y, h_final, new_conv = _local_conv_ssd(cfg, params, xs, Bs, Cs, dth,
+                                               h0, conv0)
+        z = grad_in_layout(z)
     else:
-        y, h_final, new_conv = _conv_ssd(
-            cfg, {k: params[k] for k in _CORE}, xs, Bs, Cs, dth, h0, conv0)
+        tails = (_split_conv_state(cfg, conv0) if conv0 is not None
+                 else None)
+        y, h_final, new_tails = _conv_ssd(
+            cfg, {k: params[k] for k in _CORE}, xs, Bs, Cs, dth, h0, tails)
+        new_conv = (torch.cat(new_tails, dim=-1) if new_tails is not None
+                    else None)
     # gated RMSNorm
     yf = y.to(F32) * F.silu(z.to(F32))
     ms = (yf * yf).mean(dim=-1, keepdim=True)
@@ -264,40 +270,65 @@ _CORE_GROUP_DIM = {"conv_B_w": 1, "conv_B_b": 0, "conv_C_w": 1,
                    "conv_C_b": 0}
 
 
-def _local_conv_ssd(cfg: ArchConfig, params: Params, xs, Bs, Cs, dth):
-    """``_conv_ssd`` of a training forward (no state in) on DTensors, run
-    on this rank's batch rows and heads: (y, h_final, None) as DTensors.
-    The B/C streams are split with the heads only where there are several
-    groups (each group's heads together); one group is read whole."""
+def _local_conv_ssd(cfg: ArchConfig, params: Params, xs, Bs, Cs, dth,
+                    h0=None, conv0=None):
+    """``_conv_ssd`` on DTensors, run on this rank's batch rows and heads:
+    (y, h_final, the new conv tail) as DTensors.  The B/C streams are
+    split with the heads only where there are several groups (each
+    group's heads together); one group is read whole.  Serving (a cached
+    state ``h0``; decoding, a cached conv tail ``conv0``, taken as its
+    three streams' tails) also returns the new tail, whole on its
+    channels, for the cache's placements to split; training returns no
+    tail (None)."""
     m = _mcfg(cfg)
     groups = m.n_groups
+    mesh = xs.device_mesh
     plan = head_plan(xs, 0, (m.n_heads,) + ((groups,) if groups > 1
                                               else ()))
     bc_dim = 2 if groups > 1 else None
     heads = plan_placements(plan, 0, 2)
     bc = plan_placements(plan, 0, bc_dim)
+    state = plan_placements(plan, 0, 1)
     pl = [plan_placements(plan, None, _CORE_HEAD_DIM.get(k) if
                           k in _CORE_HEAD_DIM else
                           (_CORE_GROUP_DIM[k] if groups > 1 else None))
           for k in _CORE]
+    serving = h0 is not None
+    args = [xs, Bs, Cs, dth, *(params[k] for k in _CORE)]
+    in_pl = [heads, bc, bc, heads, *pl]
+    if serving:
+        args.append(h0)
+        in_pl.append(state)
+    if conv0 is not None:
+        args.extend(_split_conv_state(
+            cfg, conv0.redistribute(mesh, plan_placements(plan, 0))))
+        in_pl.extend((heads, bc, bc))
 
-    def core(xs, Bs, Cs, dth, *ps):
-        y, h, _ = _conv_ssd(cfg, dict(zip(_CORE, ps)), xs, Bs, Cs, dth,
-                            None, None)
-        return y, h
+    def core(xs, Bs, Cs, dth, *rest):
+        ps, rest = rest[:len(_CORE)], rest[len(_CORE):]
+        y, h, tails = _conv_ssd(cfg, dict(zip(_CORE, ps)), xs, Bs, Cs, dth,
+                                rest[0] if serving else None,
+                                tuple(rest[1:]) if conv0 is not None
+                                else None)
+        return (y, h) + (tails if serving else ())
 
-    y, h = run_local(core, xs.device_mesh,
-                     (xs, Bs, Cs, dth, *(params[k] for k in _CORE)),
-                     (heads, bc, bc, heads, *pl),
-                     (heads, plan_placements(plan, 0, 1)))
-    return y, h, None
+    out = run_local(core, mesh, tuple(args), tuple(in_pl),
+                    (heads, state) + ((heads, bc, bc) if serving else ()))
+    if not serving:
+        return out[0], out[1], None
+    whole = plan_placements(plan, 0)
+    new_conv = torch.cat([t.redistribute(mesh, whole) for t in out[2:]],
+                         dim=-1)
+    return out[0], out[1], new_conv
 
 
 def _conv_ssd(cfg: ArchConfig, params: Params, xs, Bs, Cs, dth,
-              h0: Optional[torch.Tensor], conv0: Optional[torch.Tensor]):
+              h0: Optional[torch.Tensor], tails):
     """The projected streams (xs (B,S,H*P), Bs/Cs (B,S,G*N), dth (B,S,H))
     through the causal convs and the SSD scan: (y (B,S,H*P) with the D
-    skip, h_final (B,H,N,P) fp32, the new conv tail).  Head and group
+    skip, h_final (B,H,N,P) fp32, the new conv tails of the x, B and C
+    streams, or None for a prefill shorter than the tail).  ``tails``
+    (decode) are the cached tails of the three streams.  Head and group
     counts are read off the streams, so a rank's own heads run alone."""
     m = _mcfg(cfg)
     Bsz, S, _ = xs.shape
@@ -316,19 +347,17 @@ def _conv_ssd(cfg: ArchConfig, params: Params, xs, Bs, Cs, dth,
             return out[:, tail.shape[1]:, :]
         return _causal_conv(w, b, stream)
 
-    tails = (_split_conv_state(cfg, conv0) if conv0 is not None
-             else (None, None, None))
+    tl = m.d_conv - 1
+    if tails is None:
+        new_tails = (tuple(s_[:, -tl:, :] for s_ in (xs, Bs, Cs))
+                     if S >= tl else None)
+        tails = (None, None, None)
+    else:
+        new_tails = tuple(joined(t, s_)[:, -tl:, :]
+                          for t, s_ in zip(tails, (xs, Bs, Cs)))
     xc = conv("x", xs, tails[0])
     Bc = conv("B", Bs, tails[1])
     Cc = conv("C", Cs, tails[2])
-    tail_len = m.d_conv - 1
-    if conv0 is not None:
-        new_conv = torch.cat([joined(t, s)[:, -tail_len:, :]
-                              for t, s in zip(tails, (xs, Bs, Cs))], dim=-1)
-    else:
-        new_conv = (torch.cat([xs[:, -tail_len:, :], Bs[:, -tail_len:, :],
-                               Cs[:, -tail_len:, :]], dim=-1)
-                    if S >= tail_len else None)
 
     def silu(t):
         return F.silu(t.to(F32)).to(xs.dtype)
@@ -346,7 +375,7 @@ def _conv_ssd(cfg: ArchConfig, params: Params, xs, Bs, Cs, dth,
     y, h_final = ssd_chunked(xh, da, dt, Bm, Cm, m.chunk, h0=h0)
     y = y + xh.to(F32).to(y.dtype) \
         * params["D"].to(y.dtype)[None, None, :, None]
-    return y.reshape(Bsz, S, H * P), h_final, new_conv
+    return y.reshape(Bsz, S, H * P), h_final, new_tails
 
 
 def mamba_state_shapes(cfg: ArchConfig, batch: int):

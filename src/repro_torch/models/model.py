@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..configs.base import ArchConfig
 from . import transformer
@@ -106,16 +107,26 @@ def train_loss(cfg: ArchConfig, params: Params, batch, constraint=None
     return loss, aux
 
 
-def serve_prefill(cfg: ArchConfig, params: Params, batch, cache):
+def serve_prefill(cfg: ArchConfig, params: Params, batch, cache,
+                  constraint=None):
     """Returns (last-position logits (B, 1, V), the cache with its first S
     rows, and each Mamba position's state and conv tail, written in
     place).  A config with a Mamba mixer takes the reference's prompt
     lengths only: at most the chunk or a multiple of it, and at least
-    ``d_conv - 1`` tokens (else ``ValueError``)."""
-    x, positions, _ = _assemble_inputs(cfg, params, batch)
-    x, cache = transformer.forward_prefill(cfg, params, x, positions, cache)
-    x = apply_norm(cfg, params.get("final_norm", {}), x)
-    logits = lm_logits(cfg, params, x[:, -1:, :])
+    ``d_conv - 1`` tokens (else ``ValueError``).  ``constraint`` is the
+    activation sharding constraint, applied before each period position
+    (None on one device).
+
+    Sharded (params, batch and cache DTensors in their ``sharding.specs``
+    placements, under ``use_mesh``): the logits come back as a DTensor and
+    each rank writes its own shard of the cache."""
+    with implicit_replication():
+        x, positions, _ = _assemble_inputs(cfg, params, batch)
+        x, cache = transformer.forward_prefill(cfg, params, x, positions,
+                                               cache, constraint=constraint)
+        x = transformer._seq_whole(
+            apply_norm(cfg, params.get("final_norm", {}), x))
+        logits = lm_logits(cfg, params, x[:, -1:, :])
     return logits, cache
 
 
@@ -123,11 +134,12 @@ def serve_decode(cfg: ArchConfig, params: Params, token: torch.Tensor,
                  pos: torch.Tensor, cache):
     """One decode step: token (B, 1) -> logits (B, 1, V); the cache gets
     row ``pos`` (and each Mamba position its new state and conv tail) in
-    place."""
-    x = embed_tokens(cfg, params, token)
-    x, cache = transformer.forward_decode(cfg, params, x, pos, cache)
-    x = apply_norm(cfg, params.get("final_norm", {}), x)
-    logits = lm_logits(cfg, params, x)
+    place, sharded as ``serve_prefill``."""
+    with implicit_replication():
+        x = embed_tokens(cfg, params, token)
+        x, cache = transformer.forward_decode(cfg, params, x, pos, cache)
+        x = apply_norm(cfg, params.get("final_norm", {}), x)
+        logits = lm_logits(cfg, params, x)
     return logits, cache
 
 

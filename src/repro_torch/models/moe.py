@@ -127,7 +127,7 @@ def _local_moe(cfg: ArchConfig, params: Params, xt: torch.Tensor,
         elif name == "model" and ff % n == 0:
             plan.append((Replicate(), Replicate(), Shard(2), Shard(1),
                          Partial()))
-        elif name in ("pod", "data") and G % (dp * n) == 0:
+        elif name in ("pod", "data") and G > 1 and G % (dp * n) == 0:
             dp *= n
             plan.append((Shard(0), Shard(0), Replicate(), Replicate(),
                          Shard(0)))

@@ -38,7 +38,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
-from ..sharding.context import like_layout, unshard_dim
+from ..sharding.context import like_layout, unshard_dim, write_local
 from . import attention as attn
 from . import mamba2, moe
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
@@ -141,8 +141,10 @@ def _fill_group(stacked: Params, tree: Params, g: int, groups: int) -> None:
 
 
 def group_params(blocks: Params, g: int) -> Params:
-    """Group ``g``'s slice of a period position's stacked leaves (views)."""
-    return {k: (group_params(v, g) if isinstance(v, dict) else v[g])
+    """Group ``g``'s slice of a period position's stacked leaves (views;
+    a DTensor stack split on its group dim is gathered on it first)."""
+    return {k: (group_params(v, g) if isinstance(v, dict)
+                else unshard_dim(v, 0)[g])
             for k, v in blocks.items()}
 
 
@@ -230,16 +232,22 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def _forward(cfg: ArchConfig, params: Params, x: torch.Tensor, cache,
-             attn_mix, decode: bool) -> Tuple[torch.Tensor, list]:
+             attn_mix, decode: bool, constraint=None
+             ) -> Tuple[torch.Tensor, list]:
     """The stack: for every group, every period position's mixer, then its
     channel.  An attention position runs ``attn_mix(bp, h, cache_k,
     cache_v)``, which writes its cache rows in place; a Mamba position runs
     ``mamba2._mamba_forward`` from the cached state (and, decoding, the
-    cached conv tail) and copies the new state and tail into the cache."""
+    cached conv tail) and copies the new state and tail into the cache.
+    ``constraint`` (prefill) is applied to ``x`` before each period
+    position, as in the reference.  On DTensors the normed input is
+    gathered on S and each cache write lands in the cache's placements."""
     for g in range(n_groups_of(cfg)):
         for pos in range(period_of(cfg)):
             bp = group_params(params["blocks"][pos], g)
-            h = apply_norm(cfg, bp.get("ln1", {}), x)
+            if constraint is not None:
+                x = constraint(x)
+            h = _seq_whole(apply_norm(cfg, bp.get("ln1", {}), x))
             c = cache[pos]
             mixer, _ = position_kind(cfg, pos)
             if mixer == "attn":
@@ -248,23 +256,25 @@ def _forward(cfg: ArchConfig, params: Params, x: torch.Tensor, cache,
                 y, h_new, conv_new = mamba2._mamba_forward(
                     cfg, bp["mamba"], h, h0=c["h"][g],
                     conv0=c["conv"][g] if decode else None)
-                c["h"][g].copy_(h_new)
-                c["conv"][g].copy_(conv_new)
-            x = _apply_channel(cfg, pos, bp, x + y)
+                write_local(c["h"][g], h_new)
+                write_local(c["conv"][g], conv_new)
+            x = _apply_channel(cfg, pos, bp, x + like_layout(y, x))
     return x, cache
 
 
 def forward_prefill(cfg: ArchConfig, params: Params, x: torch.Tensor,
-                    positions: torch.Tensor, cache):
+                    positions: torch.Tensor, cache, constraint=None):
     """Prefill: causal forward that fills the cache's first S rows (and
     each Mamba position's state and conv tail).  A config with a Mamba
     mixer refuses, before any layer runs, a length off the chunk contract
-    or shorter than the conv tail (``mamba2.check_prefill``)."""
+    or shorter than the conv tail (``mamba2.check_prefill``).
+    ``constraint`` is the activation sharding constraint (None on one
+    device), applied before each period position."""
     if cfg.mamba is not None:
         mamba2.check_prefill(cfg, x.shape[1])
     return _forward(cfg, params, x, cache, lambda p, h, ck, cv:
                     attn.attention_prefill(cfg, p, h, positions, ck, cv),
-                    decode=False)
+                    decode=False, constraint=constraint)
 
 
 def forward_decode(cfg: ArchConfig, params: Params, x: torch.Tensor,

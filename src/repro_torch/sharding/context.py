@@ -79,6 +79,34 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+class _GradInLayout(torch.autograd.Function):
+    """Identity whose backward redistributes the gradient to the forward
+    value's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_in_layout(x):
+    """``x``, whose gradient arrives in ``x``'s own placements when ``x``
+    is a DTensor on a mesh of three or more dims: there DTensor has no
+    rule for a product's weight gradient over a token dim split by
+    ``_StridedShard`` (the (pod, data, model) mesh); on fewer dims it
+    has, and the gradient keeps the cheaper layout autograd gives it.
+    Anything else as it is."""
+    if isinstance(x, DTensor) and x.device_mesh.ndim >= 3:
+        return _GradInLayout.apply(x)
+    return x
+
+
 def run_local(fn, mesh, args, in_placements, out_placements):
     """``fn`` on this rank's shards of ``args`` (each DTensor redistributed
     to its ``in_placements``, a plain tensor -- the same on every rank --
@@ -107,6 +135,44 @@ def run_local(fn, mesh, args, in_placements, out_placements):
                                    run_check=False)
                 for o, pl in zip(outs, out_placements))
     return res if isinstance(out, tuple) else res[0]
+
+
+def local_shape(shape, mesh, placements) -> Tuple[int, ...]:
+    """A rank's shard shape of a tensor of ``shape`` in ``placements`` on
+    ``mesh``, each split dividing its dim, as every rule does (computed
+    here, as DTensor's own helper makes a tensor on the mesh's device)."""
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            d = p.dim % len(shape)
+            if out[d] % mesh.size(i):
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"split over {placements}")
+            out[d] //= mesh.size(i)
+    return tuple(out)
+
+
+def local_rows(x, dim: int) -> Tuple[int, int]:
+    """The global index range ``[start, stop)`` of ``x``'s dim ``dim``
+    that this rank holds (``x`` a DTensor split on ``dim`` over mesh dims
+    in mesh order, major first, each dividing it, as every rule does; the
+    whole dim where it is not split)."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    idx, parts = 0, 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim:
+            idx, parts = idx * mesh.size(i) + coord[i], parts * mesh.size(i)
+    n = x.shape[dim]
+    if n % parts:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is split {parts} "
+                         f"ways unevenly")
+    return idx * (n // parts), (idx + 1) * (n // parts)
+
+
+def write_local(dst, src) -> None:
+    """``dst.copy_(src)``; on DTensors ``src`` first redistributed to
+    ``dst``'s placements, so each rank writes its own shard in place."""
+    dst.copy_(like_layout(src, dst) if isinstance(dst, DTensor) else src)
 
 
 def like_layout(y, x):

@@ -57,7 +57,12 @@ def mesh_shape(mesh) -> Dict[str, int]:
     ``CellMesh``, in the mesh's axis order."""
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:                       # torch DeviceMesh
-        return dict(zip(names, (int(s) for s in mesh.mesh.shape)))
+        # size(i) reads the layout, not the rank tensor (whose view a fake
+        # tensor mode would refuse)
+        size = getattr(mesh, "size", None)
+        dims = ([size(i) for i in range(len(names))] if callable(size)
+                else mesh.mesh.shape)
+        return dict(zip(names, (int(d) for d in dims)))
     shape = getattr(mesh, "shape", None)
     if shape is None:                           # CellMesh: one axis
         return {mesh.axis_names[0]: len(mesh.devices)}

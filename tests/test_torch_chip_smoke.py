@@ -1129,3 +1129,88 @@ def test_train_mesh_cards_on_four_gloo_ranks(tmp_path):
         trees=dict(differ=0, leaves=25), launches=dict(isla_fold=0),
         save_s=0.0, restore_s=0.0, placements=[], fp32_pair=None,
         cards=r))
+
+
+DRY_SMALL = dict(reduced=True, cells=(("olmo-1b", "decode_32k", "single"),),
+                 shape=(2, 64), prompt=30)
+
+
+def test_dryrun_path_on_the_cpu(tmp_path):
+    """The "dryrun" phase at reduced olmo-1b: a dry-run child (full
+    olmo-1b decode on the fake (16, 16) mesh) exits 0 with its cell
+    ``ok``; the real step and prefill count what their fake traces count
+    (one ``isla_fold`` record, one ``flash_attention`` record a layer at
+    row 8's operations); the one-rank sharded serving forward is the
+    meshless one bit for bit."""
+    import torch.distributed as dist
+    r = S.dryrun_path("cpu", out_dir=tmp_path / "dry", **DRY_SMALL)
+    cells = r["dry"]["cells"]
+    assert list(cells) == ["olmo-1b/decode_32k/single"]
+    c = cells["olmo-1b/decode_32k/single"]
+    assert c["status"] == "ok" and c["devices"] == 256
+    assert r["dry"]["card_bytes"] == []                 # no card here
+    assert [k[0] for k in r["step"]["kernels"]] == ["isla_fold"]
+    assert len(r["prefill"]["kernels"]) == 2            # reduced: 2 layers
+    assert r["serve"]["bit_equal"] and r["serve"]["records"] == 2
+    assert r["launches"] == dict(isla_fold=0, flash_attention=0)
+    assert not dist.is_initialized()
+    S.print_dryrun(r, 0.33)
+
+
+def test_dryrun_yardstick_of_the_train_phase_step():
+    """``model_flops`` of olmo-1b's 4 x 1024 step: 2.97e13, 0.030 s at
+    989 TFLOP/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.roofline.analysis import model_flops
+    mf = model_flops(get_config("olmo-1b"),
+                     ShapeConfig("t", 1024, 4, "train"))
+    assert mf == pytest.approx(2.97e13, rel=2e-3)
+    assert mf / 989e12 == pytest.approx(0.030, rel=2e-2)
+
+
+def test_dryrun_fails_on_a_count_that_parts(monkeypatch):
+    """A real run whose kernel records part from the fake trace's (the
+    fold's plain path records other bytes) fails ``count_pair``."""
+    import torch
+    from repro_torch.kernels import isla_moments as K
+    real = K.fold_cost
+
+    def spoiled(values, *a, **kw):
+        flops, nbytes = real(values, *a, **kw)
+        fake = type(values).__name__ == "FakeTensor"
+        return flops, nbytes + (0 if fake else 4)
+
+    monkeypatch.setattr(K, "fold_cost", spoiled)
+    from repro_torch.kernels import ops
+    with pytest.raises(S.SmokeFailure, match="parts from the fake"):
+        S.count_pair("spoiled", lambda v: ops.isla_moments(
+            v, [0.0, 1.0, 2.0, 3.0]), (torch.randn(2, 300),), "cpu")
+
+
+def test_dryrun_cells_fail_on_a_failing_child(tmp_path, monkeypatch):
+    """A child whose cell fails (an arch the configs do not have) exits 1,
+    and the phase fails."""
+    with pytest.raises(S.SmokeFailure, match="exit 1"):
+        S.dryrun_cells((("no-such-arch", "train_4k", "single"),),
+                       tmp_path / "dry", on_card=False)
+
+
+def test_collective_counter_sees_dtensor_redistributions():
+    """``CollectiveCounter`` counts the collectives DTensor issues inside
+    an op's dispatch (the redistribution of an operand split another
+    way), not only explicit ones; on a fake four-rank group."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.launch.dryrun import fake_world
+    with fake_world(4):
+        mesh = init_device_mesh("cpu", (4,))
+        x = DTensor.from_local(torch.randn(8, 2), mesh, [Shard(1)],
+                               run_check=False)
+        w = DTensor.from_local(torch.randn(2, 8), mesh, [Shard(0)],
+                               run_check=False)
+        with S.CollectiveCounter() as cc:
+            y = x + w
+    assert y.shape == (8, 8)
+    assert sum(v["count"] for v in cc.counts.values()) >= 1

@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.train.data", "repro_torch.train.elastic",
               "repro_torch.train.optimizer", "repro_torch.train.train_step",
               "repro_torch.core.tree", "repro_torch.launch.train",
-              "repro_torch.launch.specs_io"):
+              "repro_torch.launch.specs_io", "repro_torch.launch.dryrun",
+              "repro_torch.roofline.analysis",
+              "repro_torch.roofline.op_cost"):
         assert m in mods, m
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -56,6 +58,9 @@ def test_every_module_imports_without_jax_or_repro():
             "from repro_torch.models.model import abstract_cache\n"
             "from repro_torch.launch.train import run, build_step\n"
             "from repro_torch.launch.specs_io import input_specs\n"
+            "from repro_torch.launch.dryrun import lower_cell, run_cell\n"
+            "from repro_torch.roofline.analysis import analyze_cost\n"
+            "from repro_torch.roofline.op_cost import CostCounter\n"
             "assert 'jax' not in [k for k, v in sys.modules.items() "
             "if v is not None]\n"
             f"print('ok', {len(mods)})\n")
