@@ -279,8 +279,8 @@ must equal the meshless ones bit for bit with equal flash launches
 Every profiled window (the kernel timings, the profiled ticks and
 steps) is padded by 20 ms of host time at each end, inside the window
 (the card's timestamps part from the host's by up to 0.41 ms, and the
-profiler keeps only the device events inside its host-side window:
-``tools/profiler_windows.py``), and opens with 64 one-cycle spins that no
+profiler keeps only the device events inside its host-side window),
+and opens with 64 one-cycle spins that no
 reading counts (a window drops its first device records, up to 14
 seen).  The smoke prints how many windows each measurement
 took and how many lead spins the windows lost.
@@ -351,7 +351,7 @@ PROFILE_LEAD_S = 1e-4   # a launch worker's mark spin (mark_threads)
 # Two ways a window lost device events on the card.  The profiler keeps
 # an event only inside its window on the host's clock, and the card's
 # timestamps part from the host's: a kernel was stamped up to 0.41 ms
-# before its own launch (tools/profiler_windows.py), so a short window
+# before its own launch, so a short window
 # whose events all shift past an edge keeps none; every window therefore
 # pauses PROFILE_PAD_S on the host after it opens and, synchronised,
 # before it closes, inside the window.  And a window drops its first

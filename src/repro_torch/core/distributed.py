@@ -29,8 +29,8 @@ host program), and ``mesh_all_reduce`` is their one cross-device step.
 The pipelined tick's plumbing lives here too: ``launch_pool``, the one
 worker thread every pipelined chunk's uploads, launches and stat copy
 run on; ``d2h_async``, a stat copy into a pinned host buffer behind a
-CUDA event; ``stage_trace``, the profiler ranges of the tick's stages;
-and ``book``, their wall clocks.
+CUDA event.  The stages' spans and wall clocks are ``trace.stage_trace``
+and ``trace.book``.
 
 The telemetry estimator (``isla_mean``, ``exact_mean`` and their pieces)
 is the last section: the ISLA mean of a tensor, or of a tensor sharded
@@ -305,25 +305,6 @@ def launch_pool() -> ThreadPoolExecutor:
             _launch_pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="isla-launch")
     return _launch_pool
-
-
-def stage_trace(name: str):
-    """The profiler range of one tick stage, by the reference's names
-    (``isla:h2d``, ``isla:launch``, ``isla:readback``; the pipelined
-    draw's ``isla:draw``), on the thread that runs it."""
-    return torch.profiler.record_function(name)
-
-
-_clock_lock = threading.Lock()
-
-
-def book(timings, stage: str, seconds: float) -> None:
-    """Add ``seconds`` to ``timings[stage]`` (no-op without a dict).  The
-    pipelined tick's worker and the main thread book into one dict, so
-    each add holds a lock."""
-    if timings is not None:
-        with _clock_lock:
-            timings[stage] = timings.get(stage, 0.0) + seconds
 
 
 def group_row_stats(mom_s: torch.Tensor, mom_l: torch.Tensor,

@@ -64,6 +64,7 @@ from .engine import (Sampler, block_quotas, flat_segments,
 from .modulation import ModulationBatchResult
 from .summarize import summarize
 from .types import Anchor, Boundaries, IslaParams
+from ..trace import book, stage_trace
 
 
 @dataclasses.dataclass
@@ -488,14 +489,12 @@ class _LazyRows:
     def land(self) -> "tuple[np.ndarray, Optional[np.ndarray], int]":
         """Wait for this tick's copies (on their own events): ``(rows,
         register rows or None, run count)``."""
-        from . import distributed as D
-
         t0 = time.perf_counter()
-        with D.stage_trace("isla:readback"):
+        with stage_trace("isla:readback"):
             flat = self._copy.wait().numpy()
             regs = (None if self._regs_copy is None
                     else self._regs_copy.wait().numpy())
-        D.book(self._timings, "readback", time.perf_counter() - t0)
+        book(self._timings, "readback", time.perf_counter() - t0)
         self._copy = self._regs_copy = None
         n = math.prod(self._shape)
         return flat[:n].reshape(self._shape), regs, int(flat[n:].sum())
@@ -1366,8 +1365,6 @@ class DeviceStack:
         of the stack's deferred stats, after the stack has been left
         unusable as above.
         """
-        from . import distributed as D
-
         if geometry is not None:
             # kappa is dimensionless; b0 lives on the value axis — the
             # tick rescales it per cell via the inv_scale vector.
@@ -1384,10 +1381,10 @@ class DeviceStack:
                 # _rows_src keeps a pipelined tick's lazy views lazy.
                 return [(st._partials, st._rows_src) for st in self.stores]
             t0 = time.perf_counter()
-            with D.stage_trace("isla:launch"):
+            with stage_trace("isla:launch"):
                 partials, rows, group_regs = self._solve(
                     params=params, mode=mode, geometry=geometry)
-            D.book(timings, "launch", time.perf_counter() - t0)
+            book(timings, "launch", time.perf_counter() - t0)
             return self._install_stats(partials, rows, cfg, timings,
                                        group_regs, defer=defer_stats)
         if seg is None and dense is None:
@@ -1477,7 +1474,7 @@ class DeviceStack:
         mom_s, mom_l, totals, ns = self._state
         dev = self.device
         t_h = time.perf_counter()
-        with D.stage_trace("isla:h2d"):
+        with stage_trace("isla:h2d"):
             q_dev = D.h2d(quotas.astype(np.float64), self.dtype, dev)
             v_dev = D.h2d(values, self.dtype, dev)
             s_dev = D.h2d(seg, torch.int32, dev)
@@ -1488,9 +1485,9 @@ class DeviceStack:
                 runs = TaggedRuns(D.h2d(table, torch.int32, dev),
                                   len(self.stores), self.n_blocks,
                                   deferred=True)
-        D.book(timings, "h2d", time.perf_counter() - t_h)
+        book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        with D.stage_trace("isla:launch"):
+        with stage_trace("isla:launch"):
             tick_kw = dict(params=params, mode=mode, geometry=geometry,
                            n_groups_list=self.n_groups_list)
             group_regs = None
@@ -1505,7 +1502,7 @@ class DeviceStack:
                     mom_s, mom_l, totals, ns, v_dev, s_dev, q_dev,
                     self._bounds, self._sketch0_cells(), self._sizes,
                     self._inv_scale, runs=runs, **tick_kw)[4:]
-        D.book(timings, "launch", time.perf_counter() - t_l)
+        book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows, group_regs, runs
 
     def _dense_frame(self, values: np.ndarray):
@@ -1536,7 +1533,7 @@ class DeviceStack:
         else:
             pane_quotas, active_cells = quotas, None
         t_h = time.perf_counter()
-        with D.stage_trace("isla:h2d"):
+        with stage_trace("isla:h2d"):
             dev = self.device
             q_dev = D.h2d(pane_quotas.astype(np.float64), self.dtype, dev)
             panes = _DensePanes(pane_vals, pane_quotas, dense,
@@ -1550,9 +1547,9 @@ class DeviceStack:
             pad_dev = D.h2d(panes.pad, torch.float32, dev)
             if self.has_sketch:
                 bits_dev = D.h2d(panes.bits2d, torch.int64, dev)
-        D.book(timings, "h2d", time.perf_counter() - t_h)
+        book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        with D.stage_trace("isla:launch"):
+        with stage_trace("isla:launch"):
             tick_kw = dict(params=params, mode=mode, geometry=geometry,
                            n_groups_list=self.n_groups_list,
                            gid_slots=panes.gid_slots,
@@ -1572,7 +1569,7 @@ class DeviceStack:
                     mom_s, mom_l, totals, ns, v_dev, pad_dev, q_dev, gid_panes,
                     valid_panes, self._bound_rows, self._sketch0_cells(),
                     self._sizes, self._inv_scale, active_cells, **tick_kw)[4:]
-        D.book(timings, "launch", time.perf_counter() - t_l)
+        book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows, group_regs
 
 
@@ -1900,7 +1897,7 @@ class MeshDeviceStack(DeviceStack):
             pane_quotas[:self.n_blocks] = quotas
             active_cells = None
         t_h = time.perf_counter()
-        with D.stage_trace("isla:h2d"):
+        with stage_trace("isla:h2d"):
             mesh, spec = self.mesh, self._specs
             rows = spec["cell_rows"]
             q_dev = D.mesh_h2d(mesh, pane_quotas.astype(np.float64),
@@ -1916,9 +1913,9 @@ class MeshDeviceStack(DeviceStack):
             pad_dev = D.mesh_h2d(mesh, panes.pad, rows, torch.float32)
             if self.has_sketch:
                 bits_dev = D.mesh_h2d(mesh, panes.bits2d, rows, torch.int64)
-        D.book(timings, "h2d", time.perf_counter() - t_h)
+        book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        with D.stage_trace("isla:launch"):
+        with stage_trace("isla:launch"):
             tick_kw = dict(params=params, mode=mode, geometry=geometry,
                            n_groups_list=self.n_groups_list,
                            gid_slots=panes.gid_slots,
@@ -1937,7 +1934,7 @@ class MeshDeviceStack(DeviceStack):
                     mesh, self._state, v_dev, pad_dev, q_dev, gid_panes,
                     valid_panes, self._bound_rows, self._sk_cells, self._sizes,
                     self._inv_scale, active_cells, **tick_kw)
-        D.book(timings, "launch", time.perf_counter() - t_l)
+        book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows_out, group_regs
 
     def _shard_parts(self, seg: np.ndarray, runs):
@@ -2014,7 +2011,7 @@ class MeshDeviceStack(DeviceStack):
         check_run_count(misplaced)
         mesh, spec = self.mesh, self._specs
         t_h = time.perf_counter()
-        with D.stage_trace("isla:h2d"):
+        with stage_trace("isla:h2d"):
             q_pad = np.zeros(S * bl, dtype=np.float64)
             q_pad[:B] = quotas
             q_dev = D.mesh_h2d(mesh, q_pad, spec["cells"], self.dtype)
@@ -2026,9 +2023,9 @@ class MeshDeviceStack(DeviceStack):
             if runs is not None:
                 runs = [TaggedRuns(t, K, bl, deferred=True) for t in
                         D.mesh_h2d(mesh, tables, spec["cells"], torch.int32)]
-        D.book(timings, "h2d", time.perf_counter() - t_h)
+        book(timings, "h2d", time.perf_counter() - t_h)
         t_l = time.perf_counter()
-        with D.stage_trace("isla:launch"):
+        with stage_trace("isla:launch"):
             tick_kw = dict(params=params, mode=mode, geometry=geometry,
                            n_groups_list=self.n_groups_list, runs=runs)
             group_regs = None
@@ -2041,7 +2038,7 @@ class MeshDeviceStack(DeviceStack):
                 partials, rows = D.mesh_tick(
                     mesh, self._state, v_dev, s_dev, q_dev, self._bounds,
                     self._sk_cells, self._sizes, self._inv_scale, **tick_kw)
-        D.book(timings, "launch", time.perf_counter() - t_l)
+        book(timings, "launch", time.perf_counter() - t_l)
         return partials, rows, group_regs, runs
 
 

@@ -98,14 +98,15 @@ from . import sketch as _sketch
 from .engine import (AUTO_SKEW_THRESHOLD, MODES, IslaQuery, block_quotas,
                      phase2_iteration_batch, resolve_mode_and_geometry)
 from .modulation import empirical_geometry
-from .distributed import (book, launch_pool, phase2, pilot_stats_device,
-                          resolve_device, stage_trace)
+from .distributed import (launch_pool, phase2, pilot_stats_device,
+                          resolve_device)
 from .moment_store import (DeviceMomentStore, DeviceStack, MeshDeviceStack,
                            MomentStore, iter_chunked_draws,
                            proportional_allocate, split_budget)
 from .preestimation import (required_sample_size, run_pilot, sampling_rate,
                             z_score)
 from .summarize import summarize
+from ..trace import book, stage_trace
 from .types import (AggregateResult, Anchor, BlockResultsBatch,
                     Boundaries, IslaParams, Predicate, StoreKey, ZoneMap,
                     ZONE_EMPTY, ZONE_FULL, ZONE_PARTIAL, demand_dominates)

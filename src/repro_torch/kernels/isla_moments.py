@@ -74,6 +74,7 @@ import torch
 
 from . import ref
 from ..roofline.op_cost import is_fake, no_count, record_kernel
+from ..trace import span
 from .ops import fake_kernel, on_gpu
 
 LANE = 128          # lane width of the (rows, 128) tile layout
@@ -171,15 +172,18 @@ SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def library(source: str = SOURCES[0]) -> ctypes.CDLL:
     """The loaded kernel library of ``source`` (built first if needed),
-    argtypes set."""
+    argtypes set; a ``kernels.load`` span, whose ``built`` says whether
+    ``nvcc`` ran."""
     path = _library_path(source)
-    if not path.exists():
-        build([source])
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES[source].items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _I
+    built = not path.exists()
+    with span("kernels.load", source=source, built=built):
+        if built:
+            build([source])
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
     return lib
 
 

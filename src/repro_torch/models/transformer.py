@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig
 from ..sharding.context import like_layout, unshard_dim, write_local
+from ..trace import span
 from . import attention as attn
 from . import mamba2, moe
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
@@ -241,24 +242,32 @@ def _forward(cfg: ArchConfig, params: Params, x: torch.Tensor, cache,
     cached conv tail) and copies the new state and tail into the cache.
     ``constraint`` (prefill) is applied to ``x`` before each period
     position, as in the reference.  On DTensors the normed input is
-    gathered on S and each cache write lands in the cache's placements."""
+    gathered on S and each cache write lands in the cache's placements.
+    Each position records its mixer's span (``attention`` or ``mamba``)
+    and its ``channel`` span (``kind``: ``moe``, ``mlp`` or ``none``),
+    both with the ``layer`` (``trace.span``)."""
+    period = period_of(cfg)
     for g in range(n_groups_of(cfg)):
-        for pos in range(period_of(cfg)):
+        for pos in range(period):
             bp = group_params(params["blocks"][pos], g)
             if constraint is not None:
                 x = constraint(x)
-            h = _seq_whole(apply_norm(cfg, bp.get("ln1", {}), x))
-            c = cache[pos]
-            mixer, _ = position_kind(cfg, pos)
-            if mixer == "attn":
-                y, _, _ = attn_mix(bp["attn"], h, c["k"][g], c["v"][g])
-            else:
-                y, h_new, conv_new = mamba2._mamba_forward(
-                    cfg, bp["mamba"], h, h0=c["h"][g],
-                    conv0=c["conv"][g] if decode else None)
-                write_local(c["h"][g], h_new)
-                write_local(c["conv"][g], conv_new)
-            x = _apply_channel(cfg, pos, bp, x + like_layout(y, x))
+            layer = g * period + pos
+            mixer, channel = position_kind(cfg, pos)
+            with span("attention" if mixer == "attn" else "mamba",
+                      layer=layer):
+                h = _seq_whole(apply_norm(cfg, bp.get("ln1", {}), x))
+                c = cache[pos]
+                if mixer == "attn":
+                    y, _, _ = attn_mix(bp["attn"], h, c["k"][g], c["v"][g])
+                else:
+                    y, h_new, conv_new = mamba2._mamba_forward(
+                        cfg, bp["mamba"], h, h0=c["h"][g],
+                        conv0=c["conv"][g] if decode else None)
+                    write_local(c["h"][g], h_new)
+                    write_local(c["conv"][g], conv_new)
+            with span("channel", layer=layer, kind=channel):
+                x = _apply_channel(cfg, pos, bp, x + like_layout(y, x))
     return x, cache
 
 

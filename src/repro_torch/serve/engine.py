@@ -5,6 +5,8 @@
 cache.  The host-side ``BatchScheduler`` implements continuous batching:
 requests claim slots, each is prefilled on its own into its slot's cache
 rows (one flash-attention launch per layer), finished slots are recycled.
+A tick records the spans ``tick`` > ``admit`` (each prefill), ``decode``
+and ``readback`` (``trace.span``).
 The device is the params' device: on ``cuda`` the scheduler runs on the
 card or fails.
 """
@@ -17,6 +19,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import model
+from ..trace import span
 
 # The reference's scheduler cannot serve a frontend config either (its
 # admit prefills without prefix embeddings); serve one through
@@ -93,38 +96,48 @@ class BatchScheduler:
             if slot is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
-            # Single-request prefill straight into slot i: the reference
-            # prefills a fresh one-slot cache and copies it into slot i;
-            # here slot i's rows are zeroed and the prefill writes its
-            # rows in place (views of the full cache, no copy).
-            prompt = torch.as_tensor(req.prompt, dtype=torch.int64,
-                                     device=self.device)[None, :]
-            slot_cache = []
-            for c in self.cache:
-                view = {name: t[:, i:i + 1] for name, t in c.items()}
-                for t in view.values():
-                    t.zero_()
-                slot_cache.append(view)
-            logits, _ = model.serve_prefill(self.cfg, self.params,
-                                            {"tokens": prompt}, slot_cache)
-            nxt = torch.argmax(logits[:, -1, :], dim=-1)
-            self.tokens[i, 0] = nxt[0]
-            self.pos[i] = len(req.prompt)
-            req.generated.append(int(nxt[0]))
-            self.slots[i] = req
+            with span("admit", rid=req.rid, prompt_len=len(req.prompt)):
+                self._prefill(i, req)
+
+    def _prefill(self, i: int, req: Request):
+        """Single-request prefill straight into slot i: the reference
+        prefills a fresh one-slot cache and copies it into slot i; here
+        slot i's rows are zeroed and the prefill writes its rows in place
+        (views of the full cache, no copy)."""
+        prompt = torch.as_tensor(req.prompt, dtype=torch.int64,
+                                 device=self.device)[None, :]
+        slot_cache = []
+        for c in self.cache:
+            view = {name: t[:, i:i + 1] for name, t in c.items()}
+            for t in view.values():
+                t.zero_()
+            slot_cache.append(view)
+        logits, _ = model.serve_prefill(self.cfg, self.params,
+                                        {"tokens": prompt}, slot_cache)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+        self.tokens[i, 0] = nxt[0]
+        self.pos[i] = len(req.prompt)
+        req.generated.append(int(nxt[0]))
+        self.slots[i] = req
 
     def tick(self) -> int:
         """Advance all active slots one token; returns #active."""
+        with span("tick"):
+            return self._tick()
+
+    def _tick(self) -> int:
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return 0
-        nxt, _, self.cache = serve_decode_step(self.cfg, self.params,
-                                               self.tokens, self.pos,
-                                               self.cache)
+        with span("decode"):
+            nxt, _, self.cache = serve_decode_step(self.cfg, self.params,
+                                                   self.tokens, self.pos,
+                                                   self.cache)
         self.tokens = nxt
         self.pos = self.pos + 1
-        toks, pos = nxt[:, 0].tolist(), self.pos.tolist()  # one sync a tick
+        with span("readback"):      # one sync a tick
+            toks, pos = nxt[:, 0].tolist(), self.pos.tolist()
         for i in active:
             req = self.slots[i]
             tok = toks[i]

@@ -40,6 +40,7 @@ from ..core.types import IslaParams
 from ..models import model
 from ..sharding.context import use_mesh
 from ..sharding.specs import batch_specs, shardings
+from ..trace import span
 from .optimizer import OptimizerConfig, OptState, adamw_update
 
 F32 = torch.float32
@@ -107,8 +108,19 @@ def train_step(cfg: ArchConfig, tcfg: TrainConfig, params,
     constraint (None on one device).  ``placements`` (the sharded step:
     DTensor params and optimizer state in them, a whole batch on every
     rank) places each microbatch, runs AdamW on the optimizer state's
-    shards and gives the new params back in theirs."""
+    shards and gives the new params back in theirs.  Records the spans
+    ``train_step`` > ``forward_backward`` (a microbatch), ``adamw`` (clip
+    included) and ``telemetry``, the three timed on the card too
+    (``trace.span``)."""
+    with span("train_step"):
+        return _train_step(cfg, tcfg, params, opt_state, batch, constraint,
+                           placements)
+
+
+def _train_step(cfg, tcfg, params, opt_state, batch, constraint,
+                placements):
     n = tcfg.microbatches
+    dev = params["embedding"]       # the card the phases are timed on
     if placements is None:
         def batch_in(b):
             return b
@@ -126,9 +138,10 @@ def train_step(cfg: ArchConfig, tcfg: TrainConfig, params,
         grads = tree_map(lambda p: torch.zeros_like(p, dtype=F32), params)
         loss_sum, per_tok = 0.0, []
         for i in range(n):
-            loss, aux, g = _value_and_grad(
-                cfg, params, batch_in(tree_map(lambda x: x[i], mb)),
-                constraint)
+            with span("forward_backward", device=dev, microbatch=i):
+                loss, aux, g = _value_and_grad(
+                    cfg, params, batch_in(tree_map(lambda x: x[i], mb)),
+                    constraint)
             grads = tree_map(lambda a, x: a + x.to(F32), grads, g)
             loss_sum = loss_sum + loss
             per_tok.append(local_value(aux["per_token_loss"]))
@@ -138,39 +151,43 @@ def train_step(cfg: ArchConfig, tcfg: TrainConfig, params,
         aux = {"per_token_loss": per_token.reshape(
             (-1,) + tuple(per_token.shape[2:]))}
     else:
-        loss, aux, grads = _value_and_grad(cfg, params, batch_in(batch),
-                                           constraint)
+        with span("forward_backward", device=dev, microbatch=0):
+            loss, aux, grads = _value_and_grad(cfg, params, batch_in(batch),
+                                               constraint)
 
     if placements is not None:
         # ZeRO: gradients reduce-scattered and params split onto the
         # moments' shards; the update runs there
         grads = place(grads, placements.opt.m)
-        new_params, new_opt, metrics = adamw_update(
-            tcfg.opt, place(params, placements.opt.m), grads, opt_state)
+        with span("adamw", device=dev):
+            new_params, new_opt, metrics = adamw_update(
+                tcfg.opt, place(params, placements.opt.m), grads, opt_state)
         new_params = place(new_params, placements.params)
         metrics = {k: local_value(v) for k, v in metrics.items()}
         aux = {k: local_value(v) for k, v in aux.items()}
         loss = local_value(loss)
     else:
-        new_params, new_opt, metrics = adamw_update(
-            tcfg.opt, params, grads, opt_state)
+        with span("adamw", device=dev):
+            new_params, new_opt, metrics = adamw_update(
+                tcfg.opt, params, grads, opt_state)
     metrics["loss"] = loss
     if cfg.moe is not None and "moe_lb_loss" in aux:
         metrics["moe_lb_loss"] = aux["moe_lb_loss"]
 
     mode = tcfg.telemetry_mode if tcfg.isla_telemetry else "off"
     per_token = aux["per_token_loss"]
-    if mode == "isla":
-        # O(1)-communication estimate of the global mean per-token loss;
-        # no generator: the subsample is strided, as the reference's
-        # key=None.
-        metrics.update(loss_stats(
-            per_token, params=IslaParams(e=0.01), rate=tcfg.isla_rate,
-            include_exact=tcfg.telemetry_exact))
-    elif mode == "exact":
-        metrics["loss_mean_exact"] = exact_mean(per_token)
-    elif mode == "trimmed_exact":
-        metrics.update(loss_stats_trimmed_exact(per_token))
+    with span("telemetry", device=dev, mode=mode):
+        if mode == "isla":
+            # O(1)-communication estimate of the global mean per-token
+            # loss; no generator: the subsample is strided, as the
+            # reference's key=None.
+            metrics.update(loss_stats(
+                per_token, params=IslaParams(e=0.01), rate=tcfg.isla_rate,
+                include_exact=tcfg.telemetry_exact))
+        elif mode == "exact":
+            metrics["loss_mean_exact"] = exact_mean(per_token)
+        elif mode == "trimmed_exact":
+            metrics.update(loss_stats_trimmed_exact(per_token))
     return new_params, new_opt, metrics
 
 

@@ -21,6 +21,7 @@ Setup as the reference's: 12 blocks x 500 rows, 4 regions, two mode
 groups, ``chunk_blocks=4``, tables and seeds from numpy.
 """
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from repro_torch.core.multiquery import _STAGES
 from repro_torch.kernels.isla_moments import RunTableError
 from repro_torch.launch import serve as TS
 from repro_torch.launch.mesh import make_cell_mesh
+from repro_torch import trace
 
 N_BLOCKS, ROWS, REGIONS = 12, 500, 4
 F64, F32 = torch.float64, torch.float32
@@ -287,6 +289,25 @@ def test_compose_without_reset_uses_staged_stores():
     ex._compose_group(sg)
     assert rng.bit_generator.state == state_after_launch
     assert state != state_after_launch  # the launch itself did draw
+
+
+def test_pipelined_tick_records_the_isla_stage_spans(monkeypatch):
+    """``trace.stage_trace`` keeps the reference's ``isla:*`` names as
+    spans, the launches on the worker thread, and opens no profiler range
+    while no profiler runs."""
+    def no_range(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", no_range)
+    with trace.recording() as spans:
+        _ticks(_executor(), "device", True, ticks=1)
+    names = {s.name for s in spans}
+    assert {"isla:draw", "isla:h2d", "isla:launch",
+            "isla:readback"} <= names
+    assert all(n.startswith("isla:") for n in names)
+    assert {s.thread for s in spans if s.name == "isla:launch"} == \
+        {TD.launch_pool().submit(
+            lambda: threading.current_thread().name).result()}
 
 
 @pytest.mark.parametrize("route", ["device", "mesh"])
